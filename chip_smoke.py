@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, each printing one JSON line:
 
-  env     torch and CUDA versions, the card (nvidia-smi), the kernel build
-          time and the compiler's register report.
+  env     torch and CUDA versions, the card (nvidia-smi), the build of
+          every kernel (`compiler/_build.build_all`, one nvcc per source,
+          all started together) with its time and the compiler's
+          register report for each source.
   golden  the five model files under tests/data/, and two wide synthetic
           models (64 and 300 features, for the traverse kernel's
           shared-memory opt-in and global-memory launch branches),
@@ -24,8 +27,28 @@ Phases, each printing one JSON line:
           and the f64 host walk, bitwise.  Kernel launch counts are read
           around this phase alone.  Then latencies, the kernels' times
           against their plain versions and their bounds.
-  kernels one line per kernel: launches on the main phase, parity,
-          times and bound.
+  histogram the K1 kernel (`csrc/histogram.cu`) against its plain
+          version on the card, on the train phase's data (2M rows x 28
+          features, u8): every row in one slot, a leaf of 1% of the rows,
+          14 slots of which two match no row, and a u16 case (max_bin
+          1023, 100k rows).  Counts exact, g and h within
+          1e-4 * sum|x| + 1e-6 per cell, two launches bitwise equal.
+          Then K1, its plain version and `index_add_` timed at the root
+          shape, and the bytes bound.
+  train   the training path at full width: `lightgbm_tpu_torch.train` on
+          a Higgs-shaped binary problem (2M training rows, 200k held
+          out, 28 features; binary, 255 leaves, max_bin 255, learning
+          rate 0.1, 10 rounds).  Two kernel-trained runs must give
+          byte-identical model text; the held-out AUC must be within
+          1e-3 of a model trained on the card with hist_impl=segment_sum;
+          the kernel-trained model served by ServingRuntime on the card
+          must answer bitwise equal to the host walk at f32-rounded
+          thresholds (the serving path's routing; the rows where the
+          walk at the model's f64 thresholds differs are counted).
+          Kernel launch counts are read around this phase alone.  Then round times,
+          K1's share of them, host binning seconds and host syncs.
+  kernels one line per kernel: launches on its path's phase (traverse
+          and accumulate: main; histogram: train), parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line `{"ok": true, "device": {...}}`.  Any failure exits
@@ -55,6 +78,7 @@ GOLDEN = ("binary", "categorical", "goss_bagging", "multiclass",
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 F64_ADDS_PER_S = 132 * 64 * 1.98e9
+F32_OPS_PER_S = 67e12
 #: wide synthetic models of the golden phase, (name, features): 64
 #: features put a 256-row block's rows above the 48 KB of shared memory
 #: a launch gets by default (the kernel opts in to more), 300 features
@@ -319,17 +343,17 @@ def phase_env():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    built = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, log in logs.items()}
+    _check(set(built) == {"traverse", "accumulate", "histogram"},
+           f"build_all built {sorted(built)}")
     _emit({"phase": "env", "torch": torch.__version__,
            "cuda": torch.version.cuda,
            "device": torch.cuda.get_device_name(0),
            "device_count": torch.cuda.device_count(),
            "nvidia_smi": smi.stdout.strip(), "build_s": build_s,
-           "ptxas": ptxas})
+           "compiled": {n: b.compiled for n, b in built.items()},
+           "ptxas": {n: b.ptxas for n, b in built.items()}})
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
 
 
@@ -521,6 +545,357 @@ def phase_main(seed, kernel_module, predict_module):
          "library_ms": None},
     ]
 
+# ------------------------------------------------------------ training
+#: the train phase's problem: the shape of the repo's own bench
+#: (`bench.py` workload: 28 features, 2M training rows, up to 200k held
+#: out) and of upstream LightGBM's Higgs experiment (num_leaves 255)
+TRAIN_ROWS = 2_000_000
+HOLD_ROWS = 200_000
+TRAIN_FEATURES = 28
+TRAIN_ROUNDS = 10
+TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+                "learning_rate": 0.1, "verbosity": -1}
+
+
+def make_higgs_like(n: int, f: int, seed: int):
+    """A Higgs-shaped binary problem: the generator of the JAX package's
+    bench (`bench.py` `_make_higgs_like`), copied so this script imports
+    nothing of that package.  f32 features, f64 0/1 labels."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    score = (1.2 * X[:, 0] - 0.8 * X[:, 1] + X[:, 2] * X[:, 3]
+             + 0.5 * np.sin(3 * X[:, 4]) + 0.6 * X[:, 5] ** 2
+             - 0.4 * np.abs(X[:, 6]))
+    y = (score + rng.randn(n) * 1.0 > 0).astype(np.float64)
+    return X, y
+
+
+class TrainData:
+    """The train phase's data, binned once on the host and shared with
+    the histogram phase (its bins are K1's inputs at the root shape)."""
+
+    def __init__(self, seed: int, n_train: int = TRAIN_ROWS,
+                 n_hold: int = HOLD_ROWS, f: int = TRAIN_FEATURES):
+        import lightgbm_tpu_torch as lt
+        X, y = make_higgs_like(n_train + n_hold, f, seed)
+        self.X, self.y = X[:n_train], y[:n_train]
+        self.X_hold, self.y_hold = X[n_train:], y[n_train:]
+        t0 = time.perf_counter()
+        self.dataset = lt.Dataset(self.X, label=self.y,
+                                  params=dict(TRAIN_PARAMS)).construct()
+        self.binning_s = time.perf_counter() - t0
+
+
+def _hist_inputs(bins_np, y, leaf_frac, slots, seed, device):
+    """K1 inputs on `device`: bins [F, N], the first round's binary
+    payload (g = p - y, h = p (1 - p) at p = mean(y), w = 1), leaf ids
+    with `leaf_frac` of the rows in leaf 0 (else leaves 1..11), and
+    `slots`."""
+    import torch
+    rng = np.random.RandomState(seed)
+    n = bins_np.shape[1]
+    p = np.float32(y.mean())
+    payload = np.stack([p - y.astype(np.float32),
+                        np.full(n, p * (1 - p), np.float32),
+                        np.ones(n, np.float32)], axis=1)
+    if leaf_frac >= 1.0:
+        leaf = np.zeros(n, np.int32)
+    elif leaf_frac > 0:
+        leaf = np.where(rng.rand(n) < leaf_frac, 0,
+                        rng.randint(1, 12, n)).astype(np.int32)
+    else:
+        leaf = rng.randint(0, 12, n).astype(np.int32)
+    return (torch.from_numpy(np.ascontiguousarray(bins_np)).to(device),
+            torch.from_numpy(payload).to(device),
+            torch.from_numpy(leaf).to(device),
+            torch.tensor(slots, dtype=torch.int32, device=device))
+
+
+def _f64_histogram(bins, pay, mb):
+    """The root histogram summed in f64: the yardstick both the kernel
+    and the plain version are measured against."""
+    import torch
+    f, n = bins.shape
+    flat = (bins.to(torch.int64) + torch.arange(
+        f, device=bins.device)[:, None] * mb).reshape(-1)
+    out = torch.zeros((f * mb, 3), dtype=torch.float64, device=bins.device)
+    out.index_add_(0, flat, pay.double().repeat(f, 1))
+    return out.reshape(f, mb, 3)
+
+
+def _hist_bytes(bins, s, mb):
+    f, n = bins.shape
+    return (bins.numel() * bins.element_size() + n * 12 + n * 4
+            + s * f * mb * 3 * 4)
+
+
+def phase_histogram(data: TrainData, seed: int, device=None,
+                    u16_rows: int = 100_000, timing: bool = True):
+    """K1 against its plain version on the card, then timed at the root
+    shape.  Returns the kernels-line entry (launches filled in by the
+    train phase)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops.hist_kernel import (histogram_multi,
+                                                    histogram_multi_plain)
+    dev = torch.device(device or "cuda")
+    ds = data.dataset
+    bins_fm = ds.bin_data.T
+    mb = max(m.num_bin for m in ds.bin_mappers)
+    Xw = data.X[:u16_rows]
+    wide = lt.Dataset(Xw, label=data.y[:u16_rows],
+                      params={"max_bin": 1023, "verbosity": -1}).construct()
+    _check(wide.bin_data.dtype == np.uint16, "u16 case is not uint16")
+    mb_w = max(m.num_bin for m in wide.bin_mappers)
+    cases = [("root", bins_fm, data.y, 1.0, [0], mb),
+             ("leaf_1pct", bins_fm, data.y, 0.01, [0], mb),
+             ("slots_14", bins_fm, data.y, 0.0,
+              list(range(12)) + [300, 301], mb),
+             ("u16_1023", wide.bin_data.T, data.y[:u16_rows], 1.0, [0],
+              mb_w)]
+    report = {"phase": "histogram", "cases": {}}
+    worst = 0.0
+    inputs = {}
+    for name, bnp, y, frac, slots, m in cases:
+        bins, pay, lid, sl = _hist_inputs(bnp, y, frac, slots, seed, dev)
+        inputs[name] = (bins, pay, lid, sl, m)
+        k1 = histogram_multi(bins, pay, lid, sl, m)
+        k2 = histogram_multi(bins, pay, lid, sl, m)
+        plain = histogram_multi_plain(bins, pay, lid, sl, m)
+        absum = histogram_multi_plain(bins, pay.abs(), lid, sl, m)
+        err = (k1 - plain).abs()
+        within = bool((err <= 1e-4 * absum + 1e-6).all())
+        counts = bool(torch.equal(k1[..., 2], plain[..., 2]))
+        repro = bool(torch.equal(k1, k2))
+        pads = [i for i, s_ in enumerate(slots) if s_ >= 12]
+        pad_zero = all(not bool(k1[i].any()) for i in pads)
+        _check(within, f"histogram {name}: kernel outside 1e-4*sum|x|+1e-6")
+        _check(counts, f"histogram {name}: counts differ from plain")
+        _check(repro, f"histogram {name}: two launches differ")
+        _check(pad_zero, f"histogram {name}: a pad slot is not zero")
+        worst = max(worst, float(err.max()))
+        report["cases"][name] = {
+            "rows": int(bins.shape[1]), "features": int(bins.shape[0]),
+            "slots": len(slots), "max_bin": int(m),
+            "dtype": str(bnp.dtype), "rows_in_slots": int(
+                (lid[:, None] == sl[None, :]).any(1).sum()),
+            "within_tol": within, "counts_exact": counts,
+            "bitwise_repro": repro, "max_abs_err": float(err.max())}
+
+    bins, pay, lid, sl, m = inputs["root"]
+    f, n = bins.shape
+    exact = _f64_histogram(bins, pay, m)[None]
+    err64 = {"kernel": float((histogram_multi(bins, pay, lid, sl, m)
+                              .double() - exact).abs().max()),
+             "plain": float((histogram_multi_plain(bins, pay, lid, sl, m)
+                             .double() - exact).abs().max())}
+    flat_idx = (bins.to(torch.int64)
+                + torch.arange(f, device=dev)[:, None] * m).reshape(-1)
+    src = pay.repeat(f, 1)
+
+    def library():
+        return torch.zeros((f * m, 3), device=dev).index_add_(0, flat_idx,
+                                                              src)
+    lib_err = float((library().reshape(f, m, 3)
+                     - histogram_multi(bins, pay, lid, sl, m)[0]).abs().max())
+    timed = {}
+    if timing:
+        timed = {
+            "ms": _cuda_ms(lambda: histogram_multi(bins, pay, lid, sl, m)),
+            "plain_ms": _cuda_ms(lambda: histogram_multi_plain(
+                bins, pay, lid, sl, m), iters=5, warmup=1),
+            "library_ms": _cuda_ms(library, iters=5, warmup=1)}
+        for name in ("leaf_1pct", "slots_14", "u16_1023"):
+            b2, p2, l2, s2, m2 = inputs[name]
+            timed[f"ms_{name}"] = _cuda_ms(
+                lambda: histogram_multi(b2, p2, l2, s2, m2))
+    nbytes = _hist_bytes(bins, 1, m)
+    adds = f * n * 3
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, adds / F32_OPS_PER_S) * 1e3
+    report.update({"root_max_abs_err_vs_f64": err64,
+                   "root_bytes": nbytes, "root_adds": adds,
+                   "bound_ms": bound_ms, "library_max_abs_diff": lib_err,
+                   **timed})
+    _emit(report)
+    return {"name": "histogram", "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:85",
+            "launches": 0, "max_abs_err": worst,
+            "ms": timed.get("ms"), "plain_ms": timed.get("plain_ms"),
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= adds / F32_OPS_PER_S else "operations",
+            "library_ms": timed.get("library_ms")}
+
+
+def _auc(score, label):
+    from lightgbm_tpu_torch.metrics import _auc as auc
+    return auc(np.asarray(score, np.float64), np.asarray(label, np.float64),
+               None, None)
+
+
+def f32_threshold_walk(bst, X):
+    """Raw scores of the f64 host walk over `bst` with every numerical
+    threshold rounded to f32, the routing the serving path compiles (the
+    JAX package's compiled rung keeps round-to-nearest f32 thresholds):
+    for f32-representable rows it decides every node as the card does.
+    It differs from the walk at the model's own f64 thresholds only for
+    a row whose value lies between a threshold and its f32 rounding."""
+    import copy
+    b32 = copy.copy(bst)
+    b32.trees = []
+    for t in bst.trees:
+        t2 = copy.copy(t)
+        t2.threshold = t.threshold.astype(np.float32).astype(np.float64)
+        b32.trees.append(t2)
+    return b32.predict(X, raw_score=True)
+
+
+def _profile_round(params, dataset):
+    """One more training round under `torch.profiler`: the wall time,
+    the device time summed over its kernels, the number of kernel
+    launches, and the kernels that took most device time.  The device
+    time is None when the profiler recorded no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import lightgbm_tpu_torch as lt
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lt.train(params, dataset, num_boost_round=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    busy = sum(by_name.values())
+    return {"wall_ms": wall * 1e3,
+            "kernel_ms": busy / 1e3 if kernels else None,
+            "kernels": len(kernels),
+            "top_kernels_ms": [(n[:60], us / 1e3) for n, us in top]}
+
+
+def phase_train(data: TrainData, modules, device=None, timing=True):
+    """`lightgbm_tpu_torch.train` at full width, three times: two
+    kernel-trained runs (the first one timed) and one with
+    hist_impl=segment_sum; then the first model served on the card.
+    Returns the launch counts of this phase."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    import lightgbm_tpu_torch.ops.grow as grow_module
+    hist_module = modules["hist"]
+    params = dict(TRAIN_PARAMS)
+    if device is not None:
+        params["device_type"] = device
+
+    # ---- the main path, alone between the counter reads: train, serve
+    hist_module.HIST_LAUNCHES = 0
+    modules["kernel"].TRAVERSE_LAUNCHES = 0
+    modules["predict"].ACCUMULATE_LAUNCHES = 0
+    grow_module.HOST_SYNCS = 0
+    real_hist = grow_module.histogram_multi
+    events = []              # (round, start, end) CUDA events per K1 call
+    marks = []               # host clock after each round, synchronised
+    rounds_done = [0]
+
+    def timed_hist(*a):
+        if not timing:
+            return real_hist(*a)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_hist(*a)
+        end.record()
+        events.append((rounds_done[0], start, end))
+        return out
+
+    def mark_round(env):
+        if timing:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        rounds_done[0] += 1
+
+    grow_module.histogram_multi = timed_hist
+    try:
+        t0 = time.perf_counter()
+        bst = lt.train(params, data.dataset, num_boost_round=TRAIN_ROUNDS,
+                       callbacks=[mark_round])
+        train_s = time.perf_counter() - t0
+    finally:
+        grow_module.histogram_multi = real_hist
+    syncs = grow_module.HOST_SYNCS
+    rt = lt.ServingRuntime(bst, device=device)
+    raw_card = rt.predict(data.X_hold, raw_score=True)
+    launches = {"histogram": hist_module.HIST_LAUNCHES,
+                "traverse": modules["kernel"].TRAVERSE_LAUNCHES,
+                "accumulate": modules["predict"].ACCUMULATE_LAUNCHES}
+    splits = sum(t.num_leaves - 1 for t in bst.trees)
+    _check(launches["histogram"] >= TRAIN_ROUNDS + splits,
+           f"train: {launches['histogram']} K1 launches for "
+           f"{len(bst.trees)} trees with {splits} splits")
+    _check(launches["traverse"] > 0 and launches["accumulate"] > 0,
+           f"train: serving the trained model launched {launches}")
+
+    # ---- gates
+    raw_host = bst.predict(data.X_hold, raw_score=True)
+    raw_host32 = f32_threshold_walk(bst, data.X_hold)
+    _check(_bits_equal(raw_card, raw_host32),
+           "train: served scores != host walk at f32 thresholds")
+    gap_rows = int(np.sum(raw_card != raw_host))
+    text = bst.model_to_string()
+    again = lt.train(params, data.dataset, num_boost_round=TRAIN_ROUNDS)
+    _check(again.model_to_string() == text,
+           "train: two kernel-trained runs differ")
+    seg = lt.train(dict(params, hist_impl="segment_sum"), data.dataset,
+                   num_boost_round=TRAIN_ROUNDS)
+    auc_k = _auc(raw_host, data.y_hold)
+    auc_s = _auc(seg.predict(data.X_hold, raw_score=True), data.y_hold)
+    _check(abs(auc_k - auc_s) <= 1e-3,
+           f"train: held-out AUC {auc_k} vs segment_sum {auc_s}")
+    same = sum(
+        a.num_leaves == b.num_leaves
+        and all(np.array_equal(getattr(a, k), getattr(b, k))
+                for k in ("split_feature", "threshold_bin", "left_child",
+                          "right_child"))
+        for a, b in zip(bst.trees, seg.trees))
+    _check(bool(np.all(np.isfinite(raw_host))) and
+           len(bst.trees) == TRAIN_ROUNDS, "train: bad model")
+
+    report = {"phase": "train", "rows": int(data.X.shape[0]),
+              "held_out": int(data.X_hold.shape[0]),
+              "features": int(data.X.shape[1]), "rounds": TRAIN_ROUNDS,
+              "params": TRAIN_PARAMS, "binning_s": data.binning_s,
+              "trees": len(bst.trees), "splits": splits,
+              "leaves_per_tree": [t.num_leaves for t in bst.trees],
+              "auc_kernel": auc_k, "auc_segment_sum": auc_s,
+              "trees_equal_to_segment_sum": int(same),
+              "model_text_identical": True,
+              "served_bitwise_f32_threshold_walk": True,
+              "served_rows_differing_from_f64_walk": gap_rows,
+              "host_syncs": syncs,
+              "host_syncs_per_tree": syncs / len(bst.trees),
+              "train_s": train_s, "launches": launches}
+    if timing:
+        report["profiled_round"] = _profile_round(params, data.dataset)
+        round_s = np.diff([t0] + marks)
+        k1_ms = np.zeros(TRAIN_ROUNDS)
+        for r, start, end in events:
+            k1_ms[r] += start.elapsed_time(end)
+        steady = round_s[1:]
+        report.update({
+            "round_ms": [float(x) * 1e3 for x in round_s],
+            "ms_per_round_2_to_10": float(steady.mean()) * 1e3,
+            "rounds_per_s_2_to_10": float(1.0 / steady.mean()),
+            "k1_ms_per_round": [float(x) for x in k1_ms],
+            "k1_share_2_to_10": float(k1_ms[1:].sum()
+                                      / (steady.sum() * 1e3)),
+            "k1_calls": len(events)})
+    _emit(report)
+    return launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -533,6 +908,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         import lightgbm_tpu_torch.compiler.kernel as kernel_module
+        import lightgbm_tpu_torch.ops.hist_kernel as hist_module
         import lightgbm_tpu_torch.ops.predict as predict_module
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
@@ -542,9 +918,18 @@ def main(argv=None) -> int:
         smi = phase_env()
         phase_golden(args.seed)
         kernels = phase_main(args.seed, kernel_module, predict_module)
+        data = TrainData(args.seed)
+        hist = phase_histogram(data, args.seed)
+        launches = phase_train(data, {"hist": hist_module,
+                                      "kernel": kernel_module,
+                                      "predict": predict_module})
+        hist["launches"] = launches["histogram"]
+        kernels.append(hist)
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
-             "parity": "bitwise" if k["max_abs_err"] == 0 else "differs"}
+             "parity": ("within_tol" if k["name"] == "histogram"
+                        else "bitwise" if k["max_abs_err"] == 0
+                        else "differs")}
             for k in kernels]})
         _emit({"kernels": kernels})
     except Failure as e:

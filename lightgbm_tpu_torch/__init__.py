@@ -1,15 +1,22 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-This slice serves LightGBM models on an NVIDIA GPU: `Booster` loads
-model text, and `ServingRuntime` answers requests through hand-written
-CUDA kernels (`csrc/`).  It imports torch and numpy, never jax and
-nothing of `lightgbm_tpu`, which stays the reference the port is tested
-against.
+It trains LightGBM models on an NVIDIA GPU (`train`, `Dataset`: the
+strict leaf-wise grower on hand-written CUDA histograms) and serves them
+(`Booster` loads model text, `ServingRuntime` answers requests through
+hand-written CUDA kernels, `csrc/`).  It imports torch and numpy, never
+jax and nothing of `lightgbm_tpu`, which stays the reference the port is
+tested against.
 """
+from .basic import Dataset
 from .booster import Booster
+from .callback import (EarlyStopException, early_stopping, log_evaluation,
+                       record_evaluation)
+from .engine import train
 from .serving import ServingRuntime
 from .utils.log import LightGBMError
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["Booster", "ServingRuntime", "LightGBMError"]
+__all__ = ["Dataset", "Booster", "train", "ServingRuntime", "LightGBMError",
+           "EarlyStopException", "early_stopping", "log_evaluation",
+           "record_evaluation"]

@@ -1,31 +1,62 @@
-"""Model-loading `Booster`: model text in and out, host prediction, and
+"""`Booster`: training, model text in and out, host prediction, and
 the export the serving runtime compiles.
 
-The port's counterpart of `lightgbm_tpu/booster.py`, for the serving
-slice.  It loads LightGBM model text (ref: gbdt_model_text.cpp
-`GBDT::LoadModelFromString` / `SaveModelToString`), predicts with the
-host f64 tree walk (`tree.py`, the same per-tree, boosting-order sum as
-the JAX package's host path), and exports the stacked traversal planes
-plus the f64 leaf-value table (`export_predict_arrays`).  Training is
-not ported yet: the training entry points raise.
+The port's counterpart of `lightgbm_tpu/booster.py` (ref:
+src/boosting/gbdt.cpp `GBDT::{Init,TrainOneIter,UpdateScore}`;
+gbdt_model_text.cpp `SaveModelToString` / `LoadModelFromString`).
+
+Training (`Booster(params, train_set)`, then `update`): the default path
+of the reference's `_init_train`, `_boost_from_average`, `update` /
+`_update_impl`, `__boost` and `_apply_tree_to_score`, for gbdt on
+numerical features with the strict leaf-wise grower (`ops/grow.py`) and
+f32 histograms.  The bin matrix, scores, gradients and histograms live
+on the training device: the card by default (`device_type="cuda"`, the
+K1 kernel makes every histogram), the CPU with `device_type="cpu"` (the
+plain versions).  One iteration is: gradients, one grown tree per class,
+the train score updated through the grower's final `leaf_id`, each
+validation score through a bin-level replay of the tree.  Everything the
+slice does not implement raises `LightGBMError` naming its ROADMAP item.
+
+Loading: model text in and out, the host f64 tree walk (`tree.py`, the
+same per-tree, boosting-order sum as the JAX package's host path), and
+the stacked traversal planes plus the f64 leaf-value table
+(`export_predict_arrays`) that `ServingRuntime` compiles.
 """
 from __future__ import annotations
 
+import copy
 import io
 import json
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .objectives import Objective, parse_objective
+from .basic import Dataset
+from .metrics import Metric, create_metrics
+from .objectives import Objective, TrainObjective, create_objective, \
+    parse_objective
+from .ops.grow import DeviceTree, GrowerSpec, make_grower, split_go_left
 from .tree import Tree
+from .utils import log
+from .utils.binning import BIN_TYPE_CATEGORICAL
+from .utils.config import Config
 from .utils.log import LightGBMError
 
-_TRAINING_SLICE = ("training is not ported to lightgbm_tpu_torch yet "
-                   "(it is the next slice of the port: the leaf-wise "
-                   "grower on the histogram kernel); use lightgbm_tpu "
-                   "to train and load the model text here")
+#: ROADMAP items that the training slice's refusals name
+THREEFRY = ("ROADMAP Queue 1 item 5a: a port of jax.random's threefry2x32 "
+            "streams")
+CATEGORICAL = "ROADMAP Queue 1 item 5b: the categorical/EFB grower"
+BREADTH = "ROADMAP Queue 1 item 5d: grower and boosting breadth"
+EXTERNAL = "ROADMAP Queue 1 item 5e: external memory and streaming"
+DISTRIBUTED = "ROADMAP Queue 1 item 5f: distributed training"
+
+#: Dataset parameters a training params dict hands to `construct()`
+_DATASET_PARAMS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
+                   "use_missing", "zero_as_missing", "data_random_seed",
+                   "max_bin_by_feature", "feature_pre_filter",
+                   "enable_bundle", "max_conflict_rate", "linear_tree",
+                   "external_memory")
 
 
 def _to_2d_float(data) -> np.ndarray:
@@ -39,18 +70,162 @@ def _to_2d_float(data) -> np.ndarray:
     return X
 
 
-class Booster:
-    """A trained model, loaded from LightGBM model text.
+def train_device(device_type) -> torch.device:
+    """The training device named by `device_type`: "cuda" (the default,
+    the card; raises without one) or "cpu" (the plain versions)."""
+    d = str(device_type).lower()
+    if d == "cpu":
+        return torch.device("cpu")
+    if d != "cuda":
+        raise LightGBMError(f"device_type={device_type!r}: the port trains "
+                            "on 'cuda' (the default) or 'cpu'")
+    if not torch.cuda.is_available():
+        raise LightGBMError("device_type='cuda' but torch sees no CUDA "
+                            "device; pass device_type='cpu' to train with "
+                            "the plain versions on the CPU")
+    return torch.device("cuda")
 
-    `Booster(model_file=path)` or `Booster(model_str=text)`.  Passing
-    `train_set` raises: this package serves models, it does not train
-    them yet."""
+
+def refusals(cfg: Config) -> List[str]:
+    """Why this slice cannot train `cfg`: each entry names a setting and
+    the ROADMAP item that brings it.  Empty when the slice covers it."""
+    out = []
+    boosting = str(cfg.boosting).lower()
+    if boosting == "goss" or str(cfg.data_sample_strategy).lower() == "goss":
+        out.append(f"GOSS ({THREEFRY})")
+    elif boosting in ("dart", "rf"):
+        out.append(f"boosting={boosting} ({BREADTH})")
+    elif boosting != "gbdt":
+        out.append(f"unknown boosting type {cfg.boosting!r}")
+    if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
+                                 or cfg.pos_bagging_fraction < 1.0
+                                 or cfg.neg_bagging_fraction < 1.0):
+        out.append(f"bagging ({THREEFRY})")
+    if cfg.feature_fraction < 1.0:
+        out.append(f"feature_fraction < 1 ({THREEFRY})")
+    if cfg.feature_fraction_bynode < 1.0:
+        out.append(f"feature_fraction_bynode < 1 ({THREEFRY})")
+    if cfg.extra_trees:
+        out.append(f"extra_trees ({THREEFRY})")
+    if any(int(v) for v in (cfg.monotone_constraints or [])):
+        out.append(f"monotone_constraints ({BREADTH})")
+    if cfg.interaction_constraints not in (None, "", []):
+        out.append(f"interaction_constraints ({BREADTH})")
+    if cfg.cegb_tradeoff > 0.0 and (
+            cfg.cegb_penalty_split > 0.0
+            or list(cfg.cegb_penalty_feature_coupled or [])
+            or list(cfg.cegb_penalty_feature_lazy or [])):
+        out.append(f"CEGB penalties ({BREADTH})")
+    if cfg.forcedsplits_filename:
+        out.append(f"forced splits ({BREADTH})")
+    if cfg.histogram_pool_size is not None and cfg.histogram_pool_size > 0:
+        out.append(f"histogram_pool_size ({BREADTH})")
+    if cfg.linear_tree:
+        out.append(f"linear_tree ({BREADTH})")
+    if cfg.use_quantized_grad:
+        out.append("use_quantized_grad (ROADMAP Queue 1 item 3: "
+                   "quantized training on K4 and K5)")
+    if str(cfg.tree_grow_policy or "leafwise").lower() not in (
+            "leafwise", "leaf", "strict"):
+        out.append(f"tree_grow_policy={cfg.tree_grow_policy} (ROADMAP "
+                   "Queue 1 item 2: the wave grower on K2 and K3)")
+    if cfg.external_memory or str(cfg.streaming_train).lower() == "on":
+        out.append(f"external memory / streamed training ({EXTERNAL})")
+    if str(cfg.tree_learner).lower() != "serial" or cfg.num_machines > 1:
+        out.append(f"tree_learner={cfg.tree_learner}, num_machines="
+                   f"{cfg.num_machines} ({DISTRIBUTED})")
+    return out
+
+
+def hist_impl_of(requested, device: torch.device) -> str:
+    """The grower's histogram path for `hist_impl` on `device`: "auto"
+    is the K1 kernel on a CUDA device and the plain version on the CPU;
+    "segment_sum" is the plain version anywhere; "pallas" is the kernel
+    and raises on the CPU.  Nothing is swapped in quietly."""
+    req = str(requested or "auto").lower()
+    if req == "auto":
+        return "kernel"          # histogram_multi: plain on CPU tensors
+    if req == "segment_sum":
+        return "plain"
+    if req == "pallas":
+        if device.type != "cuda":
+            raise LightGBMError("hist_impl=pallas runs the K1 kernel, which "
+                                "needs a CUDA device; use hist_impl=auto or "
+                                "segment_sum on the CPU")
+        return "kernel"
+    if req in ("packed", "pallas_q"):
+        raise LightGBMError(f"hist_impl={req} is not ported yet (ROADMAP "
+                            "Queue 1 item 3: quantized training on K4 and "
+                            "K5)")
+    if req in ("pallas_fused", "pallas_fused_q"):
+        raise LightGBMError(f"hist_impl={req} is not ported yet (ROADMAP "
+                            "Queue 1 items 2 and 3: the fused kernels K2 and "
+                            "K5)")
+    raise LightGBMError(f"Unknown hist_impl {requested!r} (expected auto, "
+                        "segment_sum or pallas)")
+
+
+class _DeviceData:
+    """A constructed Dataset's bins and labels on the training device
+    (the reference's `_DeviceData`)."""
+
+    def __init__(self, ds: Dataset, device: torch.device):
+        ds.construct()
+        self.num_data, self.num_feature = ds._num_data, ds._num_feature
+        self.bins_fm = torch.from_numpy(
+            np.ascontiguousarray(ds.bin_data.T)).to(device)
+        mappers = ds.bin_mappers
+        self.nb_np = np.array([m.num_bin for m in mappers], np.int32)
+        self.missing_np = np.array([m.missing_type for m in mappers],
+                                   np.int32)
+        self.feat = dict(
+            nb=torch.from_numpy(self.nb_np).to(device),
+            missing=torch.from_numpy(self.missing_np).to(device),
+            default=torch.from_numpy(np.array(
+                [m.default_bin for m in mappers], np.int32)).to(device),
+            nb_np=self.nb_np, missing_np=self.missing_np)
+        self.allowed = torch.from_numpy(np.array(
+            [not m.is_trivial for m in mappers], bool)).to(device)
+        self.max_bin = int(self.nb_np.max())
+        label = ds.get_label()
+        self.label = torch.from_numpy(label.astype(np.float32)).to(device) \
+            if label is not None else None
+        w = ds.get_weight()
+        self.weight = torch.from_numpy(w.astype(np.float32)).to(device) \
+            if w is not None else None
+
+
+def replay_leaf_ids(dev: DeviceTree, dd: _DeviceData) -> torch.Tensor:
+    """[N] leaf slots of `dd`'s rows in a grown tree, by replaying its
+    splits in growth order on the bins (the reference's
+    `ops/predict.py replay_leaf_ids`; the same leaves as its bin-level
+    traversal `traverse_bins`)."""
+    lid = torch.zeros(dd.num_data, dtype=torch.int32,
+                      device=dd.bins_fm.device)
+    for i in range(dev.n_splits):
+        f = int(dev.split_feature[i])
+        go_left = split_go_left(dd.bins_fm, f, int(dev.threshold_bin[i]),
+                                bool(dev.default_left[i]),
+                                int(dd.missing_np[f]), int(dd.nb_np[f]))
+        lid = torch.where((lid == int(dev.split_leaf[i])) & ~go_left,
+                          i + 1, lid)
+    return lid
+
+
+class Booster:
+    """A LightGBM model: trained here from a `Dataset`, or loaded from
+    model text.
+
+    `Booster(params, train_set)` prepares training (`update`,
+    `update_many`, `add_valid`, `eval_train`, `eval_valid`);
+    `Booster(model_file=path)` or `Booster(model_str=text)` loads."""
 
     def __init__(self, params: Optional[Dict] = None, train_set=None,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None):
-        self.params: Dict = dict(params) if params else {}
+        self.params: Dict = copy.deepcopy(params) if params else {}
         self.best_iteration = -1
+        self.best_score: Dict = {}
         self.trees: List[Tree] = []
         self.num_tree_per_iteration = 1
         self.objective_: Optional[Objective] = None
@@ -59,22 +234,224 @@ class Booster:
         self._loaded_feature_names: List[str] = []
         self._loaded_feature_infos: List[str] = []
         self._export_cache = None
+        self.train_set: Optional[Dataset] = None
+        self.valid_sets: List[Dataset] = []
+        self.name_valid_sets: List[str] = []
+        self.cur_iter = 0
         if train_set is not None:
-            raise LightGBMError(_TRAINING_SLICE)
-        if model_file is not None:
+            if not isinstance(train_set, Dataset):
+                raise TypeError("Training data should be a "
+                                "lightgbm_tpu_torch Dataset, met "
+                                f"{type(train_set).__name__}")
+            self._init_train(train_set)
+        elif model_file is not None:
             with open(model_file, "r") as f:
                 self.model_from_string(f.read())
         elif model_str is not None:
             self.model_from_string(model_str)
         else:
-            raise TypeError("Need a model file or model string to create "
-                            "a Booster instance")
+            raise TypeError("Need a training dataset, a model file or a "
+                            "model string to create a Booster")
 
     # ------------------------------------------------------- training
-    def update(self, *args, **kwargs):
-        raise LightGBMError(_TRAINING_SLICE)
+    def _init_train(self, train_set: Dataset) -> None:
+        """ref: the JAX package's `Booster._init_train` (`booster.py:301`),
+        its default path."""
+        if callable(self.params.get("objective")):
+            raise LightGBMError(f"custom objectives (fobj) are not ported "
+                                f"yet ({BREADTH})")
+        cfg = self.config = Config(self.params)
+        reasons = refusals(cfg)
+        if reasons:
+            raise LightGBMError("the training slice of lightgbm_tpu_torch "
+                                "does not cover: " + "; ".join(reasons))
+        self.device = train_device(cfg.device_type)
+        train_set.params = {**(train_set.params or {}), **{
+            k: v for k, v in self.params.items() if k in _DATASET_PARAMS}}
+        train_set.construct()
+        if train_set.efb is not None:
+            raise LightGBMError(
+                f"EFB found {len(train_set.efb.bundles)} feature bundle(s) "
+                f"in this dataset; bundled training is not ported yet "
+                f"({CATEGORICAL}); pass enable_bundle=False to train "
+                "unbundled")
+        if any(m.bin_type == BIN_TYPE_CATEGORICAL
+               for m in train_set.bin_mappers):
+            raise LightGBMError("categorical features are binned, but "
+                                f"training on them is not ported yet "
+                                f"({CATEGORICAL})")
+        self.train_set = train_set
+        self._dd = _DeviceData(train_set, self.device)
+        obj: TrainObjective = create_objective(cfg)
+        self._train_obj = obj
+        self.objective_ = obj.link()
+        self.num_tree_per_iteration = obj.num_tree_per_iteration
+        label = train_set.get_label()
+        if label is None:
+            raise LightGBMError("Label should not be None")
+        obj.init_meta(label.astype(np.float64), train_set.get_weight())
+        self.metrics_: List[Metric] = create_metrics(
+            cfg, cfg.metric or cfg.default_metric())
+        self._loaded_feature_names = train_set.get_feature_name()
+        self._loaded_feature_infos = [m.feature_info_str()
+                                      for m in train_set.bin_mappers]
+        self.hist_impl = hist_impl_of(cfg.hist_impl, self.device)
+        self._grower = make_grower(GrowerSpec(
+            num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
+            max_bin=self._dd.max_bin, lambda_l1=cfg.lambda_l1,
+            lambda_l2=cfg.lambda_l2,
+            min_data_in_leaf=float(cfg.min_data_in_leaf),
+            min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
+            min_gain_to_split=cfg.min_gain_to_split,
+            max_delta_step=cfg.max_delta_step, path_smooth=cfg.path_smooth,
+            hist_impl=self.hist_impl))
+        K = self.num_tree_per_iteration
+        self._init_scores = [0.0] * K
+        self._boost_from_average_done = False
+        self._train_score = self._zero_score(self._dd)
+        self._valid_dd: List[_DeviceData] = []
+        self._valid_scores: List[torch.Tensor] = []
+        self._ones = torch.ones(self._dd.num_data, dtype=torch.float32,
+                                device=self.device)
 
-    train = refit = rollback_one_iter = add_valid = eval = update
+    def _zero_score(self, dd: _DeviceData) -> torch.Tensor:
+        K = self.num_tree_per_iteration
+        shape = (dd.num_data,) if K == 1 else (dd.num_data, K)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """ref: basic.py `Booster.add_valid`.  Must come before the first
+        `update` (continued training is not ported)."""
+        if self.cur_iter:
+            raise LightGBMError("add_valid after training started replays "
+                                "the model onto the new set, which is not "
+                                f"ported yet ({BREADTH})")
+        if data.reference is None:
+            data.reference = self.train_set
+        dd = _DeviceData(data, self.device)
+        self.valid_sets.append(data)
+        self.name_valid_sets.append(name)
+        self._valid_dd.append(dd)
+        self._valid_scores.append(self._zero_score(dd))
+        return self
+
+    def _add_init(self, score: torch.Tensor) -> torch.Tensor:
+        add = np.asarray(self._init_scores, dtype=np.float32)
+        if score.dim() == 1:
+            return score + float(add[0])
+        return score + torch.from_numpy(add).to(score.device)[None, :]
+
+    def _boost_from_average(self) -> None:
+        """ref: the JAX package's `_boost_from_average` (`booster.py:1383`):
+        the objective's initial score, added to every score once and
+        folded into the first tree's leaves."""
+        if self._boost_from_average_done:
+            return
+        self._boost_from_average_done = True
+        if not self.config.boost_from_average:
+            return
+        label = self.train_set.get_label().astype(np.float64)
+        init = self._train_obj.boost_from_score(
+            label, self.train_set.get_weight())
+        inits = init if isinstance(init, list) else [init]
+        K = self.num_tree_per_iteration
+        if len(inits) == 1 and K > 1:
+            inits = inits * K
+        self._init_scores = [float(v) for v in inits]
+        if any(abs(v) > 1e-35 for v in self._init_scores):
+            self._train_score = self._add_init(self._train_score)
+            self._valid_scores = [self._add_init(s)
+                                  for s in self._valid_scores]
+
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration (ref: `GBDT::TrainOneIter`; the JAX
+        package's `update` / `_update_impl` / `__boost`).  Returns True
+        when no tree of the iteration could split."""
+        if fobj is not None:
+            raise LightGBMError(f"custom objectives (fobj) are not ported "
+                                f"yet ({BREADTH})")
+        if getattr(self, "_dd", None) is None:
+            raise LightGBMError("Cannot train a Booster that was loaded "
+                                "from model text")
+        if train_set is not None and train_set is not self.train_set:
+            self._init_train(train_set)
+        self._boost_from_average()
+        grad, hess = self._train_obj.grad_hess(
+            self._train_score, self._dd.label, self._dd.weight)
+        return self._boost(grad, hess)
+
+    def _boost(self, grad: torch.Tensor, hess: torch.Tensor) -> bool:
+        lr = self.config.learning_rate
+        K = self.num_tree_per_iteration
+        it = self.cur_iter
+        dd = self._dd
+        all_const = True
+        for k in range(K):
+            gk = grad if K == 1 else grad[:, k].contiguous()
+            hk = hess if K == 1 else hess[:, k].contiguous()
+            dev = self._grower(dd.bins_fm, gk, hk, self._ones, dd.feat,
+                               dd.allowed)
+            tree = Tree.from_device(dev, self.train_set.bin_mappers, lr)
+            if tree.num_leaves > 1:
+                all_const = False
+            # the train score reads the grower's final leaf_id; the
+            # scores are updated in place (the reference's are immutable)
+            scaled = dev.values * lr
+            self._add_tree(self._train_score, k, scaled[dev.leaf_id.long()])
+            for vdd, vscore in zip(self._valid_dd, self._valid_scores):
+                lid = replay_leaf_ids(dev, vdd)
+                self._add_tree(vscore, k, scaled[lid.long()])
+            if it == 0 and abs(self._init_scores[k]) > 1e-35:
+                tree.add_bias(self._init_scores[k])
+            self.trees.append(tree)
+        self._export_cache = None
+        self.cur_iter += 1
+        if all_const:
+            log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+        return all_const
+
+    @staticmethod
+    def _add_tree(score: torch.Tensor, k: int,
+                  contrib: torch.Tensor) -> None:
+        if score.dim() == 1:
+            score += contrib
+        else:
+            score[:, k] += contrib
+
+    def update_many(self, n_rounds: int) -> bool:
+        """`n_rounds` iterations of `update`; returns the last one's
+        finished flag."""
+        finished = False
+        for _ in range(n_rounds):
+            finished = self.update()
+        return finished
+
+    def current_iteration(self) -> int:
+        return self.cur_iter
+
+    def _eval_one(self, score: torch.Tensor, ds: Dataset,
+                  name: str) -> List[Tuple[str, str, float, bool]]:
+        s = score.detach().cpu().numpy().astype(np.float64)
+        label = ds.get_label()
+        weight = ds.get_weight()
+        label64 = label.astype(np.float64) if label is not None else None
+        w64 = weight.astype(np.float64) if weight is not None else None
+        return [(name, mname, val, m.higher_better)
+                for m in self.metrics_
+                for mname, val in m.eval(s, label64, w64, None)]
+
+    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        return self._eval_one(self._train_score, self.train_set,
+                              getattr(self, "_train_data_name", "training"))
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        out = []
+        for name, ds, score in zip(self.name_valid_sets, self.valid_sets,
+                                   self._valid_scores):
+            out.extend(self._eval_one(score, ds, name))
+        return out
 
     # ------------------------------------------------------ model text
     def model_from_string(self, model_str: str) -> "Booster":

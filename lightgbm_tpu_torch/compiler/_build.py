@@ -4,18 +4,21 @@ Each `csrc/<name>.cu` compiles with `nvcc` into its own shared library
 with a plain C interface, loaded through `ctypes` — no PyTorch headers,
 so a build takes seconds.  The library lands in `csrc/build/`, named by
 a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads the library already there.
+unchanged one loads the library already there.  The compiler's output
+(`-Xptxas=-v`: registers, shared memory, spills) is kept beside each
+library, so `build_all` reports it whether or not it had to compile.
 
 Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC` (plus `-Xptxas=-v`, whose register and spill report
-`build_all` returns), and never `--use_fast_math`, `-ftz=true` or
-`-prec-*=false`: the traverse kernel's contract includes NaN tests,
+-Xcompiler -fPIC -Xptxas=-v`, and never `--use_fast_math`, `-ftz=true`
+or `-prec-*=false`: the traverse kernel's contract includes NaN tests,
 subnormal inputs and an `abs(fv) <= 1e-35` compare in IEEE f32.  The
-accumulation adds `-fmad=false` so that no add is ever contracted.
+accumulation adds `-fmad=false` so that no add is ever contracted; the
+histogram kernel only adds, so contraction cannot touch it.
 
-Nothing here runs when the package is imported; the first wrapper
-call on a CUDA tensor builds every missing kernel at once through
-`build_all`, one `nvcc` per source, all started together.
+Nothing here runs when the package is imported.  `build_all` is the one
+build path: it starts one `nvcc` per missing library, all together,
+waits for them, and loads every library once.  A wrapper's `load(name)`
+calls it on first use.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 from ..utils.log import LightGBMError
 
@@ -35,7 +38,8 @@ BUILD_DIR = CSRC / "build"
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-_EXTRA_FLAGS = {"traverse": [], "accumulate": ["-fmad=false"]}
+_EXTRA_FLAGS = {"traverse": [], "accumulate": ["-fmad=false"],
+                "histogram": []}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,10 +50,20 @@ _SIGNATURES = {
                   _P, _P]),
     "accumulate": ("lgbt_accumulate",
                    [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P]),
+    "histogram": ("lgbt_histogram",
+                  [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
 }
 
+
+class Built(NamedTuple):
+    """One loaded kernel library."""
+    lib: ctypes.CDLL
+    compiled: bool        # False: the library was already in BUILD_DIR
+    ptxas: List[str]      # the register / shared-memory / spill lines
+
+
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_BUILT: Dict[str, Built] = {}
 
 
 def _nvcc() -> str:
@@ -89,14 +103,31 @@ def _start_build(name: str):
     return proc, tmp, so
 
 
-def build_all() -> Dict[str, str]:
-    """Build every kernel library that is missing, one `nvcc` per
-    source, all started together.  The only builder: `load` calls it
-    on first use.  Returns each built kernel's compiler output (the
-    `-Xptxas=-v` resource report); empty when nothing was missing."""
+def _load(name: str, compiled: bool) -> Built:
+    so = library_path(name)
+    lib = ctypes.CDLL(str(so))
+    sym, argtypes = _SIGNATURES[name]
+    fn = getattr(lib, sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    log = so.with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    ptxas = [ln.strip() for ln in text.splitlines()
+             if "registers" in ln or "spill" in ln or "smem" in ln]
+    return Built(lib, compiled, ptxas)
+
+
+def build_all() -> Dict[str, Built]:
+    """Build every kernel library that is missing, one `nvcc` per source,
+    all started together; then load every library once.  Returns each
+    kernel's `Built` (the library, whether this call compiled it, and
+    its `-Xptxas=-v` report).  Raises with the compiler's output when a
+    build fails."""
     with _LOCK:
-        jobs = {n: _start_build(n) for n in _SIGNATURES}
-        logs, errors = {}, []
+        if len(_BUILT) == len(_SIGNATURES):
+            return dict(_BUILT)
+        jobs = {n: _start_build(n) for n in _SIGNATURES if n not in _BUILT}
+        errors = []
         for n, job in jobs.items():
             if job is None:
                 continue
@@ -106,26 +137,18 @@ def build_all() -> Dict[str, str]:
                 errors.append(f"nvcc failed to build {n}.cu "
                               f"(exit {proc.returncode}):\n{log}")
                 continue
+            so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)    # atomic: a reader never sees half a file
-            logs[n] = log
         if errors:
             raise LightGBMError("\n".join(errors))
-        return logs
+        for n, job in jobs.items():
+            _BUILT[n] = _load(n, compiled=job is not None)
+        return dict(_BUILT)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel `name`, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    build_all()
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(library_path(name)))
-            sym, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _LIBS[name] = lib
-    return lib
+    built = _BUILT.get(name)
+    if built is None:
+        built = build_all()[name]
+    return built.lib

@@ -1,20 +1,25 @@
-"""Carry a trained model across from plain numpy arrays.
+"""Carry a trained model or a constructed dataset across from plain
+numpy arrays.
 
 Model text is one route into the port (`Booster(model_str=...)`); this
-is the other.  Each tree is a dict of the numpy arrays a JAX
-`lightgbm_tpu` `Booster.trees[i]` holds, so a caller that has both
-packages can hand a model over without a text round trip, and without
-this package importing the other.
+is the other.  `booster_from_numpy` takes each tree as a dict of the
+numpy arrays a JAX `lightgbm_tpu` `Booster.trees[i]` holds;
+`dataset_from_numpy` takes a constructed JAX `Dataset`'s bin matrix,
+bin-mapper dicts, label and weight.  A caller that has both packages can
+so hand a model or identical bins over, without this package importing
+the other.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .basic import Dataset
 from .booster import Booster
 from .objectives import parse_objective
 from .tree import Tree
+from .utils.binning import BinMapper
 
 #: per-tree fields read, with the dtype `tree.Tree` stores them in
 _TREE_FIELDS = {
@@ -57,3 +62,35 @@ def booster_from_numpy(trees: Sequence[Dict], num_tree_per_iteration: int,
                  for t in out if t.num_leaves > 1), default=0)
     bst._loaded_feature_names = [f"Column_{i}" for i in range(nfeat)]
     return bst
+
+
+def dataset_from_numpy(bin_data: np.ndarray, bin_mappers: Sequence[Dict],
+                       label: Optional[np.ndarray] = None,
+                       weight: Optional[np.ndarray] = None,
+                       feature_names: Optional[Sequence[str]] = None,
+                       params: Optional[Dict] = None) -> Dataset:
+    """A constructed port `Dataset` from another package's binning.
+
+    `bin_data` is the [N, F] uint8/uint16 bin matrix, `bin_mappers` the
+    mappers as `BinMapper.to_dict()` dicts (the JAX package's
+    `[m.to_dict() for m in ds.bin_mappers]`).  No binning runs and no
+    bundle search: the dataset trains on exactly these bins."""
+    bins = np.ascontiguousarray(bin_data)
+    if bins.ndim != 2 or bins.dtype not in (np.uint8, np.uint16):
+        raise ValueError("bin_data must be a 2-D uint8 or uint16 matrix")
+    n, f = bins.shape
+    mappers = [BinMapper.from_dict(d) for d in bin_mappers]
+    if len(mappers) != f:
+        raise ValueError(f"{len(mappers)} bin mappers for {f} features")
+    ds = Dataset(None, label=label, weight=weight,
+                 feature_name=(list(feature_names) if feature_names
+                               is not None else "auto"),
+                 params=params)
+    ds.bin_data = bins
+    ds.bin_mappers = mappers
+    ds.num_total_bin = sum(m.num_bin for m in mappers)
+    ds._num_data, ds._num_feature = n, f
+    ds._feature_names = ds._names_for(f)
+    ds._set_fields()
+    ds._handle_constructed = True
+    return ds

@@ -1,22 +1,30 @@
-"""Objective output transforms on torch tensors.
+"""Objective functions on torch tensors: output links and, for the
+training slice, gradients.
 
-The port's counterpart of `lightgbm_tpu/objectives.py`, reduced to what a
-model-loading booster needs: parsing the model text's `objective=` line
-and `ObjectiveFunction.convert_output` (ref: objective_function.h
-`ConvertOutput`).  Gradients and hessians arrive with the training
-slice.
+The port's counterpart of `lightgbm_tpu/objectives.py`.  Two halves:
+
+* loading: `parse_objective` reads a model text's `objective=` line into
+  an `Objective`, whose `convert_output` is the link (ref:
+  objective_function.h `ConvertOutput`) for every objective;
+* training: `create_objective(config)` builds `RegressionL2`,
+  `BinaryLogloss` or `MulticlassSoftmax` with `init_meta`,
+  `boost_from_score` (host numpy, f64, as the reference) and
+  `grad_hess` (f32 torch, on whatever device the score lies, in the
+  reference's op order).  Any other objective raises with the reason.
 
 `convert_output` takes the f32 raw scores (the round-to-nearest-even
-downcast of the exact f64 sums) and applies the link in f32, on
-whatever device the tensor lies.  Transcendentals (sigmoid, softmax,
-exp) may differ from XLA's by about one ulp; the tests state the bound.
+downcast of the exact f64 sums) and applies the link in f32.
+Transcendentals (sigmoid, softmax, exp) may differ from XLA's by about
+one ulp; the tests state the bound.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .utils import log
 from .utils.log import LightGBMError
 
 #: objective-name aliases, as the JAX package's `utils/config.py`
@@ -139,3 +147,180 @@ def parse_objective(line: str, params: Optional[Dict] = None
     if name not in _OBJECTIVE_ALIASES.values():
         raise LightGBMError(f"Unknown objective: {name}")
     return Objective(name, merged)
+
+
+# ------------------------------------------------------------ training
+def _apply_weight(grad, hess, weight):
+    if weight is None:
+        return grad, hess
+    if grad.dim() == 2 and weight.dim() == 1:
+        weight = weight[:, None]
+    return grad * weight, hess * weight
+
+
+class TrainObjective:
+    """Base of the training objectives (ref: objective_function.h
+    `ObjectiveFunction`).  Host-side set-up is numpy; `grad_hess` is
+    f32 torch.  Score layout: [N], or [N, K] for multiclass."""
+
+    name = "custom"
+    num_tree_per_iteration = 1
+    need_convert = False
+
+    def __init__(self, config):
+        self.config = config
+
+    def init_meta(self, label: np.ndarray,
+                  weight: Optional[np.ndarray]) -> None:
+        self.num_data = len(label)
+
+    def boost_from_score(self, label: np.ndarray,
+                         weight: Optional[np.ndarray]):
+        return 0.0
+
+    def grad_hess(self, score: torch.Tensor, label: torch.Tensor,
+                  weight: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def link(self) -> Objective:
+        """The loading-side `Objective` of this training objective, as
+        the trained model's text will load it."""
+        return parse_objective(self.to_string(),
+                               {k: getattr(self.config, k)
+                                for k in _DEFAULTS})
+
+    def to_string(self) -> str:
+        return self.name
+
+
+class RegressionL2(TrainObjective):
+    """ref: regression_objective.hpp `RegressionL2loss` (the JAX
+    package's `objectives.py:86`)."""
+    name = "regression"
+
+    def boost_from_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        if weight is None:
+            return float(np.mean(label))
+        return float(np.average(label, weights=weight))
+
+    def grad_hess(self, score, label, weight):
+        grad = score - label
+        hess = torch.ones_like(score)
+        return _apply_weight(grad, hess, weight)
+
+
+class BinaryLogloss(TrainObjective):
+    """ref: binary_objective.hpp `BinaryLogloss` (the JAX package's
+    `objectives.py:274`)."""
+    name = "binary"
+    need_convert = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.sigmoid = config.sigmoid
+        if self.sigmoid <= 0:
+            raise LightGBMError(
+                "Sigmoid parameter should be greater than zero")
+
+    def init_meta(self, label, weight):
+        super().init_meta(label, weight)
+        uniq = np.unique(label)
+        if not np.all(np.isin(uniq, [0, 1])):
+            raise LightGBMError("Binary objective requires labels in "
+                                f"{{0, 1}}, got values {uniq[:5]}")
+        cnt_pos = float((label == 1).sum() if weight is None
+                        else weight[label == 1].sum())
+        cnt_neg = float((label == 0).sum() if weight is None
+                        else weight[label == 0].sum())
+        self.cnt_pos, self.cnt_neg = cnt_pos, cnt_neg
+        if self.config.is_unbalance and cnt_pos > 0 and cnt_neg > 0:
+            if cnt_pos > cnt_neg:
+                self.label_weight = (1.0, cnt_pos / cnt_neg)
+            else:
+                self.label_weight = (cnt_neg / cnt_pos, 1.0)
+        else:
+            self.label_weight = (1.0, self.config.scale_pos_weight)
+
+    def boost_from_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        w_neg, w_pos = self.label_weight
+        spos = self.cnt_pos * w_pos
+        sneg = self.cnt_neg * w_neg
+        if spos <= 0 or sneg <= 0:
+            return 0.0
+        pavg = spos / (spos + sneg)
+        init = float(np.log(pavg / (1.0 - pavg)) / self.sigmoid)
+        log.info(f"[binary:BoostFromScore]: pavg={pavg:.6f} -> "
+                 f"initscore={init:.6f}")
+        return init
+
+    def grad_hess(self, score, label, weight):
+        sig = self.sigmoid
+        p = torch.sigmoid(sig * score)
+        w_neg, w_pos = self.label_weight
+        cls_w = torch.where(label > 0, w_pos, w_neg).to(score.dtype)
+        grad = sig * (p - label) * cls_w
+        hess = sig * sig * p * (1.0 - p) * cls_w
+        return _apply_weight(grad, hess, weight)
+
+    def to_string(self) -> str:
+        return f"binary sigmoid:{self.sigmoid:g}"
+
+
+class MulticlassSoftmax(TrainObjective):
+    """ref: multiclass_objective.hpp `MulticlassSoftmax` (the JAX
+    package's `objectives.py:332`)."""
+    name = "multiclass"
+    need_convert = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.num_class = config.num_class
+        self.num_tree_per_iteration = config.num_class
+
+    def init_meta(self, label, weight):
+        super().init_meta(label, weight)
+        ilab = label.astype(np.int64)
+        if np.any(ilab < 0) or np.any(ilab >= self.num_class):
+            raise LightGBMError(f"Label must be in [0, {self.num_class}) "
+                                "for multiclass objective")
+
+    def boost_from_score(self, label, weight):
+        return [0.0] * self.num_class
+
+    def grad_hess(self, score, label, weight):
+        p = torch.softmax(score, dim=1)
+        onehot = torch.nn.functional.one_hot(
+            label.to(torch.int64), self.num_class).to(score.dtype)
+        grad = p - onehot
+        factor = self.num_class / max(self.num_class - 1, 1)
+        hess = factor * p * (1.0 - p)
+        return _apply_weight(grad, hess, weight)
+
+    def to_string(self) -> str:
+        return f"multiclass num_class:{self.num_class}"
+
+
+_TRAIN_OBJECTIVES = {"regression": RegressionL2, "binary": BinaryLogloss,
+                     "multiclass": MulticlassSoftmax}
+
+
+def create_objective(config) -> TrainObjective:
+    """Training objective of a resolved `Config` (ref:
+    `ObjectiveFunction::CreateObjectiveFunction`; the JAX package's
+    `objectives.py:509`).  This slice trains `regression` (L2),
+    `binary` and `multiclass`; every other objective raises."""
+    name = config.objective
+    if name in ("custom", "none", None):
+        raise LightGBMError("custom objectives (fobj) are not ported yet "
+                            "(ROADMAP Queue 1 item 5)")
+    if name not in _TRAIN_OBJECTIVES:
+        raise LightGBMError(
+            f"objective {name!r} is not ported yet: this slice trains "
+            "regression (L2), binary and multiclass (ROADMAP Queue 1 "
+            "item 5)")
+    return _TRAIN_OBJECTIVES[name](config)

@@ -1,0 +1,243 @@
+"""Strict leaf-wise (best-first) tree growth, driven from the host.
+
+The port's counterpart of `lightgbm_tpu/ops/grow.py` `make_grower`
+(ref: src/treelearner/serial_tree_learner.cpp `SerialTreeLearner::Train`
+/ `FindBestSplits` / `Split`), for numerical features.  The reference
+compiles the whole best-first loop (`grow.py:887-1175`) into one XLA
+`while_loop`; here a Python loop drives tensors on the device:
+
+  * rows are never reordered: a dense per-row `leaf_id` is updated with
+    a `where` at each split (`split_go_left`);
+  * only the smaller child is histogrammed (`ops/hist_kernel.py`, the
+    K1 kernel on a CUDA device), the larger is parent minus smaller;
+    histograms are kept one slot per leaf;
+  * both children are searched in one batched `find_best_split` call,
+    and the two decisions, with the children's outputs, come to the
+    host in one copy.  That copy is the loop's one host sync per split
+    (plus one for the root): the host picks the next leaf with a
+    first-wins argmax over the cached gains, as `jnp.argmax` does.
+
+Root sums, leaf sums, gains and outputs stay f32, as the reference
+computes them (it never enables x64).  The root sums and the split
+scan's prefix sums add in the order XLA's CPU backend gives the
+reference (`ops/reduce.py`), on every device.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from .hist_kernel import histogram_multi, histogram_multi_plain
+from .reduce import tree_sum
+from .split import (MISSING_NAN, NEG_INF, PACK_COLS, find_best_split,
+                    leaf_output, smooth_output)
+
+#: blocking device-to-host copies made by the growers (one for the root
+#: of each tree and one per split)
+HOST_SYNCS = 0
+
+
+class GrowerSpec(NamedTuple):
+    """Static configuration of one grower (the fields of the reference's
+    `GrowerSpec` that the strict numerical grower reads)."""
+    num_leaves: int
+    max_depth: int        # <= 0 means unlimited
+    max_bin: int          # padded bin-axis size MB
+    lambda_l1: float
+    lambda_l2: float
+    min_data_in_leaf: float
+    min_sum_hessian_in_leaf: float
+    min_gain_to_split: float
+    max_delta_step: float
+    path_smooth: float = 0.0
+    #: "kernel": `histogram_multi` (the K1 kernel on a CUDA device, the
+    #: plain version on the CPU); "plain": `histogram_multi_plain`
+    hist_impl: str = "kernel"
+
+
+class DeviceTree(NamedTuple):
+    """One grown tree (the reference's `ops/grow.py:158 DeviceTree`, for
+    numerical splits).  Node arrays are [L-1] and leaf arrays [L] host
+    numpy; `n_splits` gives the populated prefix.  Node i's left child
+    keeps leaf slot `split_leaf[i]`, its right child is leaf slot i + 1
+    (ref: tree.h `Tree::Split`).  `leaf_id` [N] i32 (the final row to
+    leaf map) and `values` [L] f32 (the leaf outputs, zero past the
+    tree's leaves) stay on the device for the score update."""
+    n_splits: int
+    split_leaf: np.ndarray
+    split_feature: np.ndarray
+    threshold_bin: np.ndarray
+    default_left: np.ndarray
+    split_gain: np.ndarray
+    internal_g: np.ndarray
+    internal_h: np.ndarray
+    internal_cnt: np.ndarray
+    leaf_value: np.ndarray
+    leaf_g: np.ndarray
+    leaf_h: np.ndarray
+    leaf_cnt: np.ndarray
+    leaf_id: torch.Tensor
+    values: torch.Tensor
+
+
+def split_go_left(bins_fm: torch.Tensor, f: int, t: int, dl: bool,
+                  missing: int, nb: int) -> torch.Tensor:
+    """[N] left/right routing of one numerical split (the reference's
+    `split_go_left`): bin <= t goes left, and the NaN bin of a
+    NaN-missing feature follows `dl`."""
+    fbins = bins_fm[f].to(torch.int32)
+    go_left = fbins <= t
+    if missing == MISSING_NAN:
+        go_left = torch.where(fbins == nb - 1, dl, go_left)
+    return go_left
+
+
+def make_grower(spec: GrowerSpec) -> Callable:
+    """The grow function of a spec: `grow(bins_fm, grad, hess,
+    sample_weight, feat, allowed) -> DeviceTree`.
+
+    bins_fm [F, N] u8/u16, grad/hess/sample_weight [N] f32 and allowed
+    [F] bool lie on one device; `feat` holds the per-feature metadata
+    as device tensors (`nb`, `missing`, `default`, [F] i32) and host
+    numpy copies (`nb_np`, `missing_np`)."""
+    L = spec.num_leaves
+    MB = spec.max_bin
+    hist_fn = histogram_multi if spec.hist_impl == "kernel" \
+        else histogram_multi_plain
+    l1, l2, mds = spec.lambda_l1, spec.lambda_l2, spec.max_delta_step
+    ps = spec.path_smooth
+
+    def out_of(g, h, c, parent_out):
+        """A node's output: leaf_output, then path smoothing (the
+        monotone clamp of the reference is inert without constraints)."""
+        return smooth_output(leaf_output(g, h, l1, l2, mds), c, parent_out,
+                             ps)
+
+    def search(hist, g, h, c, allowed, p_out, feat):
+        return find_best_split(
+            hist, g, h, c, feat["nb"], feat["missing"], feat["default"],
+            allowed, l1, l2, spec.min_data_in_leaf,
+            spec.min_sum_hessian_in_leaf, spec.min_gain_to_split, mds, ps,
+            p_out)
+
+    def to_host(t: torch.Tensor) -> np.ndarray:
+        global HOST_SYNCS
+        HOST_SYNCS += 1
+        return t.cpu().numpy()
+
+    def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+             sample_weight: torch.Tensor, feat: Dict,
+             allowed: torch.Tensor) -> DeviceTree:
+        dev = bins_fm.device
+        n = bins_fm.shape[1]
+        f_count = int(feat["nb"].shape[0])
+        payload = torch.stack([grad * sample_weight, hess * sample_weight,
+                               sample_weight], dim=1).contiguous()
+        slots = torch.arange(L, dtype=torch.int32, device=dev)
+        no_feature = torch.zeros_like(allowed)
+        leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        hist = torch.empty((L, f_count, MB, 3), dtype=torch.float32,
+                           device=dev)
+        hist[0] = hist_fn(bins_fm, payload, leaf_id, slots[:1], MB)[0]
+
+        # ---- root: sums, output, split, all in one host copy ----
+        root_g, root_h, root_c = tree_sum(payload.t())
+        root_out = leaf_output(root_g, root_h, l1, l2, mds)
+        s0 = search(hist[0], root_g, root_h, root_c, allowed, root_out,
+                    feat)
+        # device mirror of the per-leaf records the children read:
+        # the cached split (PACK_COLS) and the leaf's output
+        rec_dev = torch.zeros((L, PACK_COLS), dtype=torch.float32,
+                              device=dev)
+        out_dev = torch.zeros(L, dtype=torch.float32, device=dev)
+        rec_dev[0] = s0.pack()
+        out_dev[0] = root_out
+        host = to_host(torch.cat([torch.stack([root_g, root_h, root_c,
+                                               root_out]), rec_dev[0]]))
+
+        rec = np.zeros((L, PACK_COLS), np.float32)
+        rec[:, 0] = NEG_INF
+        rec[0] = host[4:]
+        leaf_g = np.zeros(L, np.float32)
+        leaf_h = np.zeros(L, np.float32)
+        leaf_c = np.zeros(L, np.float32)
+        leaf_out = np.zeros(L, np.float32)
+        leaf_depth = np.zeros(L, np.int64)
+        leaf_g[0], leaf_h[0], leaf_c[0], leaf_out[0] = host[:4]
+        nodes = dict(
+            split_leaf=np.zeros(L - 1, np.int32),
+            split_feature=np.zeros(L - 1, np.int32),
+            threshold_bin=np.zeros(L - 1, np.int32),
+            default_left=np.zeros(L - 1, bool),
+            split_gain=np.zeros(L - 1, np.float32),
+            internal_g=np.zeros(L - 1, np.float32),
+            internal_h=np.zeros(L - 1, np.float32),
+            internal_cnt=np.zeros(L - 1, np.float32))
+        missing = feat["missing_np"]
+        nb = feat["nb_np"]
+
+        step, nl = 0, 1
+        while step < L - 1 and rec[:, 0].max() > 0.0:
+            best = int(np.argmax(rec[:, 0]))
+            gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = rec[best]
+            f, t, dl = int(f), int(t), bool(dl)
+            new = nl
+
+            # ---- partition: dense leaf_id update ----
+            go_left = split_go_left(bins_fm, f, t, dl, int(missing[f]),
+                                    int(nb[f]))
+            leaf_id = torch.where((leaf_id == best) & ~go_left,
+                                  slots[new], leaf_id)
+
+            for key, v in (("split_leaf", best), ("split_feature", f),
+                           ("threshold_bin", t), ("default_left", dl),
+                           ("split_gain", gain_s),
+                           ("internal_g", leaf_g[best]),
+                           ("internal_h", leaf_h[best]),
+                           ("internal_cnt", leaf_c[best])):
+                nodes[key][step] = v
+
+            # ---- histograms: the smaller child scanned, the larger by
+            # subtraction ----
+            left_smaller = lc <= rc
+            small = best if left_smaller else new
+            small_hist = hist_fn(bins_fm, payload, leaf_id,
+                                 slots[small:small + 1], MB)[0]
+            large_hist = hist[best] - small_hist
+            hist[best] = small_hist if left_smaller else large_hist
+            hist[new] = large_hist if left_smaller else small_hist
+
+            # ---- the children: outputs, then both searches at once ----
+            sums = rec_dev[best, 4:].reshape(2, 3)       # left, right
+            p_out = out_dev[best]
+            child_out = out_of(sums[:, 0], sums[:, 1], sums[:, 2], p_out)
+            depth = int(leaf_depth[best]) + 1
+            deep_ok = spec.max_depth <= 0 or depth < spec.max_depth
+            res = search(hist[[best, new]], sums[:, 0], sums[:, 1],
+                         sums[:, 2], allowed if deep_ok else no_feature,
+                         child_out, feat).pack()
+            rec_dev[best], rec_dev[new] = res[0], res[1]
+            out_dev[best], out_dev[new] = child_out[0], child_out[1]
+            host = to_host(torch.cat([res.reshape(-1), child_out]))
+
+            rec[best] = host[:PACK_COLS]
+            rec[new] = host[PACK_COLS:2 * PACK_COLS]
+            leaf_out[best], leaf_out[new] = host[2 * PACK_COLS:]
+            leaf_g[best], leaf_h[best], leaf_c[best] = lg, lh, lc
+            leaf_g[new], leaf_h[new], leaf_c[new] = rg, rh, rc
+            leaf_depth[best] = leaf_depth[new] = depth
+            step, nl = step + 1, nl + 1
+
+        # a single-leaf tree predicts 0 (ref: GBDT "no more leaves that
+        # meet the split requirements"); slots >= nl stay zero
+        active = np.arange(L) < nl
+        values = np.where(active & (nl > 1), leaf_out, np.float32(0.0))
+        values_dev = torch.where(
+            (torch.arange(L, device=dev) < nl) & (nl > 1), out_dev, 0.0)
+        return DeviceTree(n_splits=step, leaf_value=values,
+                          leaf_g=leaf_g, leaf_h=leaf_h, leaf_cnt=leaf_c,
+                          leaf_id=leaf_id, values=values_dev, **nodes)
+
+    return grow

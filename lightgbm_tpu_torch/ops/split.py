@@ -1,0 +1,246 @@
+"""Best-split search over (feature, threshold) grids, numerical features.
+
+The port's counterpart of `lightgbm_tpu/ops/split.py` (ref:
+src/treelearner/feature_histogram.hpp `FindBestThresholdNumerical`
+[the two missing-direction scans], `GetSplitGains`,
+`CalculateSplittedLeafOutput`, `GetLeafGain`): the numerical branch of
+`find_best_split` (`split.py:137-250` with `has_cat=False`) and its
+decide stage `_decide_numerical` (`split.py:367`), on torch tensors.
+
+All scans are one vectorized computation, as in the reference: prefix
+sums along the bin axis give every candidate partition, the gain is
+evaluated over the whole [case, F, MB] grid (case 0: missing right,
+case 1: missing left), and one flat argmax picks the winner.  Ties go
+to the first candidate in (case, feature, threshold) order, as
+`jnp.argmax` and `torch.argmax` both choose the first maximum; invalid
+candidates hold -inf, never NaN.  The search takes a leading batch axis
+[B, F, MB, 3], so the grower scans both children of a split in one
+call; each batch row is searched on its own.
+
+The prefix sums add in the order XLA's CPU backend gives `jnp.cumsum`
+(`ops/reduce.py block_cumsum`), on every device, so from the same
+histograms the port's sums, gains and decisions are the reference's
+bits on the CPU.
+
+Monotone constraints and finite output bounds are not ported (the
+training slice refuses them), so the only constrained form left is path
+smoothing, which switches every candidate to the given-output gain.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .reduce import block_cumsum
+
+NEG_INF = float("-inf")
+
+# missing_type codes (must match utils/binning.py)
+MISSING_NONE, MISSING_ZERO, MISSING_NAN = 0, 1, 2
+
+#: columns of `SplitResult.pack`: the chosen split of each batch row
+PACK_COLS = 10
+
+
+class SplitResult(NamedTuple):
+    """Best split of each leaf (ref: split_info.hpp `SplitInfo`), one
+    entry per batch row (0-d tensors for an unbatched search).  The
+    categorical fields of the reference's result are absent: this
+    search is numerical only."""
+    gain: torch.Tensor           # f32; -inf when no valid split
+    feature: torch.Tensor        # i64; -1 when no valid split
+    threshold_bin: torch.Tensor  # i64; left iff bin <= threshold_bin
+    default_left: torch.Tensor   # bool; missing direction
+    left_sum_g: torch.Tensor
+    left_sum_h: torch.Tensor
+    left_cnt: torch.Tensor
+    right_sum_g: torch.Tensor
+    right_sum_h: torch.Tensor
+    right_cnt: torch.Tensor
+
+    def pack(self) -> torch.Tensor:
+        """[B, PACK_COLS] f32: gain, feature, threshold, default_left,
+        left g/h/count, right g/h/count.  Feature and threshold are
+        small integers, exact in f32; one copy brings a batch's
+        decisions to the host."""
+        return torch.stack([self.gain,
+                            self.feature.to(torch.float32),
+                            self.threshold_bin.to(torch.float32),
+                            self.default_left.to(torch.float32),
+                            self.left_sum_g, self.left_sum_h, self.left_cnt,
+                            self.right_sum_g, self.right_sum_h,
+                            self.right_cnt], dim=-1)
+
+
+def threshold_l1(s: torch.Tensor, l1: float) -> torch.Tensor:
+    """ref: feature_histogram.hpp `ThresholdL1`."""
+    return torch.sign(s) * torch.clamp_min(torch.abs(s) - l1, 0.0)
+
+
+def leaf_gain(g: torch.Tensor, h: torch.Tensor, l1: float,
+              l2: float) -> torch.Tensor:
+    """ref: feature_histogram.hpp `GetLeafGain` (without smoothing)."""
+    t = threshold_l1(g, l1)
+    denom = h + l2
+    pos = denom > 0
+    return torch.where(pos, t * t / torch.where(pos, denom, 1.0), 0.0)
+
+
+def leaf_output(g: torch.Tensor, h: torch.Tensor, l1: float, l2: float,
+                max_delta_step: float = 0.0) -> torch.Tensor:
+    """ref: feature_histogram.hpp `CalculateSplittedLeafOutput`."""
+    denom = h + l2
+    pos = denom > 0
+    out = torch.where(pos, -threshold_l1(g, l1) / torch.where(pos, denom,
+                                                              1.0), 0.0)
+    if max_delta_step > 0.0:
+        out = torch.clamp(out, -max_delta_step, max_delta_step)
+    return out
+
+
+def smooth_output(out: torch.Tensor, cnt: torch.Tensor,
+                  parent_out: torch.Tensor,
+                  path_smooth: float) -> torch.Tensor:
+    """Path smoothing: shrink a node's output toward its parent's (ref:
+    feature_histogram.hpp under USE_SMOOTHING)."""
+    if path_smooth <= 0.0:
+        return out
+    frac = cnt / (cnt + path_smooth)
+    return out * frac + parent_out * (1.0 - frac)
+
+
+def size_constraints_ok(left: torch.Tensor, right: torch.Tensor,
+                        min_data_in_leaf: float,
+                        min_sum_hessian: float) -> torch.Tensor:
+    """Child-size gate (ref: the min_data_in_leaf /
+    min_sum_hessian_in_leaf guards of the threshold finders)."""
+    return ((left[..., 2] >= min_data_in_leaf)
+            & (right[..., 2] >= min_data_in_leaf)
+            & (left[..., 1] >= min_sum_hessian)
+            & (right[..., 1] >= min_sum_hessian))
+
+
+def plain_split_gain(left: torch.Tensor, right: torch.Tensor, l1: float,
+                     l2: float, shift: torch.Tensor) -> torch.Tensor:
+    """`GetLeafGain(l) + GetLeafGain(r) - shift` (ref:
+    feature_histogram.hpp `GetSplitGains` without constraints)."""
+    return (leaf_gain(left[..., 0], left[..., 1], l1, l2)
+            + leaf_gain(right[..., 0], right[..., 1], l1, l2)
+            - shift)
+
+
+def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
+                    parent_h: torch.Tensor, parent_c: torch.Tensor,
+                    feat_nb: torch.Tensor, feat_missing: torch.Tensor,
+                    feat_default: torch.Tensor, allowed: torch.Tensor,
+                    l1: float, l2: float, min_data_in_leaf: float,
+                    min_sum_hessian: float, min_gain_to_split: float,
+                    max_delta_step: float = 0.0, path_smooth: float = 0.0,
+                    parent_output: Optional[torch.Tensor] = None
+                    ) -> SplitResult:
+    """Best numerical split of each leaf.
+
+    hist [F, MB, 3] f32 with 0-d parent sums, or [B, F, MB, 3] with [B]
+    parent sums and `allowed` [F] or [B, F] bool.  Bins at or past a
+    feature's `feat_nb` are masked out of the scan; a feature with NaN
+    missing keeps its last bin out of both prefixes and tries it on
+    each side (case 1: missing left).  `path_smooth` > 0 shrinks the
+    candidate outputs toward `parent_output` and scores them with the
+    given-output gain, as the reference does."""
+    one = hist.dim() == 3
+    if one:
+        hist = hist[None]
+        parent_g, parent_h, parent_c = (
+            p.reshape(1) for p in (parent_g, parent_h, parent_c))
+        if parent_output is not None:
+            parent_output = parent_output.reshape(1)
+    b, f, mb, _ = hist.shape
+    dev = hist.device
+    if allowed.dim() == 1:
+        allowed = allowed[None].expand(b, f)
+    bin_ar = torch.arange(mb, device=dev)
+    valid_bin = bin_ar[None, :] < feat_nb[:, None]              # [F, MB]
+    h = torch.where(valid_bin[None, :, :, None], hist, 0.0)
+    parent = torch.stack([parent_g, parent_h, parent_c], dim=-1)  # [B, 3]
+
+    cum = block_cumsum(h.transpose(2, 3)).transpose(2, 3)       # [B,F,MB,3]
+    has_nan = feat_missing == MISSING_NAN                        # [F]
+    nan_idx = torch.where(has_nan, feat_nb - 1, 0).long()
+    nanv = h[:, torch.arange(f, device=dev), nan_idx, :]         # [B, F, 3]
+    nanv = torch.where(has_nan[None, :, None], nanv, 0.0)
+
+    t_max = feat_nb - 2 - has_nan.to(feat_nb.dtype)
+    valid_t = (bin_ar[None, :] <= t_max[:, None])[None] \
+        & allowed[:, :, None]                                    # [B,F,MB]
+
+    shift = leaf_gain(parent_g, parent_h, l1, l2) + min_gain_to_split
+    shift = shift[:, None, None]
+    if path_smooth > 0.0:
+        p_out = (torch.zeros_like(parent_g) if parent_output is None
+                 else parent_output)[:, None, None]
+
+    def gain_given_output(side, out):
+        t = threshold_l1(side[..., 0], l1)
+        return -(2.0 * t * out + (side[..., 1] + l2) * out * out)
+
+    def num_gain(left, right, valid):
+        if path_smooth > 0.0:
+            l_out = smooth_output(
+                leaf_output(left[..., 0], left[..., 1], l1, l2,
+                            max_delta_step), left[..., 2], p_out,
+                path_smooth)
+            r_out = smooth_output(
+                leaf_output(right[..., 0], right[..., 1], l1, l2,
+                            max_delta_step), right[..., 2], p_out,
+                path_smooth)
+            g = (gain_given_output(left, l_out)
+                 + gain_given_output(right, r_out)) - shift
+        else:
+            g = plain_split_gain(left, right, l1, l2, shift)
+        ok = valid & size_constraints_ok(left, right, min_data_in_leaf,
+                                         min_sum_hessian)
+        return torch.where(ok, g, NEG_INF)
+
+    # case 0: missing right (the NaN bin is last; prefixes exclude it)
+    left0 = cum
+    right0 = parent[:, None, None, :] - left0
+    gain0 = num_gain(left0, right0, valid_t)
+    # case 1: missing left
+    left1 = cum + nanv[:, :, None, :]
+    right1 = parent[:, None, None, :] - left1
+    gain1 = num_gain(left1, right1, valid_t & has_nan[None, :, None])
+    res = _decide_numerical(gain0, gain1, left0, left1, parent,
+                            feat_missing, feat_default)
+    if one:
+        res = SplitResult(*(x[0] for x in res))
+    return res
+
+
+def _decide_numerical(gain0, gain1, left0, left1, parent, feat_missing,
+                      feat_default) -> SplitResult:
+    """Decide stage (the reference's `_decide_numerical`): one flat
+    first-wins argmax per batch row over [case, F, MB]."""
+    b, f, mb = gain0.shape
+    flat = torch.stack([gain0, gain1], dim=1).reshape(b, -1)
+    best = torch.argmax(flat, dim=1)
+    best_gain = flat.gather(1, best[:, None])[:, 0]
+    case = best // (f * mb)
+    rem = best % (f * mb)
+    feat = rem // mb
+    thr = rem % mb
+    rows = torch.arange(b, device=flat.device)
+    left = torch.where((case == 0)[:, None], left0[rows, feat, thr],
+                       left1[rows, feat, thr])
+    right = parent - left
+    mtype = feat_missing[feat]
+    dl = torch.where(mtype == MISSING_NAN, case == 1,
+                     (mtype == MISSING_ZERO) & (feat_default[feat] <= thr))
+    no_split = ~torch.isfinite(best_gain)
+    return SplitResult(
+        gain=torch.where(no_split, NEG_INF, best_gain),
+        feature=torch.where(no_split, -1, feat),
+        threshold_bin=thr, default_left=dl,
+        left_sum_g=left[:, 0], left_sum_h=left[:, 1], left_cnt=left[:, 2],
+        right_sum_g=right[:, 0], right_sum_h=right[:, 1],
+        right_cnt=right[:, 2])

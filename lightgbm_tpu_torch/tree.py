@@ -1,5 +1,9 @@
 """Flat-array decision tree + LightGBM model-text round-trip.
 
+The port's copy of `lightgbm_tpu/tree.py`: the same flat arrays, text
+format and host walk; `from_device` builds a tree from the port's
+grower (numerical splits).
+
 TPU-native re-design of the reference's tree container
 (ref: include/LightGBM/tree.h `Tree` [flat arrays split_feature_/threshold_/
 left_child_/right_child_/leaf_value_, negative child = ~leaf]; src/io/tree.cpp
@@ -75,6 +79,58 @@ class Tree:
         self.leaf_const = np.zeros(num_leaves, dtype=np.float64)
         self.leaf_features: list = [[] for _ in range(num_leaves)]
         self.leaf_coeff: list = [[] for _ in range(num_leaves)]
+
+    # ------------------------------------------------------------ construct
+    @classmethod
+    def from_device(cls, dev, bin_mappers: List[BinMapper],
+                    shrinkage: float) -> "Tree":
+        """Build a host Tree from a grown `ops.grow.DeviceTree` (the JAX
+        package's `tree.py:81 Tree.from_device`, numerical splits).
+
+        Child pointers are fixed up here: the grower records only
+        (step -> split leaf); the reference's `Tree::Split` pointer
+        surgery (the split leaf keeps its index as the left child, the
+        new leaf step + 1 is the right child) is reproduced on the host.
+        Real thresholds come from the bin mappers (`bin_to_value`), leaf
+        values are the f32 outputs times the shrinkage, in f32."""
+        ns = int(dev.n_splits)
+        nl = ns + 1
+        t = cls(nl)
+        t.shrinkage = shrinkage
+        leaf_pos = {0: (-1, False)}
+        for i in range(ns):
+            leaf = int(dev.split_leaf[i])
+            p, is_right = leaf_pos[leaf]
+            if p >= 0:
+                if is_right:
+                    t.right_child[p] = i
+                else:
+                    t.left_child[p] = i
+            t.left_child[i] = ~leaf
+            t.right_child[i] = ~(i + 1)
+            leaf_pos[leaf] = (i, False)
+            leaf_pos[i + 1] = (i, True)
+            f = int(dev.split_feature[i])
+            m = bin_mappers[f]
+            t.split_feature[i] = f
+            t.threshold_bin[i] = int(dev.threshold_bin[i])
+            t.threshold[i] = m.bin_to_value(int(dev.threshold_bin[i]))
+            dt = (m.missing_type & 3) << 2
+            if bool(dev.default_left[i]):
+                dt |= K_DEFAULT_LEFT_MASK
+            t.decision_type[i] = dt
+            t.split_gain[i] = float(dev.split_gain[i])
+            ih = dev.internal_h[i]
+            denom = ih if ih != 0 else 1.0
+            t.internal_value[i] = float(-dev.internal_g[i] / denom) \
+                * shrinkage
+            t.internal_weight[i] = float(ih)
+            t.internal_count[i] = float(dev.internal_cnt[i])
+        lv = np.asarray(dev.leaf_value, np.float32)[:nl]
+        t.leaf_value = (lv * shrinkage).astype(np.float64)
+        t.leaf_weight = np.asarray(dev.leaf_h)[:nl].astype(np.float64)
+        t.leaf_count = np.asarray(dev.leaf_cnt)[:nl].astype(np.float64)
+        return t
 
     def leaf_path_features(self) -> list:
         """Per-leaf NUMERICAL features on the root path, in path order

@@ -1,0 +1,161 @@
+"""Exclusive Feature Bundling (EFB): the bundle search only.
+
+A copy of the JAX package's `utils/efb.py` `BundleSpec`, `find_bundles`
+and its greedy core (ref: src/io/dataset.cpp `Dataset::FindGroups`
+[greedy conflict-bounded graph coloring over nonzero-row overlap]), on
+numpy, so `Dataset.construct` decides bundling exactly as the reference
+does: the same row sample under `np.random.RandomState(seed)`, the same
+most-used-first order (an unstable `np.argsort`, whose tie order is part
+of the reference's behaviour), the same budget and bin caps.
+
+Training on a bundled matrix is not ported yet: the booster refuses a
+dataset whose search found a bundle (ROADMAP Queue 1 item 5).
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+
+MAX_BUNDLE_BINS = 255      # keep bundled columns uint8
+MAX_SEARCH_BUNDLES = 100   # ref: FindGroups max_search_group
+CONFLICT_SAMPLE_ROWS = 50_000
+
+
+class BundleSpec(NamedTuple):
+    """Static description of a bundling (shared train → valid/subset)."""
+    col_of_feature: np.ndarray   # [F] i32 — bundle column of each feature
+    off_of_feature: np.ndarray   # [F] i32 — bin offset inside the column
+    identity: np.ndarray         # [F] bool — feature is alone in its column
+    n_cols: int                  # G
+    col_num_bin: np.ndarray      # [G] i32 — bins per bundle column
+    bundles: tuple               # tuple of tuples of feature indices
+
+    @property
+    def max_bin(self) -> int:
+        return int(self.col_num_bin.max()) if self.n_cols else 1
+
+    def to_dict(self) -> dict:
+        return {"col_of_feature": self.col_of_feature.tolist(),
+                "off_of_feature": self.off_of_feature.tolist(),
+                "identity": self.identity.tolist(),
+                "n_cols": self.n_cols,
+                "col_num_bin": self.col_num_bin.tolist(),
+                "bundles": [list(b) for b in self.bundles]}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BundleSpec":
+        return cls(np.asarray(d["col_of_feature"], np.int32),
+                   np.asarray(d["off_of_feature"], np.int32),
+                   np.asarray(d["identity"], bool),
+                   int(d["n_cols"]),
+                   np.asarray(d["col_num_bin"], np.int32),
+                   tuple(tuple(b) for b in d["bundles"]))
+
+
+def find_bundles(bin_nf: np.ndarray, mappers, max_conflict_rate: float,
+                 seed: int = 0) -> Optional[BundleSpec]:
+    """Greedy conflict-bounded bundling (ref: Dataset::FindGroups).
+
+    Returns None when bundling would not reduce the column count.
+    """
+    n, f = bin_nf.shape
+    if f < 2:
+        return None
+    # row sample for conflict counting (the reference counts conflicts on
+    # its bin_construct sample as well)
+    if n > CONFLICT_SAMPLE_ROWS:
+        rng = np.random.RandomState(seed)
+        rows = np.sort(rng.choice(n, CONFLICT_SAMPLE_ROWS, replace=False))
+        sample = bin_nf[rows]
+    else:
+        sample = bin_nf
+    ns = sample.shape[0]
+    nz = sample != 0                                   # [ns, F] nonzero mask
+    return _greedy_bundle(lambda j: nz[:, j], nz.sum(axis=0), ns, f,
+                          mappers, max_conflict_rate)
+
+
+
+def _greedy_bundle(col_mask, nz_cnt: np.ndarray, ns: int, f: int,
+                   mappers, max_conflict_rate: float) -> Optional[BundleSpec]:
+    """Shared greedy core over an abstract per-feature nonzero-mask getter
+    (`col_mask(j) -> bool [ns]`), so the dense and CSC paths bundle
+    identically given identical samples."""
+    budget = int(max_conflict_rate * ns)
+    nb = np.array([m.num_bin for m in mappers], np.int64)
+    # a feature may only join a bundle if an ABSENT/zero value maps to bin
+    # 0 — checked via value_to_bin(0.0), not default_bin: categorical
+    # mappers pin default_bin = 0 but route category 0 to bin >= 1, so a
+    # sparse categorical column whose implicit zeros mean "category 0"
+    # would silently read "all members default" from the bundle
+    eligible = np.array(
+        [(m.value_to_bin(0.0) == 0) and (not m.is_trivial)
+         and m.num_bin >= 2 and m.num_bin <= MAX_BUNDLE_BINS
+         for m in mappers])
+    # dense features cannot share a column under any reasonable budget —
+    # skip the search for them (cheap pre-filter, not in the reference)
+    eligible &= nz_cnt <= max(budget, int(0.5 * ns))
+
+    order = np.argsort(-nz_cnt)                        # most-used first
+    bundles: List[List[int]] = []
+    bundle_used: List[np.ndarray] = []                 # [ns] bool per bundle
+    bundle_conflicts: List[int] = []
+    bundle_bins: List[int] = []
+    singleton: List[int] = []
+    for j in order:
+        if not eligible[j]:
+            singleton.append(int(j))
+            continue
+        col = col_mask(j)
+        placed = False
+        for gi in range(min(len(bundles), MAX_SEARCH_BUNDLES)):
+            if bundle_bins[gi] + nb[j] - 1 > MAX_BUNDLE_BINS:
+                continue
+            cnt = int(np.count_nonzero(col & bundle_used[gi]))
+            if bundle_conflicts[gi] + cnt <= budget:
+                bundles[gi].append(int(j))
+                bundle_used[gi] |= col
+                bundle_conflicts[gi] += cnt
+                bundle_bins[gi] += int(nb[j]) - 1
+                placed = True
+                break
+        if not placed:
+            bundles.append([int(j)])
+            bundle_used.append(np.array(col, copy=True))
+            bundle_conflicts.append(0)
+            bundle_bins.append(1 + int(nb[j]) - 1)
+            if len(bundles) > MAX_SEARCH_BUNDLES:
+                # bundles past the search horizon never receive members —
+                # drop their masks so memory stays O(search_horizon · ns)
+                bundle_used[-1] = np.zeros(0, bool)
+    # flatten single-member bundles into singletons
+    real_bundles = [b for b in bundles if len(b) > 1]
+    singleton += [b[0] for b in bundles if len(b) == 1]
+    if not real_bundles:
+        return None
+    G = len(real_bundles) + len(singleton)
+    if G >= f:
+        return None
+
+    col_of = np.zeros(f, np.int32)
+    off_of = np.zeros(f, np.int32)
+    identity = np.zeros(f, bool)
+    col_nb = np.zeros(G, np.int32)
+    gi = 0
+    for b in real_bundles:
+        off = 1
+        for j in sorted(b):
+            col_of[j] = gi
+            off_of[j] = off
+            off += int(nb[j]) - 1
+        col_nb[gi] = off
+        gi += 1
+    for j in sorted(singleton):
+        col_of[j] = gi
+        off_of[j] = 1          # identity map: bin b (>=1) stores as b
+        identity[j] = True
+        col_nb[gi] = int(nb[j])
+        gi += 1
+    return BundleSpec(col_of, off_of, identity, G, col_nb,
+                      tuple(tuple(sorted(b)) for b in real_bundles))

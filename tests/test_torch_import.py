@@ -20,11 +20,27 @@ _FORBIDDEN = re.compile(
     r"|from\s+(jax|lightgbm_tpu)\b(?!_torch)[\w.]*\s+import)")
 
 
+#: every module of the port, imported by the subprocess check below
+MODULES = ("serving.runtime", "interop", "basic", "booster", "callback",
+           "engine", "metrics", "objectives", "tree", "utils.config",
+           "utils.efb", "utils.binning", "ops.grow", "ops.hist_kernel",
+           "ops.histogram", "ops.reduce", "ops.split", "ops.predict",
+           "compiler.kernel", "compiler._build", "compiler.plan",
+           "compiler.quantize", "utils.log")
+
+
+def test_every_module_is_listed():
+    found = {".".join(p.relative_to(ROOT / "lightgbm_tpu_torch")
+                      .with_suffix("").parts)
+             for p in (ROOT / "lightgbm_tpu_torch").rglob("*.py")}
+    found = {m for m in found if not m.endswith("__init__")}
+    assert found == set(MODULES)
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys; import lightgbm_tpu_torch; "
-            "import lightgbm_tpu_torch.serving.runtime; "
-            "import lightgbm_tpu_torch.interop; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            + "".join(f"import lightgbm_tpu_torch.{m}; " for m in MODULES)
+            + "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'lightgbm_tpu' or "
             "m.startswith('lightgbm_tpu.')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

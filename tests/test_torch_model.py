@@ -116,8 +116,11 @@ def test_synthetic_forest_loads_alike_in_both_packages():
 
 
 def test_training_entry_points_raise():
+    """Training is ported (tests/test_torch_train.py); a booster loaded
+    from model text still cannot train, and a train set must be the
+    port's own Dataset."""
     bp = lt.Booster(model_str=_golden_text("binary"))
-    with pytest.raises(lt.LightGBMError, match="training"):
+    with pytest.raises(lt.LightGBMError, match="loaded from model text"):
         bp.update()
-    with pytest.raises(lt.LightGBMError, match="training"):
+    with pytest.raises(TypeError, match="Dataset"):
         lt.Booster(train_set=object())
