@@ -47,8 +47,30 @@ Phases, each printing one JSON line:
           walk at the model's f64 thresholds differs are counted).
           Kernel launch counts are read around this phase alone.  Then round times,
           K1's share of them, host binning seconds and host syncs.
+  fused   the fused histogram+split kernel K2 and the scan kernel K3
+          (`csrc/fused_split.cu`) on the train phase's bins: S = 1 at the
+          root, S = 8 and S = 14 over a real partition of the rows (one
+          slot matching no row), u16 bins at max_bin 1023.  K2's
+          histogram within 1e-4*sum|x|+1e-6 of its plain version run on
+          the card (counts exact) and bitwise K1's; K2's candidates
+          bitwise the plain scan run on the card over that histogram;
+          K3's bitwise K2's; `decide_from_candidates` field for field
+          `find_best_split`; two launches bitwise equal.  Then K2, K3
+          (device time, its launches queued behind a spin kernel), their
+          plain versions and K1 timed, and the bytes bounds.
+  train_wave  the bench's wave configuration (tree_grow_policy=wave,
+          width 8, gain ratio 0, strict tail 16, num_leaves 31) on the
+          train phase's data, 10 rounds: two fused runs byte-identical,
+          an unfused run (K1 and the torch split search) byte-identical,
+          held-out AUC within 1e-3 of hist_impl=segment_sum, and per
+          round K2 launches = 1 + waves that built histograms, K3
+          launches = those waves, host syncs = 1 + those waves.  Then a
+          255-leaf, 14-wide run (K2 at its full 14-slot chunk), fused
+          against unfused.  Round times, K2's and K3's share, waves and
+          syncs per tree, one profiled round.
   kernels one line per kernel: launches on its path's phase (traverse
-          and accumulate: main; histogram: train), parity, times, bound.
+          and accumulate: main; histogram: train; fused_hist_split and
+          split_scan: train_wave), parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line `{"ok": true, "device": {...}}`.  Any failure exits
@@ -60,6 +82,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +102,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 F64_ADDS_PER_S = 132 * 64 * 1.98e9
 F32_OPS_PER_S = 67e12
+#: kernels held to their plain versions within a tolerance (the rest
+#: bitwise): float sums in another order than the plain version's
+WITHIN_TOL = ("histogram", "fused_hist_split")
 #: wide synthetic models of the golden phase, (name, features): 64
 #: features put a 256-row block's rows above the 48 KB of shared memory
 #: a launch gets by default (the kernel opts in to more), 300 features
@@ -257,20 +283,44 @@ def _emit(obj):
     print(json.dumps(obj, sort_keys=False), flush=True)
 
 
-def _cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() over `iters` runs, from CUDA events."""
+def _cuda_ms(fn, iters=20, warmup=3, queued=False):
+    """Mean time of fn() over `iters` runs, from CUDA events.  With
+    `queued`, a spin kernel holds the stream until every run has been
+    submitted, so the events read the device's time and not the pace at
+    which the host submits (for kernels shorter than their launch's host
+    cost); the spin is lengthened until the runs were all queued."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = 2_000_000
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if not queued or ahead:
+            return start.elapsed_time(end) / iters
+        _check(cycles < 1 << 34, "timing: the runs could not be queued "
+               "ahead of the card")
+        cycles *= 4
+
+
+def _max_abs_diff(a, b):
+    """Largest |a - b| over the elements; elements that are equal, or
+    both NaN, count 0 (so -inf against -inf is 0), a NaN against a
+    number counts inf."""
+    import torch
+    a, b = a.float(), b.float()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    return float(torch.nan_to_num(d, nan=float("inf")).max())
 
 
 def _bits_equal(a, b):
@@ -345,7 +395,8 @@ def phase_env():
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    _check(set(built) == {"traverse", "accumulate", "histogram"},
+    _check(set(built) == {"traverse", "accumulate", "histogram",
+                          "fused_split"},
            f"build_all built {sorted(built)}")
     _emit({"phase": "env", "torch": torch.__version__,
            "cuda": torch.version.cuda,
@@ -772,10 +823,28 @@ def _profile_round(params, dataset):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     busy = sum(by_name.values())
+    # the port's own kernels (the __global__ functions of csrc/): device
+    # ms and launches, whatever the host's pace
+    csrc = os.path.join(ROOT, "lightgbm_tpu_torch", "csrc")
+    names = set()
+    for fname in os.listdir(csrc):
+        if fname.endswith((".cu", ".cuh")):
+            with open(os.path.join(csrc, fname)) as fh:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                    r"(\w+)\s*\(", fh.read()))
+    ours = {}
+    for e in kernels:
+        head, _, key = e.name.partition("(anonymous namespace)::")
+        key = key.split("<")[0].split("(")[0]
+        if head in ("", "void ") and key in names:
+            ms, count = ours.get(key, (0.0, 0))
+            ours[key] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     return {"wall_ms": wall * 1e3,
             "kernel_ms": busy / 1e3 if kernels else None,
             "kernels": len(kernels),
-            "top_kernels_ms": [(n[:60], us / 1e3) for n, us in top]}
+            "top_kernels_ms": [(n[:60], us / 1e3) for n, us in top],
+            "port_kernels_ms_launches": ours}
 
 
 def phase_train(data: TrainData, modules, device=None, timing=True):
@@ -897,6 +966,416 @@ def phase_train(data: TrainData, modules, device=None, timing=True):
     return launches
 
 
+# ------------------------------------------------------------- the wave
+#: the wave phase's configuration: the repo's own bench configuration
+#: (`bench.py` BENCH_CONFIG from `benchmarks/configs_r4.py` SHIPPED =
+#: "wave_w8_tail16": wave policy, width 8, gain ratio 0, strict tail 16;
+#: num_leaves 31, f32 histograms) on the train phase's data
+WAVE_PARAMS = dict(TRAIN_PARAMS, num_leaves=31, tree_grow_policy="wave",
+                   tpu_wave_width=8, tpu_wave_gain_ratio=0,
+                   tpu_wave_strict_tail=16)
+#: the wide wave run: K2 at the full 14-slot chunk on the training path
+WAVE_WIDE = dict(WAVE_PARAMS, num_leaves=255, tpu_wave_width=14)
+#: the kernel phase's split-scan settings (l1 and the gates non-trivial)
+FUSED_SCAN_KW = dict(l1=0.5, l2=1.0, min_data_in_leaf=20.0,
+                     min_sum_hessian=1e-3, min_gain_to_split=0.01)
+#: operations of the scan per (slot, feature, bin): 3 prefix adds, then
+#: per case 3 adds of the NaN bin's sums, 3 subtractions for the right
+#: side, two leaf gains of 7 operations, 2 adds and 4 gate compares
+SCAN_OPS_PER_BIN = 3 + 2 * (3 + 3 + 14 + 2 + 4)
+
+
+def _partition(bins_np, levels: int):
+    """Leaf ids of a real partition of the rows: `levels` depth-wise
+    splits at the median bin of features 0, 1, 2, ... (2^levels leaves)."""
+    lid = np.zeros(bins_np.shape[1], np.int32)
+    for k in range(levels):
+        col = bins_np[k]
+        lid += (col > np.median(col)).astype(np.int32) << k
+    return lid
+
+
+def _wave_payload(y, seed):
+    """A binary payload with per-row hessians: g = p - y, h = p (1 - p),
+    w = 1, p drawn from [0.2, 0.8]."""
+    rng = np.random.RandomState(seed)
+    p = rng.uniform(0.2, 0.8, len(y)).astype(np.float32)
+    return np.stack([p - y.astype(np.float32), p * (1 - p),
+                     np.ones(len(y), np.float32)], axis=1)
+
+
+def _without(text, *keys):
+    """Model text without the parameter lines of `keys` (the runs a gate
+    compares differ only in those settings)."""
+    return "\n".join(ln for ln in text.splitlines()
+                     if not any(ln.startswith(f"[{k}:") for k in keys))
+
+
+def _fields_equal(a, b):
+    """Two SplitResults equal field for field, bitwise."""
+    import torch
+    return all(x.dtype == y_.dtype and torch.equal(x, y_)
+               and bool(torch.equal(torch.signbit(x.float()),
+                                    torch.signbit(y_.float())))
+               for x, y_ in zip(a, b))
+
+
+def phase_fused(data: TrainData, seed: int, device=None,
+                u16_rows: int = 100_000, timing: bool = True):
+    """K2 and K3 on the card against K1 and the plain scan, on the train
+    phase's bins: S = 1 at the root, S = 8 and S = 14 over a real
+    partition of the rows with one slot that matches no row, and u16
+    bins at max_bin 1023.  Returns the kernels-line entries of K2 and K3
+    at the S = 8 case (the bench's wave width; launches filled in by the
+    wave phase)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import fused_kernel as fk
+    from lightgbm_tpu_torch.ops.hist_kernel import (histogram_multi,
+                                                    histogram_multi_plain)
+    from lightgbm_tpu_torch.ops.split import (decide_from_candidates,
+                                              find_best_split)
+    dev = torch.device(device or "cuda")
+    ds = data.dataset
+    wide = lt.Dataset(data.X[:u16_rows], label=data.y[:u16_rows],
+                      params={"max_bin": 1023, "verbosity": -1}).construct()
+    _check(wide.bin_data.dtype == np.uint16, "u16 case is not uint16")
+    bins_main = np.ascontiguousarray(ds.bin_data.T)
+    bins_wide = np.ascontiguousarray(wide.bin_data.T)
+    lid3 = _partition(bins_main, 3)
+    lid4 = _partition(bins_main, 4)
+    cases = [("root_s1", ds, bins_main, data.y, np.zeros_like(lid3), [0]),
+             ("s8", ds, bins_main, data.y, lid3, list(range(7)) + [99]),
+             ("s14", ds, bins_main, data.y, lid4, list(range(13)) + [99]),
+             ("u16_1023_s4", wide, bins_wide, data.y[:u16_rows],
+              _partition(bins_wide, 2), [0, 1, 2, 3])]
+    report = {"phase": "fused", "scan_kw": FUSED_SCAN_KW, "cases": {}}
+    kw = FUSED_SCAN_KW
+    entries = {}
+    worst = {"k2": 0.0, "k3": 0.0}
+    for name, d, bnp, y, lid_np, slots in cases:
+        mb = max(m.num_bin for m in d.bin_mappers)
+        f, n = bnp.shape
+        # the real bin counts and default bins; missing types cycled
+        # through None, Zero and NaN so that both cases of the scan run
+        nb = torch.tensor([m.num_bin for m in d.bin_mappers],
+                          dtype=torch.int32, device=dev)
+        miss = torch.arange(f, dtype=torch.int32, device=dev) % 3
+        dflt = torch.tensor([m.default_bin for m in d.bin_mappers],
+                            dtype=torch.int32, device=dev)
+        bins = torch.from_numpy(bnp).to(dev)
+        pay = torch.from_numpy(_wave_payload(y, seed)).to(dev)
+        lid = torch.from_numpy(lid_np).to(dev)
+        sl = torch.tensor(slots, dtype=torch.int32, device=dev)
+        k1 = histogram_multi(bins, pay, lid, sl, mb)
+        parent = k1[:, 0].sum(dim=1).contiguous()            # [S, 3]
+        h2, c2 = fk.fused_hist_split(bins, pay, lid, sl, nb, miss, parent,
+                                     mb, **kw)
+        h2b, c2b = fk.fused_hist_split(bins, pay, lid, sl, nb, miss, parent,
+                                       mb, **kw)
+        c3 = fk.split_scan(h2, nb, miss, parent, **kw)
+        c3b = fk.split_scan(h2, nb, miss, parent, **kw)
+        plain = fk.split_scan_plain(h2, nb, miss, parent, **kw)
+        # K2 against its own plain version on the same inputs, by K1's
+        # rule (K1 shares K2's first stage, so bitwise K1 alone would
+        # not catch a fault in that shared code)
+        hp, _ = fk.fused_hist_split_plain(bins, pay, lid, sl, nb, miss,
+                                          parent, mb, **kw)
+        absum = histogram_multi_plain(bins, pay.abs(), lid, sl, mb)
+        k2_err = (h2 - hp).abs()
+        _check(bool((k2_err <= 1e-4 * absum + 1e-6).all()),
+               f"fused {name}: K2's histogram outside 1e-4*sum|x|+1e-6 "
+               "of the plain version")
+        _check(torch.equal(h2[..., 2], hp[..., 2]),
+               f"fused {name}: K2's counts differ from the plain version")
+        _check(torch.equal(h2, k1) and _bits_equal(h2.cpu().numpy(),
+                                                   k1.cpu().numpy()),
+               f"fused {name}: K2's histogram != K1's")
+        _check(_bits_equal(c2.cpu().numpy(), plain.cpu().numpy()),
+               f"fused {name}: K2's candidates != the plain scan")
+        _check(_bits_equal(c3.cpu().numpy(), c2.cpu().numpy()),
+               f"fused {name}: K3's candidates != K2's")
+        _check(_bits_equal(h2b.cpu().numpy(), h2.cpu().numpy())
+               and _bits_equal(c2b.cpu().numpy(), c2.cpu().numpy())
+               and _bits_equal(c3b.cpu().numpy(), c3.cpu().numpy()),
+               f"fused {name}: two launches differ")
+        allowed = torch.ones(f, dtype=torch.bool, device=dev)
+        got = decide_from_candidates(c2, parent[:, 0], parent[:, 1],
+                                     parent[:, 2], miss, dflt, allowed)
+        want = find_best_split(h2, parent[:, 0], parent[:, 1], parent[:, 2],
+                               nb, miss, dflt, allowed, kw["l1"], kw["l2"],
+                               kw["min_data_in_leaf"], kw["min_sum_hessian"],
+                               kw["min_gain_to_split"])
+        _check(_fields_equal(got, want),
+               f"fused {name}: decide_from_candidates != find_best_split")
+        pads = [i for i, s_ in enumerate(slots) if s_ == 99]
+        _check(all(not bool(h2[i].any()) for i in pads),
+               f"fused {name}: a pad slot's histogram is not zero")
+        k2_hist_err = float(k2_err.max())
+        k2_cand_err = _max_abs_diff(c2, plain)
+        k3_err = _max_abs_diff(c3, plain)
+        worst["k2"] = max(worst["k2"], k2_hist_err, k2_cand_err)
+        worst["k3"] = max(worst["k3"], k3_err)
+        rows_in = int((lid[:, None] == sl[None, :]).any(1).sum())
+        s = len(slots)
+        k2_bytes = (bins.numel() * bins.element_size() + n * 4
+                    + rows_in * 12 + s * f * mb * 12 + s * 2 * f * 32)
+        k3_bytes = s * f * mb * 12 + s * 2 * f * 32
+        k2_ops = 3 * rows_in * f + s * f * mb * SCAN_OPS_PER_BIN
+        k3_ops = s * f * mb * SCAN_OPS_PER_BIN
+        case = {"rows": n, "features": f, "slots": s, "max_bin": mb,
+                "dtype": str(bnp.dtype), "rows_in_slots": rows_in,
+                "splits_found": int((got.feature >= 0).sum()),
+                "k2_hist_bitwise_k1": True, "k2_cand_bitwise_plain": True,
+                "k3_cand_bitwise_k2": True, "decide_equals_find": True,
+                "bitwise_repro": True, "k2_hist_within_tol_plain": True,
+                "k2_counts_exact_plain": True,
+                "k2_hist_max_abs_err_plain": k2_hist_err,
+                "k2_cand_max_abs_err_plain": k2_cand_err,
+                "k3_cand_max_abs_err_plain": k3_err,
+                "k2_bytes": k2_bytes, "k3_bytes": k3_bytes,
+                "k2_bound_ms": max(k2_bytes / HBM_BYTES_PER_S,
+                                   k2_ops / F32_OPS_PER_S) * 1e3,
+                "k3_bound_ms": max(k3_bytes / HBM_BYTES_PER_S,
+                                   k3_ops / F32_OPS_PER_S) * 1e3}
+        if timing:
+            case.update({
+                "k2_ms": _cuda_ms(lambda: fk.fused_hist_split(
+                    bins, pay, lid, sl, nb, miss, parent, mb, **kw)),
+                "k2_plain_ms": _cuda_ms(lambda: fk.fused_hist_split_plain(
+                    bins, pay, lid, sl, nb, miss, parent, mb, **kw),
+                    iters=3, warmup=1),
+                "k1_ms": _cuda_ms(lambda: histogram_multi(bins, pay, lid,
+                                                          sl, mb)),
+                "k3_ms": _cuda_ms(lambda: fk.split_scan(
+                    h2, nb, miss, parent, **kw), queued=True),
+                "k3_host_pace_ms": _cuda_ms(lambda: fk.split_scan(
+                    h2, nb, miss, parent, **kw)),
+                "k3_plain_ms": _cuda_ms(lambda: fk.split_scan_plain(
+                    h2, nb, miss, parent, **kw), iters=5, warmup=1)})
+        report["cases"][name] = case
+        if name == "s8":
+            # max_abs_err is filled in after the last case
+            entries = {
+                "fused_hist_split": {
+                    "name": "fused_hist_split", "route": "cuda",
+                    "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
+                    "replaces": "lightgbm_tpu/ops/pallas_hist.py:486",
+                    "launches": 0, "ms": case.get("k2_ms"),
+                    "plain_ms": case.get("k2_plain_ms"),
+                    "bound_ms": case["k2_bound_ms"],
+                    "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S
+                    >= k2_ops / F32_OPS_PER_S else "operations",
+                    "library_ms": None},
+                "split_scan": {
+                    "name": "split_scan", "route": "cuda",
+                    "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
+                    "replaces": "lightgbm_tpu/ops/pallas_hist.py:775",
+                    "launches": 0, "ms": case.get("k3_ms"),
+                    "plain_ms": case.get("k3_plain_ms"),
+                    "bound_ms": case["k3_bound_ms"],
+                    "bound_by": "bytes" if k3_bytes / HBM_BYTES_PER_S
+                    >= k3_ops / F32_OPS_PER_S else "operations",
+                    "library_ms": None}}
+    entries["fused_hist_split"]["max_abs_err"] = worst["k2"]
+    entries["split_scan"]["max_abs_err"] = worst["k3"]
+    report["max_abs_err"] = worst
+    report["library_ms"] = None
+    report["library_note"] = ("no single PyTorch call computes a "
+                              "histogram together with a split scan, or "
+                              "the scan's per-feature first-wins argmax")
+    _emit(report)
+    return entries
+
+
+def _wave_counters(modules):
+    from lightgbm_tpu_torch.ops import grow as grow_module
+    from lightgbm_tpu_torch.ops import grow_wave
+    return {"k2": modules["fused"].FUSED_LAUNCHES,
+            "k3": modules["fused"].SCAN_LAUNCHES,
+            "k1": modules["hist"].HIST_LAUNCHES,
+            "syncs": grow_module.HOST_SYNCS, "waves": grow_wave.WAVES,
+            "hist_waves": grow_wave.HIST_WAVES}
+
+
+def _zero_wave_counters(modules):
+    from lightgbm_tpu_torch.ops import grow as grow_module
+    from lightgbm_tpu_torch.ops import grow_wave
+    modules["fused"].FUSED_LAUNCHES = 0
+    modules["fused"].SCAN_LAUNCHES = 0
+    modules["hist"].HIST_LAUNCHES = 0
+    grow_module.HOST_SYNCS = 0
+    grow_wave.WAVES = 0
+    grow_wave.HIST_WAVES = 0
+
+
+def _wave_run(params, dataset, modules, rounds, timing):
+    """One wave training run with per-round counters, round marks and,
+    with `timing`, CUDA events around every K2 and K3 call.  Returns the
+    booster and what was recorded."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import grow_wave
+    real = {"fused_hist_split": grow_wave.fused_hist_split,
+            "split_scan": grow_wave.split_scan}
+    events = {k: [] for k in real}
+    slots_seen = []
+    per_round, marks = [], []
+    done = [0]
+
+    def timed(key):
+        def call(*a, **kw):
+            if key == "fused_hist_split":
+                slots_seen.append(int(a[3].shape[0]))
+            if not timing:
+                return real[key](*a, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[key](*a, **kw)
+            end.record()
+            events[key].append((done[0], start, end))
+            return out
+        return call
+
+    before = [_wave_counters(modules)]
+
+    def mark_round(env):
+        if timing:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        now = _wave_counters(modules)
+        per_round.append({k: now[k] - before[0][k] for k in now})
+        before[0] = now
+        done[0] += 1
+
+    for key in real:
+        setattr(grow_wave, key, timed(key))
+    try:
+        t0 = time.perf_counter()
+        bst = lt.train(params, dataset, num_boost_round=rounds,
+                       callbacks=[mark_round])
+    finally:
+        for key, fn in real.items():
+            setattr(grow_wave, key, fn)
+    out = {"per_round": per_round, "round_s": np.diff([t0] + marks),
+           "max_slots": max(slots_seen) if slots_seen else 0}
+    if timing:
+        for key, evs in events.items():
+            ms = np.zeros(rounds)
+            for r, start, end in evs:
+                ms[r] += start.elapsed_time(end)
+            out[f"{key}_ms_per_round"] = ms
+    return bst, out
+
+
+def phase_train_wave(data: TrainData, modules, device=None, timing=True,
+                     rounds: int = TRAIN_ROUNDS):
+    """`lightgbm_tpu_torch.train` with the bench's wave configuration
+    (WAVE_PARAMS) on the train phase's data: the fused run timed, a
+    second fused run and an unfused run (K1 and the torch split search,
+    `tpu_fused_split=False`) byte-identical to it, the held-out AUC
+    within 1e-3 of `hist_impl=segment_sum`, the per-round launch and
+    sync counts; then the 255-leaf, 14-wide run, fused against unfused.
+    Returns the K2 and K3 launches of the main (first) run."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    params = dict(WAVE_PARAMS)
+    wide = dict(WAVE_WIDE)
+    if device is not None:
+        params["device_type"] = wide["device_type"] = device
+
+    # ---- the main path, alone between the counter reads
+    _zero_wave_counters(modules)
+    t0 = time.perf_counter()
+    bst, rec = _wave_run(params, data.dataset, modules, rounds, timing)
+    train_s = time.perf_counter() - t0
+    total = _wave_counters(modules)
+    launches = {"fused_hist_split": total["k2"], "split_scan": total["k3"]}
+    _check(bst._grower_spec.fused, "train_wave: the run is not fused")
+    for r, c in enumerate(rec["per_round"]):
+        _check(c["k2"] == 1 + c["hist_waves"] and c["k3"] == c["hist_waves"]
+               and c["k1"] == 0 and c["syncs"] == 1 + c["hist_waves"]
+               and c["hist_waves"] > 0,
+               f"train_wave: round {r + 1} counted {c}")
+    _check(len(bst.trees) == rounds, "train_wave: bad model")
+    text = bst.model_to_string()
+
+    # ---- gates
+    again = lt.train(params, data.dataset, num_boost_round=rounds)
+    _check(again.model_to_string() == text,
+           "train_wave: two fused runs differ")
+    _zero_wave_counters(modules)
+    unfused = lt.train(dict(params, tpu_fused_split=False), data.dataset,
+                       num_boost_round=rounds)
+    uc = _wave_counters(modules)
+    _check(not unfused._grower_spec.fused and uc["k2"] == 0
+           and uc["k3"] == 0 and uc["k1"] == rounds + uc["hist_waves"],
+           f"train_wave: the unfused run counted {uc}")
+    _check(_without(unfused.model_to_string(), "tpu_fused_split")
+           == _without(text, "tpu_fused_split"),
+           "train_wave: fused and unfused models differ")
+    seg = lt.train(dict(params, hist_impl="segment_sum"), data.dataset,
+                   num_boost_round=rounds)
+    raw = bst.predict(data.X_hold, raw_score=True)
+    auc_k = _auc(raw, data.y_hold)
+    auc_s = _auc(seg.predict(data.X_hold, raw_score=True), data.y_hold)
+    _check(abs(auc_k - auc_s) <= 1e-3,
+           f"train_wave: held-out AUC {auc_k} vs segment_sum {auc_s}")
+    _check(bool(np.all(np.isfinite(raw))), "train_wave: scores not finite")
+
+    # ---- the wide run: K2 at 14 slots on the training path
+    _zero_wave_counters(modules)
+    wbst, wrec = _wave_run(wide, data.dataset, modules, rounds, False)
+    wc = _wave_counters(modules)
+    _check(wrec["max_slots"] == 14,
+           f"train_wave: the wide run's widest K2 call had "
+           f"{wrec['max_slots']} slots")
+    wide_unfused = lt.train(dict(wide, tpu_fused_split=False), data.dataset,
+                            num_boost_round=rounds)
+    _check(_without(wide_unfused.model_to_string(), "tpu_fused_split")
+           == _without(wbst.model_to_string(), "tpu_fused_split"),
+           "train_wave: 255 leaves: fused and unfused models differ")
+
+    trees = len(bst.trees)
+    report = {"phase": "train_wave", "params": WAVE_PARAMS,
+              "rows": int(data.X.shape[0]), "rounds": rounds,
+              "leaves_per_tree": [t.num_leaves for t in bst.trees],
+              "auc_fused": auc_k, "auc_segment_sum": auc_s,
+              "model_text_identical_fused_twice": True,
+              "model_text_identical_unfused": True,
+              "waves": total["waves"], "hist_waves": total["hist_waves"],
+              "waves_per_tree": total["waves"] / trees,
+              "host_syncs": total["syncs"],
+              "host_syncs_per_tree": total["syncs"] / trees,
+              "per_round_counts": rec["per_round"],
+              "launches": launches, "train_s": train_s,
+              "wide": {"params": WAVE_WIDE,
+                       "leaves_per_tree": [t.num_leaves
+                                           for t in wbst.trees],
+                       "max_k2_slots": wrec["max_slots"],
+                       "waves_per_tree": wc["waves"] / len(wbst.trees),
+                       "host_syncs_per_tree": wc["syncs"] / len(wbst.trees),
+                       "k2_launches": wc["k2"], "k3_launches": wc["k3"],
+                       "model_text_identical_unfused": True}}
+    if timing:
+        steady = rec["round_s"][1:]
+        k2 = rec["fused_hist_split_ms_per_round"]
+        k3 = rec["split_scan_ms_per_round"]
+        report.update({
+            "round_ms": [float(x) * 1e3 for x in rec["round_s"]],
+            "ms_per_round_2_to_10": float(steady.mean()) * 1e3,
+            "rounds_per_s_2_to_10": float(1.0 / steady.mean()),
+            "k2_ms_per_round": [float(x) for x in k2],
+            "k3_ms_per_round": [float(x) for x in k3],
+            "k2_share_2_to_10": float(k2[1:].sum() / (steady.sum() * 1e3)),
+            "k3_share_2_to_10": float(k3[1:].sum() / (steady.sum() * 1e3)),
+            "wide_round_ms": [float(x) * 1e3 for x in wrec["round_s"]],
+            "profiled_round": _profile_round(params, data.dataset)})
+    _emit(report)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -908,6 +1387,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         import lightgbm_tpu_torch.compiler.kernel as kernel_module
+        import lightgbm_tpu_torch.ops.fused_kernel as fused_module
         import lightgbm_tpu_torch.ops.hist_kernel as hist_module
         import lightgbm_tpu_torch.ops.predict as predict_module
     except ImportError as e:
@@ -925,9 +1405,15 @@ def main(argv=None) -> int:
                                       "predict": predict_module})
         hist["launches"] = launches["histogram"]
         kernels.append(hist)
+        fused = phase_fused(data, args.seed)
+        wave = phase_train_wave(data, {"hist": hist_module,
+                                       "fused": fused_module})
+        for name in ("fused_hist_split", "split_scan"):
+            fused[name]["launches"] = wave[name]
+            kernels.append(fused[name])
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
-             "parity": ("within_tol" if k["name"] == "histogram"
+             "parity": ("within_tol" if k["name"] in WITHIN_TOL
                         else "bitwise" if k["max_abs_err"] == 0
                         else "differs")}
             for k in kernels]})

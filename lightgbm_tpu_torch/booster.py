@@ -8,11 +8,14 @@ gbdt_model_text.cpp `SaveModelToString` / `LoadModelFromString`).
 Training (`Booster(params, train_set)`, then `update`): the default path
 of the reference's `_init_train`, `_boost_from_average`, `update` /
 `_update_impl`, `__boost` and `_apply_tree_to_score`, for gbdt on
-numerical features with the strict leaf-wise grower (`ops/grow.py`) and
-f32 histograms.  The bin matrix, scores, gradients and histograms live
-on the training device: the card by default (`device_type="cuda"`, the
-K1 kernel makes every histogram), the CPU with `device_type="cpu"` (the
-plain versions).  One iteration is: gradients, one grown tree per class,
+numerical features with f32 histograms, with the strict leaf-wise
+grower (`ops/grow.py`, the default `tree_grow_policy=leafwise`) or the
+wave grower (`ops/grow_wave.py`, `tree_grow_policy=wave`).  The bin
+matrix, scores, gradients and histograms live on the training device:
+the card by default (`device_type="cuda"`: the K1 kernel makes every
+histogram, or on the wave's fused path K2 and K3 make the histograms
+and split candidates), the CPU with `device_type="cpu"` (the plain
+versions).  One iteration is: gradients, one grown tree per class,
 the train score updated through the grower's final `leaf_id`, each
 validation score through a bin-level replay of the tree.  Everything the
 slice does not implement raises `LightGBMError` naming its ROADMAP item.
@@ -37,6 +40,8 @@ from .metrics import Metric, create_metrics
 from .objectives import Objective, TrainObjective, create_objective, \
     parse_objective
 from .ops.grow import DeviceTree, GrowerSpec, make_grower, split_go_left
+from .ops.grow_wave import WAVE_WIDTH_DEFAULT, make_wave_grower
+from .ops.hist_kernel import MULTI_CHUNK
 from .tree import Tree
 from .utils import log
 from .utils.binning import BIN_TYPE_CATEGORICAL
@@ -125,10 +130,6 @@ def refusals(cfg: Config) -> List[str]:
     if cfg.use_quantized_grad:
         out.append("use_quantized_grad (ROADMAP Queue 1 item 3: "
                    "quantized training on K4 and K5)")
-    if str(cfg.tree_grow_policy or "leafwise").lower() not in (
-            "leafwise", "leaf", "strict"):
-        out.append(f"tree_grow_policy={cfg.tree_grow_policy} (ROADMAP "
-                   "Queue 1 item 2: the wave grower on K2 and K3)")
     if cfg.external_memory or str(cfg.streaming_train).lower() == "on":
         out.append(f"external memory / streamed training ({EXTERNAL})")
     if str(cfg.tree_learner).lower() != "serial" or cfg.num_machines > 1:
@@ -139,30 +140,68 @@ def refusals(cfg: Config) -> List[str]:
 
 def hist_impl_of(requested, device: torch.device) -> str:
     """The grower's histogram path for `hist_impl` on `device`: "auto"
-    is the K1 kernel on a CUDA device and the plain version on the CPU;
-    "segment_sum" is the plain version anywhere; "pallas" is the kernel
-    and raises on the CPU.  Nothing is swapped in quietly."""
+    is the kernels on a CUDA device and their plain versions on the CPU;
+    "segment_sum" is the plain histogram anywhere; "pallas" and
+    "pallas_fused" are the kernels (K1; K2 and K3 where the fused choice
+    applies, `fused_split_of`) and raise on the CPU.  Nothing is swapped
+    in quietly."""
     req = str(requested or "auto").lower()
     if req == "auto":
-        return "kernel"          # histogram_multi: plain on CPU tensors
+        return "kernel"          # the wrappers run plain on CPU tensors
     if req == "segment_sum":
         return "plain"
-    if req == "pallas":
+    if req in ("pallas", "pallas_fused"):
         if device.type != "cuda":
-            raise LightGBMError("hist_impl=pallas runs the K1 kernel, which "
-                                "needs a CUDA device; use hist_impl=auto or "
-                                "segment_sum on the CPU")
+            raise LightGBMError(f"hist_impl={req} runs the CUDA kernels, "
+                                "which need a CUDA device; use "
+                                "hist_impl=auto or segment_sum on the CPU")
         return "kernel"
-    if req in ("packed", "pallas_q"):
+    if req in ("packed", "pallas_q", "pallas_fused_q"):
         raise LightGBMError(f"hist_impl={req} is not ported yet (ROADMAP "
                             "Queue 1 item 3: quantized training on K4 and "
                             "K5)")
-    if req in ("pallas_fused", "pallas_fused_q"):
-        raise LightGBMError(f"hist_impl={req} is not ported yet (ROADMAP "
-                            "Queue 1 items 2 and 3: the fused kernels K2 and "
-                            "K5)")
     raise LightGBMError(f"Unknown hist_impl {requested!r} (expected auto, "
-                        "segment_sum or pallas)")
+                        "segment_sum, pallas or pallas_fused)")
+
+
+def resolve_grow_policy(cfg: Config) -> str:
+    """`tree_grow_policy` resolved to "leafwise" or "wave" (the
+    reference's `_resolve_grow_policy`, `booster.py:824`).  Every
+    downgrade reason the reference lists is a refusal of this port
+    (`refusals`), so none is needed here; an unknown policy raises."""
+    pol = str(cfg.tree_grow_policy or "leafwise").lower()
+    if pol in ("leafwise", "leaf", "strict"):
+        return "leafwise"
+    if pol in ("wave", "batched"):
+        return "wave"
+    raise LightGBMError(f"Unknown tree_grow_policy {pol!r} (expected "
+                        "'leafwise' or 'wave')")
+
+
+def fused_split_of(cfg: Config, policy: str, hist_impl: str) -> bool:
+    """Whether the wave grower takes the fused path (K2 + K3), the
+    reference's `_maybe_fuse_hist_impl` (`booster.py:1045`): the wave
+    policy on the kernels' histogram path with `tpu_fused_split` on (the
+    default) and no path smoothing.  With `path_smooth > 0` the wave
+    runs unfused on K1, with a warning as in the reference; the port's
+    kernels need no probe (`chip_smoke.py` holds them to their plain
+    versions)."""
+    if hist_impl != "kernel" or not cfg.tpu_fused_split:
+        return False
+    reasons = []
+    if policy != "wave":
+        if str(cfg.hist_impl or "auto").lower() != "pallas_fused":
+            return False
+        reasons.append("tree_grow_policy != wave (the strict policy "
+                       "re-scans cached histograms per split)")
+    if cfg.path_smooth > 0.0:
+        reasons.append("path_smooth")
+    if reasons:
+        log.warning("fused hist+split is unavailable with "
+                    + "; ".join(reasons) + " — using the unfused K1 "
+                    "histogram kernel and the torch split search")
+        return False
+    return True
 
 
 class _DeviceData:
@@ -265,6 +304,7 @@ class Booster:
         if reasons:
             raise LightGBMError("the training slice of lightgbm_tpu_torch "
                                 "does not cover: " + "; ".join(reasons))
+        self._grow_policy = resolve_grow_policy(cfg)
         self.device = train_device(cfg.device_type)
         train_set.params = {**(train_set.params or {}), **{
             k: v for k, v in self.params.items() if k in _DATASET_PARAMS}}
@@ -296,7 +336,8 @@ class Booster:
         self._loaded_feature_infos = [m.feature_info_str()
                                       for m in train_set.bin_mappers]
         self.hist_impl = hist_impl_of(cfg.hist_impl, self.device)
-        self._grower = make_grower(GrowerSpec(
+        wave = self._grow_policy == "wave"
+        self._grower_spec = GrowerSpec(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
             max_bin=self._dd.max_bin, lambda_l1=cfg.lambda_l1,
             lambda_l2=cfg.lambda_l2,
@@ -304,7 +345,14 @@ class Booster:
             min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
             min_gain_to_split=cfg.min_gain_to_split,
             max_delta_step=cfg.max_delta_step, path_smooth=cfg.path_smooth,
-            hist_impl=self.hist_impl))
+            hist_impl=self.hist_impl,
+            wave_width=self._wave_width() if wave else 0,
+            wave_gain_ratio=self._wave_gain_ratio() if wave else 0.0,
+            wave_overgrow=self._wave_overgrow() if wave else 0.0,
+            wave_strict_tail=self._wave_strict_tail() if wave else 0,
+            fused=fused_split_of(cfg, self._grow_policy, self.hist_impl))
+        self._grower = make_wave_grower(self._grower_spec) if wave \
+            else make_grower(self._grower_spec)
         K = self.num_tree_per_iteration
         self._init_scores = [0.0] * K
         self._boost_from_average_done = False
@@ -313,6 +361,50 @@ class Booster:
         self._valid_scores: List[torch.Tensor] = []
         self._ones = torch.ones(self._dd.num_data, dtype=torch.float32,
                                 device=self.device)
+
+    # ---- the wave policy's knobs (the reference's `booster.py:703-774`)
+    WAVE_GAIN_RATIO_DEFAULT = 0.0
+    WAVE_OVERGROW_DEFAULT = 0.0
+
+    def _wave_width(self) -> int:
+        """Leaves per batched histogram pass: `tpu_wave_width=0` (auto)
+        is `WAVE_WIDTH_DEFAULT`, or the cap under overgrow; the cap is
+        the kernels' slot chunk, 14 for f32 histograms."""
+        cap = MULTI_CHUNK
+        w = int(self.config.tpu_wave_width or 0)
+        if w <= 0:
+            w = cap if self._wave_overgrow() > 1.0 else WAVE_WIDTH_DEFAULT
+        return min(w, cap)
+
+    def _wave_gain_ratio(self) -> float:
+        r = float(self.config.tpu_wave_gain_ratio)
+        return self.WAVE_GAIN_RATIO_DEFAULT if r < 0.0 else min(r, 1.0)
+
+    def _wave_strict_tail(self) -> int:
+        """`tpu_wave_strict_tail=-1` (auto) is (num_leaves + 1) // 2, or 0
+        under overgrow; 0 disables the strict endgame."""
+        t = int(self.config.tpu_wave_strict_tail)
+        if t < 0:
+            t = 0 if self._wave_overgrow() > 1.0 \
+                else (self.config.num_leaves + 1) // 2
+        return max(t, 0)
+
+    def _wave_overgrow(self) -> float:
+        """Grow-then-prune factor (0 = off), for the wave policy only; off
+        with a warning under path smoothing, where a pruned parent's
+        restored output would ignore the smoothing chain."""
+        r = float(self.config.tpu_wave_overgrow)
+        val = self.WAVE_OVERGROW_DEFAULT if r < 0.0 else r
+        if val <= 1.0:
+            return 0.0
+        if self.config.path_smooth > 0.0:
+            if not getattr(self, "_warned_overgrow", False):
+                self._warned_overgrow = True
+                log.warning("tpu_wave_overgrow is not supported with path "
+                            "smoothing (pruned parents restore unsmoothed "
+                            "outputs) — growing without overgrow")
+            return 0.0
+        return val
 
     def _zero_score(self, dd: _DeviceData) -> torch.Tensor:
         K = self.num_tree_per_iteration

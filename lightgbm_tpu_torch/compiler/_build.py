@@ -12,8 +12,11 @@ Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC -Xptxas=-v`, and never `--use_fast_math`, `-ftz=true`
 or `-prec-*=false`: the traverse kernel's contract includes NaN tests,
 subnormal inputs and an `abs(fv) <= 1e-35` compare in IEEE f32.  The
-accumulation adds `-fmad=false` so that no add is ever contracted; the
-histogram kernel only adds, so contraction cannot touch it.
+accumulation and the fused split scan (`fused_split`, K2 and K3) add
+`-fmad=false` so that no add is ever contracted; the histogram kernel
+only adds, so contraction cannot touch it.  A source may include the
+shared headers `csrc/*.cuh` (the histogram's first stage, which K1 and
+K2 share); they are part of every library's hash.
 
 Nothing here runs when the package is imported.  `build_all` is the one
 build path: it starts one `nvcc` per missing library, all together,
@@ -39,19 +42,27 @@ BUILD_DIR = CSRC / "build"
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _EXTRA_FLAGS = {"traverse": [], "accumulate": ["-fmad=false"],
-                "histogram": []}
+                "histogram": [], "fused_split": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of each library's entry point: (symbol, argtypes)
+_F = ctypes.c_float
+#: C signatures of each library's entry points: [(symbol, argtypes)]
 _SIGNATURES = {
-    "traverse": ("lgbt_traverse",
-                 [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                  _P, _P]),
-    "accumulate": ("lgbt_accumulate",
-                   [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P]),
-    "histogram": ("lgbt_histogram",
-                  [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "traverse": [("lgbt_traverse",
+                  [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _P, _P])],
+    "accumulate": [("lgbt_accumulate",
+                    [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P])],
+    "histogram": [("lgbt_histogram",
+                   [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                    _P])],
+    "fused_split": [("lgbt_fused_hist_split",
+                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _F, _F, _F, _F, _F, _P, _P, _P]),
+                    ("lgbt_split_scan",
+                     [_P, _I, _I, _I, _P, _P, _P, _F, _F, _F, _F, _F, _P,
+                      _P])],
 }
 
 
@@ -82,8 +93,11 @@ def _flags(name: str) -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where `name`'s library lives for the current source and flags."""
+    """Where `name`'s library lives for the current source, the headers
+    beside it (`csrc/*.cuh`) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -106,10 +120,10 @@ def _start_build(name: str):
 def _load(name: str, compiled: bool) -> Built:
     so = library_path(name)
     lib = ctypes.CDLL(str(so))
-    sym, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for sym, argtypes in _SIGNATURES[name]:
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     log = so.with_suffix(".log")
     text = log.read_text() if log.exists() else ""
     ptxas = [ln.strip() for ln in text.splitlines()

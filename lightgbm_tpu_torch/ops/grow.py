@@ -34,9 +34,17 @@ from .reduce import tree_sum
 from .split import (MISSING_NAN, NEG_INF, PACK_COLS, find_best_split,
                     leaf_output, smooth_output)
 
-#: blocking device-to-host copies made by the growers (one for the root
-#: of each tree and one per split)
+#: blocking device-to-host copies made by the growers (the strict grower:
+#: one for the root of each tree and one per split; the wave grower: one
+#: for the root and one per wave that builds histograms)
 HOST_SYNCS = 0
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A grower's blocking device-to-host copy, counted in HOST_SYNCS."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return t.cpu().numpy()
 
 
 class GrowerSpec(NamedTuple):
@@ -55,6 +63,22 @@ class GrowerSpec(NamedTuple):
     #: "kernel": `histogram_multi` (the K1 kernel on a CUDA device, the
     #: plain version on the CPU); "plain": `histogram_multi_plain`
     hist_impl: str = "kernel"
+    #: the wave grower (`ops/grow_wave.py`; the reference's fields of the
+    #: same names, `lightgbm_tpu/ops/grow.py:111-133`): smaller-child
+    #: histograms per batched pass (0: `WAVE_WIDTH_DEFAULT`), the
+    #: capacity-aware gain floor, grow-then-prune factor (<= 1: off), and
+    #: the strict endgame (splits of capacity left at which waves collapse
+    #: to width 1; 0: off).  The strict grower ignores them.
+    wave_width: int = 0
+    wave_gain_ratio: float = 0.0
+    wave_overgrow: float = 0.0
+    wave_strict_tail: int = 0
+    #: the wave grower's fused path: the smaller children's histograms and
+    #: split candidates from one K2 launch, the larger children's
+    #: candidates from K3 (`ops/fused_kernel.py`; kernels on a CUDA device,
+    #: plain versions on the CPU).  Needs hist_impl "kernel" and no path
+    #: smoothing; the strict grower ignores it.
+    fused: bool = False
 
 
 class DeviceTree(NamedTuple):
@@ -121,11 +145,6 @@ def make_grower(spec: GrowerSpec) -> Callable:
             allowed, l1, l2, spec.min_data_in_leaf,
             spec.min_sum_hessian_in_leaf, spec.min_gain_to_split, mds, ps,
             p_out)
-
-    def to_host(t: torch.Tensor) -> np.ndarray:
-        global HOST_SYNCS
-        HOST_SYNCS += 1
-        return t.cpu().numpy()
 
     def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              sample_weight: torch.Tensor, feat: Dict,

@@ -1,0 +1,382 @@
+"""Wave-batched leaf-wise growth, driven from the host.
+
+The port's counterpart of `lightgbm_tpu/ops/grow_wave.py` (`wave_sizes`
+`:81`, `make_wave_grower` `:94`, `prune_wave_tail` `:937`), for
+numerical features on one device.  The wave policy changes the order of
+growth, not the split math: each wave splits every ready leaf (one that
+existed when the wave began) whose cached best gain is positive,
+best-first, up to the wave's width; then the new smaller children's
+histograms come from ONE batched pass, the larger children are parent
+minus smaller, and all the new children are searched at once.  A
+31-leaf tree costs 7 histogram passes at width 6 without a strict tail
+(19 with the bench's 16-split tail) instead of the strict policy's 30
+(`ops/grow.py`).
+
+The reference compiles the whole tree into nested XLA `while_loop`s;
+here a Python loop drives tensors on the device, and the per-leaf
+records the pick loop reads live on the host:
+
+  * **pick loop** (the reference's `ibody`, `grow_wave.py:552-776`), on
+    host numpy over the records of the last copy: the `ready` mask, the
+    width cap `wcap` with the strict tail (`:584-592`), the
+    capacity-aware gain floor `g_floor` = f32(ratio) x the wave's first
+    gain x fullness (`:603-613`, `:718-719`, in f32 and that order), a
+    first-wins argmax.  The children's outputs are computed here with
+    the same torch functions the strict grower runs on the device
+    (`ops/split.py leaf_output`, `smooth_output`), on CPU tensors;
+  * **partition**: one `torch.where` per pick on the dense `leaf_id`.
+    The picks are distinct leaves that existed at the wave's start, so
+    their order cannot change a row's leaf;
+  * **histograms**: one launch over the live smaller children only.
+    Fused (`spec.fused`): K2 (`ops/fused_kernel.py fused_hist_split`)
+    gives their histograms and split candidates; unfused: K1
+    (`ops/hist_kernel.py histogram_multi`).  The reference pads to [W]
+    slots to keep one XLA shape; here every slot is a grid slice that
+    reads all N rows, so no pad slot is launched;
+  * **larger children**: parent minus smaller (`:793-799`), then one K3
+    launch on them (fused, `split_scan`) or one batched
+    `find_best_split` over all 2w children (unfused); the candidates are
+    routed to the left and new children as at `:816-822`;
+  * **decide and copy**: a batched `decide_from_candidates` over the 2w
+    children with the `max_depth` gate (`:828-832`), then one packed
+    device-to-host copy per wave, counted in `ops/grow.py HOST_SYNCS`;
+  * **tree full**: when the picks reach LB - 1 splits, the histogram and
+    find phase is skipped (`:856-863`): that wave makes no copy.
+
+Grow-then-prune (`wave_overgrow > 1`) grows to LB > num_leaves leaves
+and prunes back on the host (`prune_wave_tail`).  Each call to the
+grower counts its waves in WAVES and the waves that built histograms in
+HIST_WAVES.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from ..utils.log import LightGBMError
+from .fused_kernel import fused_hist_split, split_scan
+from .grow import DeviceTree, GrowerSpec, split_go_left, to_host
+from .hist_kernel import histogram_multi, histogram_multi_plain
+from .reduce import tree_sum
+from .split import (NEG_INF, PACK_COLS, decide_from_candidates,
+                    find_best_split, leaf_output, smooth_output)
+
+#: the reference's accuracy-sweep default width (`grow_wave.py:77`); the
+#: booster resolves `tpu_wave_width=0` to it
+WAVE_WIDTH_DEFAULT = 6
+
+#: waves run by the wave growers (every pick loop), and those of them
+#: that built histograms (all but a tree's capacity-full last wave)
+WAVES = 0
+HIST_WAVES = 0
+
+
+def wave_sizes(spec: GrowerSpec):
+    """(LB, W): the grow size (overgrow x num_leaves, pruned back after
+    growth) and the wave width (the reference's `wave_sizes`)."""
+    L = spec.num_leaves
+    LB = L if spec.wave_overgrow <= 1.0 else \
+        max(L, int(math.ceil(spec.wave_overgrow * L)))
+    return LB, max(1, min(spec.wave_width or WAVE_WIDTH_DEFAULT, LB - 1))
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device` without a host sync: pinned memory and
+    an asynchronous copy on a CUDA device."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def prune_wave_tail(nodes: Dict[str, np.ndarray], n: int,
+                    leaves: Dict[str, np.ndarray], *, LB: int, L: int,
+                    clamp_output: Callable):
+    """Prune an LB-leaf wave tree back to L leaves (the reference's
+    `prune_wave_tail`, on host numpy): remove the lowest-gain split whose
+    children are both leaves, restore the parent's leaf record from its
+    node sums (output `clamp_output(g, h)`), until L leaves are left;
+    then compact the split log to [L - 1], renumbering slots so that the
+    right child of split k is still leaf slot k + 1.  Returns (nodes,
+    leaves, new_slot [LB] old slot -> final slot, n_splits)."""
+    idx = np.arange(LB - 1)
+    sl = nodes["split_leaf"].astype(np.int64)
+    target = min(n, L - 1)
+    alive = idx < n
+    lv = {k: v.copy() for k, v in leaves.items()}
+    n_alive = n
+    while n_alive > target:
+        later = alive[None, :] & (idx[None, :] > idx[:, None])
+        hit = (sl[None, :] == sl[:, None]) \
+            | (sl[None, :] == idx[:, None] + 1)
+        removable = alive & ~np.any(later & hit, axis=1)
+        cand = np.where(removable, nodes["split_gain"], np.float32(np.inf))
+        r = int(np.argmin(cand))
+        b = sl[r]
+        alive[r] = False
+        n_alive -= 1
+        lv["out"][b] = clamp_output(nodes["internal_g"][r],
+                                    nodes["internal_h"][r])
+        lv["g"][b] = nodes["internal_g"][r]
+        lv["h"][b] = nodes["internal_h"][r]
+        lv["c"][b] = nodes["internal_cnt"][r]
+
+    new_idx = np.cumsum(alive.astype(np.int64)) - 1             # [LB-1]
+    old_of_new = np.zeros(L - 1, np.int64)
+    old_of_new[new_idx[alive]] = idx[alive]
+    # slot s survives iff s == 0 or its creating split is alive; otherwise
+    # its rows belong to the nearest surviving ancestor
+    slot_alive = np.concatenate([[True], alive])
+    parent_slot = np.concatenate([[0], sl])
+    anc = np.arange(LB)
+    for _ in range(LB):
+        anc = np.where(slot_alive[anc], anc, parent_slot[anc])
+    new_slot = np.concatenate([[0], new_idx + 1])[anc]          # [LB]
+
+    valid = np.arange(L - 1) < target
+    out_nodes = {}
+    for k, v in nodes.items():
+        picked = new_slot[sl[old_of_new]] if k == "split_leaf" \
+            else v[old_of_new]
+        out_nodes[k] = np.where(valid, picked, np.zeros((), v.dtype)) \
+            .astype(v.dtype)
+    big_of = np.zeros(L, np.int64)
+    big_of[new_idx[alive] + 1] = idx[alive] + 1
+    out_leaves = {k: v[big_of] for k, v in lv.items()}
+    return out_nodes, out_leaves, new_slot, target
+
+
+def make_wave_grower(spec: GrowerSpec) -> Callable:
+    """The wave grow function of a spec, with the strict grower's
+    contract (`ops/grow.py make_grower`): `grow(bins_fm, grad, hess,
+    sample_weight, feat, allowed) -> DeviceTree`."""
+    L = spec.num_leaves
+    MB = spec.max_bin
+    LB, W = wave_sizes(spec)
+    l1, l2, mds = spec.lambda_l1, spec.lambda_l2, spec.max_delta_step
+    ps = spec.path_smooth
+    fused = spec.fused
+    if fused and (spec.hist_impl != "kernel" or ps > 0.0):
+        raise LightGBMError("the fused wave path needs hist_impl 'kernel' "
+                            "and no path smoothing (booster.fused_split_of "
+                            "decides it)")
+    scan_kw = dict(l1=l1, l2=l2, min_data_in_leaf=spec.min_data_in_leaf,
+                   min_sum_hessian=spec.min_sum_hessian_in_leaf,
+                   min_gain_to_split=spec.min_gain_to_split)
+    tail = min(spec.wave_strict_tail, LB - 1) \
+        if spec.wave_strict_tail > 0 else 0
+    ratio = np.float32(spec.wave_gain_ratio)
+
+    def out_of(g, h, c, parent_out):
+        """Outputs of leaves from their f32 sums, on CPU tensors: the
+        strict grower's expression (leaf_output, then path smoothing)."""
+        t = [torch.from_numpy(np.asarray(a, np.float32))
+             for a in (g, h, c, parent_out)]
+        return smooth_output(leaf_output(t[0], t[1], l1, l2, mds), t[2],
+                             t[3], ps).numpy()
+
+    def clamp_output(g, h):
+        return leaf_output(torch.from_numpy(np.asarray(g, np.float32)),
+                           torch.from_numpy(np.asarray(h, np.float32)),
+                           l1, l2, mds).numpy()
+
+    def search(hist, sums, allowed, p_out, feat):
+        return find_best_split(
+            hist, sums[:, 0], sums[:, 1], sums[:, 2], feat["nb"],
+            feat["missing"], feat["default"], allowed, l1, l2,
+            spec.min_data_in_leaf, spec.min_sum_hessian_in_leaf,
+            spec.min_gain_to_split, mds, ps, p_out)
+
+    def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+             sample_weight: torch.Tensor, feat: Dict,
+             allowed: torch.Tensor) -> DeviceTree:
+        global WAVES, HIST_WAVES
+        dev = bins_fm.device
+        n = bins_fm.shape[1]
+        f_count = int(feat["nb"].shape[0])
+        hist_fn = histogram_multi if spec.hist_impl == "kernel" \
+            else histogram_multi_plain
+        payload = torch.stack([grad * sample_weight, hess * sample_weight,
+                               sample_weight], dim=1).contiguous()
+        slots = torch.arange(LB, dtype=torch.int32, device=dev)
+        leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        hist = torch.empty((LB, f_count, MB, 3), dtype=torch.float32,
+                           device=dev)
+
+        # ---- root: sums, output, histogram and split, one host copy ----
+        root_g, root_h, root_c = tree_sum(payload.t())
+        root_out = leaf_output(root_g, root_h, l1, l2, mds)
+        root_sums = torch.stack([root_g, root_h, root_c])[None]   # [1, 3]
+        if fused:
+            h0, c0 = fused_hist_split(bins_fm, payload, leaf_id, slots[:1],
+                                      feat["nb"], feat["missing"],
+                                      root_sums, MB, **scan_kw)
+            s0 = decide_from_candidates(c0, root_g[None], root_h[None],
+                                        root_c[None], feat["missing"],
+                                        feat["default"], allowed)
+        else:
+            h0 = hist_fn(bins_fm, payload, leaf_id, slots[:1], MB)
+            s0 = search(h0, root_sums, allowed, root_out[None], feat)
+        hist[0] = h0[0]
+        host = to_host(torch.cat([root_sums[0], root_out[None],
+                                  s0.pack().reshape(-1)]))
+
+        # per-leaf records: the cached best split (PACK_COLS: gain,
+        # feature, threshold, default_left, left g/h/count, right g/h/
+        # count), the leaf's sums, output and depth
+        rec = np.zeros((LB, PACK_COLS), np.float32)
+        rec[:, 0] = NEG_INF
+        rec[0] = host[4:]
+        leaf_g = np.zeros(LB, np.float32)
+        leaf_h = np.zeros(LB, np.float32)
+        leaf_c = np.zeros(LB, np.float32)
+        leaf_out = np.zeros(LB, np.float32)
+        leaf_depth = np.zeros(LB, np.int64)
+        leaf_g[0], leaf_h[0], leaf_c[0], leaf_out[0] = host[:4]
+        nodes = dict(
+            split_leaf=np.zeros(LB - 1, np.int32),
+            split_feature=np.zeros(LB - 1, np.int32),
+            threshold_bin=np.zeros(LB - 1, np.int32),
+            default_left=np.zeros(LB - 1, bool),
+            split_gain=np.zeros(LB - 1, np.float32),
+            internal_g=np.zeros(LB - 1, np.float32),
+            internal_h=np.zeros(LB - 1, np.float32),
+            internal_cnt=np.zeros(LB - 1, np.float32))
+        missing = feat["missing_np"]
+        nb = feat["nb_np"]
+
+        step, nl = 0, 1
+        while step < LB - 1 and rec[:, 0].max() > 0.0:
+            WAVES += 1
+            # ---- pick loop: best-first among the leaves ready at the
+            # wave's start, up to the width cap ----
+            ready = np.arange(LB) < nl
+            remaining = LB - nl
+            if tail > 0:
+                wcap = 1 if remaining <= tail else min(W, remaining - tail)
+            else:
+                wcap = W
+            fullness = np.float32(nl) / np.float32(LB)
+            g_floor = np.float32(0.0)
+            picks: List[tuple] = []
+            while len(picks) < wcap and step < LB - 1:
+                ready_gain = np.where(ready, rec[:, 0], np.float32(NEG_INF))
+                if not ready_gain.max() > np.maximum(g_floor,
+                                                     np.float32(0.0)):
+                    break
+                best = int(np.argmax(ready_gain))
+                new = step + 1                     # nl == step + 1
+                gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = rec[best]
+                f, t, dl = int(f), int(t), bool(dl)
+                for key, v in (("split_leaf", best), ("split_feature", f),
+                               ("threshold_bin", t), ("default_left", dl),
+                               ("split_gain", gain_s),
+                               ("internal_g", leaf_g[best]),
+                               ("internal_h", leaf_h[best]),
+                               ("internal_cnt", leaf_c[best])):
+                    nodes[key][step] = v
+                l_out, r_out = out_of([lg, rg], [lh, rh], [lc, rc],
+                                      [leaf_out[best]] * 2)
+                small = best if lc <= rc else new
+                if not picks:
+                    g_floor = ratio * gain_s * fullness
+                ready[best] = False
+                rec[best, 0] = rec[new, 0] = NEG_INF
+                leaf_g[best], leaf_g[new] = lg, rg
+                leaf_h[best], leaf_h[new] = lh, rh
+                leaf_c[best], leaf_c[new] = lc, rc
+                leaf_out[best], leaf_out[new] = l_out, r_out
+                leaf_depth[best] = leaf_depth[new] = leaf_depth[best] + 1
+                picks.append((best, new, small, f, t, dl))
+                step, nl = step + 1, nl + 1
+
+            # ---- partition ----
+            for best, new, _, f, t, dl in picks:
+                go_left = split_go_left(bins_fm, f, t, dl, int(missing[f]),
+                                        int(nb[f]))
+                leaf_id = torch.where((leaf_id == best) & ~go_left,
+                                      slots[new], leaf_id)
+            if step >= LB - 1:
+                break              # tree full: the children never split
+            HIST_WAVES += 1
+
+            # ---- what the device needs of the wave, in two uploads ----
+            w = len(picks)
+            p_left = [p[0] for p in picks]
+            p_new = [p[1] for p in picks]
+            p_small = [p[2] for p in picks]
+            small_is_left = [s == b for s, b in zip(p_small, p_left)]
+            p_large = [nw if sl else b for b, nw, sl in
+                       zip(p_left, p_new, small_is_left)]
+            # children in the reference's order: every left, then every new
+            child = np.array(p_left + p_new, np.int64)
+            # candidate rows: [small..., large...] -> [left..., new...]
+            route = [i if sl else w + i for i, sl in enumerate(small_is_left)]
+            route += [w + i if sl else i
+                      for i, sl in enumerate(small_is_left)]
+            idx = _upload(np.array(p_left + p_small + p_large + route
+                                   + child.tolist(), np.int64), dev)
+            stats = np.stack([leaf_g, leaf_h, leaf_c], axis=1)     # [LB, 3]
+            deep_ok = (spec.max_depth <= 0) | \
+                (leaf_depth[child] < spec.max_depth)
+            vals = _upload(np.concatenate([
+                stats[p_small].ravel(), stats[p_large].ravel(),
+                stats[child].ravel(), leaf_out[child],
+                deep_ok.astype(np.float32)]).astype(np.float32), dev)
+            left_t, small_t, large_t = idx[:w], idx[w:2 * w], idx[2 * w:3 * w]
+            route_t, child_t = idx[3 * w:5 * w], idx[5 * w:7 * w]
+            par_small = vals[:3 * w].view(w, 3)
+            par_large = vals[3 * w:6 * w].view(w, 3)
+            sums = vals[6 * w:12 * w].view(2 * w, 3)
+            child_out = vals[12 * w:14 * w]
+            child_allowed = allowed[None, :] & (vals[14 * w:16 * w] > 0)[
+                :, None]
+
+            # ---- histograms: the smaller children in one pass, the
+            # larger by subtraction (the parent's histogram is still in
+            # the left child's slot) ----
+            parents = hist.index_select(0, left_t)
+            small_slots = small_t.to(torch.int32)
+            if fused:
+                small_h, cand_small = fused_hist_split(
+                    bins_fm, payload, leaf_id, small_slots, feat["nb"],
+                    feat["missing"], par_small, MB, **scan_kw)
+            else:
+                small_h = hist_fn(bins_fm, payload, leaf_id, small_slots, MB)
+            large_h = parents - small_h
+            hist.index_copy_(0, small_t, small_h)
+            hist.index_copy_(0, large_t, large_h)
+
+            # ---- find: every new child's best split, one host copy ----
+            if fused:
+                cand_large = split_scan(large_h, feat["nb"], feat["missing"],
+                                        par_large, **scan_kw)
+                cand = torch.cat([cand_small, cand_large]).index_select(
+                    0, route_t)
+                res = decide_from_candidates(
+                    cand, sums[:, 0], sums[:, 1], sums[:, 2],
+                    feat["missing"], feat["default"], child_allowed)
+            else:
+                res = search(hist.index_select(0, child_t), sums,
+                             child_allowed, child_out, feat)
+            rec[child] = to_host(res.pack()).reshape(2 * w, PACK_COLS)
+
+        leaves = dict(out=leaf_out, g=leaf_g, h=leaf_h, c=leaf_c)
+        if LB > L:
+            nodes, leaves, new_slot, step = prune_wave_tail(
+                nodes, step, leaves, LB=LB, L=L, clamp_output=clamp_output)
+            leaf_id = _upload(new_slot.astype(np.int32), dev)[leaf_id.long()]
+        # a single-leaf tree predicts 0 (ref: GBDT "no more leaves that
+        # meet the split requirements"); slots past the tree stay zero
+        nl = step + 1
+        values = np.where((np.arange(L) < nl) & (nl > 1), leaves["out"],
+                          np.float32(0.0)).astype(np.float32)
+        return DeviceTree(n_splits=step, leaf_value=values,
+                          leaf_g=leaves["g"], leaf_h=leaves["h"],
+                          leaf_cnt=leaves["c"], leaf_id=leaf_id,
+                          values=_upload(values, dev), **nodes)
+
+    return grow

@@ -16,8 +16,9 @@ whose order XLA chooses.  On the CPU it rewrites them:
 adds, on any device, so given the same inputs the port's sums are the
 reference's bits on the CPU (the tests hold them so at several lengths),
 and the card computes the same bits as the CPU.  They run as a short
-loop of elementwise torch ops; the fused scan kernels of the wave
-grower (ROADMAP Queue 2, K2/K3) are the place to make the scan fast.
+loop of elementwise torch ops; the wave grower's scan kernels K2 and K3
+(`csrc/fused_split.cu`) add in `block_cumsum`'s order inside the
+kernel.
 """
 from __future__ import annotations
 

@@ -5,7 +5,10 @@ src/treelearner/feature_histogram.hpp `FindBestThresholdNumerical`
 [the two missing-direction scans], `GetSplitGains`,
 `CalculateSplittedLeafOutput`, `GetLeafGain`): the numerical branch of
 `find_best_split` (`split.py:137-250` with `has_cat=False`) and its
-decide stage `_decide_numerical` (`split.py:367`), on torch tensors.
+decide stage `_decide_numerical` (`split.py:367`), on torch tensors; and
+the fused path's per-feature reduction `fused_numerical_candidates`
+(`split.py:420`, the plain version of the K2/K3 scan) with its decide
+stage `decide_from_candidates` (`split.py:488`).
 
 All scans are one vectorized computation, as in the reference: prefix
 sums along the bin axis give every candidate partition, the gain is
@@ -233,6 +236,116 @@ def _decide_numerical(gain0, gain1, left0, left1, parent, feat_missing,
     left = torch.where((case == 0)[:, None], left0[rows, feat, thr],
                        left1[rows, feat, thr])
     right = parent - left
+    mtype = feat_missing[feat]
+    dl = torch.where(mtype == MISSING_NAN, case == 1,
+                     (mtype == MISSING_ZERO) & (feat_default[feat] <= thr))
+    no_split = ~torch.isfinite(best_gain)
+    return SplitResult(
+        gain=torch.where(no_split, NEG_INF, best_gain),
+        feature=torch.where(no_split, -1, feat),
+        threshold_bin=thr, default_left=dl,
+        left_sum_g=left[:, 0], left_sum_h=left[:, 1], left_cnt=left[:, 2],
+        right_sum_g=right[:, 0], right_sum_h=right[:, 1],
+        right_cnt=right[:, 2])
+
+
+# --------------------------------------------------------------------- fused
+# The wave grower's fused path (ops/fused_kernel.py, the K2 and K3 kernels)
+# scans each histogram once and keeps only a compact per-(slot, case,
+# feature) candidate; the decide stage below turns candidates into the
+# SplitResult `find_best_split` gives.  ref: `lightgbm_tpu/ops/split.py:
+# 409-532`.
+
+FUSED_CASES = 2        # case 0: missing right, case 1: missing left
+FUSED_CAND_COLS = 8    # gain, thr, left_g, left_h, left_cnt + 3 pad lanes
+
+
+def fused_numerical_candidates(hist: torch.Tensor, feat_nb: torch.Tensor,
+                               feat_missing: torch.Tensor,
+                               parent: torch.Tensor, *, l1: float, l2: float,
+                               min_data_in_leaf: float,
+                               min_sum_hessian: float,
+                               min_gain_to_split: float) -> torch.Tensor:
+    """Per-(feature, slot, case) reduction of `find_best_split`'s two
+    numerical missing-direction scans (the reference's
+    `split.py:420 fused_numerical_candidates`).
+
+    hist [F, S, MB, 3] f32, feat_nb / feat_missing [F] int, parent [S, 3]
+    f32 (each slot's g, h, count sums).  Returns [F, S, FUSED_CASES,
+    FUSED_CAND_COLS] f32: each row is (gain, threshold_bin, left_g,
+    left_h, left_cnt, 0, 0, 0) at the case's first-wins best threshold; a
+    row with no valid threshold is (-inf, 0, the prefix at bin 0).  The
+    prefix sums are `block_cumsum`'s (XLA's CPU order), the gain and the
+    gates those of `find_best_split`, so on the same histogram the
+    numbers are the reference's bits on the CPU.  Feature gates come
+    later, in `decide_from_candidates`."""
+    f, s, mb, _ = hist.shape
+    dev = hist.device
+    bins = torch.arange(mb, device=dev)[None, :]                 # [1, MB]
+    valid_bin = bins < feat_nb[:, None]                          # [F, MB]
+    h = torch.where(valid_bin[:, None, :, None], hist, 0.0)
+    cum = block_cumsum(h.transpose(2, 3)).transpose(2, 3)       # [F,S,MB,3]
+    has_nan = feat_missing == MISSING_NAN                        # [F]
+    nan_idx = torch.where(has_nan, feat_nb - 1, 0).long().clamp_min(0)
+    nanv = h.gather(2, nan_idx[:, None, None, None].expand(f, s, 1, 3))
+    nanv = torch.where(has_nan[:, None, None], nanv[:, :, 0, :], 0.0)
+    t_max = feat_nb - 2 - has_nan.to(feat_nb.dtype)
+    valid_t = bins <= t_max[:, None]                             # [F, MB]
+
+    shift = (leaf_gain(parent[:, 0], parent[:, 1], l1, l2)
+             + min_gain_to_split)                                # [S]
+    p4 = parent[None, :, None, :]
+
+    def case_best(left, valid):
+        right = p4 - left
+        g = plain_split_gain(left, right, l1, l2, shift[None, :, None])
+        ok = valid & size_constraints_ok(left, right, min_data_in_leaf,
+                                         min_sum_hessian)
+        g = torch.where(ok, g, NEG_INF)                          # [F, S, MB]
+        thr = torch.argmax(g, dim=2)                             # first wins
+        gb = g.gather(2, thr[..., None])
+        lv = left.gather(2, thr[..., None, None].expand(f, s, 1, 3))[:, :, 0]
+        pad = torch.zeros((f, s, FUSED_CAND_COLS - 5), dtype=hist.dtype,
+                          device=dev)
+        return torch.cat([gb, thr.to(hist.dtype)[..., None], lv, pad], -1)
+
+    c0 = case_best(cum, valid_t[:, None, :])
+    c1 = case_best(cum + nanv[:, :, None, :],
+                   (valid_t & has_nan[:, None])[:, None, :])
+    return torch.stack([c0, c1], dim=2)
+
+
+def decide_from_candidates(cand: torch.Tensor, parent_g: torch.Tensor,
+                           parent_h: torch.Tensor, parent_c: torch.Tensor,
+                           feat_missing: torch.Tensor,
+                           feat_default: torch.Tensor,
+                           allowed_num: torch.Tensor) -> SplitResult:
+    """SplitResult of each leaf from its fused candidates (the
+    reference's `split.py:488 decide_from_candidates`, batched).
+
+    cand [B, FUSED_CASES, F, FUSED_CAND_COLS] (the kernels' layout),
+    parent sums [B], `allowed_num` [F] or [B, F] bool (the node's feature
+    gate, applied after the per-feature reduction).  One flat first-wins
+    argmax per leaf in case-major order, then the missing direction:
+    since a gate is constant per feature, this is `find_best_split`'s
+    flat argmax over [case, F, MB], ties included, field for field.  A
+    leaf with no valid split has gain -inf and feature -1; its
+    threshold and sums come from the (case 0, feature 0) candidate,
+    which is `find_best_split`'s bin-0 prefix only when feature 0 is not
+    gated."""
+    b, _, f, _ = cand.shape
+    if allowed_num.dim() == 1:
+        allowed_num = allowed_num[None].expand(b, f)
+    gains = torch.where(allowed_num[:, None, :], cand[..., 0], NEG_INF)
+    flat = gains.reshape(b, -1)
+    best = torch.argmax(flat, dim=1)
+    best_gain = flat.gather(1, best[:, None])[:, 0]
+    case = best // f
+    feat = best % f
+    row = cand[torch.arange(b, device=cand.device), case, feat]  # [B, 8]
+    thr = row[:, 1].long()
+    left = row[:, 2:5]
+    right = torch.stack([parent_g, parent_h, parent_c], dim=-1) - left
     mtype = feat_missing[feat]
     dl = torch.where(mtype == MISSING_NAN, case == 1,
                      (mtype == MISSING_ZERO) & (feat_default[feat] <= thr))

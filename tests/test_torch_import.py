@@ -23,7 +23,8 @@ _FORBIDDEN = re.compile(
 #: every module of the port, imported by the subprocess check below
 MODULES = ("serving.runtime", "interop", "basic", "booster", "callback",
            "engine", "metrics", "objectives", "tree", "utils.config",
-           "utils.efb", "utils.binning", "ops.grow", "ops.hist_kernel",
+           "utils.efb", "utils.binning", "ops.grow", "ops.grow_wave",
+           "ops.hist_kernel", "ops.fused_kernel",
            "ops.histogram", "ops.reduce", "ops.split", "ops.predict",
            "compiler.kernel", "compiler._build", "compiler.plan",
            "compiler.quantize", "utils.log")

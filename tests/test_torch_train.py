@@ -229,13 +229,14 @@ REFUSED = [
     ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
      "item 5d"),
     ({"use_quantized_grad": True}, "item 3"),
-    ({"tree_grow_policy": "wave"}, "item 2"),
+    ({"tree_grow_policy": "bogus"}, "Unknown tree_grow_policy"),
     ({"streaming_train": "on"}, "item 5e"),
     ({"tree_learner": "data"}, "item 5f"),
     ({"num_machines": 2}, "item 5f"),
     ({"hist_impl": "packed"}, "item 3"),
     ({"hist_impl": "pallas_q"}, "item 3"),
-    ({"hist_impl": "pallas_fused"}, "items 2 and 3"),
+    ({"hist_impl": "pallas_fused"}, "CUDA device"),
+    ({"hist_impl": "pallas_fused_q"}, "item 3"),
     ({"hist_impl": "pallas"}, "CUDA device"),
     ({"hist_impl": "bogus"}, "Unknown hist_impl"),
     ({"objective": "huber"}, "not ported yet"),
