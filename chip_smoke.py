@@ -68,9 +68,34 @@ Phases, each printing one JSON line:
           255-leaf, 14-wide run (K2 at its full 14-slot chunk), fused
           against unfused.  Round times, K2's and K3's share, waves and
           syncs per tree, one profiled round.
+  histogram_q the quantized histogram kernel K4 (`csrc/histogram_q.cu`)
+          against its plain version on the card, bitwise, over the int8
+          lattice of a binary payload quantized to 15 levels with
+          stochastic rounding: S = 1 at the 2M x 28 root, S = 8 over a
+          depth-3 partition (one slot matching no row), S = 42 over a
+          depth-6 partition, u16 bins at max_bin 1023; two launches
+          bitwise equal.  Then K4 (device time), its plain version and
+          `index_add_` of the same integer histogram timed, the bounds.
+  fused_q the fused quantized kernel K5 (`csrc/fused_split.cu`) at the
+          same shapes: its histogram bitwise K4's and its plain
+          version's, its candidates bitwise the plain scan's and K3's;
+          the quantizer's stochastic rounding (threefry) on the card
+          bitwise the CPU's.  Then K5, its plain version and K4 timed.
+  train_quant quantized training (`benchmarks/configs_r4.py` QUANT) on the
+          train phase's data: the main run `wave_w8_tail_auto+quant` (31
+          leaves, 10 rounds) timed, with per round K5 launches = 1 +
+          waves that built histograms and K3 launches = those waves; a
+          second run, an unfused run (K4 and the torch split search) and
+          `hist_impl=packed` byte-identical to it; the held-out AUC beside
+          the f32 wave model's.  Then `strict+quant` at 255 leaves (K4 at
+          S = 1, 3 rounds, `packed` byte-identical) and
+          `wave_w28_tail16+quant` at 255 leaves (K5 at 28 slots, unfused
+          byte-identical).  Round times, the quantize step's and K5's
+          share, one profiled round.
   kernels one line per kernel: launches on its path's phase (traverse
           and accumulate: main; histogram: train; fused_hist_split and
-          split_scan: train_wave), parity, times, bound.
+          split_scan: train_wave; fused_hist_split_q: train_quant's main
+          run; histogram_q: its strict run), parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line `{"ok": true, "device": {...}}`.  Any failure exits
@@ -396,7 +421,7 @@ def phase_env():
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     _check(set(built) == {"traverse", "accumulate", "histogram",
-                          "fused_split"},
+                          "histogram_q", "fused_split"},
            f"build_all built {sorted(built)}")
     _emit({"phase": "env", "torch": torch.__version__,
            "cuda": torch.version.cuda,
@@ -1209,15 +1234,20 @@ def _zero_wave_counters(modules):
     grow_wave.HIST_WAVES = 0
 
 
-def _wave_run(params, dataset, modules, rounds, timing):
-    """One wave training run with per-round counters, round marks and,
-    with `timing`, CUDA events around every K2 and K3 call.  Returns the
-    booster and what was recorded."""
+def _wave_run(params, dataset, modules, rounds, timing, patch=None,
+              counters=_wave_counters):
+    """One wave training run with per-round `counters`, round marks and,
+    with `timing`, CUDA events around every call of the functions
+    `patch` names ((module, attribute) pairs; default K2 and K3 as the
+    wave grower calls them).  Returns the booster and what was
+    recorded."""
     import torch
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import grow_wave
-    real = {"fused_hist_split": grow_wave.fused_hist_split,
-            "split_scan": grow_wave.split_scan}
+    patch = patch or [(grow_wave, "fused_hist_split"),
+                      (grow_wave, "split_scan")]
+    owner = {key: mod for mod, key in patch}
+    real = {key: getattr(mod, key) for mod, key in patch}
     events = {k: [] for k in real}
     slots_seen = []
     per_round, marks = [], []
@@ -1225,7 +1255,7 @@ def _wave_run(params, dataset, modules, rounds, timing):
 
     def timed(key):
         def call(*a, **kw):
-            if key == "fused_hist_split":
+            if key.startswith("fused_hist_split"):
                 slots_seen.append(int(a[3].shape[0]))
             if not timing:
                 return real[key](*a, **kw)
@@ -1238,26 +1268,26 @@ def _wave_run(params, dataset, modules, rounds, timing):
             return out
         return call
 
-    before = [_wave_counters(modules)]
+    before = [counters(modules)]
 
     def mark_round(env):
         if timing:
             torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        now = _wave_counters(modules)
+        now = counters(modules)
         per_round.append({k: now[k] - before[0][k] for k in now})
         before[0] = now
         done[0] += 1
 
     for key in real:
-        setattr(grow_wave, key, timed(key))
+        setattr(owner[key], key, timed(key))
     try:
         t0 = time.perf_counter()
         bst = lt.train(params, dataset, num_boost_round=rounds,
                        callbacks=[mark_round])
     finally:
         for key, fn in real.items():
-            setattr(grow_wave, key, fn)
+            setattr(owner[key], key, fn)
     out = {"per_round": per_round, "round_s": np.diff([t0] + marks),
            "max_slots": max(slots_seen) if slots_seen else 0}
     if timing:
@@ -1277,8 +1307,8 @@ def phase_train_wave(data: TrainData, modules, device=None, timing=True,
     `tpu_fused_split=False`) byte-identical to it, the held-out AUC
     within 1e-3 of `hist_impl=segment_sum`, the per-round launch and
     sync counts; then the 255-leaf, 14-wide run, fused against unfused.
-    Returns the K2 and K3 launches of the main (first) run."""
-    import torch
+    Returns the K2 and K3 launches of the main (first) run, and the
+    phase's report."""
     import lightgbm_tpu_torch as lt
     params = dict(WAVE_PARAMS)
     wide = dict(WAVE_WIDE)
@@ -1373,6 +1403,459 @@ def phase_train_wave(data: TrainData, modules, device=None, timing=True,
             "wide_round_ms": [float(x) * 1e3 for x in wrec["round_s"]],
             "profiled_round": _profile_round(params, data.dataset)})
     _emit(report)
+    return launches, report
+
+
+# ---------------------------------------------------------- quantized
+#: the quantized configurations, `benchmarks/configs_r4.py` CONFIGS on the
+#: train phase's data: QUANT (`:18`) is use_quantized_grad with 15 bins;
+#: "wave_w8_tail_auto+quant" (`:23`, the first and most important entry:
+#: the shipped wave configuration, its strict tail auto, 16 at 31 leaves)
+#: is the main run; "strict+quant" (`:37`) at the train phase's 255
+#: leaves; "wave_w28_tail16+quant" (`:55`) at 255 leaves, so that its
+#: waves reach 28 slots (at the configs' 31 leaves the strict tail caps
+#: them at 8)
+QUANT = {"use_quantized_grad": True, "num_grad_quant_bins": 15}
+QUANT_PARAMS = dict(TRAIN_PARAMS, num_leaves=31, tree_grow_policy="wave",
+                    tpu_wave_width=8, tpu_wave_gain_ratio=0, **QUANT)
+QUANT_STRICT = dict(TRAIN_PARAMS, **QUANT)
+QUANT_WIDE = dict(TRAIN_PARAMS, tree_grow_policy="wave", tpu_wave_width=28,
+                  tpu_wave_gain_ratio=0.8, tpu_wave_strict_tail=16, **QUANT)
+QUANT_STRICT_ROUNDS = 3
+
+
+def _quant_inputs(bnp, y, lid_np, slots, seed, dev):
+    """K4/K5 inputs on `dev`: bins [F, N], the lattice [3, N] int8 of the
+    binary payload of `_wave_payload` quantized to 15 levels with
+    stochastic rounding (a threefry key from `seed`), leaf ids, slots
+    and the scales; with the f32 payload and the quantized payload."""
+    import torch
+    from lightgbm_tpu_torch.ops.fused import quantize_gradients
+    from lightgbm_tpu_torch.ops.hist_kernel_q import quantized_lattice_rows
+    from lightgbm_tpu_torch.ops.threefry import fold_in, prng_key
+    pay = torch.from_numpy(_wave_payload(y, seed)).to(dev)
+    key = fold_in(prng_key(seed), 1)
+    g, h, (sg, sh) = quantize_gradients(pay[:, 0].contiguous(),
+                                        pay[:, 1].contiguous(), 15, key,
+                                        return_scales=True)
+    qpay = torch.stack([g, h, pay[:, 2]], dim=1).contiguous()
+    return {"bins": torch.from_numpy(bnp).to(dev),
+            "pw3": quantized_lattice_rows(qpay, sg, sh),
+            "lid": torch.from_numpy(np.ascontiguousarray(lid_np)).to(dev),
+            "sl": torch.tensor(slots, dtype=torch.int32, device=dev),
+            "sg": sg, "sh": sh, "pay": pay, "key": key}
+
+
+def _quant_cases(data, u16_rows):
+    """(name, dataset, bins [F, N], labels, leaf ids, slots) of the
+    quantized kernels' phases: S = 1 at the root, S = 8 over a depth-3
+    partition (one slot matching no row), S = 42 over a depth-6
+    partition, and u16 bins at max_bin 1023 (S = 4)."""
+    import lightgbm_tpu_torch as lt
+    ds = data.dataset
+    wide = lt.Dataset(data.X[:u16_rows], label=data.y[:u16_rows],
+                      params={"max_bin": 1023, "verbosity": -1}).construct()
+    _check(wide.bin_data.dtype == np.uint16, "u16 case is not uint16")
+    bins_main = np.ascontiguousarray(ds.bin_data.T)
+    bins_wide = np.ascontiguousarray(wide.bin_data.T)
+    lid3 = _partition(bins_main, 3)
+    return [("root_s1", ds, bins_main, data.y, np.zeros_like(lid3), [0]),
+            ("s8", ds, bins_main, data.y, lid3, list(range(7)) + [99]),
+            ("s42", ds, bins_main, data.y, _partition(bins_main, 6),
+             list(range(42))),
+            ("u16_1023_s4", wide, bins_wide, data.y[:u16_rows],
+             _partition(bins_wide, 2), [0, 1, 2, 3])]
+
+
+def _k4_bytes(inp, rows_in, mb):
+    """Bytes K4 must move: bins and leaf ids of every row, three lattice
+    bytes of each row in the slots, the f32 histogram out."""
+    bins = inp["bins"]
+    f, n = bins.shape
+    s = inp["sl"].shape[0]
+    return (bins.numel() * bins.element_size() + n * 4 + rows_in * 3
+            + s * f * mb * 12)
+
+
+def phase_histogram_q(data: TrainData, seed: int, device=None,
+                      u16_rows: int = 100_000, timing: bool = True):
+    """K4 (`csrc/histogram_q.cu`) against its plain version on the card,
+    bitwise, at the `_quant_cases` shapes; two launches bitwise equal, pad
+    slots zero.  Then K4, its plain version and `index_add_` of the same
+    integer histogram timed at the root, and each case's bound.  Returns
+    the kernels-line entry at the root (the strict grower's shape;
+    launches filled in by the train_quant phase)."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_kernel_q as hq
+    dev = torch.device(device or "cuda")
+    report = {"phase": "histogram_q", "cases": {}}
+    worst = 0.0
+    entry = None
+    for name, d, bnp, y, lid_np, slots in _quant_cases(data, u16_rows):
+        mb = max(m.num_bin for m in d.bin_mappers)
+        inp = _quant_inputs(bnp, y, lid_np, slots, seed, dev)
+        args = (inp["bins"], inp["pw3"], inp["lid"], inp["sl"], mb,
+                inp["sg"], inp["sh"])
+        k = hq.histogram_multi_quantized(*args)
+        k_again = hq.histogram_multi_quantized(*args)
+        plain = hq.histogram_multi_quantized_plain(*args)
+        err = _max_abs_diff(k, plain)
+        _check(_bits_equal(k.cpu().numpy(), plain.cpu().numpy()),
+               f"histogram_q {name}: K4 != its plain version")
+        _check(torch.equal(k, k_again), f"histogram_q {name}: two launches "
+               "differ")
+        _check(all(not bool(k[i].any()) for i, s_ in enumerate(slots)
+                   if s_ == 99), f"histogram_q {name}: a pad slot is not "
+               "zero")
+        worst = max(worst, err)
+        f, n = inp["bins"].shape
+        rows_in = int((inp["lid"][:, None] == inp["sl"][None, :]).any(1)
+                      .sum())
+        nbytes = _k4_bytes(inp, rows_in, mb)
+        adds = 3 * rows_in * f
+        case = {"rows": n, "features": f, "slots": len(slots),
+                "max_bin": mb, "dtype": str(bnp.dtype),
+                "rows_in_slots": rows_in, "bitwise_plain": True,
+                "bitwise_repro": True, "max_abs_err": err, "bytes": nbytes,
+                "int_adds": adds,
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                adds / INT32_OPS_PER_S) * 1e3,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+                >= adds / INT32_OPS_PER_S else "operations"}
+        if timing:
+            case["ms"] = _cuda_ms(lambda: hq.histogram_multi_quantized(*args),
+                                  queued=True)
+            case["plain_ms"] = _cuda_ms(
+                lambda: hq.histogram_multi_quantized_plain(*args), iters=3,
+                warmup=1)
+        if name == "root_s1":
+            bins, pw3 = inp["bins"], inp["pw3"]
+            flat = (bins.to(torch.int64) + torch.arange(
+                f, device=dev)[:, None] * mb).reshape(-1)
+            src = pw3.t().to(torch.int32).repeat(f, 1)
+
+            def library():
+                return torch.zeros((f * mb, 3), dtype=torch.int32,
+                                   device=dev).index_add_(0, flat, src)
+            lib_h = hq.dequantize(library().view(1, f, mb, 3), inp["sg"],
+                                  inp["sh"])
+            _check(torch.equal(lib_h, k), "histogram_q: index_add_'s "
+                   "integer histogram != K4's")
+            if timing:
+                case["library_ms"] = _cuda_ms(library, iters=5, warmup=1)
+            entry = {"name": "histogram_q", "route": "cuda",
+                     "source": "lightgbm_tpu_torch/csrc/histogram_q.cu",
+                     "replaces": "lightgbm_tpu/ops/pallas_hist.py:171",
+                     "launches": 0, "ms": case.get("ms"),
+                     "plain_ms": case.get("plain_ms"),
+                     "bound_ms": case["bound_ms"],
+                     "bound_by": case["bound_by"],
+                     "library_ms": case.get("library_ms")}
+        report["cases"][name] = case
+    entry["max_abs_err"] = worst
+    report["max_abs_err"] = worst
+    report["library_note"] = ("index_add_ of the int32 lattice at the "
+                              "root: the same integer histogram (one slot "
+                              "holding every row), before the dequantize")
+    _emit(report)
+    return entry
+
+
+def phase_fused_q(data: TrainData, seed: int, device=None,
+                  u16_rows: int = 100_000, timing: bool = True):
+    """K5 (`csrc/fused_split.cu`) at the `_quant_cases` shapes: its
+    histogram bitwise K4's and its plain version's, its candidates bitwise
+    the plain scan's and K3's over the same histogram, two launches
+    bitwise equal; the quantizer's stochastic rounding on the card bitwise
+    the same call on the CPU.  Then K5 and its plain version timed, and
+    the bounds.  Returns the kernels-line entry at S = 8 (launches filled
+    in by the train_quant phase)."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused_kernel as fk
+    from lightgbm_tpu_torch.ops import hist_kernel_q as hq
+    from lightgbm_tpu_torch.ops.fused import quantize_gradients
+    dev = torch.device(device or "cuda")
+    kw = FUSED_SCAN_KW
+    report = {"phase": "fused_q", "scan_kw": kw, "cases": {}}
+    worst = 0.0
+    entry = None
+    for name, d, bnp, y, lid_np, slots in _quant_cases(data, u16_rows):
+        mb = max(m.num_bin for m in d.bin_mappers)
+        f = bnp.shape[0]
+        inp = _quant_inputs(bnp, y, lid_np, slots, seed, dev)
+        if name == "root_s1":
+            # threefry and the quantizer are integer and IEEE f32 ops: the
+            # card's lattice equals the CPU's over the same f32 gradients
+            pay = inp["pay"]
+            got = quantize_gradients(pay[:, 0].contiguous(),
+                                     pay[:, 1].contiguous(), 15,
+                                     inp["key"], return_scales=True)
+            cpu = pay.cpu()
+            want = quantize_gradients(cpu[:, 0].contiguous(),
+                                      cpu[:, 1].contiguous(), 15,
+                                      inp["key"], return_scales=True)
+            for a, b in ((got[0], want[0]), (got[1], want[1]),
+                         (got[2][0], want[2][0]), (got[2][1], want[2][1])):
+                _check(_bits_equal(a.cpu().numpy(), b.numpy()),
+                       "fused_q: quantize_gradients on the card != CPU")
+        nb = torch.tensor([m.num_bin for m in d.bin_mappers],
+                          dtype=torch.int32, device=dev)
+        miss = torch.arange(f, dtype=torch.int32, device=dev) % 3
+        base = (inp["bins"], inp["pw3"], inp["lid"], inp["sl"])
+        k4 = hq.histogram_multi_quantized(*base, mb, inp["sg"], inp["sh"])
+        parent = k4[:, 0].sum(dim=1).contiguous()            # [S, 3]
+        args = base + (nb, miss, parent, mb, inp["sg"], inp["sh"])
+        h5, c5 = fk.fused_hist_split_quantized(*args, **kw)
+        h5b, c5b = fk.fused_hist_split_quantized(*args, **kw)
+        hp, cp = fk.fused_hist_split_quantized_plain(*args, **kw)
+        c3 = fk.split_scan(h5, nb, miss, parent, **kw)
+        scan = fk.split_scan_plain(h5, nb, miss, parent, **kw)
+        h5n, c5n = h5.cpu().numpy(), c5.cpu().numpy()
+        _check(_bits_equal(h5n, k4.cpu().numpy()),
+               f"fused_q {name}: K5's histogram != K4's")
+        _check(_bits_equal(h5n, hp.cpu().numpy())
+               and _bits_equal(c5n, cp.cpu().numpy()),
+               f"fused_q {name}: K5 != its plain version")
+        _check(_bits_equal(c5n, scan.cpu().numpy()),
+               f"fused_q {name}: K5's candidates != the plain scan")
+        _check(_bits_equal(c3.cpu().numpy(), c5n),
+               f"fused_q {name}: K3's candidates != K5's")
+        _check(_bits_equal(h5b.cpu().numpy(), h5n)
+               and _bits_equal(c5b.cpu().numpy(), c5n),
+               f"fused_q {name}: two launches differ")
+        err = max(_max_abs_diff(h5, hp), _max_abs_diff(c5, cp))
+        worst = max(worst, err)
+        n = bnp.shape[1]
+        s = len(slots)
+        rows_in = int((inp["lid"][:, None] == inp["sl"][None, :]).any(1)
+                      .sum())
+        nbytes = _k4_bytes(inp, rows_in, mb) + s * 2 * f * 32
+        adds = 3 * rows_in * f
+        scan_ops = s * f * mb * SCAN_OPS_PER_BIN
+        op_s = adds / INT32_OPS_PER_S + scan_ops / F32_OPS_PER_S
+        case = {"rows": n, "features": f, "slots": s, "max_bin": mb,
+                "dtype": str(bnp.dtype), "rows_in_slots": rows_in,
+                "hist_bitwise_k4": True, "bitwise_plain": True,
+                "cand_bitwise_plain_scan": True, "k3_bitwise_k5": True,
+                "bitwise_repro": True, "max_abs_err": err,
+                "splits_found": int((c5[:, :, :, 0] > float("-inf")).any(2)
+                                    .any(1).sum()),
+                "bytes": nbytes, "int_adds": adds, "scan_ops": scan_ops,
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, op_s) * 1e3,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= op_s
+                else "operations"}
+        if timing:
+            case["ms"] = _cuda_ms(lambda: fk.fused_hist_split_quantized(
+                *args, **kw), queued=True)
+            case["plain_ms"] = _cuda_ms(
+                lambda: fk.fused_hist_split_quantized_plain(*args, **kw),
+                iters=3, warmup=1)
+            case["k4_ms"] = _cuda_ms(lambda: hq.histogram_multi_quantized(
+                *base, mb, inp["sg"], inp["sh"]), queued=True)
+        report["cases"][name] = case
+        if name == "s8":
+            entry = {"name": "fused_hist_split_q", "route": "cuda",
+                     "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
+                     "replaces": "lightgbm_tpu/ops/pallas_hist.py:524",
+                     "launches": 0, "ms": case.get("ms"),
+                     "plain_ms": case.get("plain_ms"),
+                     "bound_ms": case["bound_ms"],
+                     "bound_by": case["bound_by"], "library_ms": None}
+    entry["max_abs_err"] = worst
+    report["max_abs_err"] = worst
+    report["quantize_bitwise_cpu"] = True
+    report["library_ms"] = None
+    report["library_note"] = ("no single PyTorch call builds a histogram "
+                              "and scans it")
+    _emit(report)
+    return entry
+
+
+def _quant_counters(modules):
+    from lightgbm_tpu_torch.ops import grow as grow_module
+    from lightgbm_tpu_torch.ops import grow_wave
+    return {"k5": modules["fused"].FUSED_Q_LAUNCHES,
+            "k3": modules["fused"].SCAN_LAUNCHES,
+            "k4": modules["hist_q"].HIST_Q_LAUNCHES,
+            "k2": modules["fused"].FUSED_LAUNCHES,
+            "k1": modules["hist"].HIST_LAUNCHES,
+            "syncs": grow_module.HOST_SYNCS, "waves": grow_wave.WAVES,
+            "hist_waves": grow_wave.HIST_WAVES}
+
+
+def _zero_quant_counters(modules):
+    _zero_wave_counters(modules)
+    modules["fused"].FUSED_Q_LAUNCHES = 0
+    modules["hist_q"].HIST_Q_LAUNCHES = 0
+
+
+def phase_train_quant(data: TrainData, modules, device=None, timing=True,
+                      rounds: int = TRAIN_ROUNDS, f32_wave=None):
+    """`lightgbm_tpu_torch.train` with quantized gradients on the train
+    phase's data.  The main run, QUANT_PARAMS (`wave_w8_tail_auto+quant`),
+    timed: per round K5 launches = 1 + waves that built histograms, K3
+    launches = those waves, no K1, K2 or K4 launch; a second run, an
+    unfused run (K4 and the torch split search) and a `hist_impl=packed`
+    run (the plain packed histogram on the card) all give byte-identical
+    model text; the held-out AUC beside the f32 wave model's of the same
+    call (`f32_wave`, the train_wave report).  Then QUANT_STRICT at 255
+    leaves (K4 at S = 1: launches = rounds + splits; `packed`
+    byte-identical) and QUANT_WIDE (K5 at 28 slots; unfused
+    byte-identical), each between its own counter reads.  Returns the
+    K5 and K3 launches of the main run and K4's of the strict run."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    import lightgbm_tpu_torch.booster as booster_module
+    from lightgbm_tpu_torch.ops import grow_wave
+    params, strict, wide = (dict(QUANT_PARAMS), dict(QUANT_STRICT),
+                            dict(QUANT_WIDE))
+    if device is not None:
+        for p in (params, strict, wide):
+            p["device_type"] = device
+    f32_wave = f32_wave or {}
+
+    # ---- the main path, alone between the counter reads
+    _zero_quant_counters(modules)
+    t0 = time.perf_counter()
+    bst, rec = _wave_run(
+        params, data.dataset, modules, rounds, timing,
+        patch=[(grow_wave, "fused_hist_split_quantized"),
+               (grow_wave, "split_scan"),
+               (booster_module, "quantize_gradients")],
+        counters=_quant_counters)
+    train_s = time.perf_counter() - t0
+    total = _quant_counters(modules)
+    launches = {"fused_hist_split_q": total["k5"],
+                "split_scan": total["k3"]}
+    spec = bst._grower_spec
+    _check(spec.fused and spec.hist_impl == "kernel_q"
+           and spec.wave_strict_tail == 16 and spec.wave_width == 8,
+           f"train_quant: the main run resolved to {spec}")
+    for r, c in enumerate(rec["per_round"]):
+        _check(c["k5"] == 1 + c["hist_waves"] and c["k3"] == c["hist_waves"]
+               and c["k1"] == 0 and c["k2"] == 0 and c["k4"] == 0
+               and c["syncs"] == 1 + c["hist_waves"] and c["hist_waves"] > 0,
+               f"train_quant: round {r + 1} counted {c}")
+    _check(len(bst.trees) == rounds, "train_quant: bad model")
+    text = bst.model_to_string()
+
+    # ---- gates: the same model four ways
+    again = lt.train(params, data.dataset, num_boost_round=rounds)
+    _check(again.model_to_string() == text,
+           "train_quant: two kernel runs differ")
+    _zero_quant_counters(modules)
+    unfused = lt.train(dict(params, tpu_fused_split=False), data.dataset,
+                       num_boost_round=rounds)
+    uc = _quant_counters(modules)
+    _check(not unfused._grower_spec.fused and uc["k5"] == 0
+           and uc["k3"] == 0 and uc["k4"] == rounds + uc["hist_waves"],
+           f"train_quant: the unfused run counted {uc}")
+    _check(_without(unfused.model_to_string(), "tpu_fused_split")
+           == _without(text, "tpu_fused_split"),
+           "train_quant: fused and unfused models differ")
+    _zero_quant_counters(modules)
+    packed = lt.train(dict(params, hist_impl="packed"), data.dataset,
+                      num_boost_round=rounds)
+    pc = _quant_counters(modules)
+    _check(packed.hist_impl == "packed" and pc["k4"] == 0 and pc["k5"] == 0,
+           f"train_quant: the packed run counted {pc}")
+    _check(_without(packed.model_to_string(), "hist_impl")
+           == _without(text, "hist_impl"),
+           "train_quant: kernel and packed models differ")
+    raw = bst.predict(data.X_hold, raw_score=True)
+    _check(bool(np.all(np.isfinite(raw))), "train_quant: scores not finite")
+    auc_q = _auc(raw, data.y_hold)
+    auc_f32 = f32_wave.get("auc_fused")
+    _check(auc_f32 is None or abs(auc_q - auc_f32) <= 0.02,
+           f"train_quant: held-out AUC {auc_q} vs the f32 wave's {auc_f32}")
+
+    # ---- strict+quant at 255 leaves: K4 at S = 1
+    _zero_quant_counters(modules)
+    marks = [time.perf_counter()]
+
+    def mark(env):
+        if timing:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    sbst = lt.train(strict, data.dataset, num_boost_round=QUANT_STRICT_ROUNDS,
+                    callbacks=[mark])
+    strict_round_s = np.diff(marks)
+    sc = _quant_counters(modules)
+    splits = sum(t.num_leaves - 1 for t in sbst.trees)
+    launches["histogram_q"] = sc["k4"]
+    _check(sbst.hist_impl == "kernel_q" and sc["k5"] == 0
+           and sc["k4"] == QUANT_STRICT_ROUNDS + splits,
+           f"train_quant: strict run counted {sc} for {splits} splits")
+    spacked = lt.train(dict(strict, hist_impl="packed"), data.dataset,
+                       num_boost_round=QUANT_STRICT_ROUNDS)
+    _check(_without(spacked.model_to_string(), "hist_impl")
+           == _without(sbst.model_to_string(), "hist_impl"),
+           "train_quant: strict kernel and packed models differ")
+
+    # ---- wave_w28_tail16+quant at 255 leaves: K5 at 28 slots
+    _zero_quant_counters(modules)
+    wbst, wrec = _wave_run(wide, data.dataset, modules, rounds, False,
+                           patch=[(grow_wave, "fused_hist_split_quantized")],
+                           counters=_quant_counters)
+    wc = _quant_counters(modules)
+    _check(wrec["max_slots"] == 28,
+           f"train_quant: the wide run's widest K5 call had "
+           f"{wrec['max_slots']} slots")
+    wide_unfused = lt.train(dict(wide, tpu_fused_split=False), data.dataset,
+                            num_boost_round=rounds)
+    _check(_without(wide_unfused.model_to_string(), "tpu_fused_split")
+           == _without(wbst.model_to_string(), "tpu_fused_split"),
+           "train_quant: 255 leaves: fused and unfused models differ")
+
+    trees = len(bst.trees)
+    report = {"phase": "train_quant", "params": QUANT_PARAMS,
+              "rows": int(data.X.shape[0]), "rounds": rounds,
+              "leaves_per_tree": [t.num_leaves for t in bst.trees],
+              "auc_quant": auc_q, "auc_f32_wave": auc_f32,
+              "model_text_identical_twice": True,
+              "model_text_identical_unfused": True,
+              "model_text_identical_packed": True,
+              "waves": total["waves"], "hist_waves": total["hist_waves"],
+              "waves_per_tree": total["waves"] / trees,
+              "host_syncs_per_tree": total["syncs"] / trees,
+              "per_round_counts": rec["per_round"],
+              "launches": launches, "train_s": train_s,
+              "strict": {"params": QUANT_STRICT,
+                         "rounds": QUANT_STRICT_ROUNDS, "splits": splits,
+                         "k4_launches": sc["k4"],
+                         "train_s": float(strict_round_s.sum()),
+                         "leaves_per_tree": [t.num_leaves
+                                             for t in sbst.trees],
+                         "model_text_identical_packed": True},
+              "wide": {"params": QUANT_WIDE,
+                       "leaves_per_tree": [t.num_leaves
+                                           for t in wbst.trees],
+                       "max_k5_slots": wrec["max_slots"],
+                       "waves_per_tree": wc["waves"] / len(wbst.trees),
+                       "k5_launches": wc["k5"], "k3_launches": wc["k3"],
+                       "model_text_identical_unfused": True}}
+    if timing:
+        steady = rec["round_s"][1:]
+        k5 = rec["fused_hist_split_quantized_ms_per_round"]
+        k3 = rec["split_scan_ms_per_round"]
+        qz = rec["quantize_gradients_ms_per_round"]
+        report.update({
+            "round_ms": [float(x) * 1e3 for x in rec["round_s"]],
+            "ms_per_round_2_to_10": float(steady.mean()) * 1e3,
+            "f32_wave_ms_per_round_2_to_10":
+                f32_wave.get("ms_per_round_2_to_10"),
+            "k5_ms_per_round": [float(x) for x in k5],
+            "k3_ms_per_round": [float(x) for x in k3],
+            "quantize_ms_per_round": [float(x) for x in qz],
+            "k5_share_2_to_10": float(k5[1:].sum() / (steady.sum() * 1e3)),
+            "quantize_share_2_to_10": float(qz[1:].sum()
+                                            / (steady.sum() * 1e3)),
+            "strict_round_ms": [float(x) * 1e3 for x in strict_round_s],
+            "strict_ms_per_round_2_to_3": float(strict_round_s[1:].mean())
+            * 1e3,
+            "wide_round_ms": [float(x) * 1e3 for x in wrec["round_s"]],
+            "profiled_round": _profile_round(params, data.dataset)})
+    _emit(report)
     return launches
 
 
@@ -1389,6 +1872,7 @@ def main(argv=None) -> int:
         import lightgbm_tpu_torch.compiler.kernel as kernel_module
         import lightgbm_tpu_torch.ops.fused_kernel as fused_module
         import lightgbm_tpu_torch.ops.hist_kernel as hist_module
+        import lightgbm_tpu_torch.ops.hist_kernel_q as hist_q_module
         import lightgbm_tpu_torch.ops.predict as predict_module
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
@@ -1406,11 +1890,20 @@ def main(argv=None) -> int:
         hist["launches"] = launches["histogram"]
         kernels.append(hist)
         fused = phase_fused(data, args.seed)
-        wave = phase_train_wave(data, {"hist": hist_module,
-                                       "fused": fused_module})
+        wave, wave_report = phase_train_wave(data, {"hist": hist_module,
+                                                    "fused": fused_module})
         for name in ("fused_hist_split", "split_scan"):
             fused[name]["launches"] = wave[name]
             kernels.append(fused[name])
+        hist_q = phase_histogram_q(data, args.seed)
+        fused_q = phase_fused_q(data, args.seed)
+        quant = phase_train_quant(data, {"hist": hist_module,
+                                         "hist_q": hist_q_module,
+                                         "fused": fused_module},
+                                  f32_wave=wave_report)
+        hist_q["launches"] = quant["histogram_q"]
+        fused_q["launches"] = quant["fused_hist_split_q"]
+        kernels += [hist_q, fused_q]
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
              "parity": ("within_tol" if k["name"] in WITHIN_TOL

@@ -8,14 +8,18 @@ gbdt_model_text.cpp `SaveModelToString` / `LoadModelFromString`).
 Training (`Booster(params, train_set)`, then `update`): the default path
 of the reference's `_init_train`, `_boost_from_average`, `update` /
 `_update_impl`, `__boost` and `_apply_tree_to_score`, for gbdt on
-numerical features with f32 histograms, with the strict leaf-wise
-grower (`ops/grow.py`, the default `tree_grow_policy=leafwise`) or the
-wave grower (`ops/grow_wave.py`, `tree_grow_policy=wave`).  The bin
-matrix, scores, gradients and histograms live on the training device:
-the card by default (`device_type="cuda"`: the K1 kernel makes every
-histogram, or on the wave's fused path K2 and K3 make the histograms
-and split candidates), the CPU with `device_type="cpu"` (the plain
-versions).  One iteration is: gradients, one grown tree per class,
+numerical features with f32 histograms, or with quantized gradients
+(`use_quantized_grad`: the int8 lattice and its integer histograms),
+with the strict leaf-wise grower (`ops/grow.py`, the default
+`tree_grow_policy=leafwise`) or the wave grower (`ops/grow_wave.py`,
+`tree_grow_policy=wave`).  The bin matrix, scores, gradients and
+histograms live on the training device: the card by default
+(`device_type="cuda"`: the K1 kernel makes every histogram, or on the
+wave's fused path K2 and K3 make the histograms and split candidates;
+with quantized gradients K4, or K5 and K3), the CPU with
+`device_type="cpu"` (the plain versions).  One iteration is: gradients,
+their quantization (stochastic rounding draws from the port's threefry,
+`ops/threefry.py`, the reference's bits), one grown tree per class,
 the train score updated through the grower's final `leaf_id`, each
 validation score through a bin-level replay of the tree.  Everything the
 slice does not implement raises `LightGBMError` naming its ROADMAP item.
@@ -37,11 +41,16 @@ import torch
 
 from .basic import Dataset
 from .metrics import Metric, create_metrics
-from .objectives import Objective, TrainObjective, create_objective, \
-    parse_objective
-from .ops.grow import DeviceTree, GrowerSpec, make_grower, split_go_left
+from .objectives import (UNIT_HESSIAN_OBJECTIVES, Objective,
+                         TrainObjective, create_objective, parse_objective)
+from .ops.fused import quantize_gradients
+from .ops.grow import (QUANTIZED_IMPLS, DeviceTree, GrowerSpec, make_grower,
+                       split_go_left)
 from .ops.grow_wave import WAVE_WIDTH_DEFAULT, make_wave_grower
 from .ops.hist_kernel import MULTI_CHUNK
+from .ops.hist_kernel_q import MULTI_CHUNK_Q
+from .ops.histogram import PACKED_MAX_QUANT_BINS
+from .ops.threefry import fold_in, prng_key
 from .tree import Tree
 from .utils import log
 from .utils.binning import BIN_TYPE_CATEGORICAL
@@ -49,8 +58,8 @@ from .utils.config import Config
 from .utils.log import LightGBMError
 
 #: ROADMAP items that the training slice's refusals name
-THREEFRY = ("ROADMAP Queue 1 item 5a: a port of jax.random's threefry2x32 "
-            "streams")
+THREEFRY = ("ROADMAP Queue 1 item 5a: the samplers on jax.random's "
+            "threefry2x32 streams")
 CATEGORICAL = "ROADMAP Queue 1 item 5b: the categorical/EFB grower"
 BREADTH = "ROADMAP Queue 1 item 5d: grower and boosting breadth"
 EXTERNAL = "ROADMAP Queue 1 item 5e: external memory and streaming"
@@ -127,9 +136,6 @@ def refusals(cfg: Config) -> List[str]:
         out.append(f"histogram_pool_size ({BREADTH})")
     if cfg.linear_tree:
         out.append(f"linear_tree ({BREADTH})")
-    if cfg.use_quantized_grad:
-        out.append("use_quantized_grad (ROADMAP Queue 1 item 3: "
-                   "quantized training on K4 and K5)")
     if cfg.external_memory or str(cfg.streaming_train).lower() == "on":
         out.append(f"external memory / streamed training ({EXTERNAL})")
     if str(cfg.tree_learner).lower() != "serial" or cfg.num_machines > 1:
@@ -138,30 +144,88 @@ def refusals(cfg: Config) -> List[str]:
     return out
 
 
-def hist_impl_of(requested, device: torch.device) -> str:
-    """The grower's histogram path for `hist_impl` on `device`: "auto"
-    is the kernels on a CUDA device and their plain versions on the CPU;
-    "segment_sum" is the plain histogram anywhere; "pallas" and
-    "pallas_fused" are the kernels (K1; K2 and K3 where the fused choice
-    applies, `fused_split_of`) and raise on the CPU.  Nothing is swapped
-    in quietly."""
-    req = str(requested or "auto").lower()
-    if req == "auto":
-        return "kernel"          # the wrappers run plain on CPU tensors
-    if req == "segment_sum":
-        return "plain"
-    if req in ("pallas", "pallas_fused"):
-        if device.type != "cuda":
-            raise LightGBMError(f"hist_impl={req} runs the CUDA kernels, "
-                                "which need a CUDA device; use "
-                                "hist_impl=auto or segment_sum on the CPU")
-        return "kernel"
-    if req in ("packed", "pallas_q", "pallas_fused_q"):
-        raise LightGBMError(f"hist_impl={req} is not ported yet (ROADMAP "
-                            "Queue 1 item 3: quantized training on K4 and "
-                            "K5)")
-    raise LightGBMError(f"Unknown hist_impl {requested!r} (expected auto, "
-                        "segment_sum, pallas or pallas_fused)")
+#: `hist_impl` requests and the grower path of each (the fused names
+#: resolve to their base family; `fused_split_of` decides the fusion)
+_HIST_IMPLS = {"auto": None, "segment_sum": "plain", "packed": "packed",
+               "pallas": "kernel", "pallas_fused": "kernel",
+               "pallas_q": "kernel_q", "pallas_fused_q": "kernel_q"}
+
+
+def quant_hist_reasons(cfg: Config) -> List[str]:
+    """Why the integer-lattice histograms (K4/K5, packed) cannot take
+    `cfg` (empty: they can), the reference's `_quant_hist_reasons`
+    (`booster.py:926`).  Its other two reasons, GOSS and custom
+    objectives, are refusals of this port (`refusals`, `_init_train`)."""
+    if not 0 < cfg.num_grad_quant_bins <= PACKED_MAX_QUANT_BINS:
+        return [f"num_grad_quant_bins={cfg.num_grad_quant_bins} outside "
+                f"(0, {PACKED_MAX_QUANT_BINS}]"]
+    return []
+
+
+def _hist_impl_fallback(requested: str, reasons: List[str]) -> None:
+    """The reference's priced warning (`_hist_impl_fallback`) for a
+    request the chosen histograms cannot honour."""
+    log.warning(f"hist_impl={requested} is not available with "
+                + "; ".join(reasons)
+                + " — degrading to the auto-selected path (the lattice "
+                "kernels K4/K5 are the quantized fast path; this trains "
+                "on the f32 histograms)")
+
+
+def hist_impl_of(cfg: Config, device: torch.device) -> str:
+    """The grower's histogram path (`GrowerSpec.hist_impl`) for
+    `cfg.hist_impl` on `device`, the reference's `_resolve_hist_impl`
+    (`booster.py:975`) as it resolves on a TPU:
+      * "auto": the lattice kernels ("kernel_q": K4, and K5 where the
+        fused choice applies) when `use_quantized_grad` is on and
+        `quant_hist_reasons` is empty, else the f32 kernels ("kernel":
+        K1, K2 and K3); the wrappers run their plain versions on CPU
+        tensors;
+      * "pallas", "pallas_fused", "pallas_q", "pallas_fused_q": those
+        kernels, which need a CUDA device (they raise on the CPU);
+      * "segment_sum": the plain f32 histogram ("plain"), anywhere;
+      * "packed": the plain packed integer histogram, anywhere.
+    A quantized request the lattice cannot honour (no
+    `use_quantized_grad`, or a `quant_hist_reasons` entry) logs the
+    reference's priced warning and takes the "auto" choice: with
+    quantized gradients those still train, on the f32 kernels.  Nothing
+    else is swapped in."""
+    req = str(cfg.hist_impl or "auto").lower()
+    if req not in _HIST_IMPLS:
+        raise LightGBMError(f"Unknown hist_impl {cfg.hist_impl!r} (expected "
+                            f"one of {', '.join(_HIST_IMPLS)})")
+    if req.startswith("pallas") and device.type != "cuda":
+        raise LightGBMError(f"hist_impl={req} runs the CUDA kernels, which "
+                            "need a CUDA device; use hist_impl=auto, "
+                            "segment_sum or packed on the CPU")
+    quant_reasons = quant_hist_reasons(cfg)
+    impl = _HIST_IMPLS[req]
+    if impl is not None:
+        reasons = []
+        if impl in QUANTIZED_IMPLS:
+            if not cfg.use_quantized_grad:
+                reasons.append("use_quantized_grad=False (the int-lattice "
+                               "needs quantized gradients)")
+            reasons.extend(quant_reasons)
+        if not reasons:
+            return impl
+        _hist_impl_fallback(req, reasons)
+    elif cfg.use_quantized_grad and quant_reasons:
+        _hist_impl_fallback("quantized", quant_reasons)
+    return "kernel_q" if cfg.use_quantized_grad and not quant_reasons \
+        else "kernel"
+
+
+def packed_const_hess_level(cfg: Config, hist_impl: str, objective: str,
+                            weighted: bool) -> int:
+    """The reference's `_packed_const_hess_level` (`booster.py:570`): on
+    the packed path, a unit-hessian objective with no dataset weights
+    quantizes every live row to hq = num_grad_quant_bins, so the counts
+    derive from the hessian field; 0 elsewhere."""
+    if hist_impl != "packed" or objective not in UNIT_HESSIAN_OBJECTIVES \
+            or weighted:
+        return 0
+    return int(cfg.num_grad_quant_bins)
 
 
 def resolve_grow_policy(cfg: Config) -> str:
@@ -179,26 +243,28 @@ def resolve_grow_policy(cfg: Config) -> str:
 
 
 def fused_split_of(cfg: Config, policy: str, hist_impl: str) -> bool:
-    """Whether the wave grower takes the fused path (K2 + K3), the
-    reference's `_maybe_fuse_hist_impl` (`booster.py:1045`): the wave
-    policy on the kernels' histogram path with `tpu_fused_split` on (the
-    default) and no path smoothing.  With `path_smooth > 0` the wave
-    runs unfused on K1, with a warning as in the reference; the port's
-    kernels need no probe (`chip_smoke.py` holds them to their plain
-    versions)."""
-    if hist_impl != "kernel" or not cfg.tpu_fused_split:
+    """Whether the wave grower takes the fused path (K2 + K3, or K5 + K3
+    on the lattice), the reference's `_maybe_fuse_hist_impl`
+    (`booster.py:1045`): the wave policy on the kernels' histogram path
+    with `tpu_fused_split` on (the default) and no path smoothing.  With
+    `path_smooth > 0` the wave runs unfused on K1 (K4), with a warning as
+    in the reference; the port's kernels need no probe (`chip_smoke.py`
+    holds them to their plain versions)."""
+    if hist_impl not in ("kernel", "kernel_q") or not cfg.tpu_fused_split:
         return False
     reasons = []
     if policy != "wave":
-        if str(cfg.hist_impl or "auto").lower() != "pallas_fused":
+        if str(cfg.hist_impl or "auto").lower() not in ("pallas_fused",
+                                                         "pallas_fused_q"):
             return False
         reasons.append("tree_grow_policy != wave (the strict policy "
                        "re-scans cached histograms per split)")
     if cfg.path_smooth > 0.0:
         reasons.append("path_smooth")
     if reasons:
+        kernel = "K4" if hist_impl == "kernel_q" else "K1"
         log.warning("fused hist+split is unavailable with "
-                    + "; ".join(reasons) + " — using the unfused K1 "
+                    + "; ".join(reasons) + f" — using the unfused {kernel} "
                     "histogram kernel and the torch split search")
         return False
     return True
@@ -335,7 +401,7 @@ class Booster:
         self._loaded_feature_names = train_set.get_feature_name()
         self._loaded_feature_infos = [m.feature_info_str()
                                       for m in train_set.bin_mappers]
-        self.hist_impl = hist_impl_of(cfg.hist_impl, self.device)
+        self.hist_impl = hist_impl_of(cfg, self.device)
         wave = self._grow_policy == "wave"
         self._grower_spec = GrowerSpec(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
@@ -346,6 +412,10 @@ class Booster:
             min_gain_to_split=cfg.min_gain_to_split,
             max_delta_step=cfg.max_delta_step, path_smooth=cfg.path_smooth,
             hist_impl=self.hist_impl,
+            packed_const_hess_level=packed_const_hess_level(
+                cfg, self.hist_impl, obj.name,
+                train_set.get_weight() is not None),
+            debug_checks=bool(cfg.tpu_debug_nans),
             wave_width=self._wave_width() if wave else 0,
             wave_gain_ratio=self._wave_gain_ratio() if wave else 0.0,
             wave_overgrow=self._wave_overgrow() if wave else 0.0,
@@ -361,6 +431,9 @@ class Booster:
         self._valid_scores: List[torch.Tensor] = []
         self._ones = torch.ones(self._dd.num_data, dtype=torch.float32,
                                 device=self.device)
+        # threefry key of the quantizer's stochastic rounding, kept on the
+        # host: its words reach the card as kernel arguments, no sync
+        self._rng_key0 = prng_key(cfg.bagging_seed % (2 ** 31))
 
     # ---- the wave policy's knobs (the reference's `booster.py:703-774`)
     WAVE_GAIN_RATIO_DEFAULT = 0.0
@@ -369,8 +442,10 @@ class Booster:
     def _wave_width(self) -> int:
         """Leaves per batched histogram pass: `tpu_wave_width=0` (auto)
         is `WAVE_WIDTH_DEFAULT`, or the cap under overgrow; the cap is
-        the kernels' slot chunk, 14 for f32 histograms."""
-        cap = MULTI_CHUNK
+        the kernels' slot chunk, 14 for f32 histograms and 42 for the
+        quantized lattice."""
+        cap = MULTI_CHUNK_Q if self.hist_impl in QUANTIZED_IMPLS \
+            else MULTI_CHUNK
         w = int(self.config.tpu_wave_width or 0)
         if w <= 0:
             w = cap if self._wave_overgrow() > 1.0 else WAVE_WIDTH_DEFAULT
@@ -473,16 +548,40 @@ class Booster:
             self._train_score, self._dd.label, self._dd.weight)
         return self._boost(grad, hess)
 
+    def _quantize(self, grad: torch.Tensor, hess: torch.Tensor, it: int):
+        """The reference's quantization step of `__boost`
+        (`booster.py:1592-1610`), over the full [N] or [N, K] gradients:
+        the key `fold_in(key0, 2 it + 1)` with stochastic rounding, and on
+        the lattice family the scales, which reach the grower as
+        `feat["qscales"]` [2] f32.  Returns (grad, hess, qscales or None).
+        """
+        cfg = self.config
+        key = fold_in(self._rng_key0, it * 2 + 1) \
+            if cfg.stochastic_rounding else None
+        if self.hist_impl in QUANTIZED_IMPLS:
+            g, h, qs = quantize_gradients(
+                grad, hess, cfg.num_grad_quant_bins, key, return_scales=True,
+                const_hess_level=self._grower_spec.packed_const_hess_level)
+            return g, h, torch.stack(qs)
+        g, h = quantize_gradients(grad, hess, cfg.num_grad_quant_bins, key)
+        return g, h, None
+
     def _boost(self, grad: torch.Tensor, hess: torch.Tensor) -> bool:
         lr = self.config.learning_rate
         K = self.num_tree_per_iteration
         it = self.cur_iter
         dd = self._dd
+        feat = dd.feat
+        if self.config.use_quantized_grad and \
+                self.config.num_grad_quant_bins > 0:
+            grad, hess, qscales = self._quantize(grad, hess, it)
+            if qscales is not None:
+                feat = {**feat, "qscales": qscales}
         all_const = True
         for k in range(K):
             gk = grad if K == 1 else grad[:, k].contiguous()
             hk = hess if K == 1 else hess[:, k].contiguous()
-            dev = self._grower(dd.bins_fm, gk, hk, self._ones, dd.feat,
+            dev = self._grower(dd.bins_fm, gk, hk, self._ones, feat,
                                dd.allowed)
             tree = Tree.from_device(dev, self.train_set.bin_mappers, lr)
             if tree.num_leaves > 1:

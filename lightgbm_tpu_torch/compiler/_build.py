@@ -12,11 +12,13 @@ Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC -Xptxas=-v`, and never `--use_fast_math`, `-ftz=true`
 or `-prec-*=false`: the traverse kernel's contract includes NaN tests,
 subnormal inputs and an `abs(fv) <= 1e-35` compare in IEEE f32.  The
-accumulation and the fused split scan (`fused_split`, K2 and K3) add
-`-fmad=false` so that no add is ever contracted; the histogram kernel
-only adds, so contraction cannot touch it.  A source may include the
-shared headers `csrc/*.cuh` (the histogram's first stage, which K1 and
-K2 share); they are part of every library's hash.
+accumulation and the fused split scan (`fused_split`, K2, K3 and K5)
+add `-fmad=false` so that no add is ever contracted; the histogram
+kernels only add (K1) or add integers and scale with `__fmul_rn` (K4),
+so contraction cannot touch them.  A source may include the shared
+headers `csrc/*.cuh` (the histograms' first stages: K1's, which K2
+shares, and K4's, which K5 shares); they are part of every library's
+hash.
 
 Nothing here runs when the package is imported.  `build_all` is the one
 build path: it starts one `nvcc` per missing library, all together,
@@ -42,7 +44,8 @@ BUILD_DIR = CSRC / "build"
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _EXTRA_FLAGS = {"traverse": [], "accumulate": ["-fmad=false"],
-                "histogram": [], "fused_split": ["-fmad=false"]}
+                "histogram": [], "histogram_q": [],
+                "fused_split": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,9 +60,15 @@ _SIGNATURES = {
     "histogram": [("lgbt_histogram",
                    [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                     _P])],
+    "histogram_q": [("lgbt_histogram_q",
+                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                      _P, _P, _P])],
     "fused_split": [("lgbt_fused_hist_split",
                      [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _F, _F, _F, _F, _F, _P, _P, _P]),
+                    ("lgbt_fused_hist_split_q",
+                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                      _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P]),
                     ("lgbt_split_scan",
                      [_P, _I, _I, _I, _P, _P, _P, _F, _F, _F, _F, _F, _P,
                       _P])],

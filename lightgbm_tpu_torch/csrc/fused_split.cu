@@ -1,9 +1,10 @@
-// Fused multi-leaf histogram + numerical split scan (K2), and the scan
-// alone over materialised histograms (K3).
+// Fused multi-leaf histogram + numerical split scan (K2), its quantized
+// twin (K5), and the scan alone over materialised histograms (K3).
 //
 // Replaces the TPU kernels `lightgbm_tpu/ops/pallas_hist.py:
 // _fused_kernel_multi` (K2, driven by `_run_fused_multi`, scan tail
-// `_fused_scan_tail`) and `_scan_only_kernel` (K3, `pallas_split_scan`).
+// `_fused_scan_tail`), `_fused_kernel_multi_i8` (K5, driven by
+// `_run_fused_multi_i8`) and `_scan_only_kernel` (K3, `pallas_split_scan`).
 // The scan is `lightgbm_tpu/ops/split.py fused_numerical_candidates`: for
 // each (slot s, feature f) row of an [S, F, MB, 3] f32 histogram
 // (g, h, count) and each missing direction (case 0: the NaN bin goes
@@ -37,6 +38,13 @@
 //     every number (the first NaN wins), and a row of -inf gives index 0,
 //     so its candidate is (-inf, 0, the prefix at bin 0).
 //
+// K5 = hist_q_partial_kernel (hist_q_common.cuh, the quantized K4's
+// accumulation stage) + a dequantize-and-scan stage with grid (feature,
+// slot): the block converts its row of the int32 accumulator to f32 and
+// scales g and h exactly as K4's dequantize kernel does (`dequant_cell`),
+// so K5's histogram is K4's bit for bit; it writes the row to `hist`, keeps
+// it in shared memory and scans it with the same `scan_row`.
+//
 // K2 = hist_partial_kernel (hist_common.cuh, K1's first stage) + a
 // reduce-and-scan stage with grid (feature, slot): the block sums its
 // row's chunk partials in index order, exactly K1's hist_reduce_kernel, so
@@ -45,7 +53,9 @@
 // grid and loads the row from `hist`.
 //
 // What bounds them on the H100: bytes.  K2 reads what K1 reads (bins, leaf
-// ids, payload) and writes the histogram and the candidates; K3 reads a
+// ids, payload) and writes the histogram and the candidates; K5 reads what
+// K4 reads (bins, leaf ids, three lattice bytes a row in the slots) and
+// writes the histogram and the candidates; K3 reads a
 // histogram and writes candidates (at 14 slots x 28 features x 255 bins,
 // 1.2 MB in, 25 KB out).  The scan itself is a few hundred adds per row
 // on 256 threads, one block per row; the block-total levels run on one
@@ -53,6 +63,7 @@
 // prefix sums in the same order, overlapping the reduce with the scan.
 
 #include "hist_common.cuh"
+#include "hist_q_common.cuh"
 
 namespace {
 
@@ -295,6 +306,35 @@ scan_kernel(const float* __restrict__ hist, int F, int MB,
            p, cand_row(cand, s, 0, f, F), cand_row(cand, s, 1, f, F));
 }
 
+// K5's second stage: grid (feature, slot).  Dequantizes the row of the
+// int32 accumulator as K4 does, writes it to `hist`, and scans it.
+__global__ void __launch_bounds__(kScanThreads)
+dequant_scan_kernel(const int* __restrict__ acc, int F, int MB,
+                    const float* __restrict__ scales,
+                    const int* __restrict__ feat_nb,
+                    const int* __restrict__ feat_missing,
+                    const float* __restrict__ parent, ScanParams p,
+                    float* __restrict__ hist, float* __restrict__ cand) {
+  extern __shared__ float smem[];
+  const Levels L = make_levels(MB);
+  float* x = smem;
+  float* red_v = smem + 3 * L.per_chan;
+  int* red_i = reinterpret_cast<int*>(red_v + 2 * kScanThreads);
+  const int f = blockIdx.x, s = blockIdx.y;
+  const int nb = __ldg(feat_nb + f);
+  clear_row(x, 3 * L.per_chan);
+  const long long base = (static_cast<long long>(s) * F + f) * MB * 3;
+  for (int i = threadIdx.x; i < MB * 3; i += kScanThreads) {
+    const int b = i / 3, ch = i % 3;
+    const float v = dequant_cell(acc[base + i], ch, scales);
+    hist[base + i] = v;
+    x[ch * L.per_chan + b] = (b < nb) ? v : 0.f;
+  }
+  __syncthreads();
+  scan_row(x, red_v, red_i, MB, nb, __ldg(feat_missing + f), parent + 3 * s,
+           p, cand_row(cand, s, 0, f, F), cand_row(cand, s, 1, f, F));
+}
+
 cudaError_t scan_smem_setup(const void* kernel, int MB, size_t* smem) {
   if (make_levels(MB).n[make_levels(MB).top] > kScanBlock)
     return cudaErrorInvalidValue;
@@ -333,6 +373,33 @@ extern "C" int lgbt_fused_hist_split(
   const ScanParams p{l1, l2, min_data, min_hess, min_gain};
   reduce_scan_kernel<<<dim3(F, S), kScanThreads, smem, stream>>>(
       work, chunks, F, MB, feat_nb, feat_missing, parent, p, hist, cand);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5.  bins [F, N] (bin_bytes 1: u8, 2: u16), pw3 [3, N] int8, leaf_id
+// [N] i32, slots [S] i32 (S <= 42, in groups of G a block); acc
+// [S, F, MB, 3] int32 scratch (zeroed here); scales [2] f32 (s_g, s_h);
+// feat_nb, feat_missing [F] i32; parent [S, 3] f32; hist [S, F, MB, 3] f32
+// and cand [S, 2, F, 8] f32 out.  Returns the cudaError_t of the launches.
+extern "C" int lgbt_fused_hist_split_q(
+    const void* bins, int bin_bytes, const int8_t* pw3, const int* leaf_id,
+    const int* slots, int N, int F, int S, int MB, int G, int rows_per_chunk,
+    int chunks, int* acc, const float* scales, const int* feat_nb,
+    const int* feat_missing, const float* parent, float l1, float l2,
+    float min_data, float min_hess, float min_gain, float* hist, float* cand,
+    cudaStream_t stream) {
+  if (!q_args_ok(N, F, S, MB, G, rows_per_chunk, chunks))
+    return cudaErrorInvalidValue;
+  size_t smem = 0;
+  cudaError_t e = scan_smem_setup(
+      reinterpret_cast<const void*>(dequant_scan_kernel), MB, &smem);
+  if (e != cudaSuccess) return e;
+  e = launch_q_partial(bins, bin_bytes, pw3, leaf_id, slots, N, F, S, MB, G,
+                       rows_per_chunk, chunks, acc, stream);
+  if (e != cudaSuccess) return e;
+  const ScanParams p{l1, l2, min_data, min_hess, min_gain};
+  dequant_scan_kernel<<<dim3(F, S), kScanThreads, smem, stream>>>(
+      acc, F, MB, scales, feat_nb, feat_missing, parent, p, hist, cand);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -158,6 +158,14 @@ def _apply_weight(grad, hess, weight):
     return grad * weight, hess * weight
 
 
+#: objectives whose hessian is identically 1 before weighting, by exact
+#: name (the reference's `objectives.py:43`): the packed quantized
+#: histogram may derive their counts from the hessian field
+#: (`booster.packed_const_hess_level`)
+UNIT_HESSIAN_OBJECTIVES = frozenset(
+    {"regression", "regression_l1", "huber", "quantile"})
+
+
 class TrainObjective:
     """Base of the training objectives (ref: objective_function.h
     `ObjectiveFunction`).  Host-side set-up is numpy; `grad_hess` is

@@ -1,10 +1,11 @@
-"""The fused histogram + split scan (K2) and the scan alone (K3): the
-wrappers and their plain versions.
+"""The fused histogram + split scan (K2), its quantized twin (K5) and
+the scan alone (K3): the wrappers and their plain versions.
 
 The port's counterparts of `lightgbm_tpu/ops/pallas_hist.py`
 `pallas_fused_hist_split_rows` (`:689`, launcher `_run_fused_multi`,
-kernel `_fused_kernel_multi`) and `pallas_split_scan` (`:793`, kernel
-`_scan_only_kernel`).
+kernel `_fused_kernel_multi`), `pallas_fused_hist_split_quantized_rows`
+(`:741`, launcher `_run_fused_multi_i8`, kernel `_fused_kernel_multi_i8`)
+and `pallas_split_scan` (`:793`, kernel `_scan_only_kernel`).
 
 `fused_hist_split(bins_fm, payload, leaf_id, slots, feat_nb,
 feat_missing, parent, max_bin, **scan_kw)` returns `(hist, cand)`:
@@ -14,15 +15,21 @@ candidates of each slot (`ops/split.py fused_numerical_candidates`, with
 `parent` [S, 3] each slot's g, h, count sums), which
 `decide_from_candidates` turns into `find_best_split`'s decisions.
 `split_scan(hist, feat_nb, feat_missing, parent, **scan_kw)` returns the
-candidates of given histograms.  `scan_kw` are the gain's l1, l2,
-min_data_in_leaf, min_sum_hessian and min_gain_to_split.
+candidates of given histograms.  `fused_hist_split_quantized(bins_fm,
+pw3, leaf_id, slots, feat_nb, feat_missing, parent, max_bin, s_g, s_h,
+**scan_kw)` is `fused_hist_split` over the int8 lattice
+(`ops/hist_kernel_q.py`): its histogram is `histogram_multi_quantized`'s.
+`scan_kw` are the gain's l1, l2, min_data_in_leaf, min_sum_hessian and
+min_gain_to_split.
 
 CUDA tensors launch the hand-written kernels of `csrc/fused_split.cu`;
 CPU tensors run the plain versions.  Nothing is swapped in quietly: a
 CUDA tensor launches the kernel or raises.  The kernels' numbers: K2's
 histogram is the K1 kernel's, bit for bit (the two share their first
-stage), and the candidates of both kernels equal the plain scan run on
-the card over the same histogram, bit for bit.
+stage), K5's is the K4 kernel's, bit for bit (again one shared first
+stage, and the same dequantize), and the candidates of all three kernels
+equal the plain scan run on the card over the same histogram, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -33,10 +40,14 @@ import torch
 from ..utils.log import LightGBMError
 from .hist_kernel import (MULTI_CHUNK, _check, chunking,
                           histogram_multi_plain, smem_bytes, _SMEM_MAX)
+from .hist_kernel_q import (MULTI_CHUNK_Q, _check_q, _scales,
+                            histogram_multi_quantized_plain, q_launch_shape)
 from .split import FUSED_CAND_COLS, FUSED_CASES, fused_numerical_candidates
 
 #: K2 launches made by `fused_hist_split` (one per chunk of slots)
 FUSED_LAUNCHES = 0
+#: K5 launches made by `fused_hist_split_quantized` (one per chunk)
+FUSED_Q_LAUNCHES = 0
 #: K3 launches made by `split_scan`
 SCAN_LAUNCHES = 0
 
@@ -162,6 +173,92 @@ def fused_hist_split(bins_fm: torch.Tensor, payload: torch.Tensor,
             outs.append(_launch_fused(bins_fm, payload, leaf_id, sl,
                                       feat_nb, feat_missing, par, max_bin,
                                       scan_args))
+    if len(outs) == 1:
+        return outs[0]
+    return (torch.cat([h for h, _ in outs]), torch.cat([c for _, c in outs]))
+
+
+def fused_hist_split_quantized_plain(bins_fm, pw3, leaf_id, slots, feat_nb,
+                                     feat_missing, parent, max_bin, s_g,
+                                     s_h, **scan_kw):
+    """Plain version of K5: `histogram_multi_quantized_plain`, then the
+    plain scan."""
+    hist = histogram_multi_quantized_plain(bins_fm, pw3, leaf_id, slots,
+                                           max_bin, s_g, s_h)
+    return hist, split_scan_plain(hist, feat_nb, feat_missing, parent,
+                                  **scan_kw)
+
+
+def _launch_fused_q(bins_fm, pw3, leaf_id, slots, feat_nb, feat_missing,
+                    parent, max_bin, scales, scan_args):
+    """One K5 launch over 1 to 42 slots."""
+    global FUSED_Q_LAUNCHES
+    _check_q(bins_fm, pw3, leaf_id, slots, max_bin)
+    f, n = bins_fm.shape
+    s = slots.shape[0]
+    dev = bins_fm.device
+    _check_scan(s, f, feat_nb, feat_missing, parent, dev)
+    for t in (bins_fm, pw3, leaf_id, slots, feat_nb, feat_missing, parent):
+        if not t.is_contiguous():
+            raise LightGBMError("fused split inputs must be contiguous")
+    if n == 0 or f == 0:
+        raise LightGBMError("the fused split kernel needs rows and features")
+    group, _, rows, chunks = q_launch_shape(n, f, s, max_bin)
+    acc = torch.empty((s, f, max_bin, 3), dtype=torch.int32, device=dev)
+    hist = torch.empty((s, f, max_bin, 3), dtype=torch.float32, device=dev)
+    cand = torch.empty((s, FUSED_CASES, f, FUSED_CAND_COLS),
+                       dtype=torch.float32, device=dev)
+    from ..compiler import _build
+    lib = _build.load("fused_split")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.lgbt_fused_hist_split_q(
+            bins_fm.data_ptr(), bins_fm.element_size(), pw3.data_ptr(),
+            leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin, group,
+            rows, chunks, acc.data_ptr(), scales.data_ptr(),
+            feat_nb.data_ptr(), feat_missing.data_ptr(), parent.data_ptr(),
+            *scan_args, hist.data_ptr(), cand.data_ptr(),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise LightGBMError(f"quantized fused histogram+split kernel launch "
+                            f"failed: CUDA error {rc}")
+    FUSED_Q_LAUNCHES += 1
+    return hist, cand
+
+
+def fused_hist_split_quantized(bins_fm: torch.Tensor, pw3: torch.Tensor,
+                               leaf_id: torch.Tensor, slots: torch.Tensor,
+                               feat_nb: torch.Tensor,
+                               feat_missing: torch.Tensor,
+                               parent: torch.Tensor, max_bin: int, s_g, s_h,
+                               **scan_kw):
+    """(hist [S, F, MB, 3], cand [S, 2, F, 8]) of the leaves `slots` [S]
+    i32 over bins_fm [F, N] u8/u16, the lattice pw3 [3, N] int8 and row
+    leaf ids [N] i32, scaled by s_g and s_h, with `parent` [S, 3] f32 the
+    slots' g, h, count sums.  The slots go in chunks of MULTI_CHUNK_Q =
+    42: on a CUDA device one launch of `csrc/fused_split.cu`'s K5 each, on
+    the CPU `fused_hist_split_quantized_plain`."""
+    cpu = bins_fm.device.type == "cpu"
+    if not cpu and bins_fm.device.type != "cuda":
+        raise LightGBMError(f"no fused split kernel for {bins_fm.device}")
+    if slots.dim() != 1 or slots.shape[0] == 0:
+        raise LightGBMError("slots must be [S] int32 with S >= 1")
+    if parent.dim() != 2 or parent.shape[0] != slots.shape[0]:
+        raise LightGBMError(f"parent must be [{slots.shape[0]}, 3] float32")
+    scan_args = _scan_args(scan_kw)
+    scales = None if cpu else _scales(s_g, s_h, bins_fm.device)
+    outs = []
+    for c0 in range(0, slots.shape[0], MULTI_CHUNK_Q):
+        sl = slots[c0:c0 + MULTI_CHUNK_Q]
+        par = parent[c0:c0 + MULTI_CHUNK_Q]
+        if cpu:
+            outs.append(fused_hist_split_quantized_plain(
+                bins_fm, pw3, leaf_id, sl, feat_nb, feat_missing, par,
+                max_bin, s_g, s_h, **scan_kw))
+        else:
+            outs.append(_launch_fused_q(bins_fm, pw3, leaf_id, sl, feat_nb,
+                                        feat_missing, par, max_bin, scales,
+                                        scan_args))
     if len(outs) == 1:
         return outs[0]
     return (torch.cat([h for h, _ in outs]), torch.cat([c for _, c in outs]))

@@ -9,8 +9,10 @@ compiles the whole best-first loop (`grow.py:887-1175`) into one XLA
   * rows are never reordered: a dense per-row `leaf_id` is updated with
     a `where` at each split (`split_go_left`);
   * only the smaller child is histogrammed (`ops/hist_kernel.py`, the
-    K1 kernel on a CUDA device), the larger is parent minus smaller;
-    histograms are kept one slot per leaf;
+    K1 kernel on a CUDA device; with quantized gradients
+    `ops/hist_kernel_q.py`, the K4 kernel, over the int8 lattice made
+    once per tree), the larger is parent minus smaller; histograms are
+    kept one slot per leaf;
   * both children are searched in one batched `find_best_split` call,
     and the two decisions, with the children's outputs, come to the
     host in one copy.  That copy is the loop's one host sync per split
@@ -29,7 +31,10 @@ from typing import Callable, Dict, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.log import LightGBMError
 from .hist_kernel import histogram_multi, histogram_multi_plain
+from .hist_kernel_q import histogram_multi_quantized, quantized_lattice_rows
+from .histogram import leaf_histogram_packed_multi
 from .reduce import tree_sum
 from .split import (MISSING_NAN, NEG_INF, PACK_COLS, find_best_split,
                     leaf_output, smooth_output)
@@ -61,8 +66,18 @@ class GrowerSpec(NamedTuple):
     max_delta_step: float
     path_smooth: float = 0.0
     #: "kernel": `histogram_multi` (the K1 kernel on a CUDA device, the
-    #: plain version on the CPU); "plain": `histogram_multi_plain`
+    #: plain version on the CPU); "plain": `histogram_multi_plain`;
+    #: quantized gradients, with their scales in `feat["qscales"]`:
+    #: "kernel_q": `histogram_multi_quantized` (K4 on a CUDA device, the
+    #: plain version on the CPU); "packed": `leaf_histogram_packed_multi`
+    #: (plain PyTorch on any device)
     hist_impl: str = "kernel"
+    #: "packed" only: a declared unit hessian at this level derives the
+    #: counts from the hessian field (0: counted)
+    packed_const_hess_level: int = 0
+    #: check the lattice's w in {0, 1} precondition on the host
+    #: (`tpu_debug_nans`)
+    debug_checks: bool = False
     #: the wave grower (`ops/grow_wave.py`; the reference's fields of the
     #: same names, `lightgbm_tpu/ops/grow.py:111-133`): smaller-child
     #: histograms per batched pass (0: `WAVE_WIDTH_DEFAULT`), the
@@ -74,11 +89,16 @@ class GrowerSpec(NamedTuple):
     wave_overgrow: float = 0.0
     wave_strict_tail: int = 0
     #: the wave grower's fused path: the smaller children's histograms and
-    #: split candidates from one K2 launch, the larger children's
-    #: candidates from K3 (`ops/fused_kernel.py`; kernels on a CUDA device,
-    #: plain versions on the CPU).  Needs hist_impl "kernel" and no path
+    #: split candidates from one K2 launch (K5 with hist_impl
+    #: "kernel_q"), the larger children's candidates from K3
+    #: (`ops/fused_kernel.py`; kernels on a CUDA device, plain versions on
+    #: the CPU).  Needs hist_impl "kernel" or "kernel_q" and no path
     #: smoothing; the strict grower ignores it.
     fused: bool = False
+
+
+#: the hist_impl values whose payload is a quantized gradient lattice
+QUANTIZED_IMPLS = ("kernel_q", "packed")
 
 
 class DeviceTree(NamedTuple):
@@ -118,6 +138,33 @@ def split_go_left(bins_fm: torch.Tensor, f: int, t: int, dl: bool,
     return go_left
 
 
+def tree_histograms(spec: GrowerSpec, bins_fm: torch.Tensor,
+                    payload: torch.Tensor, feat: Dict):
+    """One tree's histogram function `hist(leaf_id, slots) -> [S, F,
+    MB, 3]` for `spec.hist_impl`, and the int8 lattice it reads
+    ("kernel_q", else None).  The lattice is made once per tree (the
+    reference's `ops/grow.py:583-589`), with the scales of
+    `feat["qscales"]`."""
+    MB = spec.max_bin
+    impl = spec.hist_impl
+    if impl == "kernel":
+        return (lambda lid, sl: histogram_multi(bins_fm, payload, lid, sl,
+                                                MB)), None
+    if impl == "plain":
+        return (lambda lid, sl: histogram_multi_plain(bins_fm, payload, lid,
+                                                      sl, MB)), None
+    if impl not in QUANTIZED_IMPLS:
+        raise LightGBMError(f"unknown grower hist_impl {impl!r}")
+    s_g, s_h = feat["qscales"][0], feat["qscales"][1]
+    if impl == "packed":
+        chl = spec.packed_const_hess_level
+        return (lambda lid, sl: leaf_histogram_packed_multi(
+            bins_fm, payload, lid, sl, MB, s_g, s_h, chl)), None
+    pw3 = quantized_lattice_rows(payload, s_g, s_h, debug=spec.debug_checks)
+    return (lambda lid, sl: histogram_multi_quantized(
+        bins_fm, pw3, lid, sl, MB, s_g, s_h)), pw3
+
+
 def make_grower(spec: GrowerSpec) -> Callable:
     """The grow function of a spec: `grow(bins_fm, grad, hess,
     sample_weight, feat, allowed) -> DeviceTree`.
@@ -128,8 +175,6 @@ def make_grower(spec: GrowerSpec) -> Callable:
     numpy copies (`nb_np`, `missing_np`)."""
     L = spec.num_leaves
     MB = spec.max_bin
-    hist_fn = histogram_multi if spec.hist_impl == "kernel" \
-        else histogram_multi_plain
     l1, l2, mds = spec.lambda_l1, spec.lambda_l2, spec.max_delta_step
     ps = spec.path_smooth
 
@@ -154,12 +199,13 @@ def make_grower(spec: GrowerSpec) -> Callable:
         f_count = int(feat["nb"].shape[0])
         payload = torch.stack([grad * sample_weight, hess * sample_weight,
                                sample_weight], dim=1).contiguous()
+        hist_fn, _ = tree_histograms(spec, bins_fm, payload, feat)
         slots = torch.arange(L, dtype=torch.int32, device=dev)
         no_feature = torch.zeros_like(allowed)
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
         hist = torch.empty((L, f_count, MB, 3), dtype=torch.float32,
                            device=dev)
-        hist[0] = hist_fn(bins_fm, payload, leaf_id, slots[:1], MB)[0]
+        hist[0] = hist_fn(leaf_id, slots[:1])[0]
 
         # ---- root: sums, output, split, all in one host copy ----
         root_g, root_h, root_c = tree_sum(payload.t())
@@ -222,8 +268,7 @@ def make_grower(spec: GrowerSpec) -> Callable:
             # subtraction ----
             left_smaller = lc <= rc
             small = best if left_smaller else new
-            small_hist = hist_fn(bins_fm, payload, leaf_id,
-                                 slots[small:small + 1], MB)[0]
+            small_hist = hist_fn(leaf_id, slots[small:small + 1])[0]
             large_hist = hist[best] - small_hist
             hist[best] = small_hist if left_smaller else large_hist
             hist[new] = large_hist if left_smaller else small_hist

@@ -29,11 +29,14 @@ records the pick loop reads live on the host:
     their order cannot change a row's leaf;
   * **histograms**: one launch over the live smaller children only.
     Fused (`spec.fused`): K2 (`ops/fused_kernel.py fused_hist_split`)
-    gives their histograms and split candidates; unfused: K1
-    (`ops/hist_kernel.py histogram_multi`).  The reference pads to [W]
+    gives their histograms and split candidates, or K5
+    (`fused_hist_split_quantized`) over the int8 lattice made once per
+    tree with quantized gradients; unfused: the strict grower's
+    histogram function (`ops/grow.py tree_histograms`: K1, or K4 or the
+    packed histogram with quantized gradients).  The reference pads to [W]
     slots to keep one XLA shape; here every slot is a grid slice that
     reads all N rows, so no pad slot is launched;
-  * **larger children**: parent minus smaller (`:793-799`), then one K3
+  * **larger children**: f32 parent minus smaller (`:793-799`), then one K3
     launch on them (fused, `split_scan`) or one batched
     `find_best_split` over all 2w children (unfused); the candidates are
     routed to the left and new children as at `:816-822`;
@@ -57,9 +60,10 @@ import numpy as np
 import torch
 
 from ..utils.log import LightGBMError
-from .fused_kernel import fused_hist_split, split_scan
-from .grow import DeviceTree, GrowerSpec, split_go_left, to_host
-from .hist_kernel import histogram_multi, histogram_multi_plain
+from .fused_kernel import (fused_hist_split, fused_hist_split_quantized,
+                           split_scan)
+from .grow import (DeviceTree, GrowerSpec, split_go_left, to_host,
+                   tree_histograms)
 from .reduce import tree_sum
 from .split import (NEG_INF, PACK_COLS, decide_from_candidates,
                     find_best_split, leaf_output, smooth_output)
@@ -159,10 +163,11 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
     l1, l2, mds = spec.lambda_l1, spec.lambda_l2, spec.max_delta_step
     ps = spec.path_smooth
     fused = spec.fused
-    if fused and (spec.hist_impl != "kernel" or ps > 0.0):
+    if fused and (spec.hist_impl not in ("kernel", "kernel_q")
+                  or ps > 0.0):
         raise LightGBMError("the fused wave path needs hist_impl 'kernel' "
-                            "and no path smoothing (booster.fused_split_of "
-                            "decides it)")
+                            "or 'kernel_q' and no path smoothing "
+                            "(booster.fused_split_of decides it)")
     scan_kw = dict(l1=l1, l2=l2, min_data_in_leaf=spec.min_data_in_leaf,
                    min_sum_hessian=spec.min_sum_hessian_in_leaf,
                    min_gain_to_split=spec.min_gain_to_split)
@@ -197,10 +202,20 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         dev = bins_fm.device
         n = bins_fm.shape[1]
         f_count = int(feat["nb"].shape[0])
-        hist_fn = histogram_multi if spec.hist_impl == "kernel" \
-            else histogram_multi_plain
         payload = torch.stack([grad * sample_weight, hess * sample_weight,
                                sample_weight], dim=1).contiguous()
+        hist_fn, pw3 = tree_histograms(spec, bins_fm, payload, feat)
+
+        def fused_fn(lid, sl, parent):
+            """(hist, cand) of the slots `sl`: K2, or K5 over the
+            lattice."""
+            if pw3 is None:
+                return fused_hist_split(bins_fm, payload, lid, sl,
+                                        feat["nb"], feat["missing"], parent,
+                                        MB, **scan_kw)
+            return fused_hist_split_quantized(
+                bins_fm, pw3, lid, sl, feat["nb"], feat["missing"], parent,
+                MB, feat["qscales"][0], feat["qscales"][1], **scan_kw)
         slots = torch.arange(LB, dtype=torch.int32, device=dev)
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
         hist = torch.empty((LB, f_count, MB, 3), dtype=torch.float32,
@@ -211,14 +226,12 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         root_out = leaf_output(root_g, root_h, l1, l2, mds)
         root_sums = torch.stack([root_g, root_h, root_c])[None]   # [1, 3]
         if fused:
-            h0, c0 = fused_hist_split(bins_fm, payload, leaf_id, slots[:1],
-                                      feat["nb"], feat["missing"],
-                                      root_sums, MB, **scan_kw)
+            h0, c0 = fused_fn(leaf_id, slots[:1], root_sums)
             s0 = decide_from_candidates(c0, root_g[None], root_h[None],
                                         root_c[None], feat["missing"],
                                         feat["default"], allowed)
         else:
-            h0 = hist_fn(bins_fm, payload, leaf_id, slots[:1], MB)
+            h0 = hist_fn(leaf_id, slots[:1])
             s0 = search(h0, root_sums, allowed, root_out[None], feat)
         hist[0] = h0[0]
         host = to_host(torch.cat([root_sums[0], root_out[None],
@@ -341,11 +354,10 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
             parents = hist.index_select(0, left_t)
             small_slots = small_t.to(torch.int32)
             if fused:
-                small_h, cand_small = fused_hist_split(
-                    bins_fm, payload, leaf_id, small_slots, feat["nb"],
-                    feat["missing"], par_small, MB, **scan_kw)
+                small_h, cand_small = fused_fn(leaf_id, small_slots,
+                                               par_small)
             else:
-                small_h = hist_fn(bins_fm, payload, leaf_id, small_slots, MB)
+                small_h = hist_fn(leaf_id, small_slots)
             large_h = parents - small_h
             hist.index_copy_(0, small_t, small_h)
             hist.index_copy_(0, large_t, large_h)

@@ -1,0 +1,219 @@
+"""The quantized multi-leaf histogram: the K4 kernel's wrapper and plain
+version, and the int8 lattice it reads.
+
+The port's counterpart of `lightgbm_tpu/ops/pallas_hist.py`'s K4 entry
+points (`quantized_lattice_rows` `:365`,
+`pallas_histogram_multi_quantized_rows` `:398`, launcher
+`_run_kernel_multi_i8`, kernel `_hist_kernel_multi_i8`).
+
+`quantized_lattice_rows(payload, s_g, s_h)` turns a quantized payload
+[N, 3] f32 (gq s_g w, hq s_h w, w) into the lattice pw3 [3, N] int8
+(gq, hq, w != 0).  `histogram_multi_quantized(bins_fm, pw3, leaf_id,
+slots, max_bin, s_g, s_h)` returns [S, F, MB, 3] f32: cell (s, f, b, c)
+is the integer sum of `pw3[c]` over the rows where `leaf_id == slots[s]`
+and `bins_fm[f] == b`, converted to f32 and then multiplied by s_g
+(c = 0) or s_h (c = 1); the count (c = 2) is not scaled.  Each slot is
+matched on its own, as in the reference kernel; a slot that matches no
+row gives zeros.
+
+CUDA tensors launch the hand-written kernel `csrc/histogram_q.cu`; CPU
+tensors run `histogram_multi_quantized_plain`.  There is no fallback
+from one to the other.  The sums are of small integers in int32, exact
+in any order, so the kernel, its plain version and the reference's
+`pallas_histogram_multi_quantized_rows` and `leaf_histogram_packed_multi`
+all give the same bits.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils.log import LightGBMError
+from .hist_kernel import _SMEM_MAX
+
+#: K4 launches made by `histogram_multi_quantized` (one per chunk of slots)
+HIST_Q_LAUNCHES = 0
+
+#: most slots one launch takes (the reference's `MULTI_CHUNK_Q`)
+MULTI_CHUNK_Q = 42
+
+#: rows a call may take: every int32 cell stays exact while a row adds at
+#: most 15 (|gq| <= 7, hq <= 15 at num_grad_quant_bins <= 15)
+MAX_ROWS_Q = (2 ** 31 - 1) // 15
+
+#: threads of the accumulation kernel's blocks (`csrc/hist_q_common.cuh`)
+_Q_THREADS = 512
+#: resident blocks an H100 SM can hold of them (2048 threads an SM)
+_Q_BLOCKS_PER_SM = 4
+_SMS = 132
+#: resident sets of blocks a launch aims at: two, so that a last,
+#: partial set of blocks costs at most a third of the launch
+_WAVES_OF_BLOCKS = 2
+_MIN_CHUNK_ROWS = 4096
+
+
+def q_smem_bytes(group: int, max_bin: int) -> int:
+    """Shared memory of one accumulation block holding `group` slots'
+    [MB, 3] int32 histograms and their slot ids."""
+    return group * (max_bin * 3 + 1) * 4
+
+
+def q_launch_shape(n: int, f: int, s: int, max_bin: int):
+    """(group, groups, rows per chunk, chunks) of a launch over `n` rows,
+    `f` features and `s` <= 42 slots: a block holds as many slots as its
+    shared memory fits (all 42 at MB = 256, 19 at MB = 1001), the groups
+    as even as they can be; about twice as many blocks as can be
+    resident at once, chunks of a multiple of 512 rows and at least 4096
+    rows."""
+    fit = (_SMEM_MAX // (4 * (max_bin * 3 + 1)))
+    if fit < 1:
+        raise LightGBMError(f"max_bin {max_bin} needs "
+                            f"{q_smem_bytes(1, max_bin)} B of shared "
+                            f"memory a block; the kernel has {_SMEM_MAX}")
+    groups = -(-s // min(s, fit))
+    group = -(-s // groups)
+    resident = min(_Q_BLOCKS_PER_SM,
+                   max(1, _SMEM_MAX // q_smem_bytes(group, max_bin)))
+    want = -(-(_WAVES_OF_BLOCKS * resident * _SMS) // max(f * groups, 1))
+    chunks = max(1, min(want, -(-n // _MIN_CHUNK_ROWS)))
+    rows = -(-n // chunks)
+    rows = -(-rows // _Q_THREADS) * _Q_THREADS
+    return group, groups, rows, -(-n // rows)
+
+
+def quantized_lattice_rows(payload: torch.Tensor, s_g: torch.Tensor,
+                           s_h: torch.Tensor, *,
+                           debug: bool = False) -> torch.Tensor:
+    """[3, N] int8 lattice (round(g / s_g), round(h / s_h), w != 0) of a
+    quantized payload [N, 3] f32.  Precondition: w in {0, 1} (the lattice
+    binarizes the count channel); `debug` (the booster's
+    `tpu_debug_nans`) checks it on the host and raises FloatingPointError
+    as the reference does."""
+    if debug:
+        w = payload[:, 2]
+        bad = int(((w != 0.0) & (w != 1.0)).sum())
+        if bad:
+            raise FloatingPointError(
+                f"quantized histogram precondition violated: {bad} "
+                "weight(s) outside {0, 1} — the int8 lattice binarizes "
+                "the count channel; quantized grads require binary "
+                "bagging weights")
+    gq = torch.round(payload[:, 0] / s_g).to(torch.int8)
+    hq = torch.round(payload[:, 1] / s_h).to(torch.int8)
+    w = (payload[:, 2] != 0).to(torch.int8)
+    return torch.stack([gq, hq, w])
+
+
+def dequantize(acc: torch.Tensor, s_g: torch.Tensor,
+               s_h: torch.Tensor) -> torch.Tensor:
+    """[..., 3] integer sums -> f32 (sum_g * s_g, sum_h * s_h, count), the
+    reference wrapper's `astype(f32)` then scale."""
+    h = acc.to(torch.float32)
+    return torch.stack([h[..., 0] * s_g, h[..., 1] * s_h, h[..., 2]], dim=-1)
+
+
+def _check_q(bins_fm, pw3, leaf_id, slots, max_bin):
+    if bins_fm.dim() != 2 or bins_fm.dtype not in (torch.uint8,
+                                                   torch.uint16):
+        raise LightGBMError("bins_fm must be [F, N] uint8 or uint16")
+    f, n = bins_fm.shape
+    if pw3.shape != (3, n) or pw3.dtype != torch.int8:
+        raise LightGBMError(f"pw3 must be [3, {n}] int8")
+    if leaf_id.shape != (n,) or leaf_id.dtype != torch.int32:
+        raise LightGBMError(f"leaf_id must be [{n}] int32")
+    if slots.dim() != 1 or slots.dtype != torch.int32 or \
+            slots.shape[0] == 0:
+        raise LightGBMError("slots must be [S] int32 with S >= 1")
+    if max_bin < 1:
+        raise LightGBMError(f"max_bin must be positive, got {max_bin}")
+    if n > MAX_ROWS_Q:
+        raise LightGBMError(f"{n} rows: the int32 lattice sums are exact "
+                            f"up to {MAX_ROWS_Q} rows a call")
+    if any(t.device != bins_fm.device for t in (pw3, leaf_id, slots)):
+        raise LightGBMError("histogram inputs lie on different devices")
+
+
+def _scales(s_g, s_h, device) -> torch.Tensor:
+    """(s_g, s_h) as a [2] f32 tensor on `device`."""
+    return torch.stack([torch.as_tensor(s_g, dtype=torch.float32,
+                                        device=device).reshape(()),
+                        torch.as_tensor(s_h, dtype=torch.float32,
+                                        device=device).reshape(())])
+
+
+def histogram_multi_quantized_plain(bins_fm: torch.Tensor,
+                                    pw3: torch.Tensor,
+                                    leaf_id: torch.Tensor,
+                                    slots: torch.Tensor, max_bin: int,
+                                    s_g, s_h) -> torch.Tensor:
+    """Plain version: per slot, an int64 `index_add_` of its rows'
+    lattice values into (feature, bin) cells, then `dequantize`."""
+    _check_q(bins_fm, pw3, leaf_id, slots, max_bin)
+    f, n = bins_fm.shape
+    dev = bins_fm.device
+    vals = pw3.t().to(torch.int64)                           # [N, 3]
+    bins = bins_fm.to(torch.int64)       # CUDA cannot index uint16 columns
+    offs = torch.arange(f, device=dev, dtype=torch.int64)[:, None] * max_bin
+    acc = torch.zeros((slots.shape[0], f * max_bin, 3), dtype=torch.int64,
+                      device=dev)
+    for i, slot in enumerate(slots.tolist()):
+        rows = torch.nonzero(leaf_id == slot).squeeze(1)
+        key = (bins[:, rows] + offs).reshape(-1)
+        acc[i].index_add_(0, key, vals[rows].repeat(f, 1))
+    sc = _scales(s_g, s_h, dev)
+    return dequantize(acc.view(-1, f, max_bin, 3), sc[0], sc[1])
+
+
+def _launch(bins_fm, pw3, leaf_id, slots, max_bin, scales):
+    """One K4 launch over 1 to 42 slots."""
+    global HIST_Q_LAUNCHES
+    f, n = bins_fm.shape
+    s = slots.shape[0]
+    dev = bins_fm.device
+    out = torch.empty((s, f, max_bin, 3), dtype=torch.float32, device=dev)
+    group, _, rows, chunks = q_launch_shape(n, f, s, max_bin)
+    acc = torch.empty((s, f, max_bin, 3), dtype=torch.int32, device=dev)
+    from ..compiler import _build
+    lib = _build.load("histogram_q")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.lgbt_histogram_q(
+            bins_fm.data_ptr(), bins_fm.element_size(), pw3.data_ptr(),
+            leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin, group,
+            rows, chunks, acc.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise LightGBMError(f"quantized histogram kernel launch failed: "
+                            f"CUDA error {rc}")
+    HIST_Q_LAUNCHES += 1
+    return out
+
+
+def histogram_multi_quantized(bins_fm: torch.Tensor, pw3: torch.Tensor,
+                              leaf_id: torch.Tensor, slots: torch.Tensor,
+                              max_bin: int, s_g, s_h) -> torch.Tensor:
+    """[S, F, MB, 3] f32 histograms of the leaves `slots` [S] i32 over
+    bins_fm [F, N] u8/u16, the lattice pw3 [3, N] int8 and row leaf ids
+    [N] i32, scaled by s_g and s_h (0-d f32 tensors or floats).  The
+    slots go in chunks of MULTI_CHUNK_Q = 42: on a CUDA device one launch
+    of `csrc/histogram_q.cu` each, on the CPU
+    `histogram_multi_quantized_plain`."""
+    if bins_fm.device.type == "cpu":
+        return histogram_multi_quantized_plain(bins_fm, pw3, leaf_id, slots,
+                                               max_bin, s_g, s_h)
+    if bins_fm.device.type != "cuda":
+        raise LightGBMError(f"no quantized histogram kernel for "
+                            f"{bins_fm.device}")
+    _check_q(bins_fm, pw3, leaf_id, slots, max_bin)
+    for t in (bins_fm, pw3, leaf_id, slots):
+        if not t.is_contiguous():
+            raise LightGBMError("histogram inputs must be contiguous")
+    if bins_fm.shape[0] == 0 or bins_fm.shape[1] == 0:
+        raise LightGBMError("the quantized histogram kernel needs rows and "
+                            "features")
+    scales = _scales(s_g, s_h, bins_fm.device)
+    outs = [_launch(bins_fm, pw3, leaf_id, slots[c0:c0 + MULTI_CHUNK_Q],
+                    max_bin, scales)
+            for c0 in range(0, slots.shape[0], MULTI_CHUNK_Q)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)

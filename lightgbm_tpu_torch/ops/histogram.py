@@ -9,6 +9,11 @@ the CPU that is the order of JAX's `segment_sum`, so the two agree
 bitwise (the tests hold them so).  On a CUDA device `index_add_` adds
 with atomics in no fixed order: there the plain version agrees with the
 kernel (`ops/hist_kernel.py`) only within the kernel's tolerance.
+
+With quantized gradients, `leaf_histogram_packed(_multi)` (the
+reference's `:121-261`, `hist_impl="packed"`) sums the integer lattice
+packed two fields to an int32: integer sums, so every device and order
+gives the reference's bits.
 """
 from __future__ import annotations
 
@@ -29,3 +34,91 @@ def leaf_histogram(bins_fm: torch.Tensor, payload: torch.Tensor,
                       device=payload.device)
     out.index_add_(0, flat, d.repeat(f, 1))
     return out.reshape(f, max_bin, 3)
+
+
+#: rows per int16-field accumulation tile of the packed histogram
+PACKED_TILE = 2048
+#: largest num_grad_quant_bins whose per-tile hessian-field sum stays
+#: below 2^15 (no carry into the packed gradient field); the booster's
+#: quantized-family gate reads it
+PACKED_MAX_QUANT_BINS = (2 ** 15 - 1) // PACKED_TILE
+
+
+def slot_positions(leaf_id: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """[N] i64 position of each row's leaf in `slots` (the first match),
+    or S for rows whose leaf is not listed (the reference's
+    `slot_positions`)."""
+    eq = slots.to(leaf_id.dtype)[:, None] == leaf_id[None, :]     # [S, N]
+    first = torch.argmax(eq.to(torch.int8), dim=0)
+    return torch.where(eq.any(dim=0), first,
+                       torch.full_like(first, slots.shape[0]))
+
+
+def leaf_histogram_packed_multi(bins_fm: torch.Tensor, payload: torch.Tensor,
+                                leaf_id: torch.Tensor, slots: torch.Tensor,
+                                max_bin: int, s_g: torch.Tensor,
+                                s_h: torch.Tensor,
+                                const_hess_level: int = 0) -> torch.Tensor:
+    """[S, F, MB, 3] f32 quantized-gradient histograms with packed integer
+    accumulation (the reference's `ops/histogram.py:206
+    leaf_histogram_packed_multi`, the `hist_impl="packed"` path).
+
+    `payload` [N, 3] carries (gq s_g w, hq s_h w, w) with integer gq, hq
+    from `quantize_gradients` and w in {0, 1}.  The integers come back by
+    division, are packed as gq * 2^16 + hq in int32 and summed per
+    PACKED_TILE-row tile into `slot position * MB + bin` cells (a row
+    whose leaf is not in `slots` keys to a dropped block), so each tile's
+    hessian field stays below 2^15 and never carries into the gradient
+    field; then the fields are split and summed over the tiles.  Counts
+    are the tiles' sums of int32(w), or, with `const_hess_level` > 0 (a
+    declared unit hessian, every live row at hq = level), the hessian
+    field's sum divided by the level.  The sums are integers, so any
+    order of adds gives these bits: on the CPU they equal the
+    reference's, and on the card the CPU's.  Plain PyTorch on any
+    device."""
+    f, n = bins_fm.shape
+    s = slots.shape[0]
+    dev = bins_fm.device
+    ns = (s + 1) * max_bin
+    pos = slot_positions(leaf_id, slots)
+    gq = torch.round(payload[:, 0] / s_g).to(torch.int32)
+    hq = torch.round(payload[:, 1] / s_h).to(torch.int32)
+    if const_hess_level > 0:
+        hq = torch.where(hq > 0, const_hess_level, 0).to(torch.int32)
+    packed = gq * 65536 + hq
+    w = payload[:, 2].to(torch.int32) if const_hess_level == 0 else None
+    tiles = -(-n // PACKED_TILE)
+    tile_key = (torch.arange(n, device=dev) // PACKED_TILE) * ns \
+        + pos * max_bin
+    out = torch.empty((f, ns, 3), dtype=torch.float32, device=dev)
+    for j in range(f):
+        key = tile_key + bins_fm[j].to(torch.int64)
+        ph = torch.zeros(tiles * ns, dtype=torch.int32, device=dev)
+        ph = ph.index_add_(0, key, packed).view(tiles, ns)
+        h_f = ph & 0xFFFF
+        g_f = (ph - h_f) >> 16
+        h_sum = h_f.sum(dim=0)
+        if const_hess_level > 0:
+            cnt = h_sum // const_hess_level
+        else:
+            cnt = torch.zeros(tiles * ns, dtype=torch.int32, device=dev)
+            cnt = cnt.index_add_(0, key, w).view(tiles, ns).sum(dim=0)
+        out[j] = torch.stack([g_f.sum(dim=0).to(torch.float32) * s_g,
+                              h_sum.to(torch.float32) * s_h,
+                              cnt.to(torch.float32)], dim=-1)
+    return out.view(f, s + 1, max_bin, 3)[:, :s].permute(1, 0, 2, 3) \
+        .contiguous()
+
+
+def leaf_histogram_packed(bins_fm: torch.Tensor, payload: torch.Tensor,
+                          row_mask: torch.Tensor, max_bin: int,
+                          s_g: torch.Tensor, s_h: torch.Tensor,
+                          const_hess_level: int = 0) -> torch.Tensor:
+    """[F, MB, 3] f32: `leaf_histogram_packed_multi` of the rows where
+    `row_mask` [N] is true (the reference's `leaf_histogram_packed`; its
+    integer sums are the same)."""
+    lid = torch.where(row_mask, 0, -1).to(torch.int32)
+    return leaf_histogram_packed_multi(
+        bins_fm, payload, lid, torch.zeros(1, dtype=torch.int32,
+                                           device=lid.device),
+        max_bin, s_g, s_h, const_hess_level)[0]
