@@ -3,6 +3,8 @@
 and check them.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --phases histogram,fused   # kernel phases alone
+    python3 chip_smoke.py --phases compare --baseline DIR   # K1, K2 vs DIR's
 
 Phases, each printing one JSON line:
 
@@ -32,9 +34,13 @@ Phases, each printing one JSON line:
           features, u8): every row in one slot, a leaf of 1% of the rows,
           14 slots of which two match no row, and a u16 case (max_bin
           1023, 100k rows).  Counts exact, g and h within
-          1e-4 * sum|x| + 1e-6 per cell, two launches bitwise equal.
-          Then K1, its plain version and `index_add_` timed at the root
-          shape, and the bytes bound.
+          1e-4 * sum|x| + 1e-6 per cell, two launches bitwise equal;
+          at the 1% leaf and u16, bitwise equal to
+          `histogram_multi_ordered` (the kernel's order of adds, on the
+          CPU).  Then K1 timed at every case (`ms` at the host's pace,
+          `device_ms` with its launches queued behind a spin kernel)
+          beside the bytes its inputs need, and its plain version and
+          `index_add_` at the root.
   train   the training path at full width: `lightgbm_tpu_torch.train` on
           a Higgs-shaped binary problem (2M training rows, 200k held
           out, 28 features; binary, 255 leaves, max_bin 255, learning
@@ -49,15 +55,18 @@ Phases, each printing one JSON line:
           K1's share of them, host binning seconds and host syncs.
   fused   the fused histogram+split kernel K2 and the scan kernel K3
           (`csrc/fused_split.cu`) on the train phase's bins: S = 1 at the
-          root, S = 8 and S = 14 over a real partition of the rows (one
-          slot matching no row), u16 bins at max_bin 1023.  K2's
+          root, S = 1 on one leaf of a depth-5 partition (about 1/32 of
+          the rows, a strict-tail leaf's size at 31 leaves), S = 8 and
+          S = 14 over a real partition of the rows (one slot matching no
+          row), u16 bins at max_bin 1023.  K2's
           histogram within 1e-4*sum|x|+1e-6 of its plain version run on
           the card (counts exact) and bitwise K1's; K2's candidates
           bitwise the plain scan run on the card over that histogram;
           K3's bitwise K2's; `decide_from_candidates` field for field
-          `find_best_split`; two launches bitwise equal.  Then K2, K3
-          (device time, its launches queued behind a spin kernel), their
-          plain versions and K1 timed, and the bytes bounds.
+          `find_best_split`; two launches bitwise equal.  Then K2 (at the
+          host's pace and as device time), K3 (device time, its launches
+          queued behind a spin kernel), their plain versions and K1
+          timed, and the bounds of the bytes the inputs need.
   train_wave  the bench's wave configuration (tree_grow_policy=wave,
           width 8, gain ratio 0, strict tail 16, num_leaves 31) on the
           train phase's data, 10 rounds: two fused runs byte-identical,
@@ -699,10 +708,18 @@ def _f64_histogram(bins, pay, mb):
     return out.reshape(f, mb, 3)
 
 
-def _hist_bytes(bins, s, mb):
+def _hist_bytes(bins, rows_in, s, mb):
+    """Bytes K1 must move for these inputs: the leaf id of every row (the
+    kernel cannot know which rows are in the slots without reading it),
+    the bins and payload of the `rows_in` rows in the slots, the [S, F,
+    MB, 3] f32 histogram out."""
     f, n = bins.shape
-    return (bins.numel() * bins.element_size() + n * 12 + n * 4
+    return (n * 4 + rows_in * (f * bins.element_size() + 12)
             + s * f * mb * 3 * 4)
+
+
+#: histogram cases where K1 is held bitwise to `histogram_multi_ordered`
+ORDERED_CASES = ("leaf_1pct", "u16_1023")
 
 
 def phase_histogram(data: TrainData, seed: int, device=None,
@@ -712,8 +729,8 @@ def phase_histogram(data: TrainData, seed: int, device=None,
     train phase)."""
     import torch
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.ops.hist_kernel import (histogram_multi,
-                                                    histogram_multi_plain)
+    from lightgbm_tpu_torch.ops.hist_kernel import (
+        histogram_multi, histogram_multi_ordered, histogram_multi_plain)
     dev = torch.device(device or "cuda")
     ds = data.dataset
     bins_fm = ds.bin_data.T
@@ -750,13 +767,28 @@ def phase_histogram(data: TrainData, seed: int, device=None,
         _check(repro, f"histogram {name}: two launches differ")
         _check(pad_zero, f"histogram {name}: a pad slot is not zero")
         worst = max(worst, float(err.max()))
+        if name in ORDERED_CASES:
+            # the kernel adds in the order hist_common.cuh documents; the
+            # CPU model adds in that order too (the plain version on the
+            # CPU adds in row order, so this gates only on the card)
+            ordered = histogram_multi_ordered(bins.cpu(), pay.cpu(),
+                                              lid.cpu(), sl.cpu(), m)
+            same = _bits_equal(k1.cpu().numpy(), ordered.numpy())
+            _check(same or dev.type != "cuda",
+                   f"histogram {name}: kernel != histogram_multi_ordered")
+        rows_in = int((lid[:, None] == sl[None, :]).any(1).sum())
+        nbytes = _hist_bytes(bins, rows_in, len(slots), m)
+        adds = 3 * rows_in * int(bins.shape[0])
         report["cases"][name] = {
             "rows": int(bins.shape[1]), "features": int(bins.shape[0]),
             "slots": len(slots), "max_bin": int(m),
-            "dtype": str(bnp.dtype), "rows_in_slots": int(
-                (lid[:, None] == sl[None, :]).any(1).sum()),
+            "dtype": str(bnp.dtype), "rows_in_slots": rows_in,
             "within_tol": within, "counts_exact": counts,
-            "bitwise_repro": repro, "max_abs_err": float(err.max())}
+            "bitwise_repro": repro, "max_abs_err": float(err.max()),
+            "bitwise_ordered": (same if name in ORDERED_CASES else None),
+            "bytes": nbytes, "adds": adds,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            adds / F32_OPS_PER_S) * 1e3}
 
     bins, pay, lid, sl, m = inputs["root"]
     f, n = bins.shape
@@ -781,13 +813,14 @@ def phase_histogram(data: TrainData, seed: int, device=None,
             "plain_ms": _cuda_ms(lambda: histogram_multi_plain(
                 bins, pay, lid, sl, m), iters=5, warmup=1),
             "library_ms": _cuda_ms(library, iters=5, warmup=1)}
-        for name in ("leaf_1pct", "slots_14", "u16_1023"):
-            b2, p2, l2, s2, m2 = inputs[name]
-            timed[f"ms_{name}"] = _cuda_ms(
+        for name, (b2, p2, l2, s2, m2) in inputs.items():
+            report["cases"][name]["ms"] = _cuda_ms(
                 lambda: histogram_multi(b2, p2, l2, s2, m2))
-    nbytes = _hist_bytes(bins, 1, m)
-    adds = f * n * 3
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, adds / F32_OPS_PER_S) * 1e3
+            report["cases"][name]["device_ms"] = _cuda_ms(
+                lambda: histogram_multi(b2, p2, l2, s2, m2), queued=True)
+    nbytes = report["cases"]["root"]["bytes"]
+    adds = report["cases"]["root"]["adds"]
+    bound_ms = report["cases"]["root"]["bound_ms"]
     report.update({"root_max_abs_err_vs_f64": err64,
                    "root_bytes": nbytes, "root_adds": adds,
                    "bound_ms": bound_ms, "library_max_abs_diff": lib_err,
@@ -1048,7 +1081,8 @@ def _fields_equal(a, b):
 def phase_fused(data: TrainData, seed: int, device=None,
                 u16_rows: int = 100_000, timing: bool = True):
     """K2 and K3 on the card against K1 and the plain scan, on the train
-    phase's bins: S = 1 at the root, S = 8 and S = 14 over a real
+    phase's bins: S = 1 at the root and on one leaf of a depth-5
+    partition, S = 8 and S = 14 over a real
     partition of the rows with one slot that matches no row, and u16
     bins at max_bin 1023.  Returns the kernels-line entries of K2 and K3
     at the S = 8 case (the bench's wave width; launches filled in by the
@@ -1070,6 +1104,8 @@ def phase_fused(data: TrainData, seed: int, device=None,
     lid3 = _partition(bins_main, 3)
     lid4 = _partition(bins_main, 4)
     cases = [("root_s1", ds, bins_main, data.y, np.zeros_like(lid3), [0]),
+             ("leaf_s1", ds, bins_main, data.y, _partition(bins_main, 5),
+              [0]),
              ("s8", ds, bins_main, data.y, lid3, list(range(7)) + [99]),
              ("s14", ds, bins_main, data.y, lid4, list(range(13)) + [99]),
              ("u16_1023_s4", wide, bins_wide, data.y[:u16_rows],
@@ -1143,8 +1179,8 @@ def phase_fused(data: TrainData, seed: int, device=None,
         worst["k3"] = max(worst["k3"], k3_err)
         rows_in = int((lid[:, None] == sl[None, :]).any(1).sum())
         s = len(slots)
-        k2_bytes = (bins.numel() * bins.element_size() + n * 4
-                    + rows_in * 12 + s * f * mb * 12 + s * 2 * f * 32)
+        k2_bytes = (_hist_bytes(bins, rows_in, s, mb)
+                    + s * 2 * f * 32)
         k3_bytes = s * f * mb * 12 + s * 2 * f * 32
         k2_ops = 3 * rows_in * f + s * f * mb * SCAN_OPS_PER_BIN
         k3_ops = s * f * mb * SCAN_OPS_PER_BIN
@@ -1170,6 +1206,9 @@ def phase_fused(data: TrainData, seed: int, device=None,
                 "k2_plain_ms": _cuda_ms(lambda: fk.fused_hist_split_plain(
                     bins, pay, lid, sl, nb, miss, parent, mb, **kw),
                     iters=3, warmup=1),
+                "k2_device_ms": _cuda_ms(lambda: fk.fused_hist_split(
+                    bins, pay, lid, sl, nb, miss, parent, mb, **kw),
+                    queued=True),
                 "k1_ms": _cuda_ms(lambda: histogram_multi(bins, pay, lid,
                                                           sl, mb)),
                 "k3_ms": _cuda_ms(lambda: fk.split_scan(
@@ -1468,12 +1507,13 @@ def _quant_cases(data, u16_rows):
 
 
 def _k4_bytes(inp, rows_in, mb):
-    """Bytes K4 must move: bins and leaf ids of every row, three lattice
-    bytes of each row in the slots, the f32 histogram out."""
+    """Bytes K4 must move for these inputs: the leaf id of every row, the
+    bins and three lattice bytes of each row in the slots, the f32
+    histogram out (counted as `_hist_bytes` counts K1's)."""
     bins = inp["bins"]
     f, n = bins.shape
     s = inp["sl"].shape[0]
-    return (bins.numel() * bins.element_size() + n * 4 + rows_in * 3
+    return (n * 4 + rows_in * (f * bins.element_size() + 3)
             + s * f * mb * 12)
 
 
@@ -1859,9 +1899,145 @@ def phase_train_quant(data: TrainData, modules, device=None, timing=True,
     return launches
 
 
+def _import_port(root: str, name: str):
+    """(hist_kernel, fused_kernel) of the port package in another checkout
+    at `root`, imported as package `name` beside this one (its kernels
+    build under that checkout)."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "lightgbm_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return (importlib.import_module(name + ".ops.hist_kernel"),
+            importlib.import_module(name + ".ops.fused_kernel"))
+
+
+def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
+                  u16_rows: int = 100_000, timing: bool = True):
+    """K1 and K2 of this checkout against those of the checkout at
+    `baseline`, on the histogram and fused phases' inputs: the two agree
+    within twice the contract's tolerance (each is within it of the plain
+    version), counts exact; each timed in turns (this, baseline,
+    baseline, this), at the host's pace (`ms`) and as device time, its
+    launches queued behind a spin kernel (`device_ms`)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import fused_kernel as fk
+    from lightgbm_tpu_torch.ops import hist_kernel as hk
+    base_hk, base_fk = _import_port(baseline, "baseline_port")
+    dev = torch.device(device or "cuda")
+    ds = data.dataset
+    wide = lt.Dataset(data.X[:u16_rows], label=data.y[:u16_rows],
+                      params={"max_bin": 1023, "verbosity": -1}).construct()
+    bins_main = np.ascontiguousarray(ds.bin_data.T)
+    bins_wide = np.ascontiguousarray(wide.bin_data.T)
+    mb = max(m.num_bin for m in ds.bin_mappers)
+    mb_w = max(m.num_bin for m in wide.bin_mappers)
+    report = {"phase": "compare", "baseline": baseline, "k1": {}, "k2": {}}
+
+    def agree(name, new, old, b, p, l, s, m):
+        absum = hk.histogram_multi_plain(b, p.abs(), l, s, m)
+        _check(torch.equal(new[..., 2], old[..., 2])
+               and bool(((new - old).abs() <= 2e-4 * absum + 2e-6).all()),
+               f"compare {name}: this checkout and the baseline disagree")
+
+    def turns(this, base):
+        out = {}
+        if not timing:
+            return out
+        for key, queued in (("ms", False), ("device_ms", True)):
+            t = [_cuda_ms(f, queued=queued) for f in (this, base, base, this)]
+            out[key] = (t[0] + t[3]) / 2
+            out["baseline_" + key] = (t[1] + t[2]) / 2
+        return out
+
+    for name, bnp, y, frac, slots, m in (
+            ("root", bins_main, data.y, 1.0, [0], mb),
+            ("leaf_1pct", bins_main, data.y, 0.01, [0], mb),
+            ("slots_14", bins_main, data.y, 0.0,
+             list(range(12)) + [300, 301], mb),
+            ("u16_1023", bins_wide, data.y[:u16_rows], 1.0, [0], mb_w)):
+        b, p, l, s = _hist_inputs(bnp, y, frac, slots, seed, dev)
+        agree(name, hk.histogram_multi(b, p, l, s, m),
+              base_hk.histogram_multi(b, p, l, s, m), b, p, l, s, m)
+        report["k1"][name] = turns(
+            lambda: hk.histogram_multi(b, p, l, s, m),
+            lambda: base_hk.histogram_multi(b, p, l, s, m))
+    kw = FUSED_SCAN_KW
+    lid3 = _partition(bins_main, 3)
+    for name, d, bnp, y, lid_np, slots in (
+            ("root_s1", ds, bins_main, data.y, np.zeros_like(lid3), [0]),
+            ("leaf_s1", ds, bins_main, data.y, _partition(bins_main, 5),
+             [0]),
+            ("s8", ds, bins_main, data.y, lid3, list(range(7)) + [99]),
+            ("s14", ds, bins_main, data.y, _partition(bins_main, 4),
+             list(range(13)) + [99]),
+            ("u16_1023_s4", wide, bins_wide, data.y[:u16_rows],
+             _partition(bins_wide, 2), [0, 1, 2, 3])):
+        m = max(x.num_bin for x in d.bin_mappers)
+        f = bnp.shape[0]
+        nb = torch.tensor([x.num_bin for x in d.bin_mappers],
+                          dtype=torch.int32, device=dev)
+        miss = torch.arange(f, dtype=torch.int32, device=dev) % 3
+        b = torch.from_numpy(bnp).to(dev)
+        p = torch.from_numpy(_wave_payload(y, seed)).to(dev)
+        l = torch.from_numpy(lid_np).to(dev)
+        s = torch.tensor(slots, dtype=torch.int32, device=dev)
+        parent = hk.histogram_multi(b, p, l, s, m)[:, 0].sum(dim=1)
+        parent = parent.contiguous()
+        args = (b, p, l, s, nb, miss, parent, m)
+        agree(name, fk.fused_hist_split(*args, **kw)[0],
+              base_fk.fused_hist_split(*args, **kw)[0], b, p, l, s, m)
+        report["k2"][name] = turns(
+            lambda: fk.fused_hist_split(*args, **kw),
+            lambda: base_fk.fused_hist_split(*args, **kw))
+    _emit(report)
+    return report
+
+
+#: the phases that hold one kernel against its plain version on the
+#: train phase's data, runnable alone with --phases; `compare` needs
+#: --baseline
+KERNEL_PHASES = {"histogram": lambda d, s, b: phase_histogram(d, s),
+                 "fused": lambda d, s, b: phase_fused(d, s),
+                 "histogram_q": lambda d, s, b: phase_histogram_q(d, s),
+                 "fused_q": lambda d, s, b: phase_fused_q(d, s),
+                 "compare": lambda d, s, b: phase_compare(d, s, b)}
+
+
+def _run_phases(names, seed, baseline=None) -> int:
+    """Build the kernels and run the named kernel phases on the train
+    phase's data; 0 if every check passed."""
+    unknown = [n for n in names if n not in KERNEL_PHASES]
+    if unknown or ("compare" in names and not baseline):
+        print(f"chip_smoke: unknown phases {unknown}, or compare without "
+              "--baseline", file=sys.stderr)
+        return 2
+    try:
+        phase_env()
+        data = TrainData(seed)
+        for name in names:
+            KERNEL_PHASES[name](data, seed, baseline)
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated kernel phases to run alone "
+                    f"({','.join(KERNEL_PHASES)}): their lines only, no "
+                    "kernels line and no final line")
+    ap.add_argument("--baseline", default=None,
+                    help="another checkout whose K1 and K2 the compare "
+                    "phase times beside this one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1878,6 +2054,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
         return 1
+    if args.phases:
+        return _run_phases(args.phases.split(","), args.seed, args.baseline)
     try:
         smi = phase_env()
         phase_golden(args.seed)

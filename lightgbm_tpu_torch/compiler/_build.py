@@ -59,15 +59,15 @@ _SIGNATURES = {
                     [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P])],
     "histogram": [("lgbt_histogram",
                    [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                    _P])],
+                    _P, _P, _P])],
     "histogram_q": [("lgbt_histogram_q",
                      [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P, _P])],
     "fused_split": [("lgbt_fused_hist_split",
                      [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                      _P, _P, _F, _F, _F, _F, _F, _P, _P, _P]),
+                      _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P]),
                     ("lgbt_fused_hist_split_q",
-                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P]),
                     ("lgbt_split_scan",
                      [_P, _I, _I, _I, _P, _P, _P, _F, _F, _F, _F, _F, _P,

@@ -15,10 +15,10 @@
 // torch ops in the order of `ops/split.py fused_numerical_candidates`) on
 // the same histogram, and K2's histogram is the K1 kernel's.
 //
-// One scan, two kernels.  `scan_row` scans one row held in shared memory;
-// both kernels call it, so K2's and K3's candidates are interchangeable by
-// construction (the wave grower scans the smaller children in K2 and the
-// larger ones, parent minus smaller, in K3).  Every float operation is an
+// One scan.  `scan_row` scans one row held in shared memory; K2 and K3 run
+// it in the same kernel and K5 in its own, so the candidates are
+// interchangeable by construction (the wave grower scans the smaller
+// children in K2 and the larger ones, parent minus smaller, in K3).  Every float operation is an
 // IEEE f32 add, subtract, multiply or divide in the plain version's order,
 // and this library is built with -fmad=false, so none is contracted:
 //   * bins >= nb[f] read as +0.0 (the plain version's `where(valid_bin)`);
@@ -45,22 +45,23 @@
 // so K5's histogram is K4's bit for bit; it writes the row to `hist`, keeps
 // it in shared memory and scans it with the same `scan_row`.
 //
-// K2 = hist_partial_kernel (hist_common.cuh, K1's first stage) + a
-// reduce-and-scan stage with grid (feature, slot): the block sums its
-// row's chunk partials in index order, exactly K1's hist_reduce_kernel, so
-// K2's histogram is K1's bit for bit; it writes the row to `hist`, keeps
-// it in shared memory and scans it.  No float atomics.  K3 has the same
-// grid and loads the row from `hist`.
+// K2 = K1's first stage (hist_common.cuh: the row list and
+// hist_partial_kernel, launched with the same plan) + K1's
+// hist_reduce_kernel, which writes `hist`, so K2's histogram is K1's bit
+// for bit, + K3's scan_kernel over `hist`, so K2's candidates are K3's.
+// No float atomics.  K3 has grid (feature, slot) and loads the row from
+// `hist`.
 //
-// What bounds them on the H100: bytes.  K2 reads what K1 reads (bins, leaf
-// ids, payload) and writes the histogram and the candidates; K5 reads what
-// K4 reads (bins, leaf ids, three lattice bytes a row in the slots) and
-// writes the histogram and the candidates; K3 reads a
-// histogram and writes candidates (at 14 slots x 28 features x 255 bins,
-// 1.2 MB in, 25 KB out).  The scan itself is a few hundred adds per row
-// on 256 threads, one block per row; the block-total levels run on one
-// thread per channel.  Left for later: more rows per block, warp-shuffle
-// prefix sums in the same order, overlapping the reduce with the scan.
+// What bounds them on the H100: bytes.  K2 reads what K1 reads (every
+// row's leaf id, the bins and payload of the rows in the slots: its first
+// stage lists those rows and reads only theirs) and writes the histogram
+// and the candidates; K5 reads what K4 reads (bins and leaf ids of every
+// row, three lattice bytes a row in the slots) and writes the histogram
+// and the candidates; K3 reads a histogram and writes candidates (at 14
+// slots x 28 features x 255 bins, 1.2 MB in, 25 KB out).  The scan itself
+// is a few hundred adds per row on 256 threads, one block per row; the
+// block-total levels run on one thread per channel.  Left for later: more
+// rows per block, warp-shuffle prefix sums in the same order.
 
 #include "hist_common.cuh"
 #include "hist_q_common.cuh"
@@ -249,37 +250,6 @@ __device__ __forceinline__ float* cand_row(float* cand, int s, int cs,
   return cand + ((static_cast<size_t>(s) * 2 + cs) * F + f) * kCandCols;
 }
 
-// K2's second stage: grid (feature, slot).  Sums the row's chunk partials
-// in index order (K1's hist_reduce_kernel), writes the row to `hist`, and
-// scans it.
-__global__ void __launch_bounds__(kScanThreads)
-reduce_scan_kernel(const float* __restrict__ work, int chunks, int F,
-                   int MB, const int* __restrict__ feat_nb,
-                   const int* __restrict__ feat_missing,
-                   const float* __restrict__ parent, ScanParams p,
-                   float* __restrict__ hist, float* __restrict__ cand) {
-  extern __shared__ float smem[];
-  const Levels L = make_levels(MB);
-  float* x = smem;
-  float* red_v = smem + 3 * L.per_chan;
-  int* red_i = reinterpret_cast<int*>(red_v + 2 * kScanThreads);
-  const int f = blockIdx.x, s = blockIdx.y;
-  const int nb = __ldg(feat_nb + f);
-  clear_row(x, 3 * L.per_chan);
-  const long long total = static_cast<long long>(gridDim.y) * F * MB * 3;
-  const long long base = (static_cast<long long>(s) * F + f) * MB * 3;
-  for (int i = threadIdx.x; i < MB * 3; i += kScanThreads) {
-    float acc = work[base + i];
-    for (int c = 1; c < chunks; ++c) acc += work[c * total + base + i];
-    hist[base + i] = acc;
-    const int b = i / 3, ch = i % 3;
-    x[ch * L.per_chan + b] = (b < nb) ? acc : 0.f;
-  }
-  __syncthreads();
-  scan_row(x, red_v, red_i, MB, nb, __ldg(feat_missing + f), parent + 3 * s,
-           p, cand_row(cand, s, 0, f, F), cand_row(cand, s, 1, f, F));
-}
-
 // K3: grid (feature, slot).  Loads the row of hist [S, F, MB, 3] and scans
 // it.
 __global__ void __launch_bounds__(kScanThreads)
@@ -350,29 +320,32 @@ cudaError_t scan_smem_setup(const void* kernel, int MB, size_t* smem) {
 }  // namespace
 
 // K2.  bins [F, N] (bin_bytes 1: u8, 2: u16), payload [N, 3] f32, leaf_id
-// [N] i32, slots [S] i32; work [chunks, S, F, MB, 3] f32 scratch (the
-// partial stage's, as lgbt_histogram); feat_nb, feat_missing [F] i32;
-// parent [S, 3] f32 (each slot's g, h, count sums); hist [S, F, MB, 3] f32
-// and cand [S, 2, F, 8] f32 out.  Returns the cudaError_t of the launches.
+// [N] i32, slots [S] i32; Fg, chunks, rowbuf, ticket and work [chunks,
+// S, F, MB, 3] f32 the first stage's plan and scratch (as lgbt_histogram);
+// feat_nb, feat_missing [F] i32; parent [S, 3] f32 (each slot's g, h,
+// count sums); hist [S, F, MB, 3] f32 and cand [S, 2, F, 8] f32 out.
+// Returns the cudaError_t of the launches.
 extern "C" int lgbt_fused_hist_split(
     const void* bins, int bin_bytes, const float* payload,
     const int* leaf_id, const int* slots, int N, int F, int S, int MB,
-    int rows_per_chunk, int chunks, float* work, const int* feat_nb,
-    const int* feat_missing, const float* parent, float l1, float l2,
-    float min_data, float min_hess, float min_gain, float* hist, float* cand,
-    cudaStream_t stream) {
-  if (!partial_args_ok(N, F, S, MB, rows_per_chunk, chunks))
+    int Fg, int chunks, int* rowbuf, int* ticket, float* work,
+    const int* feat_nb, const int* feat_missing, const float* parent,
+    float l1, float l2, float min_data, float min_hess, float min_gain,
+    float* hist, float* cand, cudaStream_t stream) {
+  if (!partial_args_ok(N, F, S, MB, bin_bytes, Fg, chunks))
     return cudaErrorInvalidValue;
   size_t smem = 0;
-  cudaError_t e = scan_smem_setup(
-      reinterpret_cast<const void*>(reduce_scan_kernel), MB, &smem);
+  cudaError_t e = scan_smem_setup(reinterpret_cast<const void*>(scan_kernel),
+                                  MB, &smem);
   if (e != cudaSuccess) return e;
-  e = launch_partial(bins, bin_bytes, payload, leaf_id, slots, N, F, S, MB,
-                     rows_per_chunk, chunks, work, stream);
+  e = launch_first_stage(bins, bin_bytes, payload, leaf_id, slots, N, F, S,
+                         MB, Fg, chunks, rowbuf, ticket, work, stream);
+  if (e != cudaSuccess) return e;
+  e = launch_reduce(work, chunks, N, S, F, MB, slots, rowbuf, hist, stream);
   if (e != cudaSuccess) return e;
   const ScanParams p{l1, l2, min_data, min_hess, min_gain};
-  reduce_scan_kernel<<<dim3(F, S), kScanThreads, smem, stream>>>(
-      work, chunks, F, MB, feat_nb, feat_missing, parent, p, hist, cand);
+  scan_kernel<<<dim3(F, S), kScanThreads, smem, stream>>>(
+      hist, F, MB, feat_nb, feat_missing, parent, p, cand);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,70 +12,51 @@
 //
 // Run-to-run reproducibility is part of the contract (streaming and
 // distributed training compare models byte for byte), so no float atomic
-// whose order can vary is used, in global or in shared memory:
-//   * grid (feature, chunk of rows, slot), 8 warps a block; each warp owns a
-//     fixed sub-range of the chunk's rows and a private [MB][3] histogram
-//     in shared memory;
-//   * per 32 rows, lanes holding the same bin (rows outside the slot hold
-//     none) are grouped with __match_any_sync; the group's lowest lane sums
-//     the group's values in lane order from a per-warp staging buffer and
-//     adds the sum to the warp's histogram, so no two lanes touch one cell;
-//   * the block sums its warps' histograms in warp order and writes one
-//     partial per chunk to the workspace [chunks, S, F, MB, 3]; a second
-//     kernel sums the chunks in index order.
-// The first stage lives in hist_common.cuh: the fused kernel K2
-// (fused_split.cu) runs the same code, so its histogram is this one's.
-// Every add happens in an order fixed by the inputs' shapes, so two
-// launches on the same inputs give the same bits.  The kernel only adds,
-// so FMA contraction cannot change a bit and -fmad stays at its default.
+// whose order can vary is used, in global or in shared memory.  The first
+// stage (hist_common.cuh, shared with the fused kernel K2 in
+// fused_split.cu, so its histogram is this one's) lists each slot's rows
+// in row order from one read of the leaf ids, then builds one partial
+// histogram per (chunk, slot, feature) from a piece of that list, with one
+// warp the only writer of each (slot, feature) histogram and the sums of
+// the lanes holding one bin added in lane order; hist_reduce_kernel
+// (hist_common.cuh, K2's too) sums each cell's chunk partials in index
+// order (`sum_chunks`).
+// hist_common.cuh's header states the order of every add; it is fixed by
+// the inputs and the chunk count, so two launches on the same inputs give
+// the same bits, and `ops/hist_kernel.py histogram_multi_ordered` gives
+// them on the CPU.  The kernels only add, so FMA contraction cannot change
+// a bit and -fmad stays at its default.
 //
-// What bounds it on the H100: the bytes.  Each call reads every row's bin,
-// leaf id and (for rows in the slot) payload: at N = 2M rows and F = 28
-// about 88 MB, 26 us at 3.35 TB/s.  Blocks of one chunk run for all
-// features side by side (feature is the fastest grid axis), so the leaf
-// ids and payload a chunk's blocks share come from L2 after the first
-// read.  The group loop is serial in the group's size, so a feature whose
-// rows crowd into few bins costs more issue slots.  Left for later: row
-// partitions that skip rows outside the leaf, wider loads, wgmma/TMA.
+// What bounds it on the H100: the bytes.  A call reads every row's leaf
+// id and the bins and payload of the rows in the slots, and writes the
+// histogram: at N = 2M rows and F = 28 u8, one slot holding every row,
+// about 88 MB, 26 us at 3.35 TB/s; at a leaf of 1% of the rows 8.7 MB.
+// The first stage reads no bins or payload of rows outside the slots and
+// loops over the listed rows, not over N; the row list and the chunk
+// partials are its overhead.
 //
 // Bins >= MB are skipped (out of contract; the plain version would raise).
 
 #include "hist_common.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(kThreads)
-hist_reduce_kernel(const float* __restrict__ work, int chunks,
-                   long long total, float* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (i >= total) return;
-  float acc = work[i];
-  for (int c = 1; c < chunks; ++c) acc += work[c * total + i];
-  out[i] = acc;
-}
-
-}  // namespace
-
 // bins [F, N] (bin_bytes 1: u8, 2: u16), payload [N, 3] f32, leaf_id [N]
-// i32, slots [S] i32; work [chunks, S, F, MB, 3] f32 scratch; out
-// [S, F, MB, 3] f32.  rows_per_chunk is a multiple of 256 and chunks =
-// ceil(N / rows_per_chunk).  Returns the cudaError_t of the launches.
+// i32, slots [S] i32; Fg and chunks the launch plan of `ops/
+// hist_kernel.py launch_plan` (partial_args_ok); rowbuf the row scratch
+// (N + S * ceil(N / 8192) + S + 1 i32); ticket one i32, 0 between
+// launches; work [chunks, S, F, MB, 3] f32 scratch; out [S, F, MB, 3]
+// f32.  Returns the cudaError_t of the
+// launches.
 extern "C" int lgbt_histogram(const void* bins, int bin_bytes,
                               const float* payload, const int* leaf_id,
                               const int* slots, int N, int F, int S, int MB,
-                              int rows_per_chunk, int chunks, float* work,
-                              float* out, cudaStream_t stream) {
-  if (!partial_args_ok(N, F, S, MB, rows_per_chunk, chunks))
+                              int Fg, int chunks, int* rowbuf, int* ticket,
+                              float* work, float* out, cudaStream_t stream) {
+  if (!partial_args_ok(N, F, S, MB, bin_bytes, Fg, chunks))
     return cudaErrorInvalidValue;
-  cudaError_t e = launch_partial(bins, bin_bytes, payload, leaf_id, slots, N,
-                                 F, S, MB, rows_per_chunk, chunks, work,
-                                 stream);
+  cudaError_t e = launch_first_stage(bins, bin_bytes, payload, leaf_id,
+                                     slots, N, F, S, MB, Fg, chunks, rowbuf,
+                                     ticket, work, stream);
   if (e != cudaSuccess) return e;
-  const long long total = static_cast<long long>(S) * F * MB * 3;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  hist_reduce_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      work, chunks, total, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_reduce(work, chunks, N, S, F, MB, slots,
+                                        rowbuf, out, stream));
 }

@@ -38,8 +38,9 @@ import ctypes
 import torch
 
 from ..utils.log import LightGBMError
-from .hist_kernel import (MULTI_CHUNK, _check, chunking,
-                          histogram_multi_plain, smem_bytes, _SMEM_MAX)
+from .hist_kernel import (MULTI_CHUNK, _check, first_stage_scratch,
+                          histogram_multi_plain, launch_plan, on_stream,
+                          ticket)
 from .hist_kernel_q import (MULTI_CHUNK_Q, _check_q, _scales,
                             histogram_multi_quantized_plain, q_launch_shape)
 from .split import FUSED_CAND_COLS, FUSED_CASES, fused_numerical_candidates
@@ -115,28 +116,23 @@ def _launch_fused(bins_fm, payload, leaf_id, slots, feat_nb, feat_missing,
               parent):
         if not t.is_contiguous():
             raise LightGBMError("fused split inputs must be contiguous")
-    if smem_bytes(max_bin) > _SMEM_MAX:
-        raise LightGBMError(f"max_bin {max_bin} needs "
-                            f"{smem_bytes(max_bin)} B of shared memory a "
-                            f"block; the kernel has {_SMEM_MAX}")
     if n == 0 or f == 0:
         raise LightGBMError("the fused split kernel needs rows and features")
+    plan = launch_plan(n, f, s, max_bin)
     hist = torch.empty((s, f, max_bin, 3), dtype=torch.float32, device=dev)
     cand = torch.empty((s, FUSED_CASES, f, FUSED_CAND_COLS),
                        dtype=torch.float32, device=dev)
-    rows, chunks = chunking(n, f, s)
-    work = torch.empty((chunks, s, f, max_bin, 3), dtype=torch.float32,
-                       device=dev)
+    scratch, rowbuf, work = first_stage_scratch(n, s, f, max_bin,
+                                                plan.chunks, dev)
     from ..compiler import _build
     lib = _build.load("fused_split")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lgbt_fused_hist_split(
-            bins_fm.data_ptr(), bins_fm.element_size(), payload.data_ptr(),
-            leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin, rows,
-            chunks, work.data_ptr(), feat_nb.data_ptr(),
-            feat_missing.data_ptr(), parent.data_ptr(), *scan_args,
-            hist.data_ptr(), cand.data_ptr(), ctypes.c_void_p(stream))
+    rc = on_stream(dev, lambda stream: lib.lgbt_fused_hist_split(
+        bins_fm.data_ptr(), bins_fm.element_size(), payload.data_ptr(),
+        leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin,
+        plan.feature_group, plan.chunks, rowbuf, ticket(dev, stream), work,
+        feat_nb.data_ptr(), feat_missing.data_ptr(), parent.data_ptr(),
+        *scan_args, hist.data_ptr(), cand.data_ptr(),
+        ctypes.c_void_p(stream)))
     if rc != 0:
         raise LightGBMError(f"fused histogram+split kernel launch failed: "
                             f"CUDA error {rc}")

@@ -1,4 +1,5 @@
-"""The multi-leaf histogram: the K1 kernel's wrapper and plain version.
+"""The multi-leaf histogram: the K1 kernel's wrapper, launch plan, plain
+version and order-exact model.
 
 The port's counterpart of `lightgbm_tpu/ops/pallas_hist.py`'s K1 entry
 points (`pallas_histogram_multi`, `_rows`, launcher `_run_kernel_multi`,
@@ -7,22 +8,29 @@ leaf_id, slots, max_bin)` returns [S, F, MB, 3] f32: cell (s, f, b, c)
 sums `payload[:, c]` over the rows where `leaf_id == slots[s]` and
 `bins_fm[f] == b`; a slot that matches no row gives zeros.
 
-CUDA tensors launch the hand-written kernel `csrc/histogram.cu`; CPU
-tensors run `histogram_multi_plain`, which is `ops/histogram.py
-leaf_histogram` per slot and so bitwise equal to JAX's `segment_sum`.
-There is no fallback from one to the other: a CUDA tensor launches the
-kernel or raises.
+CUDA tensors launch the hand-written kernel `csrc/histogram.cu` (its
+first stage `csrc/hist_common.cuh`, shared with K2) with the plan of
+`launch_plan`; CPU tensors run `histogram_multi_plain`, which is
+`ops/histogram.py leaf_histogram` per slot and so bitwise equal to JAX's
+`segment_sum`.  There is no fallback from one to the other: a CUDA
+tensor launches the kernel or raises.
 
 The kernel's numbers: counts are exact (integer sums below 2^24); g and
 h agree with the plain version per cell within `1e-4 * sum|x| + 1e-6`
 (`sum|x|` over the cell's rows), the tolerance the reference gives its
-own Pallas path (`pallas_hist.py` `probe`); two launches on the same
-inputs give the same bits.
+own Pallas path (`pallas_hist.py` `probe`); and they equal, bit for bit,
+`histogram_multi_ordered`, which adds on the CPU in the order
+`hist_common.cuh` documents.  So two launches on the same inputs give
+the same bits.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..utils.log import LightGBMError
@@ -34,30 +42,134 @@ HIST_LAUNCHES = 0
 #: most slots one call takes (the reference's `MULTI_CHUNK`)
 MULTI_CHUNK = 14
 
-#: warps per block and shared memory a block can have: a block keeps one
-#: [MB, 3] f32 histogram per warp plus a 32-row staging buffer per warp
+#: the first stage (`csrc/hist_common.cuh`): rows a block of the row-list
+#: kernels; the histogram kernel's 8-warp blocks (one feature a warp), up
+#: to four an SM; shared memory a block and an SM can have on an H100 (1
+#: KB of an SM's is reserved for each block), and its SMs
+_LIST_ROWS = 8192
+#: rows a piece of a slot's list holds at least (fewer: fewer pieces)
+_MIN_PIECE = 256
 _WARPS = 8
+_MAX_BLOCKS_PER_SM = 4
 _SMEM_MAX = 227 * 1024
-#: blocks that fill the card: 8 resident 256-thread blocks on each of
-#: the H100's 132 SMs
-_TARGET_BLOCKS = 8 * 132
-_MIN_CHUNK_ROWS = 4096
+_SM_SMEM = 228 * 1024
+_BLOCK_RESERVED = 1024
+_SMS = 132
+#: the launch plan's cost model, used only to pick the chunk count:
+#: device time of one 32-row batch of one (slot, feature) on one warp
+#: (an estimate, on the low side),
+#: and the rate at which the chunk partials are written and read back
+_NS_PER_BATCH = 300.0
+_BYTES_PER_NS = 3350.0
 
 
-def smem_bytes(max_bin: int) -> int:
-    """Shared memory one block of the kernel needs at `max_bin` bins."""
-    return (_WARPS * max_bin * 3 + _WARPS * 96) * 4
+def smem_bytes(feature_group: int, max_bin: int) -> int:
+    """Shared memory of one histogram block (`hist_common.cuh
+    partial_smem_bytes`): the [feature_group, MB] histograms of 16-byte
+    cells (g, h, w and the cell's group word) and each warp's staging
+    buffer of 96 floats."""
+    return feature_group * max_bin * 16 + _WARPS * 96 * 4
 
 
-def chunking(n: int, f: int, s: int):
-    """(rows per chunk, chunks) of a launch over `n` rows: about
-    `_TARGET_BLOCKS` blocks of (feature, chunk, slot), chunks of a
-    multiple of 256 rows and at least `_MIN_CHUNK_ROWS` rows."""
-    want = -(-_TARGET_BLOCKS // max(f * s, 1))
-    chunks = max(1, min(want, -(-n // _MIN_CHUNK_ROWS)))
-    rows = -(-n // chunks)
-    rows = -(-rows // 256) * 256
-    return rows, -(-n // rows)
+def max_bin_limit() -> int:
+    """Largest `max_bin` a launch takes: one feature's histogram a
+    block."""
+    return (_SMEM_MAX - smem_bytes(1, 0)) // 16
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Histogram blocks an SM holds at `smem` bytes a block."""
+    return max(1, min(_MAX_BLOCKS_PER_SM,
+                      _SM_SMEM // (smem + _BLOCK_RESERVED)))
+
+
+def row_scratch_ints(n: int, s: int) -> int:
+    """int32 scratch of the row list: the list [n], the per-block counts
+    and offsets [s * ceil(n / 8192)] and the slots' starts [s + 1]."""
+    return n + s * -(-n // _LIST_ROWS) + s + 1
+
+
+#: the first stage's tickets, one int32 per (device, stream): 0 between
+#: launches (the kernel that takes one sets it back), so launches that
+#: share a ticket run one after the other on their stream
+_TICKETS = {}
+
+
+def ticket(device, stream: int) -> int:
+    """Pointer to the first stage's ticket for `stream` on `device`;
+    call with that stream current (the ticket is zeroed on it)."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t.data_ptr()
+
+
+def first_stage_scratch(n: int, s: int, f: int, max_bin: int, chunks: int,
+                        device):
+    """(scratch, rowbuf pointer, workspace pointer) of one launch: one
+    int32 allocation holding the row scratch (`row_scratch_ints`) and the
+    f32 workspace [chunks, S, F, MB, 3]."""
+    rows = row_scratch_ints(n, s)
+    scratch = torch.empty(rows + chunks * s * f * max_bin * 3,
+                          dtype=torch.int32, device=device)
+    ptr = scratch.data_ptr()
+    return scratch, ptr, ptr + 4 * rows
+
+
+def on_stream(device, launch):
+    """`launch(stream)` with `device` current, on its current CUDA stream
+    (the raw handle, read without building a Stream object)."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return launch(torch._C._cuda_getCurrentRawStream(device.index))
+
+
+class LaunchPlan(NamedTuple):
+    """One launch of the first stage: the histogram kernel's grid is
+    (s * groups, chunks); a block adds `feature_group` features (one a
+    warp) of one slot over piece c of the slot's listed rows; the
+    workspace is [chunks, S, F, MB, 3] f32."""
+    feature_group: int
+    groups: int
+    chunks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(n: int, f: int, s: int, max_bin: int) -> LaunchPlan:
+    """The first stage's launch over `n` >= 1 rows, `f` features and `s`
+    <= 14 slots of `max_bin` bins.  Feature group: of those whose block
+    fits, the one with the most warps adding at once on an SM (blocks an
+    SM x features a block), then the fewest groups.  Chunks: the count
+    that balances the adds (fewer rows a warp with more chunks) against
+    the partials written and read back (more bytes with more chunks), at
+    most the blocks the SMs hold at once and a batch of 32 rows each."""
+    limit = max_bin_limit()
+    if max_bin > limit:
+        raise LightGBMError(
+            f"max_bin {max_bin} needs {smem_bytes(1, max_bin)} B of shared "
+            f"memory a block; the histogram kernel takes max_bin up to "
+            f"{limit} ({_SMEM_MAX} B)")
+    best = None
+    for f_g in range(1, min(f, _WARPS) + 1):
+        f_g = -(-f // -(-f // f_g))                 # groups cut evenly
+        smem = smem_bytes(f_g, max_bin)
+        if smem > _SMEM_MAX:
+            continue
+        bps = blocks_per_sm(smem)
+        key = (bps * f_g, f_g)
+        if best is None or key > best[0]:
+            best = (key, f_g, smem, bps)
+    _, f_g, smem, bps = best
+    groups = -(-f // f_g)
+    busy = s * groups * f_g                        # warps adding at once
+    adds_ns = n * f / 32 / busy * _NS_PER_BATCH
+    partial_ns = 2 * s * f * max_bin * 12 / _BYTES_PER_NS
+    chunks = min(max(1, _SMS * bps // (s * groups)), -(-n // 32),
+                 max(1, round(math.sqrt(adds_ns / partial_ns))))
+    return LaunchPlan(f_g, groups, chunks, smem)
 
 
 def _check(bins_fm, payload, leaf_id, slots, max_bin):
@@ -91,6 +203,69 @@ def histogram_multi_plain(bins_fm: torch.Tensor, payload: torch.Tensor,
                         for s in slots.tolist()])
 
 
+def piece_bounds(length: int, chunks: int) -> np.ndarray:
+    """[P + 1] bounds of the pieces a slot's `length` listed rows are cut
+    into, as the kernel cuts them (`hist_common.cuh slot_rows`): P =
+    min(chunks, max(1, length // 256)) pieces, piece c [c * length // P,
+    (c + 1) * length // P)."""
+    pieces = min(chunks, max(1, length // _MIN_PIECE))
+    return np.arange(pieces + 1, dtype=np.int64) * length // pieces
+
+
+def histogram_multi_ordered(bins_fm: torch.Tensor, payload: torch.Tensor,
+                            leaf_id: torch.Tensor, slots: torch.Tensor,
+                            max_bin: int) -> torch.Tensor:
+    """The kernel's sums on the CPU, added in the order `csrc/
+    hist_common.cuh` documents under `launch_plan`'s chunk count: for
+    each slot, its L rows in row order cut into pieces (`piece_bounds`);
+    for each feature, a
+    piece's rows cut into batches of 32 from the piece's first row;
+    within a batch the rows of one bin summed in row order from +0.0
+    (f32); a piece's cell adding its batches' sums in order from +0.0
+    (`np.add.at` adds in index order); the pieces' partials summed in
+    index order.  For tests and chip_smoke.py: the CUDA kernel equals it
+    bit for bit."""
+    _check(bins_fm, payload, leaf_id, slots, max_bin)
+    f, n = bins_fm.shape
+    s = slots.shape[0]
+    out = np.zeros((s, f, max_bin, 3), np.float32)
+    if n == 0 or f == 0:
+        return torch.from_numpy(out)
+    chunks = launch_plan(n, f, s, max_bin).chunks
+    bins = bins_fm.cpu().numpy()
+    pay = payload.cpu().numpy()
+    lid = leaf_id.cpu().numpy()
+    for i, slot in enumerate(slots.tolist()):
+        rows = np.flatnonzero(lid == slot)
+        if rows.size == 0:
+            continue
+        starts = piece_bounds(rows.size, chunks)
+        piece = np.searchsorted(starts, np.arange(rows.size), "right") - 1
+        pos = np.arange(rows.size) - starts[piece]
+        batch = np.cumsum(np.r_[0, np.diff(piece * (n + 1) + pos // 32)
+                                != 0])                # non-decreasing
+        lane = pos % 32
+        p = pay[rows]
+        for fi in range(f):
+            b = bins[fi, rows].astype(np.int64)
+            ok = b < max_bin
+            keys, first, gid = np.unique(batch[ok] * max_bin + b[ok],
+                                         return_index=True,
+                                         return_inverse=True)
+            gsum = np.zeros((keys.size, 3), np.float32)
+            ln, pv = lane[ok], p[ok]
+            for l_ in range(32):               # lane order from +0.0
+                sel = ln == l_
+                gsum[gid[sel]] += pv[sel]
+            part = np.zeros((starts.size - 1, max_bin, 3), np.float32)
+            np.add.at(part, (piece[ok][first], keys % max_bin), gsum)
+            acc = part[0].copy()
+            for c in range(1, starts.size - 1):
+                acc += part[c]
+            out[i, fi] = acc
+    return torch.from_numpy(out)
+
+
 def histogram_multi(bins_fm: torch.Tensor, payload: torch.Tensor,
                     leaf_id: torch.Tensor, slots: torch.Tensor,
                     max_bin: int) -> torch.Tensor:
@@ -108,28 +283,23 @@ def histogram_multi(bins_fm: torch.Tensor, payload: torch.Tensor,
     for t in (bins_fm, payload, leaf_id, slots):
         if not t.is_contiguous():
             raise LightGBMError("histogram inputs must be contiguous")
-    if smem_bytes(max_bin) > _SMEM_MAX:
-        raise LightGBMError(f"max_bin {max_bin} needs "
-                            f"{smem_bytes(max_bin)} B of shared memory a "
-                            f"block; the kernel has {_SMEM_MAX}")
     f, n = bins_fm.shape
     s = slots.shape[0]
+    plan = launch_plan(max(n, 1), f, s, max_bin)
     out = torch.empty((s, f, max_bin, 3), dtype=torch.float32,
                       device=bins_fm.device)
     if n == 0 or f == 0:
         return out.zero_()
-    rows, chunks = chunking(n, f, s)
-    work = torch.empty((chunks, s, f, max_bin, 3), dtype=torch.float32,
-                       device=bins_fm.device)
+    scratch, rowbuf, work = first_stage_scratch(n, s, f, max_bin,
+                                                plan.chunks, bins_fm.device)
     from ..compiler import _build
     lib = _build.load("histogram")
-    with torch.cuda.device(bins_fm.device):
-        stream = torch.cuda.current_stream(bins_fm.device).cuda_stream
-        rc = lib.lgbt_histogram(
-            bins_fm.data_ptr(), bins_fm.element_size(), payload.data_ptr(),
-            leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin, rows,
-            chunks, work.data_ptr(), out.data_ptr(),
-            ctypes.c_void_p(stream))
+    rc = on_stream(bins_fm.device, lambda stream: lib.lgbt_histogram(
+        bins_fm.data_ptr(), bins_fm.element_size(), payload.data_ptr(),
+        leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin,
+        plan.feature_group, plan.chunks, rowbuf,
+        ticket(bins_fm.device, stream), work, out.data_ptr(),
+        ctypes.c_void_p(stream)))
     if rc != 0:
         raise LightGBMError(f"histogram kernel launch failed: CUDA error "
                             f"{rc}")
