@@ -4,7 +4,7 @@ and check them.
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --phases histogram,fused   # kernel phases alone
-    python3 chip_smoke.py --phases compare --baseline DIR   # K1, K2 vs DIR's
+    python3 chip_smoke.py --phases compare --baseline DIR   # K1/K2/K4/K5
 
 Phases, each printing one JSON line:
 
@@ -29,6 +29,14 @@ Phases, each printing one JSON line:
           and the f64 host walk, bitwise.  Kernel launch counts are read
           around this phase alone.  Then latencies, the kernels' times
           against their plain versions and their bounds.
+  objective the objectives' links (`ops/xla_math.py`, XLA's CPU exp,
+          sigmoid and softmax): the link kernel (`csrc/links.cu`) bitwise
+          its plain version (torch ops) on the card and on the CPU, for
+          exp on 2^24 f32 bit patterns and sigmoid on 2M scores; on 2M
+          rows, binary (with and without weights) and multiclass
+          `grad_hess` on the card bitwise the same code on the CPU.  Then
+          the sigmoid kernel, its plain version and `torch.sigmoid`
+          timed, and binary `grad_hess`.
   histogram the K1 kernel (`csrc/histogram.cu`) against its plain
           version on the card, on the train phase's data (2M rows x 28
           features, u8): every row in one slot, a leaf of 1% of the rows,
@@ -80,11 +88,14 @@ Phases, each printing one JSON line:
   histogram_q the quantized histogram kernel K4 (`csrc/histogram_q.cu`)
           against its plain version on the card, bitwise, over the int8
           lattice of a binary payload quantized to 15 levels with
-          stochastic rounding: S = 1 at the 2M x 28 root, S = 8 over a
-          depth-3 partition (one slot matching no row), S = 42 over a
-          depth-6 partition, u16 bins at max_bin 1023; two launches
-          bitwise equal.  Then K4 (device time), its plain version and
-          `index_add_` of the same integer histogram timed, the bounds.
+          stochastic rounding: S = 1 at the 2M x 28 root, on a leaf of
+          1% of the rows and on a depth-5 leaf, S = 8 over a depth-3
+          partition (one slot matching no row), S = 42 over a depth-6
+          partition, u16 bins at max_bin 1023; two launches bitwise
+          equal.  Then K4 (device time, its launches queued behind a
+          spin kernel) at every case, its plain version and
+          `index_add_` of the same integer histogram timed, the bounds
+          of the bytes the inputs need.
   fused_q the fused quantized kernel K5 (`csrc/fused_split.cu`) at the
           same shapes: its histogram bitwise K4's and its plain
           version's, its candidates bitwise the plain scan's and K3's;
@@ -100,9 +111,16 @@ Phases, each printing one JSON line:
           S = 1, 3 rounds, `packed` byte-identical) and
           `wave_w28_tail16+quant` at 255 leaves (K5 at 28 slots, unfused
           byte-identical).  Round times, the quantize step's and K5's
-          share, one profiled round.
-  kernels one line per kernel: launches on its path's phase (traverse
-          and accumulate: main; histogram: train; fused_hist_split and
+          share, one profiled round of the main run and one of
+          `strict+quant`.
+  compare (with --phases and --baseline DIR only) K1, K2, K4 and K5
+          of this checkout and of the checkout in DIR on the same
+          inputs: K1 and K2 agree within twice their tolerance, K4 and
+          K5 bitwise; each timed in turns (this, DIR, DIR, this); then
+          the f32 wave, quantized wave and strict quantized rounds of
+          both checkouts in turns.
+  kernels one line per kernel: launches on its path's phase (traverse,
+          accumulate and the link: main; histogram: train; fused_hist_split and
           split_scan: train_wave; fused_hist_split_q: train_quant's main
           run; histogram_q: its strict run), parity, times, bound.
 
@@ -366,6 +384,21 @@ def _bits_equal(a, b):
     return bool(np.array_equal(a.view(view), b.view(view)))
 
 
+def _max_abs_err(a, b) -> float:
+    """Largest |a - b| over equal-shaped arrays, where two NaNs and two
+    equal infinities differ by 0 and any other pair with a NaN or an
+    infinity by inf."""
+    with np.errstate(invalid="ignore"):      # casts of signalling NaNs
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b, np.float64)
+        if a.shape != b.shape:
+            return float("inf")
+        d = np.abs(a - b)
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    d = np.where(same, 0.0, np.where(np.isnan(d), np.inf, d))
+    return float(d.max()) if d.size else 0.0
+
+
 def _traverse(rt, Xd, fn):
     """Xd through every depth bucket of rt's plan with `fn`, the traverse
     kernel's wrapper or its plain version: the per-bucket slots."""
@@ -430,7 +463,7 @@ def phase_env():
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     _check(set(built) == {"traverse", "accumulate", "histogram",
-                          "histogram_q", "fused_split"},
+                          "histogram_q", "fused_split", "links"},
            f"build_all built {sorted(built)}")
     _emit({"phase": "env", "torch": torch.__version__,
            "cuda": torch.version.cuda,
@@ -482,6 +515,8 @@ def phase_golden(seed):
         conv_cpu = cpu.predict(X)
         ulp = int(np.max(np.abs(conv.view(np.int32).astype(np.int64)
                                 - conv_cpu.view(np.int32).astype(np.int64))))
+        _check(ulp == 0, f"{name}: GPU converted scores differ from the "
+               f"CPU plain path by up to {ulp} ulp")
         mw = max(m for _, m in st.meta)
         if name == "categorical":
             _check(mw > 0, "categorical model did not run the bitset branch")
@@ -503,6 +538,7 @@ def phase_golden(seed):
 def phase_main(seed, kernel_module, predict_module):
     import torch
     from lightgbm_tpu_torch import Booster, ServingRuntime
+    from lightgbm_tpu_torch.ops import xla_math
     text = synthetic_forest_text(seed)
     bst = Booster(model_str=text)
     rng = np.random.RandomState(seed + 1)
@@ -513,6 +549,7 @@ def phase_main(seed, kernel_module, predict_module):
     # ---- the main path, alone between the counter reads
     kernel_module.TRAVERSE_LAUNCHES = 0
     predict_module.ACCUMULATE_LAUNCHES = 0
+    xla_math.LINK_LAUNCHES = 0
     t0 = time.perf_counter()
     rt = ServingRuntime(bst)
     setup_s = time.perf_counter() - t0
@@ -529,12 +566,16 @@ def phase_main(seed, kernel_module, predict_module):
             times.append(time.perf_counter() - t)
         lat[n] = float(np.median(times)) * 1e3
     launches = {"traverse": kernel_module.TRAVERSE_LAUNCHES,
-                "accumulate": predict_module.ACCUMULATE_LAUNCHES}
-    _check(launches["traverse"] > 0 and launches["accumulate"] > 0,
+                "accumulate": predict_module.ACCUMULATE_LAUNCHES,
+                "xla_link": xla_math.LINK_LAUNCHES}
+    _check(all(v > 0 for v in launches.values()),
            f"main path did not launch every kernel: {launches}")
 
     # ---- answers against the plain versions on the card and the host
     st = rt._state
+    obj = bst.objective_
+    cpu_rt = ServingRuntime(bst, device="cpu")
+    link_err = 0.0
     for n in sizes:
         X = reqs[n]
         want = []
@@ -549,6 +590,18 @@ def phase_main(seed, kernel_module, predict_module):
         _check(bool(np.all(np.isfinite(conv[n]))
                     and np.all((conv[n] > 0) & (conv[n] < 1))),
                f"main: {n} rows: converted scores not finite in (0, 1)")
+        # the link: the kernel's answers against its plain version on
+        # the same raw scores, on the card and on the CPU
+        raw = obj.sigmoid * torch.from_numpy(answers[n]).float()
+        for where, plain in (
+                ("card", xla_math.xla_sigmoid_plain(raw.cuda()).cpu()),
+                ("CPU", xla_math.xla_sigmoid_plain(raw))):
+            link_err = max(link_err, _max_abs_err(conv[n], plain.numpy()))
+            _check(_bits_equal(conv[n], plain.numpy()),
+                   f"main: {n} rows: converted scores != the link's plain "
+                   f"version on the {where}")
+        _check(_bits_equal(conv[n], cpu_rt.predict(reqs[n])),
+               f"main: {n} rows: converted scores != the CPU runtime")
     host = bst.predict(reqs[1000], raw_score=True)
     _check(_bits_equal(answers[1000], host),
            "main: raw scores != f64 host walk on 1000 rows")
@@ -628,7 +681,7 @@ def phase_main(seed, kernel_module, predict_module):
          "bound_by": "bytes" if acc_bytes / HBM_BYTES_PER_S
          >= adds / F64_ADDS_PER_S else "operations",
          "library_ms": None},
-    ]
+    ], launches["xla_link"], link_err
 
 # ------------------------------------------------------------ training
 #: the train phase's problem: the shape of the repo's own bench
@@ -1454,6 +1507,121 @@ def phase_train_wave(data: TrainData, modules, device=None, timing=True,
 #: leaves; "wave_w28_tail16+quant" (`:55`) at 255 leaves, so that its
 #: waves reach 28 slots (at the configs' 31 leaves the strict tail caps
 #: them at 8)
+OBJECTIVE_ROWS = 2_000_000
+EXP_PATTERNS = 1 << 24
+
+
+def _objective_grads(name, n, seed, device):
+    """grad_hess of the port's `name` objective (binary with and without
+    weights, or multiclass of 3 classes) on `device`, over f32 scores
+    and labels made from `seed` on the host (the same on every device)."""
+    import torch
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.utils.config import Config
+    rng = np.random.RandomState(seed)
+    k = 3 if name == "multiclass" else 1
+    params = {"objective": "multiclass" if k > 1 else "binary",
+              "verbosity": -1}
+    if k > 1:
+        params["num_class"] = k
+    obj = create_objective(Config(params))
+    label = rng.randint(0, k + (k == 1), n).astype(np.float64)
+    weight = (rng.uniform(0.2, 2.0, n).astype(np.float32)
+              if name == "binary_weighted" else None)
+    obj.init_meta(label, weight)
+    score = (rng.randn(n, k) * 4).astype(np.float32)
+    score[:6, 0] = [0.0, -0.0, 90.0, -90.0, 30.0, -30.0]
+    if k == 1:
+        score = score[:, 0]
+    t = torch.from_numpy(np.ascontiguousarray(score)).to(device)
+    lt_ = torch.from_numpy(label.astype(np.float32)).to(device)
+    wt = None if weight is None else torch.from_numpy(weight).to(device)
+    return obj, (t, lt_, wt)
+
+
+def phase_objective(seed: int, device=None, n: int = OBJECTIVE_ROWS,
+                    patterns: int = EXP_PATTERNS, timing: bool = True):
+    """The objectives' links on the card (ROADMAP Queue 3 F1): the link
+    kernel (`csrc/links.cu`, through `xla_exp_f32` and `xla_sigmoid`)
+    bitwise its plain version run on the card and on the CPU, on
+    `patterns` f32 bit patterns (a stride through all 2^32 with a seeded
+    low byte, and the edges) for exp and on `n` scores for sigmoid; on
+    `n` rows, `grad_hess` of binary (with and without weights) and of
+    multiclass (3 classes) on the card bitwise the same code on the CPU.
+    The CPU's bits are `jnp.exp`'s and `jax.nn`'s
+    (tests/test_torch_xla_math.py, scripts/check_xla_exp_exhaustive.py).
+    Then the sigmoid kernel, its plain version and `torch.sigmoid` timed
+    at `n` rows, and binary `grad_hess`.  Returns the kernels-line entry
+    (launches filled in from the main phase)."""
+    import torch
+    from lightgbm_tpu_torch.ops import xla_math
+    dev = torch.device(device or "cuda")
+    report = {"phase": "objective", "rows": n}
+    rng = np.random.RandomState(seed)
+    base = np.arange(patterns, dtype=np.uint64) * ((1 << 32) // patterns)
+    bits = (base + rng.randint(0, (1 << 32) // patterns, patterns)
+            ).astype(np.uint32)
+    edges = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 88.72283,
+                      88.72284, -87.33654, -87.33655, 1e-45, -1e-45,
+                      3.4e38, -3.4e38], np.float32)
+    x = np.concatenate([bits.view(np.float32), edges])
+    scores = (rng.randn(n) * 4).astype(np.float32)
+    err = 0.0
+    for name, fn, plain, v in (
+            ("exp", xla_math.xla_exp_f32, xla_math.xla_exp_f32_plain, x),
+            ("sigmoid", xla_math.xla_sigmoid, xla_math.xla_sigmoid_plain,
+             scores)):
+        t = torch.from_numpy(v).to(dev)
+        got = fn(t).cpu().numpy()
+        want, want_cpu = plain(t).cpu().numpy(), plain(
+            torch.from_numpy(v)).numpy()
+        err = max(err, _max_abs_err(got, want), _max_abs_err(got, want_cpu))
+        _check(_bits_equal(got, want),
+               f"objective: the {name} kernel != its plain version")
+        _check(_bits_equal(got, want_cpu),
+               f"objective: the {name} kernel != the CPU's plain version")
+        report[name] = {"values": int(v.size), "bitwise_plain": True,
+                        "bitwise_cpu": True}
+    for name in ("binary", "binary_weighted", "multiclass"):
+        obj, args = _objective_grads(name, n, seed, dev)
+        g, h = obj.grad_hess(*args)
+        cpu_args = tuple(None if a is None else a.cpu() for a in args)
+        gc, hc = obj.grad_hess(*cpu_args)
+        _check(_bits_equal(g.cpu().numpy(), gc.numpy())
+               and _bits_equal(h.cpu().numpy(), hc.numpy()),
+               f"objective {name}: grad_hess on the card != on the CPU")
+        _check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(h)
+                                                      .all()),
+               f"objective {name}: gradients not finite")
+        report[name] = {"bitwise_cpu": True, "shape": list(g.shape)}
+        if timing and name == "binary":
+            report[name]["grad_hess_ms"] = _cuda_ms(
+                lambda: obj.grad_hess(*args))
+    t = torch.from_numpy(scores).to(dev)
+    nbytes = 8 * n
+    ops = 25 * n                 # about 25 f32 and f64 operations a value
+    entry = {"name": "xla_link", "route": "cuda",
+             "source": "lightgbm_tpu_torch/csrc/links.cu",
+             "replaces": "lightgbm_tpu/objectives.py:320",
+             "launches": 0, "max_abs_err": err,
+             "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                             ops / F32_OPS_PER_S) * 1e3,
+             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+             >= ops / F32_OPS_PER_S else "operations",
+             "ms": None, "plain_ms": None, "library_ms": None}
+    if timing:
+        entry["ms"] = _cuda_ms(lambda: xla_math.xla_sigmoid(t), queued=True)
+        entry["plain_ms"] = _cuda_ms(lambda: xla_math.xla_sigmoid_plain(t))
+        entry["library_ms"] = _cuda_ms(lambda: torch.sigmoid(t),
+                                       queued=True)
+    report["kernel"] = {k: entry[k] for k in ("ms", "plain_ms",
+                                              "library_ms", "bound_ms")}
+    report["library_note"] = ("torch.sigmoid on the same scores: the same "
+                              "function, torch's own rounding")
+    _emit(report)
+    return entry
+
+
 QUANT = {"use_quantized_grad": True, "num_grad_quant_bins": 15}
 QUANT_PARAMS = dict(TRAIN_PARAMS, num_leaves=31, tree_grow_policy="wave",
                     tpu_wave_width=8, tpu_wave_gain_ratio=0, **QUANT)
@@ -1485,9 +1653,11 @@ def _quant_inputs(bnp, y, lid_np, slots, seed, dev):
             "sg": sg, "sh": sh, "pay": pay, "key": key}
 
 
-def _quant_cases(data, u16_rows):
+def _quant_cases(data, u16_rows, seed=0):
     """(name, dataset, bins [F, N], labels, leaf ids, slots) of the
-    quantized kernels' phases: S = 1 at the root, S = 8 over a depth-3
+    quantized kernels' phases: S = 1 at the root, on a leaf of 1% of the
+    rows and on one leaf of a depth-5 partition (about 1/32 of the rows,
+    a strict-tail leaf's size at 31 leaves), S = 8 over a depth-3
     partition (one slot matching no row), S = 42 over a depth-6
     partition, and u16 bins at max_bin 1023 (S = 4)."""
     import lightgbm_tpu_torch as lt
@@ -1498,7 +1668,14 @@ def _quant_cases(data, u16_rows):
     bins_main = np.ascontiguousarray(ds.bin_data.T)
     bins_wide = np.ascontiguousarray(wide.bin_data.T)
     lid3 = _partition(bins_main, 3)
+    rng = np.random.RandomState(seed)
+    n = bins_main.shape[1]
+    lid_1pct = np.where(rng.rand(n) < 0.01, 0,
+                        rng.randint(1, 12, n)).astype(np.int32)
     return [("root_s1", ds, bins_main, data.y, np.zeros_like(lid3), [0]),
+            ("leaf_1pct", ds, bins_main, data.y, lid_1pct, [0]),
+            ("leaf_s1", ds, bins_main, data.y, _partition(bins_main, 5),
+             [0]),
             ("s8", ds, bins_main, data.y, lid3, list(range(7)) + [99]),
             ("s42", ds, bins_main, data.y, _partition(bins_main, 6),
              list(range(42))),
@@ -1531,7 +1708,8 @@ def phase_histogram_q(data: TrainData, seed: int, device=None,
     report = {"phase": "histogram_q", "cases": {}}
     worst = 0.0
     entry = None
-    for name, d, bnp, y, lid_np, slots in _quant_cases(data, u16_rows):
+    for name, d, bnp, y, lid_np, slots in _quant_cases(data, u16_rows,
+                                                        seed):
         mb = max(m.num_bin for m in d.bin_mappers)
         inp = _quant_inputs(bnp, y, lid_np, slots, seed, dev)
         args = (inp["bins"], inp["pw3"], inp["lid"], inp["sl"], mb,
@@ -1619,7 +1797,8 @@ def phase_fused_q(data: TrainData, seed: int, device=None,
     report = {"phase": "fused_q", "scan_kw": kw, "cases": {}}
     worst = 0.0
     entry = None
-    for name, d, bnp, y, lid_np, slots in _quant_cases(data, u16_rows):
+    for name, d, bnp, y, lid_np, slots in _quant_cases(data, u16_rows,
+                                                        seed):
         mb = max(m.num_bin for m in d.bin_mappers)
         f = bnp.shape[0]
         inp = _quant_inputs(bnp, y, lid_np, slots, seed, dev)
@@ -1894,15 +2073,17 @@ def phase_train_quant(data: TrainData, modules, device=None, timing=True,
             "strict_ms_per_round_2_to_3": float(strict_round_s[1:].mean())
             * 1e3,
             "wide_round_ms": [float(x) * 1e3 for x in wrec["round_s"]],
-            "profiled_round": _profile_round(params, data.dataset)})
+            "profiled_round": _profile_round(params, data.dataset),
+            "strict_profiled_round": _profile_round(strict,
+                                                    data.dataset)})
     _emit(report)
     return launches
 
 
 def _import_port(root: str, name: str):
-    """(hist_kernel, fused_kernel) of the port package in another checkout
-    at `root`, imported as package `name` beside this one (its kernels
-    build under that checkout)."""
+    """(hist_kernel, fused_kernel, hist_kernel_q) of the port package in
+    another checkout at `root`, imported as package `name` beside this
+    one (its kernels build under that checkout)."""
     import importlib
     import importlib.util
     pkg = os.path.join(os.path.abspath(root), "lightgbm_tpu_torch")
@@ -1913,7 +2094,8 @@ def _import_port(root: str, name: str):
     sys.modules[name] = module
     spec.loader.exec_module(module)
     return (importlib.import_module(name + ".ops.hist_kernel"),
-            importlib.import_module(name + ".ops.fused_kernel"))
+            importlib.import_module(name + ".ops.fused_kernel"),
+            importlib.import_module(name + ".ops.hist_kernel_q"))
 
 
 def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
@@ -1921,14 +2103,16 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
     """K1 and K2 of this checkout against those of the checkout at
     `baseline`, on the histogram and fused phases' inputs: the two agree
     within twice the contract's tolerance (each is within it of the plain
-    version), counts exact; each timed in turns (this, baseline,
+    version), counts exact; K4 and K5 on the quantized phases' inputs,
+    bitwise (their contract); each timed in turns (this, baseline,
     baseline, this), at the host's pace (`ms`) and as device time, its
     launches queued behind a spin kernel (`device_ms`)."""
     import torch
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import fused_kernel as fk
     from lightgbm_tpu_torch.ops import hist_kernel as hk
-    base_hk, base_fk = _import_port(baseline, "baseline_port")
+    from lightgbm_tpu_torch.ops import hist_kernel_q as hq
+    base_hk, base_fk, base_hq = _import_port(baseline, "baseline_port")
     dev = torch.device(device or "cuda")
     ds = data.dataset
     wide = lt.Dataset(data.X[:u16_rows], label=data.y[:u16_rows],
@@ -1937,7 +2121,8 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
     bins_wide = np.ascontiguousarray(wide.bin_data.T)
     mb = max(m.num_bin for m in ds.bin_mappers)
     mb_w = max(m.num_bin for m in wide.bin_mappers)
-    report = {"phase": "compare", "baseline": baseline, "k1": {}, "k2": {}}
+    report = {"phase": "compare", "baseline": baseline, "k1": {}, "k2": {},
+              "k4": {}, "k5": {}}
 
     def agree(name, new, old, b, p, l, s, m):
         absum = hk.histogram_multi_plain(b, p.abs(), l, s, m)
@@ -1995,6 +2180,37 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
         report["k2"][name] = turns(
             lambda: fk.fused_hist_split(*args, **kw),
             lambda: base_fk.fused_hist_split(*args, **kw))
+    for name, d, bnp, y, lid_np, slots in _quant_cases(data, u16_rows, seed):
+        m = max(x.num_bin for x in d.bin_mappers)
+        f = bnp.shape[0]
+        inp = _quant_inputs(bnp, y, lid_np, slots, seed, dev)
+        q = (inp["bins"], inp["pw3"], inp["lid"], inp["sl"])
+        sc = (inp["sg"], inp["sh"])
+        new4 = hq.histogram_multi_quantized(*q, m, *sc)
+        old4 = base_hq.histogram_multi_quantized(*q, m, *sc)
+        _check(_bits_equal(new4.cpu().numpy(), old4.cpu().numpy()),
+               f"compare {name}: K4 of this checkout and the baseline differ")
+        rows_in = int((inp["lid"][:, None] == inp["sl"][None, :]).any(1)
+                      .sum())
+        report["k4"][name] = dict(turns(
+            lambda: hq.histogram_multi_quantized(*q, m, *sc),
+            lambda: base_hq.histogram_multi_quantized(*q, m, *sc)),
+            rows_in_slots=rows_in,
+            bound_ms=_k4_bytes(inp, rows_in, m) / HBM_BYTES_PER_S * 1e3)
+        nb = torch.tensor([x.num_bin for x in d.bin_mappers],
+                          dtype=torch.int32, device=dev)
+        miss = torch.arange(f, dtype=torch.int32, device=dev) % 3
+        parent = new4[:, 0].sum(dim=1).contiguous()
+        args = q + (nb, miss, parent, m) + sc
+        h5, c5 = fk.fused_hist_split_quantized(*args, **kw)
+        bh5, bc5 = base_fk.fused_hist_split_quantized(*args, **kw)
+        _check(_bits_equal(h5.cpu().numpy(), bh5.cpu().numpy())
+               and _bits_equal(c5.cpu().numpy(), bc5.cpu().numpy()),
+               f"compare {name}: K5 of this checkout and the baseline differ")
+        report["k5"][name] = dict(turns(
+            lambda: fk.fused_hist_split_quantized(*args, **kw),
+            lambda: base_fk.fused_hist_split_quantized(*args, **kw)),
+            rows_in_slots=rows_in)
     _emit(report)
     return report
 
@@ -2002,7 +2218,8 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
 #: the phases that hold one kernel against its plain version on the
 #: train phase's data, runnable alone with --phases; `compare` needs
 #: --baseline
-KERNEL_PHASES = {"histogram": lambda d, s, b: phase_histogram(d, s),
+KERNEL_PHASES = {"objective": lambda d, s, b: phase_objective(s),
+                 "histogram": lambda d, s, b: phase_histogram(d, s),
                  "fused": lambda d, s, b: phase_fused(d, s),
                  "histogram_q": lambda d, s, b: phase_histogram_q(d, s),
                  "fused_q": lambda d, s, b: phase_fused_q(d, s),
@@ -2036,8 +2253,8 @@ def main(argv=None) -> int:
                     f"({','.join(KERNEL_PHASES)}): their lines only, no "
                     "kernels line and no final line")
     ap.add_argument("--baseline", default=None,
-                    help="another checkout whose K1 and K2 the compare "
-                    "phase times beside this one's")
+                    help="another checkout whose K1, K2, K4 and K5 the "
+                    "compare phase times beside this one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2059,7 +2276,12 @@ def main(argv=None) -> int:
     try:
         smi = phase_env()
         phase_golden(args.seed)
-        kernels = phase_main(args.seed, kernel_module, predict_module)
+        kernels, link_launches, link_err = phase_main(
+            args.seed, kernel_module, predict_module)
+        link = phase_objective(args.seed)
+        link["launches"] = link_launches
+        link["max_abs_err"] = max(link["max_abs_err"], link_err)
+        kernels.append(link)
         data = TrainData(args.seed)
         hist = phase_histogram(data, args.seed)
         launches = phase_train(data, {"hist": hist_module,

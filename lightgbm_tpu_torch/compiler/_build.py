@@ -12,8 +12,9 @@ Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC -Xptxas=-v`, and never `--use_fast_math`, `-ftz=true`
 or `-prec-*=false`: the traverse kernel's contract includes NaN tests,
 subnormal inputs and an `abs(fv) <= 1e-35` compare in IEEE f32.  The
-accumulation and the fused split scan (`fused_split`, K2, K3 and K5)
-add `-fmad=false` so that no add is ever contracted; the histogram
+accumulation, the fused split scan (`fused_split`, K2, K3 and K5) and
+the objectives' links (`links`) add `-fmad=false` so that no add is
+ever contracted; the histogram
 kernels only add (K1) or add integers and scale with `__fmul_rn` (K4),
 so contraction cannot touch them.  A source may include the shared
 headers `csrc/*.cuh` (the histograms' first stages: K1's, which K2
@@ -23,7 +24,7 @@ hash.
 Nothing here runs when the package is imported.  `build_all` is the one
 build path: it starts one `nvcc` per missing library, all together,
 waits for them, and loads every library once.  A wrapper's `load(name)`
-calls it on first use.
+calls it on first use, and launches through `on_stream`.
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List, NamedTuple
 
+import torch
+
 from ..utils.log import LightGBMError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -45,7 +48,7 @@ _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _EXTRA_FLAGS = {"traverse": [], "accumulate": ["-fmad=false"],
                 "histogram": [], "histogram_q": [],
-                "fused_split": ["-fmad=false"]}
+                "fused_split": ["-fmad=false"], "links": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,17 +64,19 @@ _SIGNATURES = {
                    [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P, _P])],
     "histogram_q": [("lgbt_histogram_q",
-                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                      _P, _P, _P])],
+                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _P, _P])],
     "fused_split": [("lgbt_fused_hist_split",
                      [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P]),
                     ("lgbt_fused_hist_split_q",
                      [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                      _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P]),
+                      _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P,
+                      _P]),
                     ("lgbt_split_scan",
                      [_P, _I, _I, _I, _P, _P, _P, _F, _F, _F, _F, _F, _P,
                       _P])],
+    "links": [("lgbt_xla_link", [_P, ctypes.c_longlong, _I, _P, _P])],
 }
 
 
@@ -175,3 +180,12 @@ def load(name: str) -> ctypes.CDLL:
     if built is None:
         built = build_all()[name]
     return built.lib
+
+
+def on_stream(device, launch):
+    """`launch(stream)` with `device` current, on its current CUDA stream
+    (the raw handle, read without building a Stream object)."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return launch(torch._C._cuda_getCurrentRawStream(device.index))

@@ -38,12 +38,14 @@
 //     every number (the first NaN wins), and a row of -inf gives index 0,
 //     so its candidate is (-inf, 0, the prefix at bin 0).
 //
-// K5 = hist_q_partial_kernel (hist_q_common.cuh, the quantized K4's
-// accumulation stage) + a dequantize-and-scan stage with grid (feature,
-// slot): the block converts its row of the int32 accumulator to f32 and
-// scales g and h exactly as K4's dequantize kernel does (`dequant_cell`),
-// so K5's histogram is K4's bit for bit; it writes the row to `hist`, keeps
-// it in shared memory and scans it with the same `scan_row`.
+// K5 = K4's first stage (hist_q_common.cuh: the 42-slot row list with the
+// listed rows' lattice words, then hist_q_partial_kernel's int32 partials,
+// launched with the same plan) + a dequantize-and-scan stage with grid
+// (feature, slot): the block sums its row's pieces (`sum_q_chunks`),
+// converts them to f32 and scales g and h exactly as K4's reduce does
+// (`dequant_cell`), so K5's histogram is K4's bit for bit; it writes the
+// row to `hist`, keeps it in shared memory and scans it with the same
+// `scan_row`.
 //
 // K2 = K1's first stage (hist_common.cuh: the row list and
 // hist_partial_kernel, launched with the same plan) + K1's
@@ -55,10 +57,10 @@
 // What bounds them on the H100: bytes.  K2 reads what K1 reads (every
 // row's leaf id, the bins and payload of the rows in the slots: its first
 // stage lists those rows and reads only theirs) and writes the histogram
-// and the candidates; K5 reads what K4 reads (bins and leaf ids of every
-// row, three lattice bytes a row in the slots) and writes the histogram
-// and the candidates; K3 reads a histogram and writes candidates (at 14
-// slots x 28 features x 255 bins, 1.2 MB in, 25 KB out).  The scan itself
+// and the candidates; K5 reads what K4 reads (every row's leaf id, the
+// bins and three lattice bytes of the rows in the slots) and writes the
+// histogram and the candidates; K3 reads a histogram and writes
+// candidates (at 14 slots x 28 features x 255 bins, 1.2 MB in, 25 KB out).  The scan itself
 // is a few hundred adds per row on 256 threads, one block per row; the
 // block-total levels run on one thread per channel.  Left for later: more
 // rows per block, warp-shuffle prefix sums in the same order.
@@ -276,10 +278,13 @@ scan_kernel(const float* __restrict__ hist, int F, int MB,
            p, cand_row(cand, s, 0, f, F), cand_row(cand, s, 1, f, F));
 }
 
-// K5's second stage: grid (feature, slot).  Dequantizes the row of the
-// int32 accumulator as K4 does, writes it to `hist`, and scans it.
+// K5's second stage: grid (feature, slot).  Sums the row's pieces of the
+// first stage's int32 partials work [chunks, S, F, MB, 3] and dequantizes
+// them as K4's reduce does, writes the row to `hist`, and scans it.
 __global__ void __launch_bounds__(kScanThreads)
-dequant_scan_kernel(const int* __restrict__ acc, int F, int MB,
+dequant_scan_kernel(const int* __restrict__ work, int chunks, int S, int F,
+                    int MB, const int* __restrict__ slots,
+                    const int* __restrict__ slot_start,
                     const float* __restrict__ scales,
                     const int* __restrict__ feat_nb,
                     const int* __restrict__ feat_missing,
@@ -292,11 +297,14 @@ dequant_scan_kernel(const int* __restrict__ acc, int F, int MB,
   int* red_i = reinterpret_cast<int*>(red_v + 2 * kScanThreads);
   const int f = blockIdx.x, s = blockIdx.y;
   const int nb = __ldg(feat_nb + f);
+  const int pieces = slot_rows(slots, slot_start, s, chunks).pieces;
+  const long long total = static_cast<long long>(S) * F * MB * 3;
   clear_row(x, 3 * L.per_chan);
   const long long base = (static_cast<long long>(s) * F + f) * MB * 3;
   for (int i = threadIdx.x; i < MB * 3; i += kScanThreads) {
     const int b = i / 3, ch = i % 3;
-    const float v = dequant_cell(acc[base + i], ch, scales);
+    const float v = dequant_cell(sum_q_chunks(work, pieces, total, base + i),
+                                 ch, scales);
     hist[base + i] = v;
     x[ch * L.per_chan + b] = (b < nb) ? v : 0.f;
   }
@@ -350,29 +358,31 @@ extern "C" int lgbt_fused_hist_split(
 }
 
 // K5.  bins [F, N] (bin_bytes 1: u8, 2: u16), pw3 [3, N] int8, leaf_id
-// [N] i32, slots [S] i32 (S <= 42, in groups of G a block); acc
-// [S, F, MB, 3] int32 scratch (zeroed here); scales [2] f32 (s_g, s_h);
-// feat_nb, feat_missing [F] i32; parent [S, 3] f32; hist [S, F, MB, 3] f32
-// and cand [S, 2, F, 8] f32 out.  Returns the cudaError_t of the launches.
+// [N] i32, slots [S] i32 (S <= 42); Fg, chunks, rowbuf, ticket and work
+// [chunks, S, F, MB, 3] int32 the first stage's plan and scratch (as
+// lgbt_histogram_q); scales [2] f32 (s_g, s_h); feat_nb, feat_missing [F]
+// i32; parent [S, 3] f32; hist [S, F, MB, 3] f32 and cand [S, 2, F, 8] f32
+// out.  Returns the cudaError_t of the launches.
 extern "C" int lgbt_fused_hist_split_q(
     const void* bins, int bin_bytes, const int8_t* pw3, const int* leaf_id,
-    const int* slots, int N, int F, int S, int MB, int G, int rows_per_chunk,
-    int chunks, int* acc, const float* scales, const int* feat_nb,
-    const int* feat_missing, const float* parent, float l1, float l2,
-    float min_data, float min_hess, float min_gain, float* hist, float* cand,
-    cudaStream_t stream) {
-  if (!q_args_ok(N, F, S, MB, G, rows_per_chunk, chunks))
+    const int* slots, int N, int F, int S, int MB, int Fg, int chunks,
+    int* rowbuf, int* ticket, int* work, const float* scales,
+    const int* feat_nb, const int* feat_missing, const float* parent,
+    float l1, float l2, float min_data, float min_hess, float min_gain,
+    float* hist, float* cand, cudaStream_t stream) {
+  if (!q_args_ok(N, F, S, MB, bin_bytes, Fg, chunks))
     return cudaErrorInvalidValue;
   size_t smem = 0;
   cudaError_t e = scan_smem_setup(
       reinterpret_cast<const void*>(dequant_scan_kernel), MB, &smem);
   if (e != cudaSuccess) return e;
-  e = launch_q_partial(bins, bin_bytes, pw3, leaf_id, slots, N, F, S, MB, G,
-                       rows_per_chunk, chunks, acc, stream);
+  e = launch_q_first_stage(bins, bin_bytes, pw3, leaf_id, slots, N, F, S, MB,
+                           Fg, chunks, rowbuf, ticket, work, stream);
   if (e != cudaSuccess) return e;
   const ScanParams p{l1, l2, min_data, min_hess, min_gain};
   dequant_scan_kernel<<<dim3(F, S), kScanThreads, smem, stream>>>(
-      acc, F, MB, scales, feat_nb, feat_missing, parent, p, hist, cand);
+      work, chunks, S, F, MB, slots, slot_start_of(rowbuf, N, S), scales,
+      feat_nb, feat_missing, parent, p, hist, cand);
   return static_cast<int>(cudaGetLastError());
 }
 

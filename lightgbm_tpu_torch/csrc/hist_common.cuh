@@ -13,6 +13,10 @@
 //      order, one slot after the other (a row's place is its slot's and
 //      block's offset plus its rank in the block, from warp ballots and
 //      popc).
+//   Kernels 1 and 2 (`launch_row_lists`) take the slot cap as a template
+//   parameter: K1 and K2 launch the 14-slot instance, the quantized K4 and
+//   K5 (hist_q_common.cuh) the 42-slot one, which also lists each row's
+//   int8 lattice as one word.
 //   3. hist_partial_kernel, grid (slot x group of features, chunk), 8 warps
 //      a block, up to four blocks an SM.  A slot's L listed rows (a
 //      repeated slot reads its first occurrence's) are cut into P =
@@ -171,14 +175,17 @@ __device__ __forceinline__ void scan_counts(int* counts, int E, int nb,
 
 // 1+2. counts[k * nb + block]: the block's rows of slot k; the last block
 // to finish (by the ticket, which it sets back to 0) turns the counts into
-// their exclusive prefix over (slot, block) and fills slot_start.
+// their exclusive prefix over (slot, block) and fills slot_start.  kSlots
+// is the launch's slot cap: 14 for K1 and K2, 42 for K4 and K5
+// (hist_q_common.cuh).
+template <int kSlots>
 __global__ void __launch_bounds__(kListThreads)
 row_count_kernel(const int* __restrict__ leaf_id,
                  const int* __restrict__ slots, int N, int S,
                  int* __restrict__ counts, int* __restrict__ slot_start,
                  int* __restrict__ ticket) {
-  __shared__ int slot_s[kMaxSlots];
-  __shared__ int cnt_s[kMaxSlots * kListWarps];
+  __shared__ int slot_s[kSlots];
+  __shared__ int cnt_s[kSlots * kListWarps];
   __shared__ bool last;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x < S) slot_s[threadIdx.x] = __ldg(slots + threadIdx.x);
@@ -220,19 +227,35 @@ row_count_kernel(const int* __restrict__ leaf_id,
   if (threadIdx.x == 0) *ticket = 0;
 }
 
-// 2. list[offset(k, block) + rank] = row, for every row of slot k.
+// The lattice word of a listed row (K4 and K5): its three int8 lattice
+// values gq, hq and w in bytes 0, 1 and 2.
+__device__ __forceinline__ unsigned pack_lattice(const int8_t* pw3,
+                                                 long long N, long long r) {
+  return static_cast<unsigned>(static_cast<uint8_t>(__ldg(pw3 + r))) |
+         static_cast<unsigned>(static_cast<uint8_t>(__ldg(pw3 + N + r)))
+             << 8 |
+         static_cast<unsigned>(static_cast<uint8_t>(__ldg(pw3 + 2 * N + r)))
+             << 16;
+}
+
+// 2. list[offset(k, block) + rank] = row, for every row of slot k; with
+// kLattice (K4 and K5) also lat[offset(k, block) + rank] = the row's
+// lattice word from pw3 [3, N] int8, read for the rows in the slots only.
+template <int kSlots, bool kLattice>
 __global__ void __launch_bounds__(kListThreads)
 row_list_kernel(const int* __restrict__ leaf_id,
                 const int* __restrict__ slots, int N, int S,
-                const int* __restrict__ offsets, int* __restrict__ list) {
+                const int* __restrict__ offsets, int* __restrict__ list,
+                const int8_t* __restrict__ pw3, unsigned* __restrict__ lat) {
   constexpr int kPerSlot = kListRounds * kListWarps;   // (round, warp)
-  __shared__ int slot_s[kMaxSlots];
-  __shared__ int cnt_s[kMaxSlots * kPerSlot];
+  __shared__ int slot_s[kSlots];
+  __shared__ int cnt_s[kSlots * kPerSlot];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x < S) slot_s[threadIdx.x] = __ldg(slots + threadIdx.x);
   __syncthreads();
   const long long base = static_cast<long long>(blockIdx.x) * kListRows;
   int ks[kListRounds], rk[kListRounds];
+  unsigned lw[kListRounds];
 #pragma unroll
   for (int j = 0; j < kListRounds; ++j) {   // every round's load in flight
     const long long r = base + j * kListThreads + threadIdx.x;
@@ -243,6 +266,8 @@ row_list_kernel(const int* __restrict__ leaf_id,
     const long long r = base + j * kListThreads + threadIdx.x;
     ks[j] = r < N ? slot_of(ks[j], slot_s, S) : -1;
     rk[j] = 0;
+    // the lattice loads of listed rows, in flight during the ranks
+    lw[j] = (kLattice && ks[j] >= 0) ? pack_lattice(pw3, N, r) : 0u;
   }
   for (int k = 0; k < S; ++k) {        // one ballot a slot and round
 #pragma unroll
@@ -254,9 +279,9 @@ row_list_kernel(const int* __restrict__ leaf_id,
     }
   }
   __syncthreads();
-  if (warp < S) {                      // warp k: slot k's prefix over
-    int* c = cnt_s + warp * kPerSlot;  // (round, warp), 8 entries a lane
-    constexpr int kPer = kPerSlot / 32;
+  for (int k = warp; k < S; k += kListWarps) {   // warp w: slots w, w + 32
+    int* c = cnt_s + k * kPerSlot;     // slot k's prefix over (round,
+    constexpr int kPer = kPerSlot / 32;   // warp), 8 entries a lane
     int v[kPer], sum = 0;
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
@@ -269,7 +294,7 @@ row_list_kernel(const int* __restrict__ leaf_id,
       const int t = __shfl_up_sync(kFull, incl, d);
       if (lane >= d) incl += t;
     }
-    int run = __ldg(offsets + warp * gridDim.x + blockIdx.x) + incl - sum;
+    int run = __ldg(offsets + k * gridDim.x + blockIdx.x) + incl - sum;
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       c[lane * kPer + q] = run;
@@ -279,9 +304,30 @@ row_list_kernel(const int* __restrict__ leaf_id,
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < kListRounds; ++j)
-    if (ks[j] >= 0)
-      list[cnt_s[ks[j] * kPerSlot + j * kListWarps + warp] + rk[j]] =
-          static_cast<int>(base + j * kListThreads + threadIdx.x);
+    if (ks[j] >= 0) {
+      const int e = cnt_s[ks[j] * kPerSlot + j * kListWarps + warp] + rk[j];
+      list[e] = static_cast<int>(base + j * kListThreads + threadIdx.x);
+      if (kLattice) lat[e] = lw[j];
+    }
+}
+
+// Kernels 1 and 2 for up to kSlots slots: the row list in rowbuf (N +
+// S * list_blocks(N) + S + 1 ints: the list, the counts turned offsets,
+// slot_start); with kLattice also each listed row's lattice word in lat
+// [N].  ticket: one int, 0 between launches (row_count_kernel's last block
+// sets it back), so launches that share it must not overlap.
+template <int kSlots, bool kLattice>
+cudaError_t launch_row_lists(const int* leaf_id, const int* slots, int N,
+                             int S, int* rowbuf, int* ticket,
+                             const int8_t* pw3, unsigned* lat,
+                             cudaStream_t stream) {
+  int* counts = rowbuf + N;
+  const int nb = list_blocks(N);
+  row_count_kernel<kSlots><<<nb, kListThreads, 0, stream>>>(
+      leaf_id, slots, N, S, counts, slot_start_of(rowbuf, N, S), ticket);
+  row_list_kernel<kSlots, kLattice><<<nb, kListThreads, 0, stream>>>(
+      leaf_id, slots, N, S, counts, rowbuf, pw3, lat);
+  return cudaGetLastError();
 }
 
 // One batch of a warp's adds: lane's bin v (kNoBin: none) and values
@@ -441,10 +487,7 @@ cudaError_t launch_partial_t(const void* bins, const float* payload,
 }
 
 // The whole first stage, after partial_args_ok: the row list in rowbuf
-// (N + S * list_blocks(N) + S + 1 ints: the list, the counts turned
-// offsets, slot_start), then the partials in work [chunks, S, F, MB, 3].
-// ticket: one int, 0 between launches (row_count_kernel's last block sets
-// it back), so launches that share it must not overlap.
+// (launch_row_lists), then the partials in work [chunks, S, F, MB, 3].
 inline cudaError_t launch_first_stage(const void* bins, int bin_bytes,
                                       const float* payload,
                                       const int* leaf_id, const int* slots,
@@ -452,15 +495,9 @@ inline cudaError_t launch_first_stage(const void* bins, int bin_bytes,
                                       int chunks, int* rowbuf, int* ticket,
                                       float* work, cudaStream_t stream) {
   int* list = rowbuf;
-  int* counts = rowbuf + N;
   int* slot_start = slot_start_of(rowbuf, N, S);
-  const int nb = list_blocks(N);
-  row_count_kernel<<<nb, kListThreads, 0, stream>>>(leaf_id, slots, N, S,
-                                                    counts, slot_start,
-                                                    ticket);
-  row_list_kernel<<<nb, kListThreads, 0, stream>>>(leaf_id, slots, N, S,
-                                                   counts, list);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_row_lists<kMaxSlots, false>(
+      leaf_id, slots, N, S, rowbuf, ticket, nullptr, nullptr, stream);
   if (e != cudaSuccess) return e;
   if (bin_bytes == 1)
     return launch_partial_t<uint8_t>(bins, payload, list, slot_start, slots,

@@ -15,61 +15,73 @@
 // histogram_multi_quantized_plain`).
 //
 // The TPU kernel's one-hot int8 matmul on the matrix unit works around a
-// core with no atomics and is not carried over.  Here (hist_q_common.cuh):
-//   * grid (feature, chunk of rows, group of slots); a block keeps its
-//     group's [MB][3] int32 histograms in shared memory and reads each row's
-//     bin and leaf id once for all the group's slots;
-//   * a row of a slot adds its sign-extended lattice values with
-//     shared-memory integer atomicAdd; the block then adds its non-zero
-//     cells to the device accumulator with integer atomicAdd;
-//   * a second kernel dequantizes the accumulator into `out`.
+// core with no atomics and is not carried over.  Here, four launches:
+//   * the first stage (hist_q_common.cuh): each slot's rows listed in row
+//     order from one read of the leaf ids, with their lattice words; then
+//     one int32 partial histogram per (piece of a slot's list, slot,
+//     feature), one warp a feature adding its rows with shared-memory
+//     integer atomics;
+//   * hist_q_reduce_kernel: each cell's pieces summed and dequantized into
+//     `out`.
+// No device-memory atomic and no memset of an accumulator.
 //
-// What bounds it on the H100: the bytes.  A launch reads every row's bin
-// and leaf id and, for rows in the slots, three lattice bytes: at N = 2M
-// rows and F = 28 (u8) about 70 MB, 21 us at 3.35 TB/s.  Blocks of one
-// chunk run for all features side by side (feature is the fastest grid
-// axis), so the leaf ids and lattice bytes they share come from L2 after
-// the first read.  Rows crowding into few bins serialise their atomics on
-// those cells.  Left for later: row lists per leaf, so that a small leaf
-// does not read all N rows; packing gq and hq into one atomic (the
-// reference's PACKED_TILE borrow bound); s8 tensor-core MMA on the one-hot.
+// What bounds it on the H100: the bytes.  A call must read every row's
+// leaf id and the bins and three lattice bytes of the rows in the slots,
+// and write the histogram: at N = 2M rows and F = 28 u8, one slot holding
+// every row, about 70 MB, 21 us at 3.35 TB/s; at a leaf of 1% of the rows
+// 8.6 MB.  The first stage reads no bins or lattice of rows outside the
+// slots and loops over the listed rows, not over N; the row list, the
+// lattice words and the partials are its overhead.  Left for later:
+// packing gq and hq into one atomic (within the reference's PACKED_TILE
+// bound); s8 tensor-core MMA on a one-hot.
 
 #include "hist_q_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
-hist_q_dequant_kernel(const int* __restrict__ acc, long long total,
-                      const float* __restrict__ scales,
-                      float* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+// The second stage: out[i] = the dequantized sum of cell i's pieces.
+__global__ void __launch_bounds__(kReduceThreads)
+hist_q_reduce_kernel(const int* __restrict__ work, int chunks,
+                     long long total, long long per_slot,
+                     const int* __restrict__ slots,
+                     const int* __restrict__ slot_start,
+                     const float* __restrict__ scales,
+                     float* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * kReduceThreads +
+                      threadIdx.x;
   if (i >= total) return;
-  out[i] = dequant_cell(acc[i], static_cast<int>(i % 3), scales);
+  const int s = static_cast<int>(i / per_slot);
+  const int pieces = slot_rows(slots, slot_start, s, chunks).pieces;
+  out[i] = dequant_cell(sum_q_chunks(work, pieces, total, i),
+                        static_cast<int>(i % 3), scales);
 }
 
 }  // namespace
 
 // bins [F, N] (bin_bytes 1: u8, 2: u16), pw3 [3, N] int8, leaf_id [N] i32,
-// slots [S] i32 (S <= 42, in groups of G a block); acc [S, F, MB, 3] int32
-// scratch (zeroed here); scales [2] f32 (s_g, s_h); out [S, F, MB, 3] f32.
-// rows_per_chunk is a multiple of 512 and chunks = ceil(N / rows_per_chunk).
-// Returns the cudaError_t of the launches.
+// slots [S] i32 (S <= 42); Fg and chunks the launch plan of
+// `ops/hist_kernel_q.py launch_plan_q` (q_args_ok); rowbuf the row scratch
+// (2N + S * ceil(N / 8192) + S + 1 i32); ticket one i32, 0 between
+// launches; work [chunks, S, F, MB, 3] int32 scratch; scales [2] f32 (s_g,
+// s_h); out [S, F, MB, 3] f32.  Returns the cudaError_t of the launches.
 extern "C" int lgbt_histogram_q(const void* bins, int bin_bytes,
                                 const int8_t* pw3, const int* leaf_id,
                                 const int* slots, int N, int F, int S,
-                                int MB, int G, int rows_per_chunk,
-                                int chunks, int* acc, const float* scales,
+                                int MB, int Fg, int chunks, int* rowbuf,
+                                int* ticket, int* work, const float* scales,
                                 float* out, cudaStream_t stream) {
-  if (!q_args_ok(N, F, S, MB, G, rows_per_chunk, chunks))
+  if (!q_args_ok(N, F, S, MB, bin_bytes, Fg, chunks))
     return cudaErrorInvalidValue;
-  cudaError_t e = launch_q_partial(bins, bin_bytes, pw3, leaf_id, slots, N,
-                                   F, S, MB, G, rows_per_chunk, chunks, acc,
-                                   stream);
+  cudaError_t e = launch_q_first_stage(bins, bin_bytes, pw3, leaf_id, slots,
+                                       N, F, S, MB, Fg, chunks, rowbuf,
+                                       ticket, work, stream);
   if (e != cudaSuccess) return e;
-  const long long total = static_cast<long long>(S) * F * MB * 3;
-  const long long blocks = (total + 255) / 256;
+  const long long per_slot = static_cast<long long>(F) * MB * 3;
+  const long long total = S * per_slot;
+  const long long blocks = (total + kReduceThreads - 1) / kReduceThreads;
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  hist_q_dequant_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      acc, total, scales, out);
+  hist_q_reduce_kernel<<<static_cast<unsigned>(blocks), kReduceThreads, 0,
+                         stream>>>(work, chunks, total, per_slot, slots,
+                                   slot_start_of(rowbuf, N, S), scales, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,9 +13,12 @@ The port's counterpart of `lightgbm_tpu/objectives.py`.  Two halves:
   reference's op order).  Any other objective raises with the reason.
 
 `convert_output` takes the f32 raw scores (the round-to-nearest-even
-downcast of the exact f64 sums) and applies the link in f32.
-Transcendentals (sigmoid, softmax, exp) may differ from XLA's by about
-one ulp; the tests state the bound.
+downcast of the exact f64 sums) and applies the link in f32.  Sigmoid,
+softmax and exp, in the links and in `grad_hess`, are XLA's CPU
+arithmetic bit for bit (`ops/xla_math.py`), so the same scores give the
+reference's bits on the CPU and on the card; `log1p` (in
+`cross_entropy_lambda`) may still differ from XLA's by about one ulp,
+and the tests state the bound.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .ops.xla_math import xla_exp_f32, xla_sigmoid, xla_softmax
 from .utils import log
 from .utils.log import LightGBMError
 
@@ -95,15 +99,15 @@ class Objective:
                 return torch.copysign(score * score, score)
             return score
         if n in ("poisson", "gamma", "tweedie"):
-            return torch.exp(score)
+            return xla_exp_f32(score)
         if n in ("binary", "multiclassova"):
-            return torch.sigmoid(self.sigmoid * score)
+            return xla_sigmoid(self.sigmoid * score)
         if n == "multiclass":
-            return torch.softmax(score, dim=-1)
+            return xla_softmax(score, dim=-1)
         if n == "cross_entropy":
-            return torch.sigmoid(score)
+            return xla_sigmoid(score)
         if n == "cross_entropy_lambda":
-            return torch.log1p(torch.exp(score))
+            return torch.log1p(xla_exp_f32(score))
         return score            # ranking objectives: identity
 
     def to_string(self) -> str:
@@ -268,7 +272,7 @@ class BinaryLogloss(TrainObjective):
 
     def grad_hess(self, score, label, weight):
         sig = self.sigmoid
-        p = torch.sigmoid(sig * score)
+        p = xla_sigmoid(sig * score)
         w_neg, w_pos = self.label_weight
         cls_w = torch.where(label > 0, w_pos, w_neg).to(score.dtype)
         grad = sig * (p - label) * cls_w
@@ -301,7 +305,7 @@ class MulticlassSoftmax(TrainObjective):
         return [0.0] * self.num_class
 
     def grad_hess(self, score, label, weight):
-        p = torch.softmax(score, dim=1)
+        p = xla_softmax(score, dim=1)
         onehot = torch.nn.functional.one_hot(
             label.to(torch.int64), self.num_class).to(score.dtype)
         grad = p - onehot

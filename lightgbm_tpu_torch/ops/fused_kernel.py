@@ -39,10 +39,10 @@ import torch
 
 from ..utils.log import LightGBMError
 from .hist_kernel import (MULTI_CHUNK, _check, first_stage_scratch,
-                          histogram_multi_plain, launch_plan, on_stream,
-                          ticket)
+                          histogram_multi_plain, launch_plan, ticket)
 from .hist_kernel_q import (MULTI_CHUNK_Q, _check_q, _scales,
-                            histogram_multi_quantized_plain, q_launch_shape)
+                            histogram_multi_quantized_plain, launch_plan_q,
+                            q_first_stage_scratch)
 from .split import FUSED_CAND_COLS, FUSED_CASES, fused_numerical_candidates
 
 #: K2 launches made by `fused_hist_split` (one per chunk of slots)
@@ -126,7 +126,7 @@ def _launch_fused(bins_fm, payload, leaf_id, slots, feat_nb, feat_missing,
                                                 plan.chunks, dev)
     from ..compiler import _build
     lib = _build.load("fused_split")
-    rc = on_stream(dev, lambda stream: lib.lgbt_fused_hist_split(
+    rc = _build.on_stream(dev, lambda stream: lib.lgbt_fused_hist_split(
         bins_fm.data_ptr(), bins_fm.element_size(), payload.data_ptr(),
         leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin,
         plan.feature_group, plan.chunks, rowbuf, ticket(dev, stream), work,
@@ -199,22 +199,21 @@ def _launch_fused_q(bins_fm, pw3, leaf_id, slots, feat_nb, feat_missing,
             raise LightGBMError("fused split inputs must be contiguous")
     if n == 0 or f == 0:
         raise LightGBMError("the fused split kernel needs rows and features")
-    group, _, rows, chunks = q_launch_shape(n, f, s, max_bin)
-    acc = torch.empty((s, f, max_bin, 3), dtype=torch.int32, device=dev)
+    plan = launch_plan_q(n, f, s, max_bin)
     hist = torch.empty((s, f, max_bin, 3), dtype=torch.float32, device=dev)
     cand = torch.empty((s, FUSED_CASES, f, FUSED_CAND_COLS),
                        dtype=torch.float32, device=dev)
+    scratch, rowbuf, work = q_first_stage_scratch(n, s, f, max_bin,
+                                                  plan.chunks, dev)
     from ..compiler import _build
     lib = _build.load("fused_split")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lgbt_fused_hist_split_q(
-            bins_fm.data_ptr(), bins_fm.element_size(), pw3.data_ptr(),
-            leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin, group,
-            rows, chunks, acc.data_ptr(), scales.data_ptr(),
-            feat_nb.data_ptr(), feat_missing.data_ptr(), parent.data_ptr(),
-            *scan_args, hist.data_ptr(), cand.data_ptr(),
-            ctypes.c_void_p(stream))
+    rc = _build.on_stream(dev, lambda stream: lib.lgbt_fused_hist_split_q(
+        bins_fm.data_ptr(), bins_fm.element_size(), pw3.data_ptr(),
+        leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin,
+        plan.feature_group, plan.chunks, rowbuf, ticket(dev, stream), work,
+        scales.data_ptr(), feat_nb.data_ptr(), feat_missing.data_ptr(),
+        parent.data_ptr(), *scan_args, hist.data_ptr(), cand.data_ptr(),
+        ctypes.c_void_p(stream)))
     if rc != 0:
         raise LightGBMError(f"quantized fused histogram+split kernel launch "
                             f"failed: CUDA error {rc}")

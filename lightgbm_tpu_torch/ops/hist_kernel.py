@@ -117,15 +117,6 @@ def first_stage_scratch(n: int, s: int, f: int, max_bin: int, chunks: int,
     return scratch, ptr, ptr + 4 * rows
 
 
-def on_stream(device, launch):
-    """`launch(stream)` with `device` current, on its current CUDA stream
-    (the raw handle, read without building a Stream object)."""
-    if device.index == torch.cuda.current_device():
-        return launch(torch._C._cuda_getCurrentRawStream(device.index))
-    with torch.cuda.device(device):
-        return launch(torch._C._cuda_getCurrentRawStream(device.index))
-
-
 class LaunchPlan(NamedTuple):
     """One launch of the first stage: the histogram kernel's grid is
     (s * groups, chunks); a block adds `feature_group` features (one a
@@ -137,25 +128,22 @@ class LaunchPlan(NamedTuple):
     smem: int
 
 
-@functools.lru_cache(maxsize=1024)
-def launch_plan(n: int, f: int, s: int, max_bin: int) -> LaunchPlan:
-    """The first stage's launch over `n` >= 1 rows, `f` features and `s`
-    <= 14 slots of `max_bin` bins.  Feature group: of those whose block
-    fits, the one with the most warps adding at once on an SM (blocks an
-    SM x features a block), then the fewest groups.  Chunks: the count
-    that balances the adds (fewer rows a warp with more chunks) against
-    the partials written and read back (more bytes with more chunks), at
-    most the blocks the SMs hold at once and a batch of 32 rows each."""
-    limit = max_bin_limit()
-    if max_bin > limit:
-        raise LightGBMError(
-            f"max_bin {max_bin} needs {smem_bytes(1, max_bin)} B of shared "
-            f"memory a block; the histogram kernel takes max_bin up to "
-            f"{limit} ({_SMEM_MAX} B)")
+def plan_launch(n: int, f: int, s: int, max_bin: int, smem_of,
+                ns_per_batch: float) -> LaunchPlan:
+    """A histogram kernel's launch over `n` >= 1 rows, `f` features and
+    `s` slots of `max_bin` bins, for blocks of `smem_of(feature_group,
+    max_bin)` bytes of shared memory and partials of 12 bytes a cell
+    (K1's and K2's, and K4's and K5's, `hist_kernel_q.launch_plan_q`).
+    Feature group: of those whose block fits, the one with the most warps
+    adding at once on an SM (blocks an SM x features a block), then the
+    fewest groups.  Chunks: the count that balances the adds (fewer rows
+    a warp with more chunks, `ns_per_batch` a 32-row batch) against the
+    partials written and read back (more bytes with more chunks), at most
+    the blocks the SMs hold at once and a batch of 32 rows each."""
     best = None
     for f_g in range(1, min(f, _WARPS) + 1):
         f_g = -(-f // -(-f // f_g))                 # groups cut evenly
-        smem = smem_bytes(f_g, max_bin)
+        smem = smem_of(f_g, max_bin)
         if smem > _SMEM_MAX:
             continue
         bps = blocks_per_sm(smem)
@@ -165,11 +153,24 @@ def launch_plan(n: int, f: int, s: int, max_bin: int) -> LaunchPlan:
     _, f_g, smem, bps = best
     groups = -(-f // f_g)
     busy = s * groups * f_g                        # warps adding at once
-    adds_ns = n * f / 32 / busy * _NS_PER_BATCH
+    adds_ns = n * f / 32 / busy * ns_per_batch
     partial_ns = 2 * s * f * max_bin * 12 / _BYTES_PER_NS
     chunks = min(max(1, _SMS * bps // (s * groups)), -(-n // 32),
                  max(1, round(math.sqrt(adds_ns / partial_ns))))
     return LaunchPlan(f_g, groups, chunks, smem)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(n: int, f: int, s: int, max_bin: int) -> LaunchPlan:
+    """K1's and K2's first stage (`plan_launch`) over `n` >= 1 rows, `f`
+    features and `s` <= 14 slots of `max_bin` bins."""
+    limit = max_bin_limit()
+    if max_bin > limit:
+        raise LightGBMError(
+            f"max_bin {max_bin} needs {smem_bytes(1, max_bin)} B of shared "
+            f"memory a block; the histogram kernel takes max_bin up to "
+            f"{limit} ({_SMEM_MAX} B)")
+    return plan_launch(n, f, s, max_bin, smem_bytes, _NS_PER_BATCH)
 
 
 def _check(bins_fm, payload, leaf_id, slots, max_bin):
@@ -201,6 +202,52 @@ def histogram_multi_plain(bins_fm: torch.Tensor, payload: torch.Tensor,
     return torch.stack([leaf_histogram(bins_fm, payload, leaf_id == s,
                                        max_bin)
                         for s in slots.tolist()])
+
+
+class RowLists(NamedTuple):
+    """The first stage's row lists as `row_count_kernel` and
+    `row_list_kernel` build them (`csrc/hist_common.cuh`), in numpy:
+    `counts` [S, blocks] each 8192-row block's rows of each slot (a row
+    counts for the first slot equal to its leaf id), `offsets` [S,
+    blocks] their exclusive prefix over (slot, block) in that order,
+    `slot_start` [S + 1] (a slot after its first occurrence, or with no
+    row, lists nothing), `list` [total] every slot's rows in row order,
+    one slot after the other, and `lattice` [total] each listed row's
+    int8 lattice packed into bytes 0-2 of a uint32 (K4's and K5's
+    instance, given `pw3`; else None)."""
+    counts: np.ndarray
+    offsets: np.ndarray
+    slot_start: np.ndarray
+    list: np.ndarray
+    lattice: object
+
+
+def row_lists_plain(leaf_id, slots, pw3=None) -> RowLists:
+    """`RowLists` of leaf ids [N] i32, slots [S] and optionally the
+    lattice pw3 [3, N] int8 (tensors or arrays)."""
+    lid = np.asarray(torch.as_tensor(leaf_id).cpu(), np.int64)
+    sl = np.asarray(torch.as_tensor(slots).cpu(), np.int64)
+    n = lid.size
+    nb = -(-n // _LIST_ROWS)
+    first = np.full(n, -1, np.int64)       # the first equal slot, or -1
+    for k in range(sl.size - 1, -1, -1):
+        first[lid == sl[k]] = k
+    block = np.arange(n) // _LIST_ROWS
+    counts = np.zeros((sl.size, nb), np.int64)
+    np.add.at(counts, (first[first >= 0], block[first >= 0]), 1)
+    flat = counts.reshape(-1)
+    offsets = (np.cumsum(flat) - flat).reshape(counts.shape)
+    slot_start = np.append(offsets[:, 0] if nb else np.zeros(sl.size,
+                                                               np.int64),
+                           flat.sum())
+    order = np.argsort(first * (n + 1) + np.arange(n), kind="stable")
+    rows = order[first[order] >= 0]
+    lattice = None
+    if pw3 is not None:
+        pw = np.asarray(torch.as_tensor(pw3).cpu(), np.int8)[:, rows]
+        b = pw.view(np.uint8).astype(np.uint32)
+        lattice = b[0] | (b[1] << 8) | (b[2] << 16)
+    return RowLists(counts, offsets, slot_start, rows, lattice)
 
 
 def piece_bounds(length: int, chunks: int) -> np.ndarray:
@@ -294,7 +341,7 @@ def histogram_multi(bins_fm: torch.Tensor, payload: torch.Tensor,
                                                 plan.chunks, bins_fm.device)
     from ..compiler import _build
     lib = _build.load("histogram")
-    rc = on_stream(bins_fm.device, lambda stream: lib.lgbt_histogram(
+    rc = _build.on_stream(bins_fm.device, lambda stream: lib.lgbt_histogram(
         bins_fm.data_ptr(), bins_fm.element_size(), payload.data_ptr(),
         leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin,
         plan.feature_group, plan.chunks, rowbuf,

@@ -26,11 +26,14 @@ all give the same bits.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from ..utils.log import LightGBMError
-from .hist_kernel import _SMEM_MAX
+from .hist_kernel import (_SMEM_MAX, LaunchPlan, piece_bounds, plan_launch,
+                          row_lists_plain, row_scratch_ints, ticket)
 
 #: K4 launches made by `histogram_multi_quantized` (one per chunk of slots)
 HIST_Q_LAUNCHES = 0
@@ -42,44 +45,61 @@ MULTI_CHUNK_Q = 42
 #: most 15 (|gq| <= 7, hq <= 15 at num_grad_quant_bins <= 15)
 MAX_ROWS_Q = (2 ** 31 - 1) // 15
 
-#: threads of the accumulation kernel's blocks (`csrc/hist_q_common.cuh`)
-_Q_THREADS = 512
-#: resident blocks an H100 SM can hold of them (2048 threads an SM)
-_Q_BLOCKS_PER_SM = 4
-_SMS = 132
-#: resident sets of blocks a launch aims at: two, so that a last,
-#: partial set of blocks costs at most a third of the launch
-_WAVES_OF_BLOCKS = 2
-_MIN_CHUNK_ROWS = 4096
+#: the launch plan's cost model for the int32 adds of
+#: `csrc/hist_q_common.cuh hist_q_partial_kernel`, used only to pick the
+#: chunk count: device time of one 32-row batch of one (slot, feature) on
+#: one warp (an estimate, on the low side)
+_NS_PER_BATCH_Q = 150.0
 
 
-def q_smem_bytes(group: int, max_bin: int) -> int:
-    """Shared memory of one accumulation block holding `group` slots'
-    [MB, 3] int32 histograms and their slot ids."""
-    return group * (max_bin * 3 + 1) * 4
+def q_smem_bytes(feature_group: int, max_bin: int) -> int:
+    """Shared memory of one accumulation block (`hist_q_common.cuh
+    q_partial_smem_bytes`): `feature_group` [max_bin, 3] int32
+    histograms."""
+    return feature_group * max_bin * 12
 
 
-def q_launch_shape(n: int, f: int, s: int, max_bin: int):
-    """(group, groups, rows per chunk, chunks) of a launch over `n` rows,
-    `f` features and `s` <= 42 slots: a block holds as many slots as its
-    shared memory fits (all 42 at MB = 256, 19 at MB = 1001), the groups
-    as even as they can be; about twice as many blocks as can be
-    resident at once, chunks of a multiple of 512 rows and at least 4096
-    rows."""
-    fit = (_SMEM_MAX // (4 * (max_bin * 3 + 1)))
-    if fit < 1:
-        raise LightGBMError(f"max_bin {max_bin} needs "
-                            f"{q_smem_bytes(1, max_bin)} B of shared "
-                            f"memory a block; the kernel has {_SMEM_MAX}")
-    groups = -(-s // min(s, fit))
-    group = -(-s // groups)
-    resident = min(_Q_BLOCKS_PER_SM,
-                   max(1, _SMEM_MAX // q_smem_bytes(group, max_bin)))
-    want = -(-(_WAVES_OF_BLOCKS * resident * _SMS) // max(f * groups, 1))
-    chunks = max(1, min(want, -(-n // _MIN_CHUNK_ROWS)))
-    rows = -(-n // chunks)
-    rows = -(-rows // _Q_THREADS) * _Q_THREADS
-    return group, groups, rows, -(-n // rows)
+def q_max_bin_limit() -> int:
+    """Largest `max_bin` a launch takes: one feature's histogram a
+    block."""
+    return _SMEM_MAX // q_smem_bytes(1, 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan_q(n: int, f: int, s: int, max_bin: int) -> LaunchPlan:
+    """K4's and K5's first stage over `n` >= 1 rows, `f` features and `s`
+    <= 42 slots of `max_bin` bins: the grid (s * groups, chunks) of
+    `hist_kernel.plan_launch`, for int32 cells of 12 bytes a bin; a block
+    adds `feature_group` features (one a warp) of one slot over piece c
+    of the slot's listed rows (`hist_kernel.piece_bounds`)."""
+    if not 1 <= s <= MULTI_CHUNK_Q:
+        raise LightGBMError(f"{s} slots: a launch takes 1 to "
+                            f"{MULTI_CHUNK_Q}")
+    limit = q_max_bin_limit()
+    if max_bin > limit:
+        raise LightGBMError(
+            f"max_bin {max_bin} needs {q_smem_bytes(1, max_bin)} B of "
+            f"shared memory a block; the quantized histogram kernel takes "
+            f"max_bin up to {limit} ({_SMEM_MAX} B)")
+    return plan_launch(n, f, s, max_bin, q_smem_bytes, _NS_PER_BATCH_Q)
+
+
+def q_row_scratch_ints(n: int, s: int) -> int:
+    """int32 scratch of the row lists: K1's (`row_scratch_ints`) and the
+    listed rows' lattice words [n]."""
+    return row_scratch_ints(n, s) + n
+
+
+def q_first_stage_scratch(n: int, s: int, f: int, max_bin: int,
+                          chunks: int, device):
+    """(scratch, rowbuf pointer, workspace pointer) of one launch: one
+    int32 allocation holding the row scratch (`q_row_scratch_ints`) and
+    the int32 workspace [chunks, S, F, MB, 3]."""
+    rows = q_row_scratch_ints(n, s)
+    scratch = torch.empty(rows + chunks * s * f * max_bin * 3,
+                          dtype=torch.int32, device=device)
+    ptr = scratch.data_ptr()
+    return scratch, ptr, ptr + 4 * rows
 
 
 def quantized_lattice_rows(payload: torch.Tensor, s_g: torch.Tensor,
@@ -165,6 +185,43 @@ def histogram_multi_quantized_plain(bins_fm: torch.Tensor,
     return dequantize(acc.view(-1, f, max_bin, 3), sc[0], sc[1])
 
 
+def histogram_multi_quantized_pieces(bins_fm: torch.Tensor,
+                                     pw3: torch.Tensor,
+                                     leaf_id: torch.Tensor,
+                                     slots: torch.Tensor, max_bin: int,
+                                     s_g, s_h) -> torch.Tensor:
+    """The kernel's path on the CPU, for tests: the row lists and lattice
+    words of `hist_kernel.row_lists_plain`, each slot's list cut into the
+    pieces of `launch_plan_q`'s chunk count, an int64 histogram per piece
+    from the listed lattice words alone, the pieces summed, then
+    `dequantize`.  Equal to `histogram_multi_quantized_plain` bit for
+    bit: integer sums in any order."""
+    _check_q(bins_fm, pw3, leaf_id, slots, max_bin)
+    f, n = bins_fm.shape
+    s = slots.shape[0]
+    chunks = launch_plan_q(max(n, 1), f, s, max_bin).chunks
+    lists = row_lists_plain(leaf_id, slots, pw3)
+    sl = slots.tolist()
+    bins = bins_fm.cpu().numpy().astype(np.int64)
+    lat = lists.lattice.astype(np.uint32)
+    vals = np.stack([((lat >> (8 * c)) & 0xFF).astype(np.uint8)
+                     .view(np.int8).astype(np.int64) for c in range(3)], 1)
+    acc = np.zeros((s, f, max_bin, 3), np.int64)
+    for i, slot in enumerate(sl):
+        k = sl.index(slot)                      # a repeat: the first's rows
+        a, b = lists.slot_start[k], lists.slot_start[k + 1]
+        bounds = a + piece_bounds(b - a, chunks)
+        for c in range(bounds.size - 1):
+            rows = lists.list[bounds[c]:bounds[c + 1]]
+            v = vals[bounds[c]:bounds[c + 1]]
+            for fi in range(f):
+                bb = bins[fi, rows]
+                ok = bb < max_bin
+                np.add.at(acc[i, fi], bb[ok], v[ok])
+    sc = _scales(s_g, s_h, torch.device("cpu"))
+    return dequantize(torch.from_numpy(acc), sc[0], sc[1])
+
+
 def _launch(bins_fm, pw3, leaf_id, slots, max_bin, scales):
     """One K4 launch over 1 to 42 slots."""
     global HIST_Q_LAUNCHES
@@ -172,17 +229,16 @@ def _launch(bins_fm, pw3, leaf_id, slots, max_bin, scales):
     s = slots.shape[0]
     dev = bins_fm.device
     out = torch.empty((s, f, max_bin, 3), dtype=torch.float32, device=dev)
-    group, _, rows, chunks = q_launch_shape(n, f, s, max_bin)
-    acc = torch.empty((s, f, max_bin, 3), dtype=torch.int32, device=dev)
+    plan = launch_plan_q(n, f, s, max_bin)
+    scratch, rowbuf, work = q_first_stage_scratch(n, s, f, max_bin,
+                                                  plan.chunks, dev)
     from ..compiler import _build
     lib = _build.load("histogram_q")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lgbt_histogram_q(
-            bins_fm.data_ptr(), bins_fm.element_size(), pw3.data_ptr(),
-            leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin, group,
-            rows, chunks, acc.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            ctypes.c_void_p(stream))
+    rc = _build.on_stream(dev, lambda stream: lib.lgbt_histogram_q(
+        bins_fm.data_ptr(), bins_fm.element_size(), pw3.data_ptr(),
+        leaf_id.data_ptr(), slots.data_ptr(), n, f, s, max_bin,
+        plan.feature_group, plan.chunks, rowbuf, ticket(dev, stream), work,
+        scales.data_ptr(), out.data_ptr(), ctypes.c_void_p(stream)))
     if rc != 0:
         raise LightGBMError(f"quantized histogram kernel launch failed: "
                             f"CUDA error {rc}")

@@ -25,7 +25,7 @@ MODULES = ("serving.runtime", "interop", "basic", "booster", "callback",
            "engine", "metrics", "objectives", "tree", "utils.config",
            "utils.efb", "utils.binning", "ops.grow", "ops.grow_wave",
            "ops.hist_kernel", "ops.fused_kernel", "ops.hist_kernel_q",
-           "ops.fused", "ops.threefry",
+           "ops.fused", "ops.threefry", "ops.xla_math",
            "ops.histogram", "ops.reduce", "ops.split", "ops.predict",
            "compiler.kernel", "compiler._build", "compiler.plan",
            "compiler.quantize", "utils.log")

@@ -9,6 +9,12 @@ package, on the CPU.
     `leaf_histogram_packed_multi` at S = 1, 5 (a pad slot), 42 and 43 (two
     chunks), u8 and u16 bins; the port's packed histograms bitwise against
     the reference's;
+  * the kernels' first stage on the CPU: the 42-slot row lists and
+    lattice words (`hist_kernel.row_lists_plain`) against a row-by-row
+    oracle, with repeated and empty slots; the planner
+    (`launch_plan_q`) for every S from 1 to 42, u8 and u16; the
+    kernel's path (`histogram_multi_quantized_pieces`: lists, pieces,
+    integer partials, their sum) bitwise the plain version;
   * K5's plain version bitwise against
     `pallas_fused_hist_split_quantized_rows(interpret=True)`, histogram
     and candidates;
@@ -21,10 +27,9 @@ package, on the CPU.
     with `hist_impl="packed"` on both sides, leaf values bitwise; binary
     with `auto` on both sides (the reference resolves to `packed` with
     `const_hess_level` 0, the port to the K4/K5 family), structure equal
-    and leaf values within the golden tolerance (ROADMAP Queue 3 (c): the
-    sigmoid may differ by an ulp, which stochastic rounding can turn into
-    one lattice level); both growers, stochastic rounding on and off, 4
-    and 15 bins; multiclass; `segment_sum` with quantized gradients;
+    and leaf values within the golden tolerance; both growers,
+    stochastic rounding on and off, 4 and 15 bins; multiclass;
+    `segment_sum` with quantized gradients;
   * `hist_impl` resolution: auto, packed, pallas_q, pallas_fused_q,
     segment_sum, the priced warning, the wave width cap of 42.
 """
@@ -271,11 +276,140 @@ def test_k4_wrapper_checks_its_inputs(lattice):
         hq.histogram_multi_quantized(bins, c["pw"], lid,
                                      torch.zeros(0, dtype=torch.int32), MB,
                                      1.0, 1.0)
-    group, groups, rows, chunks = hq.q_launch_shape(2_000_000, 28, 42, 256)
-    assert (group, groups) == (42, 1) and rows % 512 == 0
-    assert hq.q_smem_bytes(group, 256) <= 227 * 1024
-    assert rows * chunks >= 2_000_000 > rows * (chunks - 1)
-    assert hq.q_launch_shape(100_000, 28, 42, 1001)[:2] == (14, 3)
+    plan = hq.launch_plan_q(2_000_000, 28, 42, 256)
+    assert plan.smem == hq.q_smem_bytes(plan.feature_group, 256)
+    assert plan.smem <= 227 * 1024
+    assert plan.groups == -(-28 // plan.feature_group)
+    with pytest.raises(lt.LightGBMError, match="slots"):
+        hq.launch_plan_q(1000, 28, 43, 256)
+    limit = hq.q_max_bin_limit()
+    assert limit >= 19370            # every max_bin the old grid took
+    hq.launch_plan_q(1000, 28, 42, limit)
+    with pytest.raises(lt.LightGBMError, match=f"max_bin up to {limit}"):
+        hq.launch_plan_q(1000, 28, 1, limit + 1)
+
+
+def _row_lists_by_hand(lid, slots, pw3):
+    """The row lists one row at a time: each row goes to the first slot
+    equal to its leaf id; counts per (slot, 8192-row block); offsets
+    their exclusive prefix over (slot, block); the list slot by slot in
+    row order, with each listed row's lattice bytes."""
+    n, nb = lid.size, -(-lid.size // 8192)
+    counts = np.zeros((len(slots), nb), np.int64)
+    per_slot = [[] for _ in slots]
+    for r in range(n):
+        for k, sl in enumerate(slots):
+            if lid[r] == sl:
+                counts[k, r // 8192] += 1
+                per_slot[k].append(r)
+                break
+    offsets = np.zeros_like(counts)
+    run = 0
+    for k in range(len(slots)):
+        for b in range(nb):
+            offsets[k, b] = run
+            run += counts[k, b]
+    rows = [r for k in range(len(slots)) for r in per_slot[k]]
+    starts = [offsets[k, 0] for k in range(len(slots))] + [run]
+    u = pw3.view(np.uint8).astype(np.uint32)
+    words = [int(u[0, r]) | int(u[1, r]) << 8 | int(u[2, r]) << 16
+             for r in rows]
+    return counts, offsets, starts, rows, words
+
+
+ROW_LIST_SLOTS = {
+    "s42": list(range(42)),
+    "s42_repeats_and_empty": [5, 0, 5, 99, 1, 2, 0] + list(range(6, 41)),
+    "s1": [3],
+    "s14_reversed": list(range(13, -1, -1)),
+}
+
+
+@pytest.mark.parametrize("name", list(ROW_LIST_SLOTS))
+def test_row_lists_model_matches_a_row_by_row_oracle(name):
+    """`hist_kernel.row_lists_plain`, the list, counts, offsets, slot
+    starts and lattice words as `row_count_kernel<42>` and
+    `row_list_kernel<42, true>` build them, against a row-by-row oracle
+    over three 8192-row blocks (a partial last one)."""
+    from lightgbm_tpu_torch.ops.hist_kernel import row_lists_plain
+    rng = np.random.RandomState(11)
+    n = 2 * 8192 + 777
+    lid = rng.randint(0, 45, n).astype(np.int32)
+    pw3 = rng.randint(-128, 128, (3, n)).astype(np.int8)
+    slots = ROW_LIST_SLOTS[name]
+    got = row_lists_plain(torch.from_numpy(lid),
+                          torch.tensor(slots, dtype=torch.int32),
+                          torch.from_numpy(pw3))
+    counts, offsets, starts, rows, words = _row_lists_by_hand(lid, slots,
+                                                              pw3)
+    assert np.array_equal(got.counts, counts)
+    assert np.array_equal(got.offsets, offsets)
+    assert got.slot_start.tolist() == starts
+    assert got.list.tolist() == rows
+    assert got.lattice.tolist() == words
+    for k, sl in enumerate(slots):            # a repeat lists nothing
+        if sl in slots[:k]:
+            assert starts[k + 1] == starts[k]
+
+
+@pytest.mark.parametrize("n", [1, 4097, 100_000, 2_000_000])
+@pytest.mark.parametrize("mb", [255, 1023], ids=["u8", "u16"])
+def test_launch_plan_q_covers_every_row_for_every_slot_count(mb, n):
+    """K4's and K5's planner for S = 1 to 42: block within the 227 KB an
+    H100 block can have, every (slot, feature) in exactly one block of
+    the grid (S * groups, chunks), every listed row of a slot in exactly
+    one piece, the scratch as the C side lays it out."""
+    from lightgbm_tpu_torch.ops import hist_kernel as hk
+    f = 28
+    for s in range(1, 43):
+        plan = hq.launch_plan_q(n, f, s, mb)
+        assert 1 <= plan.feature_group <= min(f, hk._WARPS)
+        assert plan.groups == -(-f // plan.feature_group)
+        assert plan.smem == hq.q_smem_bytes(plan.feature_group, mb)
+        assert plan.smem <= 232_448 and hk.blocks_per_sm(plan.smem) >= 1
+        assert 1 <= plan.chunks <= min(65535, max(1, n))
+        owners = np.zeros((s, f), np.int64)
+        for x in range(s * plan.groups):
+            f0 = (x % plan.groups) * plan.feature_group
+            owners[x // plan.groups, f0:f0 + plan.feature_group] += 1
+        assert np.all(owners == 1)
+        for length in {0, 1, 255, 256, 4097, n // s, n}:
+            bounds = hk.piece_bounds(length, plan.chunks)
+            assert bounds[0] == 0 and bounds[-1] == length
+            assert 1 <= bounds.size - 1 <= plan.chunks
+            assert np.all(np.diff(bounds) >= min(length, 256))
+    scratch, rowbuf, work = hq.q_first_stage_scratch(
+        n, 42, f, mb, plan.chunks, torch.device("cpu"))
+    assert work - rowbuf == 4 * (hk.row_scratch_ints(n, 42) + n)
+    assert scratch.numel() == (hk.row_scratch_ints(n, 42) + n
+                               + plan.chunks * 42 * f * mb * 3)
+
+
+@pytest.mark.parametrize("name", list(K4_SLOTS)[:3] + ["repeats"])
+def test_k4_kernel_path_model_equals_the_plain_version(lattice, name):
+    """The kernel's path on the CPU (`histogram_multi_quantized_pieces`:
+    the row lists, the planner's pieces, integer partials from the listed
+    lattice words, their sum, the dequantize) is bitwise the plain
+    version, including repeated and empty slots."""
+    c = lattice
+    slots = K4_SLOTS.get(name, [7, 2, 7, 99, 0, 2])
+    args = (torch.from_numpy(c["bins"]), c["pw"], torch.from_numpy(c["lid"]),
+            torch.tensor(slots, dtype=torch.int32), c["mb"],
+            torch.tensor(c["sg"]), torch.tensor(c["sh"]))
+    f, n = c["bins"].shape
+    assert hq.launch_plan_q(n, f, len(slots), c["mb"]).chunks > 1
+    _assert_bitwise(hq.histogram_multi_quantized_pieces(*args),
+                    hq.histogram_multi_quantized_plain(*args), name)
+
+
+def test_k4_kernel_path_model_on_u16_bins():
+    c = _lattice_case(seed=3, n=20_000, f=3, mb=1023, dtype=np.uint16,
+                      leaves=5)
+    args = (torch.from_numpy(c["bins"]), c["pw"], torch.from_numpy(c["lid"]),
+            torch.tensor([4, 0, 9, 1], dtype=torch.int32), c["mb"],
+            torch.tensor(c["sg"]), torch.tensor(c["sh"]))
+    _assert_bitwise(hq.histogram_multi_quantized_pieces(*args),
+                    hq.histogram_multi_quantized_plain(*args))
 
 
 # --------------------------------------------------------------- growers

@@ -7,9 +7,11 @@ golden JSON (ROADMAP Queue 3 (a)):
   * tree count, split_feature, threshold_bin, default_left and
     decision_type are exact;
   * leaf values agree within GOLDEN_LEAF_RTOL / GOLDEN_LEAF_ATOL
-    (tests/test_golden.py), and bitwise where no transcendental enters
-    the gradients (regression): the port's histograms, root sums and
-    scan sums add in the reference's own CPU order;
+    (tests/test_golden.py), and bitwise on the golden families: the
+    port's histograms, root sums and scan sums add in the reference's
+    own CPU order, and its sigmoid and softmax are XLA's CPU bits
+    (`ops/xla_math.py`), so binary and multiclass model texts are the
+    reference's byte for byte;
   * the port's model text loads into JAX `Booster(model_str=...)` and
     into the port's CPU `ServingRuntime`, which agree within rtol 1e-4;
   * the eval log on a `create_valid` set agrees within 1e-4.
@@ -90,7 +92,7 @@ def golden_models():
 @pytest.mark.parametrize("name", CASES)
 def test_golden_family_matches_live_reference(golden_models, name):
     X, bj, bp = golden_models[name]
-    _assert_same_trees(bj, bp, bitwise=name == "regression_l2")
+    _assert_same_trees(bj, bp, bitwise=True)
     assert bp.num_trees() == GOLDEN_CASES[name]["rounds"] * \
         GOLDEN_CASES[name].get("n_class", 1)
 
@@ -297,3 +299,44 @@ def test_training_without_a_gpu_raises(monkeypatch):
     with pytest.raises(lt.LightGBMError, match="no CUDA device"):
         lt.train({"objective": "binary", "device": "cuda"},
                  lt.Dataset(X, label=y), 1)
+
+
+def _link_data(seed, n_class=2):
+    """3000 x 6 features with a nonlinear, noisy target: binary labels, or
+    `n_class` classes."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(3000, 6)
+    z = X[:, 0] * X[:, 1] + np.sin(2 * X[:, 2]) - 0.5 * X[:, 3] \
+        + 0.7 * rng.randn(3000)
+    if n_class == 2:
+        return X, (z > 0).astype(np.float64)
+    edges = np.quantile(z, np.linspace(0, 1, n_class + 1)[1:-1])
+    return X, np.searchsorted(edges, z).astype(np.float64)
+
+
+#: both packages get `device_type="cpu"`, so that both texts echo it
+LINK_BASE = {"num_leaves": 15, "learning_rate": 0.1, "verbosity": -1,
+             "device_type": "cpu"}
+
+
+@pytest.mark.parametrize("policy", ["leafwise", "wave"])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_binary_model_text_byte_identical(seed, policy):
+    """The gradients' sigmoid is XLA's bits (`ops/xla_math.py`), so the
+    port's model text is the reference's, byte for byte (ROADMAP Queue 3
+    F1: with torch's sigmoid, root values differed from tree 2 on)."""
+    X, y = _link_data(seed)
+    bj, bp = _train_both(dict(LINK_BASE, objective="binary",
+                              tree_grow_policy=policy), X, y, 10)
+    assert bp.model_to_string() == bj.model_to_string()
+
+
+@pytest.mark.parametrize("policy", ["leafwise", "wave"])
+def test_multiclass_model_text_byte_identical(policy):
+    """The gradients' softmax is XLA's bits, so 3 classes x 6 rounds of
+    trees are the reference's byte for byte (with torch's softmax they
+    diverged in structure from the second iteration)."""
+    X, y = _link_data(4, n_class=3)
+    bj, bp = _train_both(dict(LINK_BASE, objective="multiclass",
+                              num_class=3, tree_grow_policy=policy), X, y, 6)
+    assert bp.model_to_string() == bj.model_to_string()
