@@ -4,7 +4,9 @@ and check them.
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --phases histogram,fused   # kernel phases alone
-    python3 chip_smoke.py --phases compare --baseline DIR   # K1/K2/K4/K5
+    python3 chip_smoke.py --phases golden,main       # serving alone
+    python3 chip_smoke.py --phases compare --baseline DIR   # K1-K6, sum
+    python3 chip_smoke.py --phases compare_serving --baseline DIR
 
 Phases, each printing one JSON line:
 
@@ -13,22 +15,35 @@ Phases, each printing one JSON line:
           all started together) with its time and the compiler's
           register report for each source.
   golden  the five model files under tests/data/, and two wide synthetic
-          models (64 and 300 features, for the traverse kernel's
-          shared-memory opt-in and global-memory launch branches),
-          through a GPU ServingRuntime with small tiles: the traverse
-          and accumulate kernels against their plain versions on the
-          card, bitwise, on the runtime's probe rows plus adversarial
-          rows (NaN, +-inf, +-0, subnormals, values at thresholds,
-          categorical edge values, f64 values that saturate in the f32
-          cast); raw scores against the port's CPU path, bitwise.
+          models (64 and 300 features; for these also a 4096-row batch,
+          where the fused kernel's row blocks are largest and opt in to
+          more shared memory), through a GPU ServingRuntime with small
+          tiles, on the runtime's probe rows plus adversarial rows (NaN,
+          +-inf, +-0, subnormals, values at thresholds, categorical edge
+          values, f64 values that saturate in the f32 cast): the fused
+          serving kernel (`csrc/serve.cu`) at its default launch plan
+          and at every (cluster, staged records, rows in shared memory)
+          variant, bitwise its plain version (the same records) and the
+          standalone kernels' plain versions (the JAX layout); the
+          standalone traverse (rows in shared and in device memory) and
+          sum, bitwise their plain versions; raw and converted scores
+          against the port's CPU path, bitwise.  Every launch branch
+          must run.
   main    the full-width model: 500 trees x 255 leaves x 28 features,
           binary, built from --seed by `synthetic_forest_text` (the
           Higgs shape of upstream LightGBM's docs/Experiments.rst).
           ServingRuntime on the GPU answers 1, 37, 256, 1000, 4096 and
           10000 rows; each answer equals the plain versions on the card
-          and the f64 host walk, bitwise.  Kernel launch counts are read
-          around this phase alone.  Then latencies, the kernels' times
-          against their plain versions and their bounds.
+          (the fused one and the standalone ones) and the f64 host
+          walk, bitwise.  Kernel launch counts are read around this
+          phase alone: the fused kernel and the link run, the
+          standalone kernels do not; then per request.  Then
+          latencies, and at 1, 256 and 4096 rows the fused kernel, the
+          standalone traverse and sum and the unfused program (both
+          traverses and the sum), warm and with L2 flushed, beside their
+          bounds, and a sweep of the fused kernel's launch plans
+          (FUSED_SWEEP, each bitwise first); the plain versions at 4096;
+          one 4096-row request split into its stages.
   objective the objectives' links (`ops/xla_math.py`, XLA's CPU exp,
           sigmoid and softmax): the link kernel (`csrc/links.cu`) bitwise
           its plain version (torch ops) on the card and on the CPU, for
@@ -117,10 +132,15 @@ Phases, each printing one JSON line:
           of this checkout and of the checkout in DIR on the same
           inputs: K1 and K2 agree within twice their tolerance, K4 and
           K5 bitwise; each timed in turns (this, DIR, DIR, this); then
-          the f32 wave, quantized wave and strict quantized rounds of
-          both checkouts in turns.
-  kernels one line per kernel: launches on its path's phase (traverse,
-          accumulate and the link: main; histogram: train; fused_hist_split and
+          compare_serving.
+  compare_serving (with --phases and --baseline DIR only) the main
+          phase's model at 1, 256 and 4096 rows: the standalone K6 and
+          sum of both checkouts bitwise, this checkout's fused request
+          program bitwise DIR's `compiled_predict`, each timed in turns.
+  kernels one line per kernel: launches on its path's phase (the fused
+          serving kernel and the link: main, where the standalone
+          traverse and accumulate show 0 and their golden-phase launches
+          beside; histogram: train; fused_hist_split and
           split_scan: train_wave; fused_hist_split_q: train_quant's main
           run; histogram_q: its strict run), parity, times, bound.
 
@@ -335,30 +355,37 @@ def _emit(obj):
     print(json.dumps(obj, sort_keys=False), flush=True)
 
 
-def _cuda_ms(fn, iters=20, warmup=3, queued=False):
+def _cuda_ms(fn, iters=20, warmup=3, queued=False, flush=None):
     """Mean time of fn() over `iters` runs, from CUDA events.  With
     `queued`, a spin kernel holds the stream until every run has been
     submitted, so the events read the device's time and not the pace at
     which the host submits (for kernels shorter than their launch's host
-    cost); the spin is lengthened until the runs were all queued."""
+    cost); the spin is lengthened until the runs were all queued.  With
+    `flush`, flush() runs before each run, outside its events (the L2
+    cold: `_flusher`)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     cycles = 2_000_000
     while True:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        events = []
         if queued:
             torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        ahead = not start.query()
+        for i in range(iters if flush is not None else 1):
+            if flush is not None:
+                flush()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(1 if flush is not None else iters):
+                fn()
+            end.record()
+            events.append((start, end))
+        ahead = not events[0][0].query()
         torch.cuda.synchronize()
         if not queued or ahead:
-            return start.elapsed_time(end) / iters
+            return sum(s.elapsed_time(e) for s, e in events) / iters
         _check(cycles < 1 << 34, "timing: the runs could not be queued "
                "ahead of the card")
         cycles *= 4
@@ -399,17 +426,17 @@ def _max_abs_err(a, b) -> float:
     return float(d.max()) if d.size else 0.0
 
 
-def _traverse(rt, Xd, fn):
+def _traverse(rt, Xd, fn, **kw):
     """Xd through every depth bucket of rt's plan with `fn`, the traverse
     kernel's wrapper or its plain version: the per-bucket slots."""
     st = rt._state
-    return [fn(Xd, w, k, p, c, d, m)
+    return [fn(Xd, w, k, p, c, d, m, **kw)
             for (w, k, p, c), (d, m) in zip(st.planes, st.meta)]
 
 
 def _plain_predict(rt, Xd):
-    """The compiled path with the plain versions, on Xd's device:
-    (slots, raw f64 sums)."""
+    """The compiled path with the plain versions of the standalone
+    kernels (the JAX layout), on Xd's device: (slots, raw f64 sums)."""
     from lightgbm_tpu_torch.compiler.kernel import traverse_bucket_plain
     from lightgbm_tpu_torch.ops.predict import accumulate_slots_exact_plain
     import torch
@@ -421,16 +448,36 @@ def _plain_predict(rt, Xd):
     return slots, acc
 
 
-def _traverse_branch(b: int, f: int) -> str:
-    """Which launch branch csrc/traverse.cu takes for a [b, f] batch:
-    rows in shared memory within the default 48 KB, rows in shared
-    memory past it (opt-in), or rows read from global memory."""
-    from lightgbm_tpu_torch.compiler.kernel import (SMEM_DEFAULT,
-                                                    row_smem_bytes)
-    smem = row_smem_bytes(b, f)
-    if smem == 0:
-        return "global"
-    return "smem" if smem <= SMEM_DEFAULT else "smem_optin"
+def _serve(rt, Xd, plain=False, **kw):
+    """The fused entry (or its plain version, over the same records) on
+    Xd: the raw f64 sums."""
+    from lightgbm_tpu_torch.compiler import kernel
+    st = rt._state
+    fn = kernel.serve_forest_plain if plain else kernel.serve_forest
+    return fn(Xd, st.records, st.export["value_f64"],
+              st.export["num_class"], **kw)
+
+
+def _forest_plan(rt, Xd, **kw):
+    """The fused kernel's launch plan for Xd on rt's model (`kw`: the
+    plan's requests)."""
+    from lightgbm_tpu_torch.compiler.records import forest_plan
+    rec = rt._state.records
+    b, f = Xd.shape
+    return forest_plan(b, f, rec.meta.shape[0], rec.ni_max, rec.mw,
+                       rt._state.export["num_class"], **kw)
+
+
+#: the fused kernel's launch variants the golden phase runs: (cluster,
+#: stage, rows_smem, ilp) requests
+FUSED_VARIANTS = tuple((c, s, r, i) for c in (1, 8) for s in (False, True)
+                       for r in (True, False) for i in (1, 2, 4))
+#: the launch plans the main phase times at each size: (cluster, rows,
+#: ilp, threads, stage) requests, rows cut to the batch
+FUSED_SWEEP = tuple((c, r, i, 512, False) for c in (1, 2, 8)
+                    for r in (1, 4, 16, 64, 256) for i in (1, 2, 4)) + tuple(
+    (c, r, i, 512, True) for c in (1, 2, 4, 8) for r in (16, 32, 64, 128, 256)
+    for i in (1, 2))
 
 
 def _leaf_depths(trees, nl):
@@ -462,7 +509,7 @@ def phase_env():
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    _check(set(built) == {"traverse", "accumulate", "histogram",
+    _check(set(built) == {"traverse", "accumulate", "serve", "histogram",
                           "histogram_q", "fused_split", "links"},
            f"build_all built {sorted(built)}")
     _emit({"phase": "env", "torch": torch.__version__,
@@ -475,41 +522,101 @@ def phase_env():
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
 
 
-def phase_golden(seed):
-    """The five golden models, then the WIDE synthetic models, which
-    drive the traverse kernel's other two launch branches."""
+def _golden_batches(rt, ex, nf, wide):
+    """The golden phase's batches for one model: the probe rows plus
+    the adversarial rows; for a WIDE model also those rows repeated to
+    4096, where the fused plan takes its largest row blocks."""
+    X = np.vstack([rt._probe_batch(ex, 256), adversarial_rows(ex["trees"],
+                                                              nf)])
+    out = [X]
+    if wide:
+        out.append(np.resize(X, (4096, X.shape[1])))
+    return out
+
+
+def phase_golden(seed, device=None):
+    """The five golden models, then the WIDE synthetic models, through
+    all three entries on every launch branch: the fused entry at its
+    default plan and at each of FUSED_VARIANTS, bitwise its plain
+    version (which reads the same records) and the standalone kernels'
+    plain versions (which read the JAX layout); the standalone traverse
+    with its rows in shared and in device memory, and the standalone
+    sum, bitwise their plain versions.  Returns the standalone kernels'
+    launch counts of this phase."""
     import torch
     from lightgbm_tpu_torch import Booster, ServingRuntime
-    from lightgbm_tpu_torch.compiler.kernel import traverse_bucket
-    from lightgbm_tpu_torch.ops.predict import accumulate_slots_exact
+    from lightgbm_tpu_torch.compiler import kernel
+    from lightgbm_tpu_torch.compiler.records import traverse_plan
+    from lightgbm_tpu_torch.ops import predict
     report = {"phase": "golden", "models": {}}
     models = [(name, Booster(model_file=os.path.join(
-        ROOT, "tests", "data", f"golden_{name}.model.txt")))
+        ROOT, "tests", "data", f"golden_{name}.model.txt")), False)
         for name in GOLDEN]
     models += [(name, Booster(model_str=synthetic_forest_text(
-        seed, num_trees=20, num_leaves=63, num_features=f)))
+        seed, num_trees=20, num_leaves=63, num_features=f)), True)
         for name, f in WIDE]
-    branches = set()
-    for name, bst in models:
-        rt = ServingRuntime(bst, tile_vmem_kb=1)
+    kernel.TRAVERSE_LAUNCHES = 0
+    predict.ACCUMULATE_LAUNCHES = 0
+    fused_branches, trav_branches = set(), set()
+    optin = {"fused": False, "traverse": False}
+    for name, bst, wide in models:
+        rt = ServingRuntime(bst, tile_vmem_kb=1, device=device)
         cpu = ServingRuntime(bst, tile_vmem_kb=1, device="cpu")
-        ex = rt._state.export
-        nf = max(bst.num_feature(), ex["stacked"]["min_features"])
-        X = np.vstack([rt._probe_batch(ex, 256),
-                       adversarial_rows(ex["trees"], nf)])
-        Xd = rt._stage32(X, rt._chunk_rows(X.shape[0]))
         st = rt._state
-        slots = torch.cat(_traverse(rt, Xd, traverse_bucket))
-        slots_p, acc_p = _plain_predict(rt, Xd)
-        _check(torch.equal(slots, slots_p), f"{name}: kernel slots != plain")
+        ex = st.export
         K = ex["num_class"]
-        acc_k = accumulate_slots_exact(slots, st.gidx, ex["value_f64"],
-                                       K, st.cls).cpu().numpy()
-        _check(_bits_equal(acc_k, acc_p.cpu().numpy()),
-               f"{name}: kernel accumulation != plain")
+        nf = max(bst.num_feature(), ex["stacked"]["min_features"])
+        entry = {"tiles": st.plan.num_tiles(),
+                 "buckets": [int(d) for d, _ in st.meta],
+                 "mw": int(st.records.mw), "K": int(K), "batches": []}
+        for X in _golden_batches(rt, ex, nf, wide):
+            Xd = rt._stage32(X, rt._chunk_rows(X.shape[0]))
+            slots_p, acc_p = _plain_predict(rt, Xd)
+            want = acc_p.cpu().numpy()
+            _check(_bits_equal(_serve(rt, Xd, plain=True).cpu().numpy(),
+                               want),
+                   f"{name}: the fused plain version != the standalone "
+                   f"plain versions")
+            runs = [("default", _forest_plan(rt, Xd))]
+            runs += [(f"c{c}_{'staged' if s else 'l1'}_"
+                      f"{'rsmem' if r else 'rglobal'}_ilp{i}",
+                      _forest_plan(rt, Xd, cluster=c, stage=s, rows_smem=r,
+                                   ilp=i))
+                     for c, s, r, i in FUSED_VARIANTS]
+            plans = {}
+            for label, plan in runs:
+                got = _serve(rt, Xd, plan=plan).cpu().numpy()
+                _check(_bits_equal(got, want),
+                       f"{name}, {Xd.shape[0]} rows: the fused kernel "
+                       f"({plan.branch()}) != plain")
+                fused_branches.add(plan.branch())
+                optin["fused"] |= plan.optin
+                plans[label] = plan._asdict()
+            trav = []
+            for rows_smem in (None, False):
+                tplan = traverse_plan(Xd.shape[0], Xd.shape[1],
+                                      st.planes[0][0].shape[1],
+                                      st.planes[0][0].shape[0],
+                                      rows_smem=rows_smem)
+                slots = torch.cat(_traverse(rt, Xd, kernel.traverse_bucket,
+                                            plan=tplan))
+                _check(torch.equal(slots, slots_p),
+                       f"{name}: traverse kernel ({tplan.branch()}) slots "
+                       f"!= plain")
+                trav_branches.add(tplan.branch())
+                optin["traverse"] |= tplan.optin
+                trav.append(tplan.branch())
+            acc_k = predict.accumulate_slots_exact(
+                slots_p, st.gidx, ex["value_f64"], K, st.cls).cpu().numpy()
+            _check(_bits_equal(acc_k, want),
+                   f"{name}: accumulate kernel != plain")
+            entry["batches"].append({
+                "rows": int(X.shape[0]), "device_rows": int(Xd.shape[0]),
+                "features": int(Xd.shape[1]), "fused_plans": plans,
+                "traverse_branches": trav})
+        X = _golden_batches(rt, ex, nf, False)[0]
         raw = rt.predict(X, raw_score=True)
-        raw_cpu = cpu.predict(X, raw_score=True)
-        _check(_bits_equal(raw, raw_cpu),
+        _check(_bits_equal(raw, cpu.predict(X, raw_score=True)),
                f"{name}: GPU raw scores != CPU plain path")
         conv = rt.predict(X)
         conv_cpu = cpu.predict(X)
@@ -517,22 +624,96 @@ def phase_golden(seed):
                                 - conv_cpu.view(np.int32).astype(np.int64))))
         _check(ulp == 0, f"{name}: GPU converted scores differ from the "
                f"CPU plain path by up to {ulp} ulp")
-        mw = max(m for _, m in st.meta)
         if name == "categorical":
-            _check(mw > 0, "categorical model did not run the bitset branch")
+            _check(st.records.mw > 0,
+                   "categorical model did not run the bitset branch")
         if name == "multiclass":
             _check(K == 3, "multiclass model is not K=3")
-        branch = _traverse_branch(*Xd.shape)
-        branches.add(branch)
-        report["models"][name] = {
-            "rows": int(X.shape[0]), "features": int(Xd.shape[1]),
-            "branch": branch, "tiles": st.plan.num_tiles(),
-            "buckets": [int(d) for d, _ in st.meta], "mw": int(mw),
-            "K": int(K), "slots_equal": True, "accumulate_equal": True,
-            "raw_equal_cpu": True, "converted_max_ulp_vs_cpu": ulp}
-    _check(branches == {"smem", "smem_optin", "global"},
-           f"golden phase missed a traverse launch branch: {branches}")
+        entry.update({"raw_equal_cpu": True,
+                      "converted_max_ulp_vs_cpu": ulp})
+        report["models"][name] = entry
+    want_fused = {f"{c}/{s}/{r}" for c in ("cluster", "single")
+                  for s in ("staged", "l1")
+                  for r in ("rows_smem", "rows_global")}
+    _check(fused_branches == want_fused and optin["fused"],
+           f"golden phase missed a fused launch branch: {fused_branches}, "
+           f"opt-in {optin['fused']}")
+    _check(trav_branches == {"rows_smem", "rows_global"}
+           and optin["traverse"],
+           f"golden phase missed a traverse launch branch: {trav_branches}"
+           f", opt-in {optin['traverse']}")
+    launches = {"traverse": kernel.TRAVERSE_LAUNCHES,
+                "accumulate": predict.ACCUMULATE_LAUNCHES}
+    _check(all(v > 0 for v in launches.values()),
+           f"golden phase did not launch the standalone kernels: {launches}")
+    report.update({"fused_branches": sorted(fused_branches),
+                   "traverse_branches": sorted(trav_branches),
+                   "optin": optin, "launches": launches})
     _emit(report)
+    return launches
+
+
+def _flusher(device):
+    """A function that evicts the card's 50 MB L2: it writes 256 MB."""
+    import torch
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    return buf.zero_
+
+
+def _bound(nbytes, ops, rate):
+    """(bound ms, bound_by) of `nbytes` moved and `ops` at `rate`."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = ops / rate
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def _request_breakdown(rt, X, iters=20):
+    """One converted request of X's rows, staged as `_compiled_chunk`
+    stages it, split into its stages by CUDA events and the host clock:
+    the host's f32 staging, the copy to the card, the fused kernel, the
+    link and the copy back (medians over `iters`, device ms between
+    events and host ms around each stage)."""
+    import torch
+    from lightgbm_tpu_torch.compiler.kernel import serve_forest
+    st = rt._state
+    ex = st.export
+    conv = rt._booster.objective_.convert_output
+    names = ("host_stage", "h2d", "serve", "link", "d2h")
+    dev_ms = {n: [] for n in names[1:]}
+    host_ms = {n: [] for n in names}
+    for _ in range(iters + 2):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        h = [time.perf_counter()]
+        buf = np.zeros((rt._chunk_rows(X.shape[0]), X.shape[1]), np.float32)
+        buf[:X.shape[0]] = X
+        h.append(time.perf_counter())
+        ev[0].record()
+        Xd = torch.from_numpy(buf).to(rt.device)
+        ev[1].record()
+        h.append(time.perf_counter())
+        raw = serve_forest(Xd, st.records, ex["value_f64"], ex["num_class"])
+        ev[2].record()
+        h.append(time.perf_counter())
+        out = conv(raw.to(torch.float32))
+        ev[3].record()
+        h.append(time.perf_counter())
+        out[:X.shape[0]].cpu().numpy()
+        ev[4].record()
+        h.append(time.perf_counter())
+        torch.cuda.synchronize()
+        for i, n in enumerate(names):
+            host_ms[n].append((h[i + 1] - h[i]) * 1e3)
+        for i, n in enumerate(names[1:]):
+            dev_ms[n].append(ev[i].elapsed_time(ev[i + 1]))
+    return {"device_ms": {n: float(np.median(v[2:]))
+                          for n, v in dev_ms.items()},
+            "host_ms": {n: float(np.median(v[2:]))
+                        for n, v in host_ms.items()}}
+
+
+#: the request sizes at which the main phase times each serving kernel
+TIMED_ROWS = (1, 256, 4096)
 
 
 def phase_main(seed, kernel_module, predict_module):
@@ -546,10 +727,20 @@ def phase_main(seed, kernel_module, predict_module):
     reqs = {n: request_rows(rng, n) for n in sizes}
     repeats = {1: 30, 37: 30, 256: 30, 1000: 20, 4096: 20, 10000: 10}
 
+    def counters():
+        return {"serve": kernel_module.SERVE_LAUNCHES,
+                "traverse": kernel_module.TRAVERSE_LAUNCHES,
+                "accumulate": predict_module.ACCUMULATE_LAUNCHES,
+                "xla_link": xla_math.LINK_LAUNCHES}
+
+    def zero():
+        kernel_module.SERVE_LAUNCHES = 0
+        kernel_module.TRAVERSE_LAUNCHES = 0
+        predict_module.ACCUMULATE_LAUNCHES = 0
+        xla_math.LINK_LAUNCHES = 0
+
     # ---- the main path, alone between the counter reads
-    kernel_module.TRAVERSE_LAUNCHES = 0
-    predict_module.ACCUMULATE_LAUNCHES = 0
-    xla_math.LINK_LAUNCHES = 0
+    zero()
     t0 = time.perf_counter()
     rt = ServingRuntime(bst)
     setup_s = time.perf_counter() - t0
@@ -565,28 +756,46 @@ def phase_main(seed, kernel_module, predict_module):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         lat[n] = float(np.median(times)) * 1e3
-    launches = {"traverse": kernel_module.TRAVERSE_LAUNCHES,
-                "accumulate": predict_module.ACCUMULATE_LAUNCHES,
-                "xla_link": xla_math.LINK_LAUNCHES}
-    _check(all(v > 0 for v in launches.values()),
+    launches = counters()
+    _check(launches["serve"] > 0 and launches["xla_link"] > 0,
            f"main path did not launch every kernel: {launches}")
+    _check(launches["traverse"] == 0 and launches["accumulate"] == 0,
+           f"main path launched a standalone kernel: {launches}")
+    per_request = {}
+    for n in (1, 4096, 10000):
+        zero()
+        rt.predict(reqs[n], raw_score=True)
+        raw_l = counters()
+        zero()
+        rt.predict(reqs[n])
+        per_request[str(n)] = {"raw": raw_l, "converted": counters()}
+    chunks = -(-10000 // rt.max_batch_rows)
+    _check(per_request["4096"]["converted"] == {
+        "serve": 1, "traverse": 0, "accumulate": 0, "xla_link": 1}
+           and per_request["10000"]["raw"]["serve"] == chunks,
+           f"main: launches a request {per_request}")
 
     # ---- answers against the plain versions on the card and the host
     st = rt._state
+    ex = st.export
     obj = bst.objective_
     cpu_rt = ServingRuntime(bst, device="cpu")
     link_err = 0.0
     for n in sizes:
         X = reqs[n]
-        want = []
+        want, want_f = [], []
         for lo in range(0, n, rt.max_batch_rows):
             Xc = X[lo:lo + rt.max_batch_rows]
             Xd = rt._stage32(Xc, rt._chunk_rows(Xc.shape[0]))
             want.append(_plain_predict(rt, Xd)[1][:Xc.shape[0]]
                         .cpu().numpy())
+            want_f.append(_serve(rt, Xd, plain=True)[:Xc.shape[0]]
+                          .cpu().numpy())
         want = np.concatenate(want)
         _check(_bits_equal(answers[n], want),
                f"main: {n} rows: raw scores != plain versions")
+        _check(_bits_equal(answers[n], np.concatenate(want_f)),
+               f"main: {n} rows: raw scores != the fused plain version")
         _check(bool(np.all(np.isfinite(conv[n]))
                     and np.all((conv[n] > 0) & (conv[n] < 1))),
                f"main: {n} rows: converted scores not finite in (0, 1)")
@@ -606,81 +815,133 @@ def phase_main(seed, kernel_module, predict_module):
     _check(_bits_equal(answers[1000], host),
            "main: raw scores != f64 host walk on 1000 rows")
 
-    # ---- kernel times at B = 4096 against the plain versions
+    # ---- the kernels at 1, 256 and 4096 rows: parity, times, bounds
     from lightgbm_tpu_torch.compiler.kernel import (traverse_bucket,
                                                     traverse_bucket_plain)
     from lightgbm_tpu_torch.ops.predict import (
         accumulate_slots_exact, accumulate_slots_exact_plain)
-    Xd = rt._stage32(reqs[4096], 4096)
-    slots_k = torch.cat(_traverse(rt, Xd, traverse_bucket))
-    slots_p, acc_p = _plain_predict(rt, Xd)
-    slot_err = int((slots_k - slots_p).abs().max())
-    _check(slot_err == 0, "main: kernel slots != plain")
-    ex = st.export
-    acc_k = accumulate_slots_exact(slots_k, st.gidx, ex["value_f64"], 1,
-                                   None)
-    _check(_bits_equal(acc_k.cpu().numpy(), acc_p.cpu().numpy()),
-           "main: kernel accumulation != plain")
-    trav_ms = _cuda_ms(lambda: _traverse(rt, Xd, traverse_bucket))
-    trav_plain_ms = _cuda_ms(
-        lambda: _traverse(rt, Xd, traverse_bucket_plain), iters=3, warmup=1)
-    acc_ms = _cuda_ms(lambda: accumulate_slots_exact(
-        slots_k, st.gidx, ex["value_f64"], 1, None))
-    acc_plain_ms = _cuda_ms(lambda: accumulate_slots_exact_plain(
-        slots_k, st.gidx, ex["value_f64"], 1, None), iters=3, warmup=1)
-
-    # ---- bounds from this run's inputs
-    b = 4096
+    flush = _flusher(rt.device)
     n_trees, nl = ex["leaf_values"].shape
+    depth = _leaf_depths(ex["trees"], nl)
     plane_bytes = sum(int(a.numel() * a.element_size())
                       for pl in st.planes for a in pl if a is not None)
-    rows_slots = int(slots_k.shape[0])
-    trav_bytes = Xd.numel() * 4 + plane_bytes + rows_slots * b * 4
-    depth = _leaf_depths(ex["trees"], nl)
-    gathered = slots_k[st.gidx.long()].cpu().numpy()
-    visits = int(np.take_along_axis(depth, gathered, axis=1).sum())
-    trav_ops = visits              # at least one integer operation each
-    trav_bound = max(trav_bytes / HBM_BYTES_PER_S,
-                     trav_ops / INT32_OPS_PER_S) * 1e3
-    acc_bytes = (n_trees * b * 4 + n_trees * 4 + n_trees * nl * 8
-                 + b * 8)
-    adds = n_trees * b
-    acc_bound = max(acc_bytes / HBM_BYTES_PER_S, adds / F64_ADDS_PER_S) * 1e3
+    rec_bytes = st.records.nbytes()
+    value_bytes = n_trees * nl * 8
+    timed = {}
+    for b in TIMED_ROWS:
+        Xd = rt._stage32(reqs[4096][:b], b)
+        slots_k = torch.cat(_traverse(rt, Xd, traverse_bucket))
+        slots_p, acc_p = _plain_predict(rt, Xd)
+        _check(torch.equal(slots_k, slots_p),
+               f"main: {b} rows: kernel slots != plain")
+        acc_k = accumulate_slots_exact(slots_k, st.gidx, ex["value_f64"], 1,
+                                       None)
+        _check(_bits_equal(acc_k.cpu().numpy(), acc_p.cpu().numpy()),
+               f"main: {b} rows: kernel accumulation != plain")
+        fused = _serve(rt, Xd)
+        fused_p = _serve(rt, Xd, plain=True)
+        want_b = acc_p.cpu().numpy()
+        _check(_bits_equal(fused.cpu().numpy(), fused_p.cpu().numpy())
+               and _bits_equal(fused.cpu().numpy(), acc_p.cpu().numpy()),
+               f"main: {b} rows: fused kernel != plain")
+        row = {"plan": _forest_plan(rt, Xd)._asdict()}
+        fns = {
+            "serve": lambda: _serve(rt, Xd),
+            "traverse": lambda: _traverse(rt, Xd, traverse_bucket),
+            "accumulate": lambda: accumulate_slots_exact(
+                slots_k, st.gidx, ex["value_f64"], 1, None),
+            "unfused": lambda: accumulate_slots_exact(
+                torch.cat(_traverse(rt, Xd, traverse_bucket)), st.gidx,
+                ex["value_f64"], 1, None)}
+        for name, fn in fns.items():
+            row[name + "_ms"] = _cuda_ms(fn, queued=True)
+            row[name + "_cold_ms"] = _cuda_ms(fn, queued=True, flush=flush)
+        row["serve_host_paced_ms"] = _cuda_ms(fns["serve"])
+        # the fused kernel's launch plans, each bitwise, then timed
+        vplans = {}
+        for c, r, i, nt, s in FUSED_SWEEP:
+            if r > b:
+                continue
+            plan = _forest_plan(rt, Xd, cluster=c, rows=r, ilp=i, threads=nt,
+                                stage=s)
+            key = (f"c{plan.cluster}_r{plan.rows}_i{plan.ilp}_"
+                   f"t{plan.threads}{'_staged' if plan.stage else ''}")
+            if key not in vplans:
+                vplans[key] = plan
+                _check(_bits_equal(_serve(rt, Xd, plan=plan).cpu().numpy(),
+                                   want_b),
+                       f"main: {b} rows: fused kernel {key} != plain")
+        vt = {k: _cuda_ms(lambda: _serve(rt, Xd, plan=p), queued=True)
+              for k, p in vplans.items()}
+        row["variants_ms"] = dict(sorted(vt.items(), key=lambda kv: kv[1]))
+        # bounds from this run's inputs
+        gathered = slots_k[st.gidx.long()].cpu().numpy()
+        visits = int(np.take_along_axis(depth, gathered, axis=1).sum())
+        row["node_visits"] = visits
+        row["serve_bytes"] = Xd.numel() * 4 + rec_bytes + value_bytes + b * 8
+        row["serve_bound_ms"], row["serve_bound_by"] = _bound(
+            row["serve_bytes"], visits, INT32_OPS_PER_S)
+        row["traverse_bytes"] = (Xd.numel() * 4 + plane_bytes
+                                 + int(slots_k.shape[0]) * b * 4)
+        row["traverse_bound_ms"], row["traverse_bound_by"] = _bound(
+            row["traverse_bytes"], visits, INT32_OPS_PER_S)
+        row["accumulate_bytes"] = (n_trees * b * 4 + n_trees * 4
+                                   + value_bytes + b * 8)
+        row["accumulate_bound_ms"], row["accumulate_bound_by"] = _bound(
+            row["accumulate_bytes"], n_trees * b, F64_ADDS_PER_S)
+        if b == 4096:
+            row["serve_plain_ms"] = _cuda_ms(
+                lambda: _serve(rt, Xd, plain=True), iters=3, warmup=1)
+            row["traverse_plain_ms"] = _cuda_ms(
+                lambda: _traverse(rt, Xd, traverse_bucket_plain), iters=3,
+                warmup=1)
+            row["accumulate_plain_ms"] = _cuda_ms(
+                lambda: accumulate_slots_exact_plain(
+                    slots_k, st.gidx, ex["value_f64"], 1, None), iters=3,
+                warmup=1)
+            errs = (int((slots_k - slots_p).abs().max()),
+                    _max_abs_err(acc_k.cpu().numpy(), acc_p.cpu().numpy()),
+                    _max_abs_err(fused.cpu().numpy(), fused_p.cpu().numpy()))
+        timed[b] = row
+    breakdown = _request_breakdown(rt, reqs[4096])
     tree_depths = [int(depth[i].max()) for i in range(n_trees)]
+    big = timed[4096]
     _emit({"phase": "main", "seed": seed, "trees": n_trees,
-           "num_leaves": nl, "features": int(Xd.shape[1]),
+           "num_leaves": nl, "features": int(reqs[1].shape[1]),
            "max_depth": max(tree_depths),
+           "mean_leaf_depth_4096": big["node_visits"] / (n_trees * 4096),
            "depth_buckets": {str(bk.depth): sum(len(t) for t in bk.tiles)
                              for bk in st.plan.buckets},
-           "tiles": st.plan.num_tiles(),
+           "tiles": st.plan.num_tiles(), "record_bytes": rec_bytes,
            "tile_kb": rt._tile_vmem_kb, "setup_s": setup_s,
            "p50_ms": {str(n): lat[n] for n in sizes},
            "rows_per_s_4096": 4096 / (lat[4096] / 1e3),
-           "traverse_ms_4096": trav_ms, "traverse_plain_ms_4096":
-           trav_plain_ms, "accumulate_ms_4096": acc_ms,
-           "accumulate_plain_ms_4096": acc_plain_ms,
-           "node_visits_4096": visits, "traverse_bytes_4096": trav_bytes,
-           "accumulate_bytes_4096": acc_bytes, "library_ms": None,
-           "launches": launches})
+           "kernels_by_rows": {str(b): timed[b] for b in TIMED_ROWS},
+           "request_4096": breakdown, "node_visits_4096": big["node_visits"],
+           "library_ms": None, "launches": launches,
+           "launches_per_request": per_request})
+
+    def by_rows(key):
+        return {str(b): timed[b][key] for b in TIMED_ROWS}
+
+    def entry(name, source, replaces, key, err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": err, "ms": big[key + "_ms"],
+                "plain_ms": big[key + "_plain_ms"],
+                "bound_ms": big[key + "_bound_ms"],
+                "bound_by": big[key + "_bound_by"], "library_ms": None,
+                "rows": 4096, "ms_by_rows": by_rows(key + "_ms"),
+                "cold_ms_by_rows": by_rows(key + "_cold_ms"),
+                "bound_ms_by_rows": by_rows(key + "_bound_ms")}
+
     return [
-        {"name": "traverse", "route": "cuda",
-         "source": "lightgbm_tpu_torch/csrc/traverse.cu",
-         "replaces": "lightgbm_tpu/compiler/kernel.py:60",
-         "launches": launches["traverse"], "max_abs_err": slot_err,
-         "ms": trav_ms, "plain_ms": trav_plain_ms, "bound_ms": trav_bound,
-         "bound_by": "bytes" if trav_bytes / HBM_BYTES_PER_S
-         >= trav_ops / INT32_OPS_PER_S else "operations",
-         "library_ms": None},
-        {"name": "accumulate_exact", "route": "cuda",
-         "source": "lightgbm_tpu_torch/csrc/accumulate.cu",
-         "replaces": "lightgbm_tpu/ops/predict.py:501",
-         "launches": launches["accumulate"],
-         "max_abs_err": float(np.max(np.abs(acc_k.cpu().numpy()
-                                            - acc_p.cpu().numpy()))),
-         "ms": acc_ms, "plain_ms": acc_plain_ms, "bound_ms": acc_bound,
-         "bound_by": "bytes" if acc_bytes / HBM_BYTES_PER_S
-         >= adds / F64_ADDS_PER_S else "operations",
-         "library_ms": None},
+        entry("serve_forest", "lightgbm_tpu_torch/csrc/serve.cu",
+              "lightgbm_tpu/compiler/kernel.py:60", "serve", errs[2]),
+        entry("traverse", "lightgbm_tpu_torch/csrc/traverse.cu",
+              "lightgbm_tpu/compiler/kernel.py:60", "traverse", errs[0]),
+        entry("accumulate_exact", "lightgbm_tpu_torch/csrc/accumulate.cu",
+              "lightgbm_tpu/ops/predict.py:501", "accumulate", errs[1]),
     ], launches["xla_link"], link_err
 
 # ------------------------------------------------------------ training
@@ -973,6 +1234,7 @@ def phase_train(data: TrainData, modules, device=None, timing=True):
 
     # ---- the main path, alone between the counter reads: train, serve
     hist_module.HIST_LAUNCHES = 0
+    modules["kernel"].SERVE_LAUNCHES = 0
     modules["kernel"].TRAVERSE_LAUNCHES = 0
     modules["predict"].ACCUMULATE_LAUNCHES = 0
     grow_module.HOST_SYNCS = 0
@@ -1010,13 +1272,15 @@ def phase_train(data: TrainData, modules, device=None, timing=True):
     rt = lt.ServingRuntime(bst, device=device)
     raw_card = rt.predict(data.X_hold, raw_score=True)
     launches = {"histogram": hist_module.HIST_LAUNCHES,
+                "serve": modules["kernel"].SERVE_LAUNCHES,
                 "traverse": modules["kernel"].TRAVERSE_LAUNCHES,
                 "accumulate": modules["predict"].ACCUMULATE_LAUNCHES}
     splits = sum(t.num_leaves - 1 for t in bst.trees)
     _check(launches["histogram"] >= TRAIN_ROUNDS + splits,
            f"train: {launches['histogram']} K1 launches for "
            f"{len(bst.trees)} trees with {splits} splits")
-    _check(launches["traverse"] > 0 and launches["accumulate"] > 0,
+    _check(launches["serve"] > 0 and launches["traverse"] == 0
+           and launches["accumulate"] == 0,
            f"train: serving the trained model launched {launches}")
 
     # ---- gates
@@ -2080,22 +2344,91 @@ def phase_train_quant(data: TrainData, modules, device=None, timing=True,
     return launches
 
 
-def _import_port(root: str, name: str):
-    """(hist_kernel, fused_kernel, hist_kernel_q) of the port package in
+def _import_port(root: str, name: str, *modules):
+    """The named modules (e.g. "ops.hist_kernel") of the port package in
     another checkout at `root`, imported as package `name` beside this
     one (its kernels build under that checkout)."""
     import importlib
     import importlib.util
-    pkg = os.path.join(os.path.abspath(root), "lightgbm_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        name, os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[name] = module
-    spec.loader.exec_module(module)
-    return (importlib.import_module(name + ".ops.hist_kernel"),
-            importlib.import_module(name + ".ops.fused_kernel"),
-            importlib.import_module(name + ".ops.hist_kernel_q"))
+    if name not in sys.modules:
+        pkg = os.path.join(os.path.abspath(root), "lightgbm_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return tuple(importlib.import_module(f"{name}.{m}") for m in modules)
+
+
+def _turns(this, base, timing=True):
+    """`this` and `base` timed in turns (this, base, base, this) at the
+    host's pace (`ms`) and as device time, their launches queued behind
+    a spin kernel (`device_ms`); the means of each."""
+    out = {}
+    if not timing:
+        return out
+    for key, queued in (("ms", False), ("device_ms", True)):
+        t = [_cuda_ms(f, queued=queued) for f in (this, base, base, this)]
+        out[key] = (t[0] + t[3]) / 2
+        out["baseline_" + key] = (t[1] + t[2]) / 2
+    return out
+
+
+def phase_compare_serving(seed: int, baseline: str, device=None,
+                          timing: bool = True):
+    """The serving kernels of this checkout against those of the
+    checkout at `baseline`, on the main phase's model and requests at
+    TIMED_ROWS rows: the standalone traverse (every depth bucket)
+    bitwise the baseline's, the standalone sum bitwise on the same
+    slots, and this checkout's request program (the fused entry)
+    bitwise the baseline's `compiled_predict`; each timed in turns."""
+    import torch
+    from lightgbm_tpu_torch import Booster, ServingRuntime
+    from lightgbm_tpu_torch.compiler import kernel
+    from lightgbm_tpu_torch.ops import predict
+    base_kernel, base_predict = _import_port(
+        baseline, "baseline_port", "compiler.kernel", "ops.predict")
+    rt = ServingRuntime(Booster(model_str=synthetic_forest_text(seed)),
+                        device=device)
+    st = rt._state
+    ex = st.export
+    vals = ex["value_f64"]
+    X = request_rows(np.random.RandomState(seed + 1), max(TIMED_ROWS))
+    report = {"phase": "compare_serving", "baseline": baseline}
+    for b in TIMED_ROWS:
+        Xd = rt._stage32(X[:b], b)
+        new_s = torch.cat(_traverse(rt, Xd, kernel.traverse_bucket))
+        old_s = torch.cat(_traverse(rt, Xd, base_kernel.traverse_bucket))
+        _check(torch.equal(new_s, old_s),
+               f"compare: {b} rows: K6 of this checkout and the baseline "
+               f"differ")
+        new_a = predict.accumulate_slots_exact(new_s, st.gidx, vals, 1)
+        old_a = base_predict.accumulate_slots_exact(new_s, st.gidx, vals, 1)
+        new_r = _serve(rt, Xd)
+        old_r = base_kernel.compiled_predict(Xd, st.planes, st.gidx, vals,
+                                             meta=st.meta)
+        _check(_bits_equal(new_a.cpu().numpy(), old_a.cpu().numpy())
+               and _bits_equal(new_r.cpu().numpy(), old_r.cpu().numpy()),
+               f"compare: {b} rows: the sums of this checkout and the "
+               f"baseline differ")
+        report[str(b)] = {
+            "traverse": _turns(
+                lambda: _traverse(rt, Xd, kernel.traverse_bucket),
+                lambda: _traverse(rt, Xd, base_kernel.traverse_bucket),
+                timing),
+            "accumulate": _turns(
+                lambda: predict.accumulate_slots_exact(new_s, st.gidx,
+                                                       vals, 1),
+                lambda: base_predict.accumulate_slots_exact(new_s, st.gidx,
+                                                            vals, 1),
+                timing),
+            "request_program": _turns(
+                lambda: _serve(rt, Xd),
+                lambda: base_kernel.compiled_predict(
+                    Xd, st.planes, st.gidx, vals, meta=st.meta), timing)}
+    _emit(report)
+    return report
 
 
 def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
@@ -2112,7 +2445,9 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
     from lightgbm_tpu_torch.ops import fused_kernel as fk
     from lightgbm_tpu_torch.ops import hist_kernel as hk
     from lightgbm_tpu_torch.ops import hist_kernel_q as hq
-    base_hk, base_fk, base_hq = _import_port(baseline, "baseline_port")
+    base_hk, base_fk, base_hq = _import_port(
+        baseline, "baseline_port", "ops.hist_kernel", "ops.fused_kernel",
+        "ops.hist_kernel_q")
     dev = torch.device(device or "cuda")
     ds = data.dataset
     wide = lt.Dataset(data.X[:u16_rows], label=data.y[:u16_rows],
@@ -2131,14 +2466,7 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
                f"compare {name}: this checkout and the baseline disagree")
 
     def turns(this, base):
-        out = {}
-        if not timing:
-            return out
-        for key, queued in (("ms", False), ("device_ms", True)):
-            t = [_cuda_ms(f, queued=queued) for f in (this, base, base, this)]
-            out[key] = (t[0] + t[3]) / 2
-            out["baseline_" + key] = (t[1] + t[2]) / 2
-        return out
+        return _turns(this, base, timing)
 
     for name, bnp, y, frac, slots, m in (
             ("root", bins_main, data.y, 1.0, [0], mb),
@@ -2218,25 +2546,45 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
 #: the phases that hold one kernel against its plain version on the
 #: train phase's data, runnable alone with --phases; `compare` needs
 #: --baseline
-KERNEL_PHASES = {"objective": lambda d, s, b: phase_objective(s),
-                 "histogram": lambda d, s, b: phase_histogram(d, s),
-                 "fused": lambda d, s, b: phase_fused(d, s),
-                 "histogram_q": lambda d, s, b: phase_histogram_q(d, s),
-                 "fused_q": lambda d, s, b: phase_fused_q(d, s),
-                 "compare": lambda d, s, b: phase_compare(d, s, b)}
+KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
+                 "main": lambda d, s, b: _phase_main_alone(s),
+                 "objective": lambda d, s, b: phase_objective(s),
+                 "histogram": lambda d, s, b: phase_histogram(d(), s),
+                 "fused": lambda d, s, b: phase_fused(d(), s),
+                 "histogram_q": lambda d, s, b: phase_histogram_q(d(), s),
+                 "fused_q": lambda d, s, b: phase_fused_q(d(), s),
+                 "compare": lambda d, s, b: (phase_compare(d(), s, b),
+                                             phase_compare_serving(s, b)),
+                 "compare_serving":
+                     lambda d, s, b: phase_compare_serving(s, b)}
+#: the phases that compare with --baseline
+COMPARE_PHASES = ("compare", "compare_serving")
+
+
+def _phase_main_alone(seed):
+    import lightgbm_tpu_torch.compiler.kernel as kernel_module
+    import lightgbm_tpu_torch.ops.predict as predict_module
+    return phase_main(seed, kernel_module, predict_module)
 
 
 def _run_phases(names, seed, baseline=None) -> int:
-    """Build the kernels and run the named kernel phases on the train
-    phase's data; 0 if every check passed."""
+    """Build the kernels and run the named phases (the train phase's
+    data is made once, for the first phase that needs it); 0 if every
+    check passed."""
     unknown = [n for n in names if n not in KERNEL_PHASES]
-    if unknown or ("compare" in names and not baseline):
+    if unknown or (set(names) & set(COMPARE_PHASES) and not baseline):
         print(f"chip_smoke: unknown phases {unknown}, or compare without "
               "--baseline", file=sys.stderr)
         return 2
+    made = []
+
+    def data():
+        if not made:
+            made.append(TrainData(seed))
+        return made[0]
+
     try:
         phase_env()
-        data = TrainData(seed)
         for name in names:
             KERNEL_PHASES[name](data, seed, baseline)
     except Failure as e:
@@ -2253,8 +2601,9 @@ def main(argv=None) -> int:
                     f"({','.join(KERNEL_PHASES)}): their lines only, no "
                     "kernels line and no final line")
     ap.add_argument("--baseline", default=None,
-                    help="another checkout whose K1, K2, K4 and K5 the "
-                    "compare phase times beside this one's")
+                    help="another checkout whose K1, K2, K4, K5 and "
+                    "serving kernels the compare phases time beside this "
+                    "one's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2275,9 +2624,12 @@ def main(argv=None) -> int:
         return _run_phases(args.phases.split(","), args.seed, args.baseline)
     try:
         smi = phase_env()
-        phase_golden(args.seed)
+        golden = phase_golden(args.seed)
         kernels, link_launches, link_err = phase_main(
             args.seed, kernel_module, predict_module)
+        for k in kernels:                # the standalone entries' golden
+            if k["name"] in ("traverse", "accumulate_exact"):   # launches
+                k["golden_launches"] = golden[k["name"].split("_")[0]]
         link = phase_objective(args.seed)
         link["launches"] = link_launches
         link["max_abs_err"] = max(link["max_abs_err"], link_err)

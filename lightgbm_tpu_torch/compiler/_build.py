@@ -12,13 +12,14 @@ Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC -Xptxas=-v`, and never `--use_fast_math`, `-ftz=true`
 or `-prec-*=false`: the traverse kernel's contract includes NaN tests,
 subnormal inputs and an `abs(fv) <= 1e-35` compare in IEEE f32.  The
-accumulation, the fused split scan (`fused_split`, K2, K3 and K5) and
-the objectives' links (`links`) add `-fmad=false` so that no add is
-ever contracted; the histogram
+accumulation, the fused serving kernel (`serve`), the fused split scan
+(`fused_split`, K2, K3 and K5) and the objectives' links (`links`) add
+`-fmad=false` so that no add is ever contracted; the histogram
 kernels only add (K1) or add integers and scale with `__fmul_rn` (K4),
 so contraction cannot touch them.  A source may include the shared
 headers `csrc/*.cuh` (the histograms' first stages: K1's, which K2
-shares, and K4's, which K5 shares); they are part of every library's
+shares, and K4's, which K5 shares; the serving kernels' walk and
+ordered sum, `forest_common.cuh`); they are part of every library's
 hash.
 
 Nothing here runs when the package is imported.  `build_all` is the one
@@ -47,7 +48,7 @@ BUILD_DIR = CSRC / "build"
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _EXTRA_FLAGS = {"traverse": [], "accumulate": ["-fmad=false"],
-                "histogram": [], "histogram_q": [],
+                "serve": ["-fmad=false"], "histogram": [], "histogram_q": [],
                 "fused_split": ["-fmad=false"], "links": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
@@ -57,9 +58,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "traverse": [("lgbt_traverse",
                   [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _P, _P])],
+                   _I, _I, _P, _P])],
     "accumulate": [("lgbt_accumulate",
-                    [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P])],
+                    [_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+                     _P])],
+    "serve": [("lgbt_serve",
+               [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                _I, _I, _I, _I, _I, _P, _P])],
     "histogram": [("lgbt_histogram",
                    [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P, _P])],

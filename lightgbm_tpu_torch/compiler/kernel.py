@@ -1,50 +1,47 @@
-"""Tiled forest traversal over the packed plan planes.
+"""The serving kernels' wrappers and their plain versions.
 
-The port's counterpart of `lightgbm_tpu/compiler/kernel.py`.  One launch
-per depth bucket routes every row through every tree of the bucket's
-tiles and emits per-tree leaf slots; `compiled_predict` gathers them
-back to boosting order inside the exact f64 accumulation
-(`ops.predict.accumulate_slots_exact`), so the compiled path is
-byte-identical to the JAX package's whenever routing matches.
+The port's counterpart of `lightgbm_tpu/compiler/kernel.py`.
 
-`traverse_bucket` launches the hand-written CUDA kernel
-(`csrc/traverse.cu`, which replaces the Pallas kernel
-`lightgbm_tpu/compiler/kernel.py:_traverse_kernel`) for CUDA tensors,
-and runs the plain PyTorch version `traverse_bucket_plain` for CPU
-tensors.  There is no fallback from one to the other: a CUDA tensor
-launches the kernel or raises.
+* `serve_forest` — the fused entry on the serving path: one launch of
+  `csrc/serve.cu` routes every row through every tree of every depth
+  bucket, reading the forest's records (`compiler/records.py`), and sums
+  the leaf values in boosting order, exactly (f64, round to nearest
+  even, from +0.0): the [B] or [B, K] raw scores.  It replaces the TPU
+  kernel `_traverse_kernel` and the XLA accumulation together; its
+  plain version `serve_forest_plain` reads the same records.
+* `traverse_bucket` — the standalone K6 (`csrc/traverse.cu`): one depth
+  bucket's [tiles * TT, B] leaf slots over the JAX layout's planes,
+  for callers that need slots; its plain version
+  `traverse_bucket_plain`.  `ops.predict.accumulate_slots_exact` is the
+  standalone sum of such slots.
+* `compiled_predict` — the compiled path's device program: the fused
+  entry when the records are given, else every bucket's traverse and
+  the standalone sum (the JAX package's program).
+
+Each wrapper launches its hand-written CUDA kernel for CUDA tensors and
+runs its plain version for CPU tensors.  There is no fallback from one
+to the other: a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops.predict import _ZERO_THRESHOLD, accumulate_slots_exact
 from ..utils.log import LightGBMError
+from .records import (ForestPlan, ForestRecords, RowPlan, forest_plan,
+                      traverse_plan)
 
-#: row-block height; bucket sizes are powers of two, padded above this
-#: to a multiple of it, so the row block always divides the batch
+#: bucket height: batches above it are padded to a multiple of it, so
+#: the standalone traverse's batches stay bucket-padded
 ROW_BLOCK = 256
 
 #: traverse-kernel launches made by `traverse_bucket`
 TRAVERSE_LAUNCHES = 0
-
-#: shared memory a launch gets without opting in, and the most a Hopper
-#: block can have
-SMEM_DEFAULT = 48 * 1024
-SMEM_MAX = 227 * 1024
-
-
-def row_smem_bytes(b: int, f: int) -> int:
-    """Shared memory for one row block of a [b, f] f32 batch in the
-    traverse kernel (row stride f | 1 words, so threads reading one
-    feature hit different banks), or 0 past SMEM_MAX, where the kernel
-    reads the rows from global memory (228 features and up).  Past
-    SMEM_DEFAULT the launch opts in to more."""
-    smem = min(b, ROW_BLOCK) * (f | 1) * 4
-    return smem if smem <= SMEM_MAX else 0
+#: fused serving-kernel launches made by `serve_forest`
+SERVE_LAUNCHES = 0
 
 
 def _check_bucket(X, words, kids, pal, catw, depth, mw):
@@ -74,6 +71,42 @@ def _check_bucket(X, words, kids, pal, catw, depth, mw):
         raise LightGBMError("traverse inputs lie on different devices")
 
 
+def _route(fval, w, kd, thr, cat_of, mw):
+    """One routing step of every cursor, decoded from node words `w`,
+    child words `kd`, thresholds `thr` and feature values `fval` (all
+    [n, B]); `cat_of(widx)` reads the bitset words.  The next cursors,
+    as `csrc/forest_common.cuh walk` computes them."""
+    zero = torch.zeros((), dtype=torch.float32, device=fval.device)
+    code = w & 0xFFFF
+    default_left = ((w >> 28) & 1) != 0
+    missing_type = (w >> 29) & 3
+    isnan = fval != fval
+    fv = torch.where(isnan & (missing_type != 2), zero, fval)
+    is_missing = (((missing_type == 1) & (fv.abs() <= _ZERO_THRESHOLD))
+                  | ((missing_type == 2) & isnan))
+    go_left = torch.where(is_missing, default_left, fv <= thr)
+    if mw:
+        span = (code * 32).to(torch.float32)
+        ok = ~isnan & (fval > -1.0) & (fval < span)
+        v = torch.where(ok, fval, zero).to(torch.int32)
+        widx = torch.clamp(v // 32, 0, mw - 1).long()
+        bit = (cat_of(widx) >> (v % 32)) & 1
+        go_left = torch.where(w < 0, ok & (bit == 1), go_left)
+    return torch.where(go_left, kd >> 16, ((kd & 0xFFFF) ^ 0x8000) - 0x8000)
+
+
+def _features(xt, feat):
+    """x[row, feat] for feature ids `feat` [n, B] over rows xt [F, B],
+    with +0.0 for an id >= F."""
+    f = xt.shape[0]
+    if not f:
+        return torch.zeros(feat.shape, dtype=torch.float32,
+                           device=xt.device)
+    fval = torch.gather(xt, 0, torch.where(feat < f, feat, 0).long())
+    return torch.where(feat < f, fval, torch.zeros((), dtype=torch.float32,
+                                                   device=xt.device))
+
+
 def traverse_bucket_plain(X: torch.Tensor, words: torch.Tensor,
                           kids: torch.Tensor, pal: torch.Tensor,
                           catw: Optional[torch.Tensor], depth: int,
@@ -87,7 +120,7 @@ def traverse_bucket_plain(X: torch.Tensor, words: torch.Tensor,
     lands on leaf 0."""
     _check_bucket(X, words, kids, pal, catw, depth, mw)
     ntiles, tt, ni = words.shape
-    b, f = X.shape
+    b = X.shape[0]
     p = pal.shape[1]
     n_trees = ntiles * tt
     dev = X.device
@@ -105,31 +138,10 @@ def traverse_bucket_plain(X: torch.Tensor, words: torch.Tensor,
         w = torch.gather(w_all, 1, idx)
         kd = torch.gather(k_all, 1, idx)
         code = w & 0xFFFF
-        feat = (w >> 16) & 0xFFF
-        default_left = ((w >> 28) & 1) != 0
-        missing_type = (w >> 29) & 3
-        if f:
-            fval = torch.gather(xt, 0, torch.where(feat < f, feat, 0).long())
-            fval = torch.where(feat < f, fval, zero)
-        else:
-            fval = torch.zeros((n_trees, b), dtype=torch.float32, device=dev)
         thr = torch.gather(pal_t, 1, torch.where(code < p, code, 0).long())
         thr = torch.where(code < p, thr, zero)
-        isnan = fval != fval
-        fv = torch.where(isnan & (missing_type != 2), zero, fval)
-        is_missing = (((missing_type == 1) & (fv.abs() <= _ZERO_THRESHOLD))
-                      | ((missing_type == 2) & isnan))
-        go_left = torch.where(is_missing, default_left, fv <= thr)
-        if mw:
-            span = (code * 32).to(torch.float32)
-            ok = ~isnan & (fval > -1.0) & (fval < span)
-            v = torch.where(ok, fval, zero).to(torch.int32)
-            widx = torch.clamp(v // 32, 0, mw - 1).long()
-            cw = cat_all[tree_ix, idx, widx]
-            bit = (cw >> (v % 32)) & 1
-            go_left = torch.where(w < 0, ok & (bit == 1), go_left)
-        nxt = torch.where(go_left, kd >> 16,
-                          ((kd & 0xFFFF) ^ 0x8000) - 0x8000)
+        nxt = _route(_features(xt, (w >> 16) & 0xFFF), w, kd, thr,
+                     lambda widx: cat_all[tree_ix, idx, widx], mw)
         nxt = torch.where(in_range, nxt, 0)
         nd = torch.where(nd >= 0, nxt, nd)
     return ~torch.clamp(nd, max=-1)
@@ -138,11 +150,12 @@ def traverse_bucket_plain(X: torch.Tensor, words: torch.Tensor,
 def traverse_bucket(X: torch.Tensor, words: torch.Tensor,
                     kids: torch.Tensor, pal: torch.Tensor,
                     catw: Optional[torch.Tensor], depth: int,
-                    mw: int) -> torch.Tensor:
+                    mw: int, *, plan: Optional[RowPlan] = None
+                    ) -> torch.Tensor:
     """Route the rows X [B, F] f32 through every tree of one depth
     bucket's tiles: [tiles * TT, B] int32 leaf slots, in plan-flattened
-    order.  CUDA tensors launch `csrc/traverse.cu`; CPU tensors run
-    `traverse_bucket_plain`."""
+    order.  CUDA tensors launch `csrc/traverse.cu` (with `plan`, default
+    `records.traverse_plan`); CPU tensors run `traverse_bucket_plain`."""
     global TRAVERSE_LAUNCHES
     if X.device.type == "cpu":
         return traverse_bucket_plain(X, words, kids, pal, catw, depth, mw)
@@ -156,18 +169,151 @@ def traverse_bucket(X: torch.Tensor, words: torch.Tensor,
     lib = _build.load("traverse")
     ntiles, tt, ni = words.shape
     b, f = X.shape
+    plan = plan or traverse_plan(b, f, tt, ntiles)
     out = torch.empty((ntiles * tt, b), dtype=torch.int32, device=X.device)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = lib.lgbt_traverse(
-            X.data_ptr(), b, f, words.data_ptr(), kids.data_ptr(),
-            pal.data_ptr(), catw.data_ptr() if mw else None, ntiles, tt,
-            ni, pal.shape[1], mw, depth, row_smem_bytes(b, f),
-            out.data_ptr(), ctypes.c_void_p(stream))
+    rc = _build.on_stream(X.device, lambda stream: lib.lgbt_traverse(
+        X.data_ptr(), b, f, words.data_ptr(), kids.data_ptr(),
+        pal.data_ptr(), catw.data_ptr() if mw else None, ntiles, tt, ni,
+        pal.shape[1], mw, depth, plan.rows, plan.threads, plan.smem,
+        out.data_ptr(), ctypes.c_void_p(stream)))
     if rc != 0:
         raise LightGBMError(f"traverse kernel launch failed: CUDA error "
                             f"{rc}")
     TRAVERSE_LAUNCHES += 1
+    return out
+
+
+class DeviceRecords(NamedTuple):
+    """`records.ForestRecords` as tensors on one device."""
+    nodes: torch.Tensor            # [N, 4] int32
+    meta: torch.Tensor             # [T, 4] int32
+    catw: Optional[torch.Tensor]   # [N, MW] int32 or None
+    mw: int
+    ni_max: int
+
+    @classmethod
+    def of(cls, rec: ForestRecords, device) -> "DeviceRecords":
+        def put(a):
+            return None if a is None else torch.from_numpy(a).to(device)
+        return cls(put(rec.nodes), put(rec.meta), put(rec.catw), rec.mw,
+                   rec.ni_max)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.nodes, self.meta, self.catw)
+                   if t is not None)
+
+
+def _check_serve(X, rec, leaf_values, n_class):
+    if X.dim() != 2 or X.dtype != torch.float32:
+        raise LightGBMError("X must be [B, F] float32")
+    if rec.nodes.dim() != 2 or rec.nodes.shape[1] != 4 \
+            or rec.nodes.dtype != torch.int32:
+        raise LightGBMError("record nodes must be [N, 4] int32")
+    if rec.meta.dim() != 2 or rec.meta.shape[1] != 4 \
+            or rec.meta.dtype != torch.int32:
+        raise LightGBMError("record meta must be [T, 4] int32")
+    if leaf_values.dim() != 2 or leaf_values.dtype != torch.float64 \
+            or leaf_values.shape[0] != rec.meta.shape[0]:
+        raise LightGBMError(f"leaf_values must be [{rec.meta.shape[0]}, NL] "
+                            f"float64")
+    if rec.mw:
+        if rec.catw is None or rec.catw.dtype != torch.int32 \
+                or tuple(rec.catw.shape) != (rec.nodes.shape[0], rec.mw):
+            raise LightGBMError("record catw must be [N, mw] int32")
+    elif rec.catw is not None:
+        raise LightGBMError("record catw given with mw == 0")
+    if n_class < 1:
+        raise LightGBMError(f"n_class must be positive, got {n_class}")
+    tensors = [X, rec.nodes, rec.meta, leaf_values] + (
+        [rec.catw] if rec.mw else [])
+    if any(t.device != X.device for t in tensors):
+        raise LightGBMError("serve inputs lie on different devices")
+
+
+def serve_forest_plain(X: torch.Tensor, rec: DeviceRecords,
+                       leaf_values: torch.Tensor, n_class: int = 1,
+                       chunk: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the fused kernel, over the same records: in
+    chunks of `chunk` trees (default all), a depth loop over the chunk's
+    [trees, B] cursors (each tree for its own NI and step bound, with
+    the traverse's out-of-range rules), then the chunk's leaf values
+    added tree by tree, in boosting order, into each row's class column,
+    f64 from +0.0 (leaf slots clamp to the table).  [B] or [B, K]
+    float64."""
+    _check_serve(X, rec, leaf_values, n_class)
+    b = X.shape[0]
+    t_trees, nl = leaf_values.shape
+    dev = X.device
+    chunk = t_trees if chunk is None else max(int(chunk), 1)
+    w_all = rec.nodes[:, 0].contiguous()
+    k_all = rec.nodes[:, 1].contiguous()
+    thr_all = rec.nodes[:, 2].contiguous().view(torch.float32)
+    meta = rec.meta.long()
+    klass = rec.meta[:, 3].tolist()
+    xt = X.t()
+    shape = (b, n_class) if n_class > 1 else (b,)
+    acc = torch.zeros(shape, dtype=torch.float64, device=dev)
+    for t0 in range(0, t_trees, chunk):
+        m = meta[t0:t0 + chunk]
+        first, ni, depth = m[:, :1], m[:, 1:2], m[:, 2:3]
+        nd = torch.zeros((m.shape[0], b), dtype=torch.int64, device=dev)
+        for s in range(int(depth.max()) if len(m) else 0):
+            in_range = (nd >= 0) & (nd < ni)
+            idx = first + torch.where(in_range, nd, 0)
+            w = w_all[idx]
+            nxt = _route(_features(xt, (w >> 16) & 0xFFF), w, k_all[idx],
+                         thr_all[idx],
+                         lambda widx: rec.catw[idx, widx], rec.mw)
+            nxt = torch.where(in_range, nxt.long(), 0)
+            nd = torch.where((nd >= 0) & (s < depth), nxt, nd)
+        slots = (~torch.clamp(nd, max=-1)).clamp(0, nl - 1)
+        vals = torch.gather(leaf_values[t0:t0 + chunk], 1, slots)
+        for i in range(m.shape[0]):
+            if n_class > 1:
+                k = klass[t0 + i]
+                acc[:, k] = acc[:, k] + vals[i]
+            else:
+                acc = acc + vals[i]
+    return acc
+
+
+def serve_forest(X: torch.Tensor, rec: DeviceRecords,
+                 leaf_values: torch.Tensor, n_class: int = 1, *,
+                 plan: Optional[ForestPlan] = None) -> torch.Tensor:
+    """Raw scores of the rows X [B, F] f32 under the forest of `rec`:
+    [B] or [B, K] float64, each the boosting-order exact sum of the
+    rows' leaf values `leaf_values` [T, NL].  CUDA tensors launch
+    `csrc/serve.cu` once (with `plan`, default `records.forest_plan`);
+    CPU tensors run `serve_forest_plain`."""
+    global SERVE_LAUNCHES
+    if X.device.type == "cpu":
+        return serve_forest_plain(X, rec, leaf_values, n_class)
+    if X.device.type != "cuda":
+        raise LightGBMError(f"no serve kernel for {X.device}")
+    _check_serve(X, rec, leaf_values, n_class)
+    for t in (X, rec.nodes, rec.meta, rec.catw, leaf_values):
+        if t is not None and not t.is_contiguous():
+            raise LightGBMError("serve inputs must be contiguous")
+    b, f = X.shape
+    t_trees, nl = leaf_values.shape
+    shape = (b, n_class) if n_class > 1 else (b,)
+    out = torch.empty(shape, dtype=torch.float64, device=X.device)
+    if b == 0:
+        return out
+    from . import _build
+    lib = _build.load("serve")
+    plan = plan or forest_plan(b, f, t_trees, rec.ni_max, rec.mw, n_class)
+    rc = _build.on_stream(X.device, lambda stream: lib.lgbt_serve(
+        X.data_ptr(), b, f, rec.nodes.data_ptr(), rec.meta.data_ptr(),
+        rec.catw.data_ptr() if rec.mw else None, rec.mw,
+        leaf_values.data_ptr(), nl, t_trees, n_class, plan.rows,
+        plan.cluster, plan.trees, plan.threads, plan.ilp, int(plan.stage),
+        int(plan.rows_smem), rec.ni_max, plan.smem, out.data_ptr(),
+        ctypes.c_void_p(stream)))
+    if rc != 0:
+        raise LightGBMError(f"serve kernel launch failed: CUDA error {rc}")
+    SERVE_LAUNCHES += 1
     return out
 
 
@@ -179,20 +325,28 @@ def compiled_predict(X: torch.Tensor, planes: Sequence[Planes],
                      gather_idx: torch.Tensor, leaf_values: torch.Tensor,
                      cls: Optional[torch.Tensor] = None, *,
                      meta: Sequence[Tuple[int, int]], n_class: int = 1,
-                     convert: Optional[Callable] = None) -> torch.Tensor:
-    """The compiled path's device program: every bucket's tiles
-    traverse, then `accumulate_slots_exact` reads each tree's slots at
-    its plan row `gather_idx[t]` and sums them in boosting order.
+                     convert: Optional[Callable] = None,
+                     records: Optional[DeviceRecords] = None
+                     ) -> torch.Tensor:
+    """The compiled path's device program.  With `records` (the serving
+    runtime's): `serve_forest`, one fused launch.  Without: every
+    bucket's tiles traverse, then `accumulate_slots_exact` reads each
+    tree's slots at its plan row `gather_idx[t]` and sums them in
+    boosting order (the JAX package's program; the same bits).
 
     `planes` holds per-bucket `(words, kids, pal, catw | None)`, `meta`
     the matching `(depth, mw)`.  Returns the f64 raw sums ([B] or
     [B, K]) when `convert` is None; else `convert` applied to their
     round-to-nearest-even f32 downcast."""
-    parts = [traverse_bucket(X, words, kids, pal, catw, depth, mw)
-             for (words, kids, pal, catw), (depth, mw) in zip(planes, meta)]
-    slots = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-    raw = accumulate_slots_exact(slots, gather_idx, leaf_values,
-                                 n_class=n_class, cls=cls)
+    if records is not None:
+        raw = serve_forest(X, records, leaf_values, n_class)
+    else:
+        parts = [traverse_bucket(X, words, kids, pal, catw, depth, mw)
+                 for (words, kids, pal, catw), (depth, mw)
+                 in zip(planes, meta)]
+        slots = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        raw = accumulate_slots_exact(slots, gather_idx, leaf_values,
+                                     n_class=n_class, cls=cls)
     if convert is None:
         return raw
     return convert(raw.to(torch.float32))

@@ -1,66 +1,139 @@
-// Exact f64 sum of pre-routed leaf slots, in boosting order.
+// Exact f64 sum of pre-routed leaf slots, in boosting order: the
+// standalone sum.
 //
 // Not a TPU kernel: on the TPU, `lightgbm_tpu/ops/predict.py:
 // accumulate_slots_exact` is an XLA scan that adds binary64 in software out
 // of u32 operations (`_f64_add_bits`), because the TPU has no f64.  The
-// H100 has native f64, so one thread per (row, class) walks the trees
-// t = 0..T-1 and adds leaf_values[t, slots[gather_idx[t], row]] into its
-// accumulator with round-to-nearest-even, starting from +0.0: the same
+// H100 has native f64: tree t's value leaf_values[t, slots[gather_idx[t],
+// row]] is added into its row's (and class's) accumulator with
+// round-to-nearest-even, trees t = 0..T-1 in order, from +0.0: the same
 // values, in the same order, with the same rounding at every step, hence
-// the same bits.  A tree reduction, atomics or any reordering would change
-// the bits, so the loop stays sequential per thread.  Built with
-// -fmad=false, and the add is an explicit __dadd_rn.
+// the same bits.  The serving path no longer calls it (the fused
+// `serve.cu` sums in the walk's launch); it stays for callers that hold
+// slots (a device-sum rung) and is held against its plain version.
+//
+// Design: the ordered-sum stage of `forest_common.cuh`.  A block owns R
+// rows (up to 32, fewer so that a launch has 256 blocks or more); per
+// chunk of trees its threads gather the chunk's (tree, row) values, four a
+// thread with their loads in flight together, into shared memory as
+// [trees, R] f64 (double-buffered, one barrier a chunk), and one thread
+// per (row, class) adds them in tree order, carrying its accumulator
+// from chunk to chunk.  No atomics and no tree reduction, so the bits do
+// not depend on the chunk.  Built with -fmad=false; the add is an explicit
+// __dadd_rn.
 //
 // What bounds it on the H100: reading the [T, B] slots once (coalesced:
-// neighbouring threads read neighbouring rows) and the leaf-value gathers,
-// which hit L2 (the table is T*NL*8 bytes).  Left for later: fusing it
-// into the traverse kernel so the slots never go to device memory.
+// neighbouring lanes read neighbouring rows) and the leaf-value gathers,
+// which hit L2; the dependent adds (T a row) overlap the next chunk's
+// gathers.
 //
 // Indices past the tables clamp, as XLA's gathers do in the JAX package.
 
 #include <cuda_runtime.h>
 
+#include "forest_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 256;
+// pairs a thread gathers at once
+constexpr int kGather = 4;
 
-__global__ void __launch_bounds__(kThreads)
-accumulate_kernel(const int* __restrict__ slots, int R, int B,
+__global__ void __launch_bounds__(kMaxThreads)
+accumulate_kernel(const int* __restrict__ slots, int Rs, int B,
                   const int* __restrict__ gather_idx,
                   const double* __restrict__ values, int T, int NL,
-                  const int* __restrict__ cls, int K,
+                  const int* __restrict__ cls, int K, int R, int trees,
                   double* __restrict__ out) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-  if (idx >= static_cast<long long>(B) * K) return;
-  const int row = static_cast<int>(idx / K);
-  const int k = static_cast<int>(idx - static_cast<long long>(row) * K);
-  double acc = 0.0;
-  for (int t = 0; t < T; ++t) {
-    if (K > 1 && __ldg(cls + t) != k) continue;
-    int g = __ldg(gather_idx + t);
-    g = g < 0 ? 0 : (g >= R ? R - 1 : g);
-    int s = __ldg(slots + static_cast<size_t>(g) * B + row);
-    s = s < 0 ? 0 : (s >= NL ? NL - 1 : s);
-    acc = __dadd_rn(acc, __ldg(values + static_cast<size_t>(t) * NL + s));
+  extern __shared__ __align__(16) unsigned char smem[];
+  const forest::Layout l = forest::layout(R, 1, trees, K, 0, 1, false,
+                                          false);
+  double* vals = reinterpret_cast<double*>(smem + l.vals);
+  double* acc = reinterpret_cast<double*>(smem + l.acc);
+  const int row0 = blockIdx.x * R;
+  for (int i = threadIdx.x; i < R * K; i += blockDim.x) acc[i] = 0.0;
+  const int nq = (T + trees - 1) / trees;
+  const int pairs = trees * R;
+  for (int q = 0; q < nq; ++q) {
+    const int tb = q * trees;
+    const int nb = min(trees, T - tb);
+    double* vbuf = vals + (q & 1) * pairs;
+    // a thread's pairs are gathered together: the index loads, then the
+    // slot loads, then the value loads
+    for (int p0 = threadIdx.x; p0 < pairs; p0 += kGather * blockDim.x) {
+      int g[kGather], s[kGather];
+      bool ok[kGather];
+#pragma unroll
+      for (int i = 0; i < kGather; ++i) {
+        const int p = p0 + i * blockDim.x;
+        const int c = p / R;
+        ok[i] = p < pairs && c < nb && row0 + p - c * R < B;
+        g[i] = ok[i] ? __ldg(gather_idx + tb + c) : 0;
+        g[i] = g[i] < 0 ? 0 : (g[i] >= Rs ? Rs - 1 : g[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kGather; ++i) {
+        const int p = p0 + i * blockDim.x;
+        const int c = p / R;
+        s[i] = ok[i] ? __ldg(slots + static_cast<size_t>(g[i]) * B + row0 +
+                             p - c * R)
+                     : 0;
+        s[i] = s[i] < 0 ? 0 : (s[i] >= NL ? NL - 1 : s[i]);
+      }
+      double v[kGather];
+#pragma unroll
+      for (int i = 0; i < kGather; ++i) {
+        const int c = (p0 + i * blockDim.x) / R;
+        v[i] = ok[i] ? __ldg(values + static_cast<size_t>(tb + c) * NL + s[i])
+                     : 0.0;
+      }
+#pragma unroll
+      for (int i = 0; i < kGather; ++i)
+        if (p0 + i * blockDim.x < pairs) vbuf[p0 + i * blockDim.x] = v[i];
+    }
+    __syncthreads();
+    const forest::LocalVals lv{vbuf};
+    if (K > 1)
+      forest::ordered_sum<true>(acc, lv, cls, 1, 1, trees, tb, T, R, K, 0, R);
+    else
+      forest::ordered_sum<false>(acc, lv, cls, 1, 1, trees, tb, T, R, 1, 0,
+                                 R);
   }
-  out[idx] = acc;
+  for (int i = threadIdx.x; i < R * K; i += blockDim.x) {
+    const int row = row0 + i / K;
+    if (row < B) out[static_cast<size_t>(row) * K + i % K] = acc[i];
+  }
 }
 
 }  // namespace
 
-// slots [R, B] i32, gather_idx [T] i32, values [T, NL] f64, cls [T] i32 or
-// null when K == 1, out [B, K] f64.  Returns the cudaError_t of the launch.
-extern "C" int lgbt_accumulate(const int* slots, int R, int B,
+// slots [Rs, B] i32, gather_idx [T] i32, values [T, NL] f64, cls [T] i32 or
+// null when K == 1, out [B, K] f64.  The launch (`compiler/records.py
+// accumulate_plan`): R rows a block, `trees` trees a chunk, `threads` a
+// block, `smem` the bytes of its layout.  Returns the cudaError_t of the
+// launch.
+extern "C" int lgbt_accumulate(const int* slots, int Rs, int B,
                                const int* gather_idx, const double* values,
-                               int T, int NL, const int* cls, int K,
-                               double* out, cudaStream_t stream) {
-  const long long n = static_cast<long long>(B) * K;
-  if (n <= 0) return 0;
-  if (T > 0 && (R <= 0 || NL <= 0)) return cudaErrorInvalidValue;
-  const long long blocks = (n + kThreads - 1) / kThreads;
+                               int T, int NL, const int* cls, int K, int R,
+                               int trees, int threads, int smem, double* out,
+                               cudaStream_t stream) {
+  if (B <= 0 || K <= 0) return 0;
+  if ((T > 0 && (Rs <= 0 || NL <= 0)) || (K > 1 && cls == nullptr) ||
+      R <= 0 || trees <= 0 || threads <= 0 || threads > kMaxThreads ||
+      threads % 32 != 0)
+    return cudaErrorInvalidValue;
+  if (smem != forest::layout(R, 1, trees, K, 0, 1, false, false).total ||
+      smem > forest::kMaxSmem)
+    return cudaErrorInvalidValue;
+  if (smem > forest::kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        accumulate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks = (static_cast<long long>(B) + R - 1) / R;
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  accumulate_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      slots, R, B, gather_idx, values, T, NL, cls, K, out);
+  accumulate_kernel<<<static_cast<unsigned>(blocks), threads, smem,
+                      stream>>>(slots, Rs, B, gather_idx, values, T, NL, cls,
+                                K, R, trees, out);
   return static_cast<int>(cudaGetLastError());
 }

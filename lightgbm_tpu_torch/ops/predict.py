@@ -10,10 +10,13 @@ The port's counterpart of `lightgbm_tpu/ops/predict.py`, for serving:
   The serving runtime's parity probe routes its probe batch with it.
 * `accumulate_slots_exact` — the boosting-order f64 sum of pre-routed
   leaf slots.  The JAX package adds binary64 in software out of u32 ops
-  (the TPU has no f64); here a CUDA kernel (`csrc/accumulate.cu`) adds
+  (the TPU has no f64); here a CUDA kernel (`csrc/accumulate.cu`, the
+  ordered-sum stage it shares with the fused serving kernel) adds
   native f64 in the same order, with the same round-to-nearest-even
   per step, so the bits agree.  On CPU tensors the wrapper runs the
-  plain version, `accumulate_slots_exact_plain`.
+  plain version, `accumulate_slots_exact_plain`.  The serving path sums
+  inside the fused kernel (`compiler/kernel.py serve_forest`); this
+  standalone sum is for callers that hold slots.
 """
 from __future__ import annotations
 
@@ -149,9 +152,11 @@ def accumulate_slots_exact(slots: torch.Tensor, gather_idx: torch.Tensor,
                            cls: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Boosting-order f64 sum of pre-routed leaf slots: [B] or [B, K]
-    float64.  CUDA tensors go through `csrc/accumulate.cu` (one thread
-    per (row, class), the trees in order, `__dadd_rn`, built with
-    `-fmad=false`); CPU tensors through the plain version."""
+    float64.  CUDA tensors go through `csrc/accumulate.cu` (chunks of
+    trees gathered into shared memory, then one thread per (row, class)
+    adding them in order with `__dadd_rn`, built with `-fmad=false`;
+    the launch is `compiler/records.py accumulate_plan`); CPU tensors
+    through the plain version."""
     global ACCUMULATE_LAUNCHES
     if slots.device.type == "cpu":
         return accumulate_slots_exact_plain(slots, gather_idx, leaf_values,
@@ -163,18 +168,21 @@ def accumulate_slots_exact(slots: torch.Tensor, gather_idx: torch.Tensor,
         if t is not None and not t.is_contiguous():
             raise LightGBMError("accumulate inputs must be contiguous")
     from ..compiler import _build
+    from ..compiler.records import accumulate_plan
     lib = _build.load("accumulate")
     r, b = slots.shape
     t_trees, nl = leaf_values.shape
+    k = max(n_class, 1)
     shape = (b, n_class) if n_class > 1 else (b,)
     out = torch.empty(shape, dtype=torch.float64, device=slots.device)
-    with torch.cuda.device(slots.device):
-        stream = torch.cuda.current_stream(slots.device).cuda_stream
-        rc = lib.lgbt_accumulate(
-            slots.data_ptr(), r, b, gather_idx.data_ptr(),
-            leaf_values.data_ptr(), t_trees, nl,
-            cls.data_ptr() if n_class > 1 else None, max(n_class, 1),
-            out.data_ptr(), ctypes.c_void_p(stream))
+    if b == 0:
+        return out
+    plan = accumulate_plan(b, t_trees, k)
+    rc = _build.on_stream(slots.device, lambda stream: lib.lgbt_accumulate(
+        slots.data_ptr(), r, b, gather_idx.data_ptr(),
+        leaf_values.data_ptr(), t_trees, nl,
+        cls.data_ptr() if n_class > 1 else None, k, plan.rows, plan.trees,
+        plan.threads, plan.smem, out.data_ptr(), ctypes.c_void_p(stream)))
     if rc != 0:
         raise LightGBMError(f"accumulate kernel launch failed: CUDA error "
                             f"{rc}")

@@ -4,11 +4,14 @@ The port's counterpart of `lightgbm_tpu/serving/runtime.py`, reduced to
 its top rung.  `ServingRuntime(booster)` exports the model, compiles it
 into depth-bucketed tree tiles (`compiler.build_plan`), puts the packed
 planes on the device and holds the compiled path to an exact parity
-probe.  `predict` pads each request to a power-of-two row bucket, stages
-it as f32 and runs `compiler.kernel.compiled_predict`: the traverse
-kernel per depth bucket, then the boosting-order f64 accumulation
-kernel, then the objective's link on the card.  Raw scores are
-byte-identical to the JAX package's compiled rung on the same model.
+probe.  At `refresh` it also derives the forest's records from the
+planes (`compiler/records.py`: one 16-byte record a node, the trees in
+boosting order).  `predict` pads each request to a power-of-two row
+bucket, stages it as f32 and runs `compiler.kernel.compiled_predict`
+on the records: one launch of the fused serving kernel (every depth
+bucket's traversal and the boosting-order f64 sum), then the
+objective's link on the card.  Raw scores are byte-identical to the
+JAX package's compiled rung on the same model.
 
 What this runtime does not have yet (see ROADMAP.md): the lower rungs
 of the fallback ladder (device-sum, slot path, host walk), the bounded
@@ -34,7 +37,8 @@ import numpy as np
 import torch
 
 from ..compiler import PlanNotCompilable, build_plan
-from ..compiler.kernel import ROW_BLOCK, compiled_predict
+from ..compiler.kernel import ROW_BLOCK, DeviceRecords, compiled_predict
+from ..compiler.records import build_records
 from ..ops.predict import predict_leaf_ensemble
 from ..utils.log import LightGBMError
 
@@ -45,10 +49,11 @@ DEFAULT_MAX_BATCH_ROWS = 4096
 #: per-tile plane budget (`tile_vmem_kb`).  The JAX package's 512 KB is
 #: a TPU VMEM figure, above the 227 KB of shared memory an H100 block can
 #: use.  Routing bytes do not depend on the tiling; the tile count sets
-#: how many blocks a launch has.  48 KB keeps a tile within the shared
-#: memory any block gets without opting in, so a later kernel that
-#: stages a tile there needs no other default, and it cuts a large model
-#: into enough tiles to spread a batch over the card's SMs.
+#: how many blocks the standalone traverse launch has (the fused kernel
+#: walks the records, which do not depend on the tiling).  48 KB keeps a
+#: tile within the shared memory any block gets without opting in, and
+#: it cuts a large model into enough tiles to spread a batch over the
+#: card's SMs.
 DEFAULT_TILE_KB = 48.0
 
 
@@ -80,17 +85,19 @@ class _ServeState:
     """Everything `predict` reads, published as one reference, so a
     request never mixes an old plan with a new export."""
 
-    __slots__ = ("export", "plan", "planes", "meta", "gidx", "cls")
+    __slots__ = ("export", "plan", "planes", "meta", "gidx", "cls",
+                 "records")
 
     def __init__(self, export: Dict, plan, planes: Tuple,
                  meta: Tuple, gidx: torch.Tensor,
-                 cls: Optional[torch.Tensor]):
+                 cls: Optional[torch.Tensor], records: DeviceRecords):
         self.export = export
         self.plan = plan
         self.planes = planes
         self.meta = meta
         self.gidx = gidx
         self.cls = cls
+        self.records = records
 
 
 class ServingRuntime:
@@ -120,8 +127,8 @@ class ServingRuntime:
 
     # ------------------------------------------------------------ export
     def refresh(self) -> None:
-        """(Re-)export the booster, compile it, put the planes on the
-        device and run the parity probe.  Raises `LightGBMError` when
+        """(Re-)export the booster, compile it, put the planes and the
+        records on the device and run the parity probe.  Raises `LightGBMError` when
         the model cannot be served this way or the probe disagrees."""
         with self._refresh_lock:
             ex = self._booster.export_predict_arrays(
@@ -151,7 +158,10 @@ class ServingRuntime:
                           if "catw" in p else 0) for p in plan.planes)
             gidx = torch.from_numpy(plan.gather_idx).to(self.device)
             cls = ex["stacked"].get("cls") if ex["num_class"] > 1 else None
-            st = _ServeState(ex, plan, tuple(planes), meta, gidx, cls)
+            rec = build_records(
+                plan, None if cls is None else cls.cpu().numpy())
+            st = _ServeState(ex, plan, tuple(planes), meta, gidx, cls,
+                             DeviceRecords.of(rec, self.device))
             self._probe_compiled(st)
             self._state = st
 
@@ -296,7 +306,8 @@ class ServingRuntime:
         conv = None if want_raw else self._booster.objective_.convert_output
         out = compiled_predict(Xd, st.planes, st.gidx, ex["value_f64"],
                                st.cls, meta=st.meta,
-                               n_class=ex["num_class"], convert=conv)
+                               n_class=ex["num_class"], convert=conv,
+                               records=st.records)
         return out[:n].cpu().numpy()
 
     def _stage32(self, Xc: np.ndarray, b: int) -> torch.Tensor:
