@@ -13,7 +13,8 @@ Phases, each printing one JSON line:
   env     torch and CUDA versions, the card (nvidia-smi), the build of
           every kernel (`compiler/_build.build_all`, one nvcc per source,
           all started together) with its time and the compiler's
-          register report for each source.
+          register report for each source; the device time of an empty
+          kernel's launch (the floor of a few-microsecond kernel).
   golden  the five model files under tests/data/, and two wide synthetic
           models (64 and 300 features; for these also a 4096-row batch,
           where the fused kernel's row blocks are largest and opt in to
@@ -47,11 +48,13 @@ Phases, each printing one JSON line:
   objective the objectives' links (`ops/xla_math.py`, XLA's CPU exp,
           sigmoid and softmax): the link kernel (`csrc/links.cu`) bitwise
           its plain version (torch ops) on the card and on the CPU, for
-          exp on 2^24 f32 bit patterns and sigmoid on 2M scores; on 2M
-          rows, binary (with and without weights) and multiclass
-          `grad_hess` on the card bitwise the same code on the CPU.  Then
-          the sigmoid kernel, its plain version and `torch.sigmoid`
-          timed, and binary `grad_hess`.
+          exp on 2^24 f32 bit patterns and sigmoid on 2M scores, and on
+          the card over all 2^32 f32 inputs, exp and sigmoid (0 may
+          differ); on 2M rows, binary (with and without weights) and
+          multiclass `grad_hess` on the card bitwise the same code on the
+          CPU.  Then the sigmoid kernel, its plain version and
+          `torch.sigmoid` timed, L2 warm and flushed, and binary
+          `grad_hess`.
   histogram the K1 kernel (`csrc/histogram.cu`) against its plain
           version on the card, on the train phase's data (2M rows x 28
           features, u8): every row in one slot, a leaf of 1% of the rows,
@@ -81,7 +84,8 @@ Phases, each printing one JSON line:
           root, S = 1 on one leaf of a depth-5 partition (about 1/32 of
           the rows, a strict-tail leaf's size at 31 leaves), S = 8 and
           S = 14 over a real partition of the rows (one slot matching no
-          row), u16 bins at max_bin 1023.  K2's
+          row), S = 42 over a depth-6 partition (K2 in three launches),
+          u16 bins at max_bin 1023.  K2's
           histogram within 1e-4*sum|x|+1e-6 of its plain version run on
           the card (counts exact) and bitwise K1's; K2's candidates
           bitwise the plain scan run on the card over that histogram;
@@ -115,7 +119,8 @@ Phases, each printing one JSON line:
           same shapes: its histogram bitwise K4's and its plain
           version's, its candidates bitwise the plain scan's and K3's;
           the quantizer's stochastic rounding (threefry) on the card
-          bitwise the CPU's.  Then K5, its plain version and K4 timed.
+          bitwise the CPU's.  Then K5, its plain version, K4 and K3
+          over K5's histogram timed.
   train_quant quantized training (`benchmarks/configs_r4.py` QUANT) on the
           train phase's data: the main run `wave_w8_tail_auto+quant` (31
           leaves, 10 rounds) timed, with per round K5 launches = 1 +
@@ -128,11 +133,12 @@ Phases, each printing one JSON line:
           byte-identical).  Round times, the quantize step's and K5's
           share, one profiled round of the main run and one of
           `strict+quant`.
-  compare (with --phases and --baseline DIR only) K1, K2, K4 and K5
-          of this checkout and of the checkout in DIR on the same
-          inputs: K1 and K2 agree within twice their tolerance, K4 and
-          K5 bitwise; each timed in turns (this, DIR, DIR, this); then
-          compare_serving.
+  compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5
+          and the link kernel of this checkout and of the checkout in
+          DIR on the same inputs: K1 and K2 agree within twice their
+          tolerance, K3 (S = 1, 8, 14, 42, u16), K4, K5 and the link
+          bitwise; each timed in turns (this, DIR, DIR, this), the link
+          also with L2 flushed; then compare_serving.
   compare_serving (with --phases and --baseline DIR only) the main
           phase's model at 1, 256 and 4096 rows: the standalone K6 and
           sum of both checkouts bitwise, this checkout's fused request
@@ -518,8 +524,20 @@ def phase_env():
            "device_count": torch.cuda.device_count(),
            "nvidia_smi": smi.stdout.strip(), "build_s": build_s,
            "compiled": {n: b.compiled for n, b in built.items()},
-           "ptxas": {n: b.ptxas for n, b in built.items()}})
+           "ptxas": {n: b.ptxas for n, b in built.items()},
+           "empty_launch_ms": empty_launch_ms()})
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+
+
+def empty_launch_ms(device=None):
+    """Device time of one launch of an empty kernel (torch's spin kernel
+    asked for 0 cycles), queued behind a spin kernel as the short kernels
+    are timed: the floor a few-microsecond kernel's time is read
+    against."""
+    import torch
+    with torch.cuda.device(device or 0):
+        return _cuda_ms(lambda: torch.cuda._sleep(0), iters=100,
+                        queued=True)
 
 
 def _golden_batches(rt, ex, nf, wide):
@@ -1395,12 +1413,21 @@ def _fields_equal(a, b):
                for x, y_ in zip(a, b))
 
 
+def _hist14(fn, bins, pay, lid, sl, mb):
+    """`fn` (K1's `histogram_multi` or its plain version, at most 14
+    slots a call) over any number of slots, 14 at a time."""
+    import torch
+    return torch.cat([fn(bins, pay, lid, sl[c:c + 14], mb)
+                      for c in range(0, sl.shape[0], 14)])
+
+
 def phase_fused(data: TrainData, seed: int, device=None,
                 u16_rows: int = 100_000, timing: bool = True):
     """K2 and K3 on the card against K1 and the plain scan, on the train
     phase's bins: S = 1 at the root and on one leaf of a depth-5
     partition, S = 8 and S = 14 over a real
-    partition of the rows with one slot that matches no row, and u16
+    partition of the rows with one slot that matches no row, S = 42
+    over a depth-6 partition (K2 in three launches, K3 in one), and u16
     bins at max_bin 1023.  Returns the kernels-line entries of K2 and K3
     at the S = 8 case (the bench's wave width; launches filled in by the
     wave phase)."""
@@ -1425,6 +1452,8 @@ def phase_fused(data: TrainData, seed: int, device=None,
               [0]),
              ("s8", ds, bins_main, data.y, lid3, list(range(7)) + [99]),
              ("s14", ds, bins_main, data.y, lid4, list(range(13)) + [99]),
+             ("s42", ds, bins_main, data.y, _partition(bins_main, 6),
+              list(range(42))),
              ("u16_1023_s4", wide, bins_wide, data.y[:u16_rows],
               _partition(bins_wide, 2), [0, 1, 2, 3])]
     report = {"phase": "fused", "scan_kw": FUSED_SCAN_KW, "cases": {}}
@@ -1445,7 +1474,7 @@ def phase_fused(data: TrainData, seed: int, device=None,
         pay = torch.from_numpy(_wave_payload(y, seed)).to(dev)
         lid = torch.from_numpy(lid_np).to(dev)
         sl = torch.tensor(slots, dtype=torch.int32, device=dev)
-        k1 = histogram_multi(bins, pay, lid, sl, mb)
+        k1 = _hist14(histogram_multi, bins, pay, lid, sl, mb)
         parent = k1[:, 0].sum(dim=1).contiguous()            # [S, 3]
         h2, c2 = fk.fused_hist_split(bins, pay, lid, sl, nb, miss, parent,
                                      mb, **kw)
@@ -1457,9 +1486,9 @@ def phase_fused(data: TrainData, seed: int, device=None,
         # K2 against its own plain version on the same inputs, by K1's
         # rule (K1 shares K2's first stage, so bitwise K1 alone would
         # not catch a fault in that shared code)
-        hp, _ = fk.fused_hist_split_plain(bins, pay, lid, sl, nb, miss,
-                                          parent, mb, **kw)
-        absum = histogram_multi_plain(bins, pay.abs(), lid, sl, mb)
+        hp = _hist14(histogram_multi_plain, bins, pay, lid, sl, mb)
+        absum = _hist14(histogram_multi_plain, bins, pay.abs(), lid, sl,
+                        mb)
         k2_err = (h2 - hp).abs()
         _check(bool((k2_err <= 1e-4 * absum + 1e-6).all()),
                f"fused {name}: K2's histogram outside 1e-4*sum|x|+1e-6 "
@@ -1520,14 +1549,16 @@ def phase_fused(data: TrainData, seed: int, device=None,
             case.update({
                 "k2_ms": _cuda_ms(lambda: fk.fused_hist_split(
                     bins, pay, lid, sl, nb, miss, parent, mb, **kw)),
-                "k2_plain_ms": _cuda_ms(lambda: fk.fused_hist_split_plain(
-                    bins, pay, lid, sl, nb, miss, parent, mb, **kw),
-                    iters=3, warmup=1),
+                "k2_plain_ms": _cuda_ms(lambda: [
+                    fk.fused_hist_split_plain(
+                        bins, pay, lid, sl[c:c + 14], nb, miss,
+                        parent[c:c + 14], mb, **kw)
+                    for c in range(0, s, 14)], iters=3, warmup=1),
                 "k2_device_ms": _cuda_ms(lambda: fk.fused_hist_split(
                     bins, pay, lid, sl, nb, miss, parent, mb, **kw),
                     queued=True),
-                "k1_ms": _cuda_ms(lambda: histogram_multi(bins, pay, lid,
-                                                          sl, mb)),
+                "k1_ms": _cuda_ms(lambda: _hist14(histogram_multi, bins,
+                                                  pay, lid, sl, mb)),
                 "k3_ms": _cuda_ms(lambda: fk.split_scan(
                     h2, nb, miss, parent, **kw), queued=True),
                 "k3_host_pace_ms": _cuda_ms(lambda: fk.split_scan(
@@ -1773,6 +1804,28 @@ def phase_train_wave(data: TrainData, modules, device=None, timing=True,
 #: them at 8)
 OBJECTIVE_ROWS = 2_000_000
 EXP_PATTERNS = 1 << 24
+#: f32 bit patterns a chunk of the link kernel's exhaustive check
+LINK_CHUNK = 1 << 27
+
+
+def _link_differ(fn, plain, device, lo=0, hi=1 << 32, chunk=LINK_CHUNK):
+    """The inputs among the f32 bit patterns [lo, hi) where fn and plain
+    give different bits (NaN payloads included), made on the card in
+    chunks: (count, the first few as hex)."""
+    import torch
+    bad, first = 0, []
+    for a in range(lo, hi, chunk):
+        v = torch.arange(a, min(hi, a + chunk), dtype=torch.int64,
+                         device=device)
+        v = torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+        x = v.view(torch.float32)
+        diff = fn(x).view(torch.int32) != plain(x).view(torch.int32)
+        n = int(diff.sum())
+        if n and len(first) < 4:
+            first += [f"{int(b) & 0xFFFFFFFF:#010x}"
+                      for b in v[diff][:4 - len(first)].tolist()]
+        bad += n
+    return bad, first
 
 
 def _objective_grads(name, n, seed, device):
@@ -1804,7 +1857,8 @@ def _objective_grads(name, n, seed, device):
 
 
 def phase_objective(seed: int, device=None, n: int = OBJECTIVE_ROWS,
-                    patterns: int = EXP_PATTERNS, timing: bool = True):
+                    patterns: int = EXP_PATTERNS, timing: bool = True,
+                    exhaustive: bool = True):
     """The objectives' links on the card (ROADMAP Queue 3 F1): the link
     kernel (`csrc/links.cu`, through `xla_exp_f32` and `xla_sigmoid`)
     bitwise its plain version run on the card and on the CPU, on
@@ -1814,9 +1868,12 @@ def phase_objective(seed: int, device=None, n: int = OBJECTIVE_ROWS,
     multiclass (3 classes) on the card bitwise the same code on the CPU.
     The CPU's bits are `jnp.exp`'s and `jax.nn`'s
     (tests/test_torch_xla_math.py, scripts/check_xla_exp_exhaustive.py).
-    Then the sigmoid kernel, its plain version and `torch.sigmoid` timed
-    at `n` rows, and binary `grad_hess`.  Returns the kernels-line entry
-    (launches filled in from the main phase)."""
+    With `exhaustive`, every one of the 2^32 f32 bit patterns through the
+    kernel and the plain version on the card, for exp and for sigmoid:
+    the count that differ in any bit must be 0.  Then the sigmoid
+    kernel, its plain version and `torch.sigmoid` timed at `n` rows,
+    with L2 warm and flushed, and binary `grad_hess`.  Returns the
+    kernels-line entry (launches filled in from the main phase)."""
     import torch
     from lightgbm_tpu_torch.ops import xla_math
     dev = torch.device(device or "cuda")
@@ -1846,6 +1903,18 @@ def phase_objective(seed: int, device=None, n: int = OBJECTIVE_ROWS,
                f"objective: the {name} kernel != the CPU's plain version")
         report[name] = {"values": int(v.size), "bitwise_plain": True,
                         "bitwise_cpu": True}
+    if exhaustive:
+        t0 = time.perf_counter()
+        for name, fn, plain in (
+                ("exp", xla_math.xla_exp_f32, xla_math.xla_exp_f32_plain),
+                ("sigmoid", xla_math.xla_sigmoid,
+                 xla_math.xla_sigmoid_plain)):
+            bad, first = _link_differ(fn, plain, dev)
+            report[name]["all_2_32_inputs_differ"] = bad
+            report[name]["first_differing"] = first
+            _check(bad == 0, f"objective: the {name} kernel differs from "
+                   f"its plain version on {bad} of 2^32 inputs ({first})")
+        report["exhaustive_s"] = time.perf_counter() - t0
     for name in ("binary", "binary_weighted", "multiclass"):
         obj, args = _objective_grads(name, n, seed, dev)
         g, h = obj.grad_hess(*args)
@@ -1873,13 +1942,19 @@ def phase_objective(seed: int, device=None, n: int = OBJECTIVE_ROWS,
              "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
              >= ops / F32_OPS_PER_S else "operations",
              "ms": None, "plain_ms": None, "library_ms": None}
+    cold = {}
     if timing:
+        flush = _flusher(dev)
         entry["ms"] = _cuda_ms(lambda: xla_math.xla_sigmoid(t), queued=True)
         entry["plain_ms"] = _cuda_ms(lambda: xla_math.xla_sigmoid_plain(t))
         entry["library_ms"] = _cuda_ms(lambda: torch.sigmoid(t),
                                        queued=True)
-    report["kernel"] = {k: entry[k] for k in ("ms", "plain_ms",
-                                              "library_ms", "bound_ms")}
+        cold = {"ms_l2_cold": _cuda_ms(lambda: xla_math.xla_sigmoid(t),
+                                       flush=flush),
+                "library_ms_l2_cold": _cuda_ms(lambda: torch.sigmoid(t),
+                                               flush=flush)}
+    report["kernel"] = dict({k: entry[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms")}, **cold)
     report["library_note"] = ("torch.sigmoid on the same scores: the same "
                               "function, torch's own rounding")
     _emit(report)
@@ -1922,8 +1997,9 @@ def _quant_cases(data, u16_rows, seed=0):
     quantized kernels' phases: S = 1 at the root, on a leaf of 1% of the
     rows and on one leaf of a depth-5 partition (about 1/32 of the rows,
     a strict-tail leaf's size at 31 leaves), S = 8 over a depth-3
-    partition (one slot matching no row), S = 42 over a depth-6
-    partition, and u16 bins at max_bin 1023 (S = 4)."""
+    partition (one slot matching no row), S = 14 over a depth-4
+    partition (the same), S = 42 over a depth-6 partition, and u16 bins
+    at max_bin 1023 (S = 4)."""
     import lightgbm_tpu_torch as lt
     ds = data.dataset
     wide = lt.Dataset(data.X[:u16_rows], label=data.y[:u16_rows],
@@ -1941,6 +2017,8 @@ def _quant_cases(data, u16_rows, seed=0):
             ("leaf_s1", ds, bins_main, data.y, _partition(bins_main, 5),
              [0]),
             ("s8", ds, bins_main, data.y, lid3, list(range(7)) + [99]),
+            ("s14", ds, bins_main, data.y, _partition(bins_main, 4),
+             list(range(13)) + [99]),
             ("s42", ds, bins_main, data.y, _partition(bins_main, 6),
              list(range(42))),
             ("u16_1023_s4", wide, bins_wide, data.y[:u16_rows],
@@ -2049,9 +2127,9 @@ def phase_fused_q(data: TrainData, seed: int, device=None,
     histogram bitwise K4's and its plain version's, its candidates bitwise
     the plain scan's and K3's over the same histogram, two launches
     bitwise equal; the quantizer's stochastic rounding on the card bitwise
-    the same call on the CPU.  Then K5 and its plain version timed, and
-    the bounds.  Returns the kernels-line entry at S = 8 (launches filled
-    in by the train_quant phase)."""
+    the same call on the CPU.  Then K5, its plain version, K4 and K3 (over
+    K5's histogram) timed, and the bounds.  Returns the kernels-line
+    entry at S = 8 (launches filled in by the train_quant phase)."""
     import torch
     from lightgbm_tpu_torch.ops import fused_kernel as fk
     from lightgbm_tpu_torch.ops import hist_kernel_q as hq
@@ -2135,6 +2213,10 @@ def phase_fused_q(data: TrainData, seed: int, device=None,
                 iters=3, warmup=1)
             case["k4_ms"] = _cuda_ms(lambda: hq.histogram_multi_quantized(
                 *base, mb, inp["sg"], inp["sh"]), queued=True)
+            case["k3_ms"] = _cuda_ms(lambda: fk.split_scan(
+                h5, nb, miss, parent, **kw), queued=True)
+        case["k3_bound_ms"] = _bound(s * f * mb * 12 + s * 2 * f * 32,
+                                     scan_ops, F32_OPS_PER_S)[0]
         report["cases"][name] = case
         if name == "s8":
             entry = {"name": "fused_hist_split_q", "route": "cuda",
@@ -2436,18 +2518,21 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
     """K1 and K2 of this checkout against those of the checkout at
     `baseline`, on the histogram and fused phases' inputs: the two agree
     within twice the contract's tolerance (each is within it of the plain
-    version), counts exact; K4 and K5 on the quantized phases' inputs,
-    bitwise (their contract); each timed in turns (this, baseline,
-    baseline, this), at the host's pace (`ms`) and as device time, its
-    launches queued behind a spin kernel (`device_ms`)."""
+    version), counts exact; K3 on K1's histograms at S = 1, 8, 14, 42 and
+    u16, K4 and K5 on the quantized phases' inputs, and the link kernel
+    (exp and sigmoid), bitwise (their contract); each timed in turns
+    (this, baseline, baseline, this), at the host's pace (`ms`) and as
+    device time, its launches queued behind a spin kernel (`device_ms`),
+    the link also with L2 flushed before each launch."""
     import torch
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import fused_kernel as fk
     from lightgbm_tpu_torch.ops import hist_kernel as hk
     from lightgbm_tpu_torch.ops import hist_kernel_q as hq
-    base_hk, base_fk, base_hq = _import_port(
+    from lightgbm_tpu_torch.ops import xla_math
+    base_hk, base_fk, base_hq, base_xm = _import_port(
         baseline, "baseline_port", "ops.hist_kernel", "ops.fused_kernel",
-        "ops.hist_kernel_q")
+        "ops.hist_kernel_q", "ops.xla_math")
     dev = torch.device(device or "cuda")
     ds = data.dataset
     wide = lt.Dataset(data.X[:u16_rows], label=data.y[:u16_rows],
@@ -2457,10 +2542,10 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
     mb = max(m.num_bin for m in ds.bin_mappers)
     mb_w = max(m.num_bin for m in wide.bin_mappers)
     report = {"phase": "compare", "baseline": baseline, "k1": {}, "k2": {},
-              "k4": {}, "k5": {}}
+              "k3": {}, "k4": {}, "k5": {}}
 
     def agree(name, new, old, b, p, l, s, m):
-        absum = hk.histogram_multi_plain(b, p.abs(), l, s, m)
+        absum = _hist14(hk.histogram_multi_plain, b, p.abs(), l, s, m)
         _check(torch.equal(new[..., 2], old[..., 2])
                and bool(((new - old).abs() <= 2e-4 * absum + 2e-6).all()),
                f"compare {name}: this checkout and the baseline disagree")
@@ -2489,6 +2574,8 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
             ("s8", ds, bins_main, data.y, lid3, list(range(7)) + [99]),
             ("s14", ds, bins_main, data.y, _partition(bins_main, 4),
              list(range(13)) + [99]),
+            ("s42", ds, bins_main, data.y, _partition(bins_main, 6),
+             list(range(42))),
             ("u16_1023_s4", wide, bins_wide, data.y[:u16_rows],
              _partition(bins_wide, 2), [0, 1, 2, 3])):
         m = max(x.num_bin for x in d.bin_mappers)
@@ -2500,7 +2587,8 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
         p = torch.from_numpy(_wave_payload(y, seed)).to(dev)
         l = torch.from_numpy(lid_np).to(dev)
         s = torch.tensor(slots, dtype=torch.int32, device=dev)
-        parent = hk.histogram_multi(b, p, l, s, m)[:, 0].sum(dim=1)
+        h = _hist14(hk.histogram_multi, b, p, l, s, m)
+        parent = h[:, 0].sum(dim=1)
         parent = parent.contiguous()
         args = (b, p, l, s, nb, miss, parent, m)
         agree(name, fk.fused_hist_split(*args, **kw)[0],
@@ -2508,6 +2596,15 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
         report["k2"][name] = turns(
             lambda: fk.fused_hist_split(*args, **kw),
             lambda: base_fk.fused_hist_split(*args, **kw))
+        # K3 (and so K2's scan) on K1's histogram: bitwise, its contract
+        sc = (h, nb, miss, parent)
+        _check(_bits_equal(fk.split_scan(*sc, **kw).cpu().numpy(),
+                           base_fk.split_scan(*sc, **kw).cpu().numpy()),
+               f"compare {name}: K3 of this checkout and the baseline "
+               "differ")
+        report["k3"][name] = dict(turns(
+            lambda: fk.split_scan(*sc, **kw),
+            lambda: base_fk.split_scan(*sc, **kw)), slots=len(slots))
     for name, d, bnp, y, lid_np, slots in _quant_cases(data, u16_rows, seed):
         m = max(x.num_bin for x in d.bin_mappers)
         f = bnp.shape[0]
@@ -2539,6 +2636,30 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
             lambda: fk.fused_hist_split_quantized(*args, **kw),
             lambda: base_fk.fused_hist_split_quantized(*args, **kw)),
             rows_in_slots=rows_in)
+    # the link kernel: exp on a stride through the 2^32 bit patterns,
+    # sigmoid on OBJECTIVE_ROWS scores; bitwise, timed in turns with L2
+    # warm and flushed
+    rng = np.random.RandomState(seed)
+    bits = (np.arange(EXP_PATTERNS, dtype=np.uint64)
+            * ((1 << 32) // EXP_PATTERNS)).astype(np.uint32)
+    x = torch.from_numpy(bits.view(np.float32)).to(dev)
+    t = torch.from_numpy((rng.randn(OBJECTIVE_ROWS) * 4).astype(
+        np.float32)).to(dev)
+    _check(_bits_equal(xla_math.xla_exp_f32(x).cpu().numpy(),
+                       base_xm.xla_exp_f32(x).cpu().numpy())
+           and _bits_equal(xla_math.xla_sigmoid(t).cpu().numpy(),
+                           base_xm.xla_sigmoid(t).cpu().numpy()),
+           "compare: the link kernels of this checkout and the baseline "
+           "differ")
+    report["link"] = {"values": OBJECTIVE_ROWS, **turns(
+        lambda: xla_math.xla_sigmoid(t), lambda: base_xm.xla_sigmoid(t))}
+    if timing:
+        flush = _flusher(dev)
+        c = [_cuda_ms(f, flush=flush) for f in (
+            lambda: xla_math.xla_sigmoid(t), lambda: base_xm.xla_sigmoid(t),
+            lambda: base_xm.xla_sigmoid(t), lambda: xla_math.xla_sigmoid(t))]
+        report["link"].update(l2_cold_ms=(c[0] + c[3]) / 2,
+                              baseline_l2_cold_ms=(c[1] + c[2]) / 2)
     _emit(report)
     return report
 

@@ -10,7 +10,10 @@ whose order XLA chooses.  On the CPU it rewrites them:
   most 32 partial sums remain, which are added in order;
 * a prefix sum over n elements (a reduce-window) becomes sequential
   prefixes within blocks of 16, plus the prefix of the block totals
-  (itself computed the same way when there are more than 16 blocks).
+  (itself computed the same way when there are more than 16 blocks);
+* every sequential chain, of a sum or of a prefix, starts from the
+  reduction's init value +0.0, ((0 + x0) + x1) + ..., so a leading -0.0
+  reads as +0.0; a reduction over one element is left as it is.
 
 `tree_sum` and `block_cumsum` add in exactly that order, with IEEE f32
 adds, on any device, so given the same inputs the port's sums are the
@@ -30,7 +33,7 @@ SCAN_BLOCK = 16
 
 
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:
-    acc = x[..., 0]
+    acc = x[..., 0] + 0.0                 # from the init value +0.0
     for k in range(1, x.shape[-1]):
         acc = acc + x[..., k]
     return acc
@@ -41,6 +44,8 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[-1]
     if n == 0:
         return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    if n == 1:
+        return x[..., 0].clone()
     while n > SUM_WINDOW:
         nb = -(-n // SUM_WINDOW)
         pad = nb * SUM_WINDOW - n
@@ -52,6 +57,7 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _seq_prefix(x: torch.Tensor) -> torch.Tensor:
     out = x.clone()
+    out[..., 0] += 0.0                    # from the init value +0.0
     for k in range(1, x.shape[-1]):
         out[..., k] += out[..., k - 1]
     return out
@@ -61,6 +67,8 @@ def block_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum over the last axis in the order of XLA's CPU
     reduce-window rewrite (blocks of SCAN_BLOCK)."""
     n = x.shape[-1]
+    if n == 1:
+        return x.clone()
     if n <= SCAN_BLOCK:
         return _seq_prefix(x)
     nb = -(-n // SCAN_BLOCK)

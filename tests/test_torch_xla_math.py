@@ -170,3 +170,45 @@ def test_links_run_their_plain_versions_on_the_cpu_only():
         xla_exp_f32(x.double())
     with pytest.raises(LightGBMError, match="no link kernel"):
         xla_sigmoid(torch.zeros(3, device="meta"))
+
+
+def _scale_by_exponent(z: np.ndarray, n: np.ndarray) -> np.ndarray:
+    """`csrc/links.cu xla_exp`'s z * 2^n: integer arithmetic on z's
+    exponent field E (flush below 2^-126 when E + n < 1, +inf when
+    E + n > 254, else z's bits plus n << 23)."""
+    zb = z.view(np.int32).astype(np.int64)
+    e = (zb >> 23) + n
+    out = (zb + n * (1 << 23)).astype(np.uint32).view(np.float32)
+    out = np.where(e < 1, np.float32(0.0), out)
+    return np.where(e > 254, np.float32(np.inf), out).astype(np.float32)
+
+
+def _scale_f64(z: np.ndarray, n: np.ndarray) -> np.ndarray:
+    """The plain version's z * 2^n: exact in f64, flushed below 2^-126,
+    rounded to f32."""
+    y = z.astype(np.float64) * np.ldexp(1.0, n)
+    with np.errstate(over="ignore"):
+        return np.where(y < 2.0 ** -126, np.float32(0.0),
+                        y.astype(np.float32)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mantissa", [0, 1, 0x400000, 0x7FFFFF, "random"])
+def test_link_kernel_scale_is_the_f64_scale(mantissa):
+    """The link kernel applies 2^n by integer arithmetic on z's exponent
+    field; for every z the polynomial can give (+inf or a positive normal
+    f32) and every n in [-128, 127] that is the plain version's f64
+    multiply, flush and rounding, bit for bit: here over every exponent
+    field, each n, and the mantissas at the edges of a binade."""
+    e_field, n = np.meshgrid(np.arange(1, 255), np.arange(-128, 128))
+    e_field, n = e_field.ravel(), n.ravel()
+    if mantissa == "random":
+        m = np.random.default_rng(3).integers(0, 1 << 23, e_field.size)
+    else:
+        m = np.full(e_field.size, mantissa)
+    z = ((e_field << 23) | m).astype(np.uint32).view(np.float32)
+    # z = +inf comes only with n = 127 (x past the cap); any n >= 0 here
+    z = np.concatenate([z, np.full(128, np.inf, np.float32)])
+    n = np.concatenate([n, np.arange(0, 128)])
+    got, want = _scale_by_exponent(z, n), _scale_f64(z, n)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert (got == 0).any() and np.isinf(got[:-128]).any()
