@@ -4,6 +4,7 @@ and check them.
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --phases histogram,fused   # kernel phases alone
+    python3 chip_smoke.py --phases threefry,train_sampled   # the samplers
     python3 chip_smoke.py --phases golden,main       # serving alone
     python3 chip_smoke.py --phases compare --baseline DIR   # K1-K6, sum
     python3 chip_smoke.py --phases compare_serving --baseline DIR
@@ -133,12 +134,41 @@ Phases, each printing one JSON line:
           byte-identical).  Round times, the quantize step's and K5's
           share, one profiled round of the main run and one of
           `strict+quant`.
-  compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5
-          and the link kernel of this checkout and of the checkout in
-          DIR on the same inputs: K1 and K2 agree within twice their
-          tolerance, K3 (S = 1, 8, 14, 42, u16), K4, K5 and the link
-          bitwise; each timed in turns (this, DIR, DIR, this), the link
-          also with L2 flushed; then compare_serving.
+  threefry the threefry kernel (`csrc/threefry.cu`, which every draw of
+          `ops/threefry.py` launches on a CUDA device) bitwise its plain
+          version (torch ops) on the card and on the CPU: bits and
+          uniforms under 4 keys at n = 1, 31 and 2M + 3, and a 509 x 28
+          batch with one key a row (a 255-leaf tree's node ids by the
+          features) with the permutations sorted from it.  Then the 2M
+          uniform, the 2M bits and the batch timed L2-warm (queued
+          behind a spin kernel) beside the bound of their operations
+          (the INT32 lanes' share, or the schedulers' dispatch) and bytes,
+          and the plain version; the kernel's SASS instruction mix
+          (`cuobjdump -sass` of its build), a hash's share apart.
+  train_sampled the samplers on the train phase's data: (a) bagging 0.8
+          every round and feature_fraction 0.8 on the bench's wave, f32
+          (the main run: per round one threefry launch for the bag and
+          one for the tree's features) and quantized (two more, the
+          quantizer's), each round's bag and each tree's feature mask
+          on the card bitwise the CPU's from the same keys, two runs and
+          the unfused run byte-identical, held-out AUC within 0.02 of
+          the unsampled f32 wave's; (b) GOSS as
+          `benchmarks/bench_families.py` runs it, 14 rounds (rounds
+          10-13 sample): each sampled round's weights bitwise the CPU's
+          from the card's gradients, two runs byte-identical, quantized
+          GOSS on the f32 histograms with the reference's warning; (c)
+          feature_fraction_bynode 0.5 and extra_trees on the strict
+          grower at 255 leaves, 3 rounds: every tree's node masks (one
+          batched draw a sampler a tree) bitwise the CPU's, one host
+          sync a split and one a tree as unsampled, two runs
+          byte-identical.
+  compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5,
+          the link kernel and the quantize step of this checkout and of
+          the checkout in DIR on the same inputs: K1 and K2 agree within
+          twice their tolerance, K3 (S = 1, 8, 14, 42, u16), K4, K5, the
+          link and the quantize step bitwise; each timed in turns (this,
+          DIR, DIR, this), the link also with L2 flushed; then
+          compare_serving.
   compare_serving (with --phases and --baseline DIR only) the main
           phase's model at 1, 256 and 4096 rows: the standalone K6 and
           sum of both checkouts bitwise, this checkout's fused request
@@ -148,7 +178,9 @@ Phases, each printing one JSON line:
           traverse and accumulate show 0 and their golden-phase launches
           beside; histogram: train; fused_hist_split and
           split_scan: train_wave; fused_hist_split_q: train_quant's main
-          run; histogram_q: its strict run), parity, times, bound.
+          run; histogram_q: its strict run; threefry: train_sampled's
+          main run, with train_quant's quantizer launches beside),
+          parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line `{"ok": true, "device": {...}}`.  Any failure exits
@@ -176,8 +208,13 @@ GOLDEN = ("binary", "categorical", "goss_bagging", "multiclass",
 # 132 SMs x 128 f32 lanes x 2 (FMA) x 1.98 GHz.  An SM has 64 INT32
 # lanes and 64 FP64 lanes, so one-operation instructions (an integer op,
 # an f64 add) peak at 132 x 64 x 1.98 GHz = 16.7e12 per second.
+# Each SM's four schedulers dispatch one 32-lane warp instruction a clock,
+# 132 x 128 x 1.98 GHz lane-instructions a second; nvcc can dispatch an
+# integer add as IMAD on the f32 multiply-add lanes, beside the INT32
+# lanes' shifts and logic, so adds count against the dispatch rate only.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+DISPATCH_LANES_PER_S = 132 * 128 * 1.98e9
 F64_ADDS_PER_S = 132 * 64 * 1.98e9
 F32_OPS_PER_S = 67e12
 #: kernels held to their plain versions within a tolerance (the rest
@@ -516,7 +553,8 @@ def phase_env():
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     _check(set(built) == {"traverse", "accumulate", "serve", "histogram",
-                          "histogram_q", "fused_split", "links"},
+                          "histogram_q", "fused_split", "links",
+                          "threefry"},
            f"build_all built {sorted(built)}")
     _emit({"phase": "env", "torch": torch.__version__,
            "cuda": torch.version.cuda,
@@ -2239,19 +2277,23 @@ def phase_fused_q(data: TrainData, seed: int, device=None,
 def _quant_counters(modules):
     from lightgbm_tpu_torch.ops import grow as grow_module
     from lightgbm_tpu_torch.ops import grow_wave
+    from lightgbm_tpu_torch.ops import threefry
     return {"k5": modules["fused"].FUSED_Q_LAUNCHES,
             "k3": modules["fused"].SCAN_LAUNCHES,
             "k4": modules["hist_q"].HIST_Q_LAUNCHES,
             "k2": modules["fused"].FUSED_LAUNCHES,
             "k1": modules["hist"].HIST_LAUNCHES,
+            "threefry": threefry.THREEFRY_LAUNCHES,
             "syncs": grow_module.HOST_SYNCS, "waves": grow_wave.WAVES,
             "hist_waves": grow_wave.HIST_WAVES}
 
 
 def _zero_quant_counters(modules):
+    from lightgbm_tpu_torch.ops import threefry
     _zero_wave_counters(modules)
     modules["fused"].FUSED_Q_LAUNCHES = 0
     modules["hist_q"].HIST_Q_LAUNCHES = 0
+    threefry.THREEFRY_LAUNCHES = 0
 
 
 def phase_train_quant(data: TrainData, modules, device=None, timing=True,
@@ -2291,14 +2333,16 @@ def phase_train_quant(data: TrainData, modules, device=None, timing=True,
     train_s = time.perf_counter() - t0
     total = _quant_counters(modules)
     launches = {"fused_hist_split_q": total["k5"],
-                "split_scan": total["k3"]}
+                "split_scan": total["k3"], "threefry": total["threefry"]}
     spec = bst._grower_spec
     _check(spec.fused and spec.hist_impl == "kernel_q"
            and spec.wave_strict_tail == 16 and spec.wave_width == 8,
            f"train_quant: the main run resolved to {spec}")
     for r, c in enumerate(rec["per_round"]):
+        # the quantizer's two draws (g and h) are one threefry launch each
         _check(c["k5"] == 1 + c["hist_waves"] and c["k3"] == c["hist_waves"]
                and c["k1"] == 0 and c["k2"] == 0 and c["k4"] == 0
+               and c["threefry"] == 2
                and c["syncs"] == 1 + c["hist_waves"] and c["hist_waves"] > 0,
                f"train_quant: round {r + 1} counted {c}")
     _check(len(bst.trees) == rounds, "train_quant: bad model")
@@ -2422,6 +2466,443 @@ def phase_train_quant(data: TrainData, modules, device=None, timing=True,
             "profiled_round": _profile_round(params, data.dataset),
             "strict_profiled_round": _profile_round(strict,
                                                     data.dataset)})
+    _emit(report)
+    return launches
+
+
+# ------------------------------------------------------------ samplers
+#: the threefry kernel's operations a value by the code (`csrc/threefry.cu
+#: threefry_bits`), by the lanes that can run them: 20 rotations (a
+#: funnel shift each) and 21 xors (a round's, the final one) only on the
+#: INT32 lanes; 32 adds (the key's 2, the rounds' 20, 2 at each of the 5
+#: injections, their constant folded into the key word) there or as IMAD;
+#: the uniform mode's shift and or (INT32 lanes) and f32 subtract
+THREEFRY_OPS = {False: {"int32_only": 41, "adds": 32, "f32": 0},
+                True: {"int32_only": 43, "adds": 32, "f32": 1}}
+#: the sampled configurations: bagging and feature_fraction on the bench's
+#: wave (WAVE_PARAMS, `configs_r4.py:44` "wave_w8_tail16") and on its
+#: quantized twin (QUANT_PARAMS); GOSS as `benchmarks/bench_families.py:147`
+#: runs it (the bench's wave, 31 leaves, learning rate 0.1, top_rate 0.2,
+#: other_rate 0.1), 14 rounds so that rounds 10-13 sample; per-node
+#: sampling on the strict grower at the train phase's 255 leaves
+SAMPLING = {"bagging_fraction": 0.8, "bagging_freq": 1,
+            "feature_fraction": 0.8}
+SAMPLED_WAVE = dict(WAVE_PARAMS, **SAMPLING)
+SAMPLED_QUANT = dict(QUANT_PARAMS, **SAMPLING)
+GOSS_PARAMS = dict(WAVE_PARAMS, boosting="goss")
+GOSS_ROUNDS = 14
+NODE_PARAMS = dict(TRAIN_PARAMS, feature_fraction_bynode=0.5,
+                   extra_trees=True)
+NODE_ROUNDS = 3
+#: the kernel phase's per-row-key batch: a 255-leaf tree's node ids
+#: (2 x 255 - 1) by the train phase's features
+NODE_BATCH = (509, TRAIN_FEATURES)
+
+
+def _threefry_bound(count: int, uniform: bool):
+    """(bound ms, bound_by) of `count` threefry values: their 4-byte
+    outputs written once, and their operations (THREEFRY_OPS) on the
+    INT32 lanes or through the schedulers' dispatch, whichever takes
+    longer."""
+    ops = THREEFRY_OPS[uniform]
+    t_o = count * max(ops["int32_only"] / INT32_OPS_PER_S,
+                      sum(ops.values()) / DISPATCH_LANES_PER_S)
+    t_b = 4 * count / HBM_BYTES_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def _sass_mix(name: str, kernel: str):
+    """{function: {"instructions": {mnemonic: count}, "per_hash": ...}}
+    of the SASS in library `name`'s build (`cuobjdump -sass`), for each
+    function whose mangled name holds `kernel`.  `per_hash` divides the
+    counts by the function's hashes, its wrapping funnel shifts / 20
+    (one a rotation)."""
+    from lightgbm_tpu_torch.compiler import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout
+    mix, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn:
+                mix[fn] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if fn and m:
+            mix[fn][m.group(1)] = mix[fn].get(m.group(1), 0) + 1
+    out = {}
+    for fn, ops in mix.items():
+        rot = sum(c for op, c in ops.items() if op.startswith("SHF.L.W"))
+        out[fn] = {"instructions": ops, "funnel_shifts": rot,
+                   "per_hash": ({op: c * 20 / rot for op, c in ops.items()}
+                                if rot else None)}
+    return out
+
+
+def phase_threefry(seed: int, device=None, n: int = TRAIN_ROWS,
+                   timing: bool = True):
+    """The threefry kernel (`csrc/threefry.cu`, through
+    `ops/threefry.py draw`) bitwise its plain version on the card and on
+    the CPU: bits and uniforms under 4 keys at n = 1, 31 and n + 3 (the
+    scalar tail), and a NODE_BATCH draw with one key a row (bits,
+    uniforms and the permutations sorted from them).  Then the 2M
+    uniform draw (the bagging, GOSS and quantizer draws), its bits and
+    the batch timed L2-warm, queued behind a spin kernel, beside the
+    bound of their operations and bytes (`_threefry_bound`) and the
+    plain version, and the kernel's SASS mix.  Returns the kernels-line
+    entry (launches filled in from train_sampled)."""
+    import torch
+    from lightgbm_tpu_torch.ops import threefry as tf
+    dev = torch.device(device or "cuda")
+    keys = tf.fold_in(tf.prng_key(seed), [0, 1, 2, 3])
+    report = {"phase": "threefry", "cases": []}
+    err = 0.0
+    for i in range(keys.shape[0]):
+        for m in (1, 31, n + 3):
+            for uni in (False, True):
+                got = tf.draw(keys[i], m, uni, dev)
+                plain = tf.draw_plain(keys[i:i + 1], m, uni, dev)
+                cpu = tf.draw_plain(keys[i:i + 1], m, uni, "cpu")
+                g = got.cpu()
+                _check(torch.equal(g, plain.cpu()) and torch.equal(g, cpu),
+                       f"threefry: key {i}, n {m}, uniform {uni}: the "
+                       "kernel != its plain version")
+                if uni:
+                    err = max(err, _max_abs_err(g.numpy(), cpu.numpy()))
+                report["cases"].append([i, m, uni])
+    rows, f = NODE_BATCH
+    node_keys = tf.fold_in(keys[0], torch.arange(rows))
+    for uni in (False, True):
+        got = tf.draw(node_keys, f, uni, dev).cpu()
+        _check(torch.equal(got, tf.draw_plain(node_keys, f, uni, dev).cpu())
+               and torch.equal(got, tf.draw_plain(node_keys, f, uni,
+                                                  "cpu")),
+               f"threefry: the {rows} x {f} batch (uniform {uni}) != its "
+               "plain version")
+    _check(torch.equal(tf.permutation(node_keys, f, dev).cpu(),
+                       tf.permutation(node_keys, f, "cpu")),
+           "threefry: the batch's permutations differ from the CPU's")
+    report["batch"] = {"rows": rows, "n": f, "bitwise": True}
+    key = keys[0]
+    b_ms, b_by = _threefry_bound(n, True)
+    entry = {"name": "threefry", "route": "cuda",
+             "source": "lightgbm_tpu_torch/csrc/threefry.cu",
+             "replaces": "lightgbm_tpu/ops/fused.py:38", "launches": 0,
+             "max_abs_err": err, "ms": None, "plain_ms": None,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if timing:
+        entry["ms"] = _cuda_ms(lambda: tf.uniform(key, (n,), dev),
+                               queued=True)
+        entry["plain_ms"] = _cuda_ms(
+            lambda: tf.draw_plain(key.reshape(1, 2), n, True, dev))
+        bb_ms, bb_by = _threefry_bound(rows * f, True)
+        report["timing"] = {
+            "uniform_2m": {"ms": entry["ms"], "plain_ms": entry["plain_ms"],
+                           "bound_ms": b_ms, "bound_by": b_by},
+            "bits_2m": {"ms": _cuda_ms(lambda: tf.draw(key, n, False, dev),
+                                       queued=True),
+                        "bound_ms": _threefry_bound(n, False)[0]},
+            "batch": {"ms": _cuda_ms(lambda: tf.draw(node_keys, f, True,
+                                                     dev), queued=True),
+                      "plain_ms": _cuda_ms(lambda: tf.draw_plain(
+                          node_keys, f, True, dev)),
+                      "bound_ms": bb_ms, "bound_by": bb_by}}
+        report["ops_per_value"] = {"bits": THREEFRY_OPS[False],
+                                   "uniform": THREEFRY_OPS[True]}
+        try:
+            report["sass"] = _sass_mix("threefry", "threefry_kernel")
+        except (OSError, subprocess.SubprocessError) as e:
+            report["sass"] = {"error": str(e)}
+    report["library_note"] = ("no PyTorch call draws threefry2x32 "
+                              "(torch.rand is Philox: other numbers)")
+    _emit(report)
+    return entry
+
+
+class _Recorder:
+    """Wraps `owner.name` for the length of a `with`: every call's
+    arguments and result (cloned, left on the device) are kept."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.real = getattr(owner, name)
+        self.calls = []
+
+    def __enter__(self):
+        def call(*a, **kw):
+            out = self.real(*a, **kw)
+            self.calls.append((a, kw, _clone(out)))
+            return out
+        setattr(self.owner, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+def _clone(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if hasattr(x, "_fields"):                   # a NamedTuple
+        return type(x)(*(_clone(v) for v in x))
+    return x
+
+
+def _cpu(x):
+    import torch
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _sampled_wave(data, params, modules, rounds, timing, quantized):
+    """One sampled wave configuration: the main run (per-round launches;
+    every round's bagging weights and every tree's feature mask on the
+    card bitwise the CPU's from the same keys), a second run and an
+    unfused run byte-identical to it."""
+    import lightgbm_tpu_torch as lt
+    import lightgbm_tpu_torch.booster as booster_module
+    from lightgbm_tpu_torch.ops import fused
+    from lightgbm_tpu_torch.ops import grow_wave
+    kind = "quantized" if quantized else "f32"
+    patch = [(grow_wave, "fused_hist_split_quantized" if quantized
+              else "fused_hist_split"), (grow_wave, "split_scan")]
+    _zero_quant_counters(modules)
+    with _Recorder(booster_module, "bagging_weights") as bag, \
+            _Recorder(booster_module, "feature_mask") as ff:
+        bst, rec = _wave_run(params, data.dataset, modules, rounds, timing,
+                             patch=patch, counters=_quant_counters)
+    total = _quant_counters(modules)
+    spec = bst._grower_spec
+    _check(spec.fused and spec.hist_impl == ("kernel_q" if quantized
+                                             else "kernel"),
+           f"train_sampled {kind}: the run resolved to {spec}")
+    main = "k5" if quantized else "k2"
+    for r, c in enumerate(rec["per_round"]):
+        # one draw for the bag, one for the tree's features, and the
+        # quantizer's two
+        _check(c[main] == 1 + c["hist_waves"] and c["k3"] == c["hist_waves"]
+               and c["k1"] == 0 and c["k4"] == 0
+               and c["threefry"] == 2 + 2 * quantized
+               and c["syncs"] == 1 + c["hist_waves"],
+               f"train_sampled {kind}: round {r + 1} counted {c}")
+    _check(len(bag.calls) == rounds and len(ff.calls) == rounds,
+           f"train_sampled {kind}: {len(bag.calls)} bags and "
+           f"{len(ff.calls)} feature masks in {rounds} rounds")
+    for a, kw, out in bag.calls:
+        cpu = fused.bagging_weights(*a[:3], "cpu", **kw)
+        _check(_bits_equal(out.cpu().numpy(), cpu.numpy()),
+               f"train_sampled {kind}: round {a[0]}'s bag != the CPU's")
+    for a, kw, out in ff.calls:
+        cpu = fused.feature_mask(*(_cpu(v) for v in a), **kw)
+        _check(bool(out.cpu().eq(cpu).all()) and int(cpu.sum()) < cpu.numel(),
+               f"train_sampled {kind}: tree {a[:2]}'s features != the CPU's")
+    text = bst.model_to_string()
+    again = lt.train(params, data.dataset, num_boost_round=rounds)
+    _check(again.model_to_string() == text,
+           f"train_sampled {kind}: two runs differ")
+    _zero_quant_counters(modules)
+    unfused = lt.train(dict(params, tpu_fused_split=False), data.dataset,
+                       num_boost_round=rounds)
+    uc = _quant_counters(modules)
+    unfused_hist = "k4" if quantized else "k1"
+    _check(not unfused._grower_spec.fused and uc[main] == 0
+           and uc[unfused_hist] == rounds + uc["hist_waves"],
+           f"train_sampled {kind}: the unfused run counted {uc}")
+    _check(_without(unfused.model_to_string(), "tpu_fused_split")
+           == _without(text, "tpu_fused_split"),
+           f"train_sampled {kind}: fused and unfused models differ")
+    raw = bst.predict(data.X_hold, raw_score=True)
+    _check(bool(np.all(np.isfinite(raw))),
+           f"train_sampled {kind}: scores not finite")
+    out = {"params": params, "rounds": rounds,
+           "leaves_per_tree": [t.num_leaves for t in bst.trees],
+           "auc": _auc(raw, data.y_hold),
+           "bags_bitwise_cpu": len(bag.calls),
+           "feature_masks_bitwise_cpu": len(ff.calls),
+           "bag_rows_mean": float(np.mean([float(o.sum()) for _, _, o
+                                           in bag.calls])),
+           "model_text_identical_twice": True,
+           "model_text_identical_unfused": True,
+           "launches": {k: total[k] for k in ("threefry", main, "k3")},
+           "per_round_counts": rec["per_round"]}
+    if timing:
+        steady = rec["round_s"][1:]
+        out.update({
+            "round_ms": [float(x) * 1e3 for x in rec["round_s"]],
+            "ms_per_round_2_to_10": float(steady.mean()) * 1e3,
+            "profiled_round": _profile_round(params, data.dataset)})
+    return out
+
+
+def phase_train_sampled(data: TrainData, modules, device=None,
+                        timing: bool = True, rounds: int = TRAIN_ROUNDS,
+                        f32_wave=None):
+    """`lightgbm_tpu_torch.train` with the samplers on the train phase's
+    data.  (a) Bagging and feature_fraction on the bench's wave, f32
+    (K2/K3, the main run, between its own counter reads) and quantized
+    (K5/K3): per round one threefry launch for the bag and one for the
+    tree's features (and the quantizer's two), every bag and mask bitwise
+    the CPU's, two runs and the unfused run byte-identical, the held-out
+    AUC within 0.02 of the unsampled f32 wave's of the same call
+    (`f32_wave`).  (b) GOSS (bench_families' goss) for GOSS_ROUNDS: every
+    sampled round's weights bitwise the CPU's from the card's gradients,
+    two runs byte-identical, and with `use_quantized_grad` the f32
+    histograms and the reference's warning.  (c) bynode and extra_trees
+    on the strict grower at 255 leaves: every tree's node masks bitwise
+    the CPU's, two runs byte-identical, one host sync per split and one a
+    tree, as unsampled.  Returns the main run's threefry launches."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    import lightgbm_tpu_torch.booster as booster_module
+    import lightgbm_tpu_torch.ops.grow as grow_module
+    from lightgbm_tpu_torch.ops import fused
+    from lightgbm_tpu_torch.utils import log as log_module
+    f32_wave = f32_wave or {}
+    params = [dict(p) for p in (SAMPLED_WAVE, SAMPLED_QUANT, GOSS_PARAMS,
+                                NODE_PARAMS, TRAIN_PARAMS)]
+    if device is not None:
+        for p in params:
+            p["device_type"] = device
+    wave_p, quant_p, goss_p, node_p, strict_p = params
+    report = {"phase": "train_sampled", "rows": int(data.X.shape[0])}
+
+    # ---- (a) bagging + feature_fraction; the f32 run is the main path
+    report["wave_f32"] = _sampled_wave(data, wave_p, modules, rounds,
+                                       timing, quantized=False)
+    launches = report["wave_f32"]["launches"]["threefry"]
+    report["wave_quant"] = _sampled_wave(data, quant_p, modules, rounds,
+                                         timing, quantized=True)
+    auc_f32 = f32_wave.get("auc_fused")
+    for key in ("wave_f32", "wave_quant"):
+        auc = report[key]["auc"]
+        _check(auc_f32 is None or abs(auc - auc_f32) <= 0.02,
+               f"train_sampled {key}: held-out AUC {auc} vs the unsampled "
+               f"f32 wave's {auc_f32}")
+    report["auc_unsampled_f32_wave"] = auc_f32
+    report["unsampled_f32_wave_ms_per_round_2_to_10"] = f32_wave.get(
+        "ms_per_round_2_to_10")
+
+    # ---- (b) GOSS: rounds 10-13 sample
+    _zero_quant_counters(modules)
+    with _Recorder(booster_module, "goss_weights") as goss:
+        t0 = time.perf_counter()
+        gbst, grec = _wave_run(goss_p, data.dataset, modules, GOSS_ROUNDS,
+                               timing, counters=_quant_counters)
+        goss_s = time.perf_counter() - t0
+    start = int(1.0 / goss_p["learning_rate"])
+    _check([a[0] for a, _, _ in goss.calls]
+           == list(range(start, GOSS_ROUNDS)),
+           f"train_sampled goss: sampled iterations "
+           f"{[a[0] for a, _, _ in goss.calls]}")
+    for r, c in enumerate(grec["per_round"]):
+        _check(c["threefry"] == (r >= start)
+               and c["k2"] == 1 + c["hist_waves"],
+               f"train_sampled goss: round {r + 1} counted {c}")
+    kept = []
+    for a, kw, out in goss.calls:
+        it, key0, g, h = a
+        cpu = fused.goss_weights(it, key0, g.cpu(), h.cpu(), **kw)
+        w = out.cpu()
+        _check(_bits_equal(w.numpy(), cpu.numpy()),
+               f"train_sampled goss: iteration {it}'s weights != the CPU's")
+        _check(float(w.min()) == 0.0 and float(w.max()) > 1.0,
+               f"train_sampled goss: iteration {it} did not sample")
+        kept.append(int((w > 0).sum()))
+    gtext = gbst.model_to_string()
+    _check(lt.train(goss_p, data.dataset, num_boost_round=GOSS_ROUNDS)
+           .model_to_string() == gtext, "train_sampled goss: two runs differ")
+    warned = []
+    real_warning = log_module.warning
+    log_module.warning = lambda msg: (warned.append(msg), real_warning(msg))
+    try:
+        _zero_quant_counters(modules)
+        qgoss = lt.train(dict(goss_p, **QUANT), data.dataset,
+                         num_boost_round=GOSS_ROUNDS)
+    finally:
+        log_module.warning = real_warning
+    qc = _quant_counters(modules)
+    _check(qgoss.hist_impl == "kernel" and qgoss._grower_spec.fused
+           and qc["k5"] == 0 and qc["k4"] == 0 and qc["k2"] > 0
+           and any("GOSS rescale weights break lattice integrality" in m
+                   for m in warned),
+           f"train_sampled goss: quantized GOSS resolved to "
+           f"{qgoss.hist_impl}, counted {qc}, warned {warned}")
+    raw = gbst.predict(data.X_hold, raw_score=True)
+    _check(bool(np.all(np.isfinite(raw))) and bool(np.all(np.isfinite(
+        qgoss.predict(data.X_hold, raw_score=True)))),
+        "train_sampled goss: scores not finite")
+    report["goss"] = {
+        "params": GOSS_PARAMS, "rounds": GOSS_ROUNDS,
+        "sampled_iterations": [a[0] for a, _, _ in goss.calls],
+        "rows_kept": kept, "weights_bitwise_cpu": len(goss.calls),
+        "auc": _auc(raw, data.y_hold), "model_text_identical_twice": True,
+        "quantized_hist_impl": qgoss.hist_impl,
+        "quantized_warning": [m for m in warned if "GOSS" in m][:1],
+        "per_round_counts": grec["per_round"], "train_s": goss_s}
+    if timing:
+        report["goss"]["round_ms"] = [float(x) * 1e3
+                                      for x in grec["round_s"]]
+
+    # ---- (c) bynode + extra_trees on the strict grower, 255 leaves
+    def strict_run(p):
+        grow_module.HOST_SYNCS = 0
+        before = _quant_counters(modules)["threefry"]
+        marks = [time.perf_counter()]
+
+        def mark(env):
+            if timing:
+                torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        b = lt.train(p, data.dataset, num_boost_round=NODE_ROUNDS,
+                     callbacks=[mark])
+        splits = sum(t.num_leaves - 1 for t in b.trees)
+        return b, {"syncs": grow_module.HOST_SYNCS, "splits": splits,
+                   "trees": len(b.trees),
+                   "threefry": _quant_counters(modules)["threefry"] - before,
+                   "round_ms": [float(x) * 1e3 for x in np.diff(marks)]}
+
+    with _Recorder(grow_module, "make_node_samplers") as nodes:
+        nbst, nc = strict_run(node_p)
+    plain_bst, pc = strict_run(strict_p)
+    for a, kw, out in nodes.calls:
+        spec, feat, f_count, n_nodes, dev = a
+        cpu = grow_module.make_node_samplers(
+            spec, {"ff_key": feat["ff_key"], "nb": feat["nb"].cpu()},
+            f_count, n_nodes, "cpu")
+        _check(torch.equal(out.bynode.cpu(), cpu.bynode)
+               and torch.equal(out.pick.cpu(), cpu.pick),
+               "train_sampled nodes: a tree's node masks != the CPU's")
+    _check(len(nodes.calls) == NODE_ROUNDS and nc["threefry"] == 2 *
+           NODE_ROUNDS, f"train_sampled nodes: {len(nodes.calls)} trees "
+           f"drew, {nc['threefry']} threefry launches")
+    for name, c in (("sampled", nc), ("unsampled", pc)):
+        # one sync for the root and one per split, with or without sampling
+        _check(c["syncs"] == c["trees"] + c["splits"],
+               f"train_sampled nodes: the {name} run counted {c}")
+    _check(lt.train(node_p, data.dataset, num_boost_round=NODE_ROUNDS)
+           .model_to_string() == nbst.model_to_string(),
+           "train_sampled nodes: two runs differ")
+    raw = nbst.predict(data.X_hold, raw_score=True)
+    _check(bool(np.all(np.isfinite(raw))),
+           "train_sampled nodes: scores not finite")
+    report["nodes"] = {
+        "params": NODE_PARAMS, "rounds": NODE_ROUNDS,
+        "node_ids_a_tree": nodes.calls[0][0][3],
+        "leaves_per_tree": [t.num_leaves for t in nbst.trees],
+        "masks_bitwise_cpu": len(nodes.calls),
+        "host_syncs_per_tree": nc["syncs"] / nc["trees"],
+        "unsampled_host_syncs_per_tree": pc["syncs"] / pc["trees"],
+        "unsampled_leaves_per_tree": [t.num_leaves
+                                      for t in plain_bst.trees],
+        "threefry_launches": nc["threefry"], "auc": _auc(raw, data.y_hold),
+        "model_text_identical_twice": True}
+    if timing:
+        report["nodes"].update(round_ms=nc["round_ms"],
+                               unsampled_round_ms=pc["round_ms"])
     _emit(report)
     return launches
 
@@ -2660,6 +3141,33 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
             lambda: base_xm.xla_sigmoid(t), lambda: xla_math.xla_sigmoid(t))]
         report["link"].update(l2_cold_ms=(c[0] + c[3]) / 2,
                               baseline_l2_cold_ms=(c[1] + c[2]) / 2)
+    # the quantize step (train_quant's: 15 bins, stochastic rounding) on
+    # OBJECTIVE_ROWS binary gradients: its draws are one threefry launch
+    # each here, the baseline's may be torch ops; bitwise, in turns
+    from lightgbm_tpu_torch.ops import fused as fq
+    from lightgbm_tpu_torch.ops import threefry as tfq
+    (base_fq,) = _import_port(baseline, "baseline_port", "ops.fused")
+    p = torch.sigmoid(t)
+    g, h = p - 0.5, p * (1.0 - p)
+    key = tfq.fold_in(tfq.prng_key(seed), 7)
+    new_q = fq.quantize_gradients(g, h, 15, key, return_scales=True)
+    old_q = base_fq.quantize_gradients(g, h, 15, key, return_scales=True)
+    _check(all(_bits_equal(a.cpu().numpy(), b.cpu().numpy())
+               for a, b in ((new_q[0], old_q[0]), (new_q[1], old_q[1]))),
+           "compare: the quantize steps of this checkout and the baseline "
+           "differ")
+    if timing:
+        # at the host's pace only: the torch-ops draws of an older
+        # checkout are more launches than the card's queue holds, so
+        # they cannot be queued behind a spin kernel
+        this = lambda: fq.quantize_gradients(  # noqa: E731
+            g, h, 15, key, return_scales=True)
+        base = lambda: base_fq.quantize_gradients(  # noqa: E731
+            g, h, 15, key, return_scales=True)
+        q = [_cuda_ms(f) for f in (this, base, base, this)]
+        report["quantize"] = {"values": OBJECTIVE_ROWS,
+                              "ms": (q[0] + q[3]) / 2,
+                              "baseline_ms": (q[1] + q[2]) / 2}
     _emit(report)
     return report
 
@@ -2674,12 +3182,23 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                  "fused": lambda d, s, b: phase_fused(d(), s),
                  "histogram_q": lambda d, s, b: phase_histogram_q(d(), s),
                  "fused_q": lambda d, s, b: phase_fused_q(d(), s),
+                 "threefry": lambda d, s, b: phase_threefry(s),
+                 "train_sampled": lambda d, s, b: phase_train_sampled(
+                     d(), _train_modules()),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
                                              phase_compare_serving(s, b)),
                  "compare_serving":
                      lambda d, s, b: phase_compare_serving(s, b)}
 #: the phases that compare with --baseline
 COMPARE_PHASES = ("compare", "compare_serving")
+
+
+def _train_modules():
+    import lightgbm_tpu_torch.ops.fused_kernel as fused_module
+    import lightgbm_tpu_torch.ops.hist_kernel as hist_module
+    import lightgbm_tpu_torch.ops.hist_kernel_q as hist_q_module
+    return {"hist": hist_module, "hist_q": hist_q_module,
+            "fused": fused_module}
 
 
 def _phase_main_alone(seed):
@@ -2777,6 +3296,12 @@ def main(argv=None) -> int:
         hist_q["launches"] = quant["histogram_q"]
         fused_q["launches"] = quant["fused_hist_split_q"]
         kernels += [hist_q, fused_q]
+        draws = phase_threefry(args.seed)
+        draws["launches"] = phase_train_sampled(
+            data, {"hist": hist_module, "hist_q": hist_q_module,
+                   "fused": fused_module}, f32_wave=wave_report)
+        draws["quantize_launches"] = quant["threefry"]
+        kernels.append(draws)
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
              "parity": ("within_tol" if k["name"] in WITHIN_TOL

@@ -10,7 +10,9 @@ of the reference's `_init_train`, `_boost_from_average`, `update` /
 `_update_impl`, `__boost` and `_apply_tree_to_score`, for gbdt on
 numerical features with f32 histograms, or with quantized gradients
 (`use_quantized_grad`: the int8 lattice and its integer histograms),
-with the strict leaf-wise grower (`ops/grow.py`, the default
+with every sampler of the reference (bagging, per-class bagging, GOSS,
+`feature_fraction`, `feature_fraction_bynode`, `extra_trees`), with the
+strict leaf-wise grower (`ops/grow.py`, the default
 `tree_grow_policy=leafwise`) or the wave grower (`ops/grow_wave.py`,
 `tree_grow_policy=wave`).  The bin matrix, scores, gradients and
 histograms live on the training device: the card by default
@@ -18,11 +20,14 @@ histograms live on the training device: the card by default
 wave's fused path K2 and K3 make the histograms and split candidates;
 with quantized gradients K4, or K5 and K3), the CPU with
 `device_type="cpu"` (the plain versions).  One iteration is: gradients,
-their quantization (stochastic rounding draws from the port's threefry,
-`ops/threefry.py`, the reference's bits), one grown tree per class,
-the train score updated through the grower's final `leaf_id`, each
-validation score through a bin-level replay of the tree.  Everything the
-slice does not implement raises `LightGBMError` naming its ROADMAP item.
+the round's sample weights (bagging or GOSS), their quantization
+(stochastic rounding), one grown tree per class on the tree's feature
+mask, the train score updated through the grower's final `leaf_id`,
+each validation score through a bin-level replay of the tree.  Every
+random draw is the reference's: the port's threefry (`ops/threefry.py`,
+one launch of `csrc/threefry.cu` a draw on the card) from the same
+keys.  Everything the slice does not implement raises `LightGBMError`
+naming its ROADMAP item.
 
 Loading: model text in and out, the host f64 tree walk (`tree.py`, the
 same per-tree, boosting-order sum as the JAX package's host path), and
@@ -43,7 +48,8 @@ from .basic import Dataset
 from .metrics import Metric, create_metrics
 from .objectives import (UNIT_HESSIAN_OBJECTIVES, Objective,
                          TrainObjective, create_objective, parse_objective)
-from .ops.fused import quantize_gradients
+from .ops.fused import (bagging_weights, feature_mask, goss_weights,
+                        quantize_gradients)
 from .ops.grow import (QUANTIZED_IMPLS, DeviceTree, GrowerSpec, make_grower,
                        split_go_left)
 from .ops.grow_wave import WAVE_WIDTH_DEFAULT, make_wave_grower
@@ -58,8 +64,6 @@ from .utils.config import Config
 from .utils.log import LightGBMError
 
 #: ROADMAP items that the training slice's refusals name
-THREEFRY = ("ROADMAP Queue 1 item 5a: the samplers on jax.random's "
-            "threefry2x32 streams")
 CATEGORICAL = "ROADMAP Queue 1 item 5b: the categorical/EFB grower"
 BREADTH = "ROADMAP Queue 1 item 5d: grower and boosting breadth"
 EXTERNAL = "ROADMAP Queue 1 item 5e: external memory and streaming"
@@ -105,22 +109,10 @@ def refusals(cfg: Config) -> List[str]:
     the ROADMAP item that brings it.  Empty when the slice covers it."""
     out = []
     boosting = str(cfg.boosting).lower()
-    if boosting == "goss" or str(cfg.data_sample_strategy).lower() == "goss":
-        out.append(f"GOSS ({THREEFRY})")
-    elif boosting in ("dart", "rf"):
+    if boosting in ("dart", "rf"):
         out.append(f"boosting={boosting} ({BREADTH})")
-    elif boosting != "gbdt":
+    elif boosting not in ("gbdt", "goss"):
         out.append(f"unknown boosting type {cfg.boosting!r}")
-    if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
-                                 or cfg.pos_bagging_fraction < 1.0
-                                 or cfg.neg_bagging_fraction < 1.0):
-        out.append(f"bagging ({THREEFRY})")
-    if cfg.feature_fraction < 1.0:
-        out.append(f"feature_fraction < 1 ({THREEFRY})")
-    if cfg.feature_fraction_bynode < 1.0:
-        out.append(f"feature_fraction_bynode < 1 ({THREEFRY})")
-    if cfg.extra_trees:
-        out.append(f"extra_trees ({THREEFRY})")
     if any(int(v) for v in (cfg.monotone_constraints or [])):
         out.append(f"monotone_constraints ({BREADTH})")
     if cfg.interaction_constraints not in (None, "", []):
@@ -151,15 +143,28 @@ _HIST_IMPLS = {"auto": None, "segment_sum": "plain", "packed": "packed",
                "pallas_q": "kernel_q", "pallas_fused_q": "kernel_q"}
 
 
+def uses_goss(cfg: Config) -> bool:
+    """GOSS sampling: `boosting=goss`, or `data_sample_strategy=goss` (the
+    reference's `_use_goss`, `booster.py:416`)."""
+    return str(cfg.boosting).lower() == "goss" \
+        or str(cfg.data_sample_strategy).lower() == "goss"
+
+
 def quant_hist_reasons(cfg: Config) -> List[str]:
     """Why the integer-lattice histograms (K4/K5, packed) cannot take
     `cfg` (empty: they can), the reference's `_quant_hist_reasons`
-    (`booster.py:926`).  Its other two reasons, GOSS and custom
-    objectives, are refusals of this port (`refusals`, `_init_train`)."""
+    (`booster.py:926`): too many quantization bins, or GOSS, whose
+    rescaled weights (1 - a) / b break the lattice's integrality.  Its
+    third reason, a custom objective, is a refusal of this port
+    (`_init_train`).  Bagging weights are 0 or 1, which the lattice
+    takes."""
+    reasons = []
     if not 0 < cfg.num_grad_quant_bins <= PACKED_MAX_QUANT_BINS:
-        return [f"num_grad_quant_bins={cfg.num_grad_quant_bins} outside "
-                f"(0, {PACKED_MAX_QUANT_BINS}]"]
-    return []
+        reasons.append(f"num_grad_quant_bins={cfg.num_grad_quant_bins} "
+                       f"outside (0, {PACKED_MAX_QUANT_BINS}]")
+    if uses_goss(cfg):
+        reasons.append("GOSS rescale weights break lattice integrality")
+    return reasons
 
 
 def _hist_impl_fallback(requested: str, reasons: List[str]) -> None:
@@ -246,10 +251,13 @@ def fused_split_of(cfg: Config, policy: str, hist_impl: str) -> bool:
     """Whether the wave grower takes the fused path (K2 + K3, or K5 + K3
     on the lattice), the reference's `_maybe_fuse_hist_impl`
     (`booster.py:1045`): the wave policy on the kernels' histogram path
-    with `tpu_fused_split` on (the default) and no path smoothing.  With
-    `path_smooth > 0` the wave runs unfused on K1 (K4), with a warning as
-    in the reference; the port's kernels need no probe (`chip_smoke.py`
-    holds them to their plain versions)."""
+    with `tpu_fused_split` on (the default), no path smoothing and no
+    extra_trees (whose one threshold a feature the kernels' scan does
+    not take).  Otherwise the wave runs unfused on K1 (K4), with a
+    warning as in the reference; the port's kernels need no probe
+    (`chip_smoke.py` holds them to their plain versions).
+    `feature_fraction_bynode` stays fused: its mask gates
+    `decide_from_candidates`."""
     if hist_impl not in ("kernel", "kernel_q") or not cfg.tpu_fused_split:
         return False
     reasons = []
@@ -261,6 +269,8 @@ def fused_split_of(cfg: Config, policy: str, hist_impl: str) -> bool:
                        "re-scans cached histograms per split)")
     if cfg.path_smooth > 0.0:
         reasons.append("path_smooth")
+    if cfg.extra_trees:
+        reasons.append("extra_trees")
     if reasons:
         kernel = "K4" if hist_impl == "kernel_q" else "K1"
         log.warning("fused hist+split is unavailable with "
@@ -420,7 +430,9 @@ class Booster:
             wave_gain_ratio=self._wave_gain_ratio() if wave else 0.0,
             wave_overgrow=self._wave_overgrow() if wave else 0.0,
             wave_strict_tail=self._wave_strict_tail() if wave else 0,
-            fused=fused_split_of(cfg, self._grow_policy, self.hist_impl))
+            fused=fused_split_of(cfg, self._grow_policy, self.hist_impl),
+            feature_fraction_bynode=cfg.feature_fraction_bynode,
+            extra_trees=bool(cfg.extra_trees))
         self._grower = make_wave_grower(self._grower_spec) if wave \
             else make_grower(self._grower_spec)
         K = self.num_tree_per_iteration
@@ -431,9 +443,12 @@ class Booster:
         self._valid_scores: List[torch.Tensor] = []
         self._ones = torch.ones(self._dd.num_data, dtype=torch.float32,
                                 device=self.device)
-        # threefry key of the quantizer's stochastic rounding, kept on the
-        # host: its words reach the card as kernel arguments, no sync
+        # threefry keys, kept on the host: their words reach the card as
+        # kernel arguments, no sync.  key0 draws the bags, GOSS and the
+        # quantizer's rounding; ff_key0 the trees' and nodes' features
+        self._use_goss = uses_goss(cfg)
         self._rng_key0 = prng_key(cfg.bagging_seed % (2 ** 31))
+        self._ff_key0 = prng_key(cfg.feature_fraction_seed % (2 ** 31))
 
     # ---- the wave policy's knobs (the reference's `booster.py:703-774`)
     WAVE_GAIN_RATIO_DEFAULT = 0.0
@@ -566,23 +581,75 @@ class Booster:
         g, h = quantize_gradients(grad, hess, cfg.num_grad_quant_bins, key)
         return g, h, None
 
+    def _sample_weights(self, it: int) -> torch.Tensor:
+        """[N] f32 bagging weights of iteration `it`, the reference's
+        `_sample_weights` (`booster.py:1409`): per-class bagging (binary
+        labels) on the host with numpy's RandomState((bagging_seed +
+        it // freq) % 2^31), else `bagging_weights` from key0 on the
+        training device, else ones."""
+        cfg = self.config
+        n = self._dd.num_data
+        if (cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0) \
+                and cfg.bagging_freq > 0:
+            bag_it = it // cfg.bagging_freq
+            rng = np.random.RandomState((cfg.bagging_seed + bag_it)
+                                        % (2 ** 31))
+            pos = self.train_set.get_label() > 0
+            mask = np.zeros(n, dtype=np.float32)
+            mask[pos] = rng.rand(int(pos.sum())) < cfg.pos_bagging_fraction
+            mask[~pos] = rng.rand(int((~pos).sum())) \
+                < cfg.neg_bagging_fraction
+            return torch.from_numpy(mask).to(self.device)
+        if cfg.bagging_freq <= 0 or cfg.bagging_fraction >= 1.0:
+            return self._ones
+        return bagging_weights(it, self._rng_key0, n, self.device,
+                               bagging_fraction=cfg.bagging_fraction,
+                               bagging_freq=cfg.bagging_freq)
+
+    def _goss_weights(self, it: int, grad: torch.Tensor,
+                      hess: torch.Tensor) -> torch.Tensor:
+        """[N] f32 GOSS weights of iteration `it` from the exact
+        gradients, the reference's `_goss_weights` (`booster.py:1563`):
+        ones for the first int(1 / learning_rate) iterations or when
+        top_rate + other_rate >= 1."""
+        cfg = self.config
+        start = int(1.0 / cfg.learning_rate)
+        if it < start or cfg.top_rate + cfg.other_rate >= 1.0:
+            return self._ones
+        return goss_weights(it, self._rng_key0, grad, hess,
+                            top_rate=cfg.top_rate,
+                            other_rate=cfg.other_rate, goss_start_iter=start)
+
     def _boost(self, grad: torch.Tensor, hess: torch.Tensor) -> bool:
-        lr = self.config.learning_rate
+        """ref: the JAX package's `__boost` (`booster.py:1581`)."""
+        cfg = self.config
+        lr = cfg.learning_rate
         K = self.num_tree_per_iteration
         it = self.cur_iter
         dd = self._dd
         feat = dd.feat
-        if self.config.use_quantized_grad and \
-                self.config.num_grad_quant_bins > 0:
+        # GOSS ranks the exact gradients: the weights come before the
+        # quantization, as in the reference
+        sw = self._goss_weights(it, grad, hess) if self._use_goss \
+            else self._sample_weights(it)
+        if cfg.use_quantized_grad and cfg.num_grad_quant_bins > 0:
             grad, hess, qscales = self._quantize(grad, hess, it)
             if qscales is not None:
                 feat = {**feat, "qscales": qscales}
+        node_sampling = cfg.feature_fraction_bynode < 1.0 or cfg.extra_trees
         all_const = True
         for k in range(K):
             gk = grad if K == 1 else grad[:, k].contiguous()
             hk = hess if K == 1 else hess[:, k].contiguous()
-            dev = self._grower(dd.bins_fm, gk, hk, self._ones, feat,
-                               dd.allowed)
+            allowed = feature_mask(it, k, self._ff_key0, dd.allowed,
+                                   feature_fraction=cfg.feature_fraction)
+            feat_k = feat
+            if node_sampling:
+                # each tree's per-node stream (the reference's
+                # `booster.py:1621-1626`)
+                feat_k = {**feat, "ff_key": fold_in(
+                    fold_in(self._ff_key0, 2 ** 20 + it), k)}
+            dev = self._grower(dd.bins_fm, gk, hk, sw, feat_k, allowed)
             tree = Tree.from_device(dev, self.train_set.bin_mappers, lr)
             if tree.num_leaves > 1:
                 all_const = False

@@ -16,11 +16,12 @@ accumulation, the fused serving kernel (`serve`), the fused split scan
 (`fused_split`, K2, K3 and K5) and the objectives' links (`links`) add
 `-fmad=false` so that no add is ever contracted; the histogram
 kernels only add (K1) or add integers and scale with `__fmul_rn` (K4),
-so contraction cannot touch them.  A source may include the shared
-headers `csrc/*.cuh` (the histograms' first stages: K1's, which K2
-shares, and K4's, which K5 shares; the serving kernels' walk and
-ordered sum, `forest_common.cuh`); they are part of every library's
-hash.
+so contraction cannot touch them; the threefry draws (`threefry`)
+are integer arithmetic and one exact f32 subtract.  A source may
+include the shared headers `csrc/*.cuh` (the histograms' first stages:
+K1's, which K2 shares, and K4's, which K5 shares; the serving kernels'
+walk and ordered sum, `forest_common.cuh`); they are part of every
+library's hash.
 
 Nothing here runs when the package is imported.  `build_all` is the one
 build path: it starts one `nvcc` per missing library, all together,
@@ -49,7 +50,8 @@ _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _EXTRA_FLAGS = {"traverse": [], "accumulate": ["-fmad=false"],
                 "serve": ["-fmad=false"], "histogram": [], "histogram_q": [],
-                "fused_split": ["-fmad=false"], "links": ["-fmad=false"]}
+                "fused_split": ["-fmad=false"], "links": ["-fmad=false"],
+                "threefry": []}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,6 +84,9 @@ _SIGNATURES = {
                      [_P, _I, _I, _I, _P, _P, _P, _F, _F, _F, _F, _F, _P,
                       _P])],
     "links": [("lgbt_xla_link", [_P, ctypes.c_longlong, _I, _P, _P])],
+    "threefry": [("lgbt_threefry",
+                  [_P, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong,
+                   ctypes.c_longlong, _I, _P, _P])],
 }
 
 

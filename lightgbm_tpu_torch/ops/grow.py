@@ -17,7 +17,10 @@ compiles the whole best-first loop (`grow.py:887-1175`) into one XLA
     and the two decisions, with the children's outputs, come to the
     host in one copy.  That copy is the loop's one host sync per split
     (plus one for the root): the host picks the next leaf with a
-    first-wins argmax over the cached gains, as `jnp.argmax` does.
+    first-wins argmax over the cached gains, as `jnp.argmax` does;
+  * per-node sampling (`feature_fraction_bynode`, `extra_trees`) reads
+    masks drawn for every node id of the tree when it starts
+    (`make_node_samplers`), indexed on the device: no sync a node.
 
 Root sums, leaf sums, gains and outputs stay f32, as the reference
 computes them (it never enables x64).  The root sums and the split
@@ -26,7 +29,7 @@ reference (`ops/reduce.py`), on every device.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,6 +41,7 @@ from .histogram import leaf_histogram_packed_multi
 from .reduce import tree_sum
 from .split import (MISSING_NAN, NEG_INF, PACK_COLS, find_best_split,
                     leaf_output, smooth_output)
+from .threefry import fold_in, permutation, uniform
 
 #: blocking device-to-host copies made by the growers (the strict grower:
 #: one for the root of each tree and one per split; the wave grower: one
@@ -95,6 +99,13 @@ class GrowerSpec(NamedTuple):
     #: the CPU).  Needs hist_impl "kernel" or "kernel_q" and no path
     #: smoothing; the strict grower ignores it.
     fused: bool = False
+    #: per-node sampling (`make_node_samplers`, the reference's fields of
+    #: the same names): the share of features each node may split on
+    #: (< 1: `feature_fraction_bynode`) and one random threshold a
+    #: feature and node (`extra_trees`).  Both draw from
+    #: `feat["ff_key"]`, the tree's key.
+    feature_fraction_bynode: float = 1.0
+    extra_trees: bool = False
 
 
 #: the hist_impl values whose payload is a quantized gradient lattice
@@ -165,6 +176,67 @@ def tree_histograms(spec: GrowerSpec, bins_fm: torch.Tensor,
         bins_fm, pw3, lid, sl, MB, s_g, s_h)), pw3
 
 
+class NodeMasks(NamedTuple):
+    """One tree's per-node samples, drawn when the tree starts for every
+    node id it can reach (`make_node_samplers`), on the device; a node
+    id indexes them there, so reading a node's mask costs no sync."""
+    bynode: Optional[torch.Tensor]    # [R, F] bool, or None
+    pick: Optional[torch.Tensor]      # [R, F] i64 extra_trees bin, or None
+
+    def allowed(self, nid, allowed: torch.Tensor) -> torch.Tensor:
+        """`allowed` and the bynode mask of `nid` (an int, a slice or an
+        index tensor of node ids)."""
+        return allowed if self.bynode is None else allowed & self.bynode[nid]
+
+    def cand(self, nid, mb: int) -> Optional[torch.Tensor]:
+        """The extra_trees candidate grid [..., F, MB] of `nid`: each
+        feature's one drawn threshold; None without extra_trees."""
+        if self.pick is None:
+            return None
+        bins = torch.arange(mb, device=self.pick.device)
+        return bins == self.pick[nid][..., None]
+
+
+def make_node_samplers(spec: GrowerSpec, feat: Dict, f_count: int,
+                       n_nodes: int, device) -> NodeMasks:
+    """The per-node column sampling (ref: col_sampler.hpp `GetByNode`)
+    and extra_trees thresholds of one tree, the reference's
+    `make_node_samplers` (`lightgbm_tpu/ops/grow.py:298`) drawn for node
+    ids 0 .. n_nodes - 1 at once: node `nid`'s bynode mask is the first
+    max(1, int(feature_fraction_bynode F + 1e-9)) of
+    `permutation(fold_in(ff_key, nid), F)` (the reference permutes its
+    `num_features_hint`, the dataset's feature count, which is F while
+    no bundle merges features), and its extra_trees threshold of
+    feature f is int32(u_f x f32(max(nb_f - 2, 0) + 1)), clipped to
+    [0, MB), with u = `uniform(fold_in(ff_key, 2^24 + nid), (F,))`
+    (categorical features, which keep every candidate there, are not
+    ported: item 5b).  The node keys come from one batched `fold_in` on
+    the host; the draws are one threefry launch each on the card
+    ([n_nodes, F] bits, [n_nodes, F] uniforms), the permutations one
+    batched sort there."""
+    bynode_on = spec.feature_fraction_bynode < 1.0
+    if not bynode_on and not spec.extra_trees:
+        return NodeMasks(None, None)
+    key = feat.get("ff_key")
+    if key is None:
+        raise LightGBMError("feature_fraction_bynode and extra_trees draw "
+                            "from feat['ff_key'], the tree's key")
+    nids = torch.arange(n_nodes, dtype=torch.int64)
+    bynode = pick = None
+    if bynode_on:
+        n_pick = max(1, int(spec.feature_fraction_bynode * f_count + 1e-9))
+        perm = permutation(fold_in(key, nids), f_count, device)
+        bynode = torch.zeros((n_nodes, f_count), dtype=torch.bool,
+                             device=device)
+        bynode.scatter_(1, perm[:, :n_pick], True)
+    if spec.extra_trees:
+        r = uniform(fold_in(key, nids + (1 << 24)), (f_count,), device)
+        t_max = torch.clamp(feat["nb"] - 2, min=0)
+        pick = (r * (t_max + 1).to(torch.float32)).to(torch.int32)
+        pick = torch.clamp(pick, 0, spec.max_bin - 1).to(torch.int64)
+    return NodeMasks(bynode, pick)
+
+
 def make_grower(spec: GrowerSpec) -> Callable:
     """The grow function of a spec: `grow(bins_fm, grad, hess,
     sample_weight, feat, allowed) -> DeviceTree`.
@@ -184,12 +256,12 @@ def make_grower(spec: GrowerSpec) -> Callable:
         return smooth_output(leaf_output(g, h, l1, l2, mds), c, parent_out,
                              ps)
 
-    def search(hist, g, h, c, allowed, p_out, feat):
+    def search(hist, g, h, c, allowed, p_out, feat, cand=None):
         return find_best_split(
             hist, g, h, c, feat["nb"], feat["missing"], feat["default"],
             allowed, l1, l2, spec.min_data_in_leaf,
             spec.min_sum_hessian_in_leaf, spec.min_gain_to_split, mds, ps,
-            p_out)
+            p_out, cand)
 
     def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              sample_weight: torch.Tensor, feat: Dict,
@@ -200,6 +272,8 @@ def make_grower(spec: GrowerSpec) -> Callable:
         payload = torch.stack([grad * sample_weight, hess * sample_weight,
                                sample_weight], dim=1).contiguous()
         hist_fn, _ = tree_histograms(spec, bins_fm, payload, feat)
+        # node ids: the root 0, the children of split k 2k + 1 and 2k + 2
+        masks = make_node_samplers(spec, feat, f_count, 2 * L - 1, dev)
         slots = torch.arange(L, dtype=torch.int32, device=dev)
         no_feature = torch.zeros_like(allowed)
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -210,8 +284,9 @@ def make_grower(spec: GrowerSpec) -> Callable:
         # ---- root: sums, output, split, all in one host copy ----
         root_g, root_h, root_c = tree_sum(payload.t())
         root_out = leaf_output(root_g, root_h, l1, l2, mds)
-        s0 = search(hist[0], root_g, root_h, root_c, allowed, root_out,
-                    feat)
+        s0 = search(hist[0], root_g, root_h, root_c,
+                    masks.allowed(0, allowed), root_out, feat,
+                    masks.cand(0, MB))
         # device mirror of the per-leaf records the children read:
         # the cached split (PACK_COLS) and the leaf's output
         rec_dev = torch.zeros((L, PACK_COLS), dtype=torch.float32,
@@ -279,9 +354,11 @@ def make_grower(spec: GrowerSpec) -> Callable:
             child_out = out_of(sums[:, 0], sums[:, 1], sums[:, 2], p_out)
             depth = int(leaf_depth[best]) + 1
             deep_ok = spec.max_depth <= 0 or depth < spec.max_depth
+            kids = slice(2 * step + 1, 2 * step + 3)
             res = search(hist[[best, new]], sums[:, 0], sums[:, 1],
-                         sums[:, 2], allowed if deep_ok else no_feature,
-                         child_out, feat).pack()
+                         sums[:, 2], masks.allowed(
+                             kids, allowed if deep_ok else no_feature),
+                         child_out, feat, masks.cand(kids, MB)).pack()
             rec_dev[best], rec_dev[new] = res[0], res[1]
             out_dev[best], out_dev[new] = child_out[0], child_out[1]
             host = to_host(torch.cat([res.reshape(-1), child_out]))

@@ -44,7 +44,12 @@ records the pick loop reads live on the host:
     children with the `max_depth` gate (`:828-832`), then one packed
     device-to-host copy per wave, counted in `ops/grow.py HOST_SYNCS`;
   * **tree full**: when the picks reach LB - 1 splits, the histogram and
-    find phase is skipped (`:856-863`): that wave makes no copy.
+    find phase is skipped (`:856-863`): that wave makes no copy;
+  * **per-node sampling**: the strict grower's node masks
+    (`ops/grow.py make_node_samplers`, node ids 2k + 1 and 2k + 2 for
+    split k, as `:824`), gathered by the children's ids uploaded with
+    the wave's indices; bynode gates `decide_from_candidates` on the
+    fused path (`:430`), extra_trees runs unfused (`:383-387`).
 
 Grow-then-prune (`wave_overgrow > 1`) grows to LB > num_leaves leaves
 and prunes back on the host (`prune_wave_tail`).  Each call to the
@@ -62,8 +67,8 @@ import torch
 from ..utils.log import LightGBMError
 from .fused_kernel import (fused_hist_split, fused_hist_split_quantized,
                            split_scan)
-from .grow import (DeviceTree, GrowerSpec, split_go_left, to_host,
-                   tree_histograms)
+from .grow import (DeviceTree, GrowerSpec, make_node_samplers,
+                   split_go_left, to_host, tree_histograms)
 from .reduce import tree_sum
 from .split import (NEG_INF, PACK_COLS, decide_from_candidates,
                     find_best_split, leaf_output, smooth_output)
@@ -164,10 +169,11 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
     ps = spec.path_smooth
     fused = spec.fused
     if fused and (spec.hist_impl not in ("kernel", "kernel_q")
-                  or ps > 0.0):
+                  or ps > 0.0 or spec.extra_trees):
         raise LightGBMError("the fused wave path needs hist_impl 'kernel' "
-                            "or 'kernel_q' and no path smoothing "
-                            "(booster.fused_split_of decides it)")
+                            "or 'kernel_q', no path smoothing and no "
+                            "extra_trees (booster.fused_split_of decides "
+                            "it)")
     scan_kw = dict(l1=l1, l2=l2, min_data_in_leaf=spec.min_data_in_leaf,
                    min_sum_hessian=spec.min_sum_hessian_in_leaf,
                    min_gain_to_split=spec.min_gain_to_split)
@@ -188,12 +194,12 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                            torch.from_numpy(np.asarray(h, np.float32)),
                            l1, l2, mds).numpy()
 
-    def search(hist, sums, allowed, p_out, feat):
+    def search(hist, sums, allowed, p_out, feat, cand=None):
         return find_best_split(
             hist, sums[:, 0], sums[:, 1], sums[:, 2], feat["nb"],
             feat["missing"], feat["default"], allowed, l1, l2,
             spec.min_data_in_leaf, spec.min_sum_hessian_in_leaf,
-            spec.min_gain_to_split, mds, ps, p_out)
+            spec.min_gain_to_split, mds, ps, p_out, cand)
 
     def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              sample_weight: torch.Tensor, feat: Dict,
@@ -216,6 +222,9 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
             return fused_hist_split_quantized(
                 bins_fm, pw3, lid, sl, feat["nb"], feat["missing"], parent,
                 MB, feat["qscales"][0], feat["qscales"][1], **scan_kw)
+        # node ids as the strict grower's: the root 0, the children of
+        # split k 2k + 1 (the left) and 2k + 2
+        masks = make_node_samplers(spec, feat, f_count, 2 * LB - 1, dev)
         slots = torch.arange(LB, dtype=torch.int32, device=dev)
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
         hist = torch.empty((LB, f_count, MB, 3), dtype=torch.float32,
@@ -229,10 +238,12 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
             h0, c0 = fused_fn(leaf_id, slots[:1], root_sums)
             s0 = decide_from_candidates(c0, root_g[None], root_h[None],
                                         root_c[None], feat["missing"],
-                                        feat["default"], allowed)
+                                        feat["default"],
+                                        masks.allowed(0, allowed))
         else:
             h0 = hist_fn(leaf_id, slots[:1])
-            s0 = search(h0, root_sums, allowed, root_out[None], feat)
+            s0 = search(h0, root_sums, masks.allowed(0, allowed),
+                        root_out[None], feat, masks.cand(0, MB))
         hist[0] = h0[0]
         host = to_host(torch.cat([root_sums[0], root_out[None],
                                   s0.pack().reshape(-1)]))
@@ -330,8 +341,10 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
             route = [i if sl else w + i for i, sl in enumerate(small_is_left)]
             route += [w + i if sl else i
                       for i, sl in enumerate(small_is_left)]
+            # node ids: split k = new - 1 made children 2k + 1 and 2k + 2
+            nids = [2 * nw - 1 for nw in p_new] + [2 * nw for nw in p_new]
             idx = _upload(np.array(p_left + p_small + p_large + route
-                                   + child.tolist(), np.int64), dev)
+                                   + child.tolist() + nids, np.int64), dev)
             stats = np.stack([leaf_g, leaf_h, leaf_c], axis=1)     # [LB, 3]
             deep_ok = (spec.max_depth <= 0) | \
                 (leaf_depth[child] < spec.max_depth)
@@ -341,12 +354,13 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                 deep_ok.astype(np.float32)]).astype(np.float32), dev)
             left_t, small_t, large_t = idx[:w], idx[w:2 * w], idx[2 * w:3 * w]
             route_t, child_t = idx[3 * w:5 * w], idx[5 * w:7 * w]
+            nid_t = idx[7 * w:9 * w]
             par_small = vals[:3 * w].view(w, 3)
             par_large = vals[3 * w:6 * w].view(w, 3)
             sums = vals[6 * w:12 * w].view(2 * w, 3)
             child_out = vals[12 * w:14 * w]
-            child_allowed = allowed[None, :] & (vals[14 * w:16 * w] > 0)[
-                :, None]
+            child_allowed = masks.allowed(nid_t, allowed[None, :] & (
+                vals[14 * w:16 * w] > 0)[:, None])
 
             # ---- histograms: the smaller children in one pass, the
             # larger by subtraction (the parent's histogram is still in
@@ -373,7 +387,8 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                     feat["missing"], feat["default"], child_allowed)
             else:
                 res = search(hist.index_select(0, child_t), sums,
-                             child_allowed, child_out, feat)
+                             child_allowed, child_out, feat,
+                             masks.cand(nid_t, MB))
             rec[child] = to_host(res.pack()).reshape(2 * w, PACK_COLS)
 
         leaves = dict(out=leaf_out, g=leaf_g, h=leaf_h, c=leaf_c)

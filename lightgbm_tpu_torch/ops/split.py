@@ -140,7 +140,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                     l1: float, l2: float, min_data_in_leaf: float,
                     min_sum_hessian: float, min_gain_to_split: float,
                     max_delta_step: float = 0.0, path_smooth: float = 0.0,
-                    parent_output: Optional[torch.Tensor] = None
+                    parent_output: Optional[torch.Tensor] = None,
+                    cand_mask: Optional[torch.Tensor] = None
                     ) -> SplitResult:
     """Best numerical split of each leaf.
 
@@ -150,7 +151,11 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     missing keeps its last bin out of both prefixes and tries it on
     each side (case 1: missing left).  `path_smooth` > 0 shrinks the
     candidate outputs toward `parent_output` and scores them with the
-    given-output gain, as the reference does."""
+    given-output gain, as the reference does.  `cand_mask` [F, MB] or
+    [B, F, MB] bool restricts the candidate grid (extra_trees: one
+    threshold a feature, `ops/grow.py make_node_samplers`); a candidate
+    outside it has gain -inf in both cases, as at the reference's
+    `split.py:315-317`."""
     one = hist.dim() == 3
     if one:
         hist = hist[None]
@@ -176,6 +181,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     t_max = feat_nb - 2 - has_nan.to(feat_nb.dtype)
     valid_t = (bin_ar[None, :] <= t_max[:, None])[None] \
         & allowed[:, :, None]                                    # [B,F,MB]
+    if cand_mask is not None:
+        valid_t = valid_t & cand_mask
 
     shift = leaf_gain(parent_g, parent_h, l1, l2) + min_gain_to_split
     shift = shift[:, None, None]

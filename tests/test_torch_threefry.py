@@ -8,6 +8,16 @@ tolerance).
   * `uniform` against `jax.random.uniform` at shapes of 0, 1, 7, 2100
     and 65,537 elements (past 2^16, where the counters' words matter)
     and a 2-D shape (row-major flat counters);
+  * `random_bits` against `jax.random.bits` and `permutation` against
+    `jax.random.permutation` at n = 1, 2, 6, 28, 1000 and 5000 (two sort
+    rounds);
+  * the batched keys: `fold_in` over R keys or R data words, `split`,
+    `random_bits`, `uniform` and `permutation` over [R, 2] keys, each
+    equal to R separate calls;
+  * `lax.sort_key_val` on forced ties keeps the input order, which the
+    port's stable `torch.sort` reproduces;
+  * the wrapper's dispatch: CPU draws run the plain version (no kernel
+    launch), other devices without the kernel raise;
   * the state the two packages must share: a booster's `_rng_key0` for
     a `bagging_seed`, and the quantizer's per-iteration key.
 """
@@ -15,6 +25,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,6 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import lightgbm_tpu as lgb  # noqa: E402
 import lightgbm_tpu_torch as lt  # noqa: E402
 from lightgbm_tpu_torch.ops import threefry  # noqa: E402
+from lightgbm_tpu_torch.utils.log import LightGBMError  # noqa: E402
 
 SEEDS = [0, 1, 3, 42, 123456789, 2 ** 31 - 1]
 
@@ -87,6 +99,83 @@ def test_uniform_of_a_split_key_matches():
         got = threefry.uniform(threefry.split(kp)[i], (4099,))
         want = jax.random.uniform(jax.random.split(kj)[i], (4099,))
         assert np.array_equal(_bits(got.numpy()), _bits(want))
+
+
+DRAW_SIZES = [1, 2, 6, 28, 1000, 5000]
+
+
+@pytest.mark.parametrize("n", DRAW_SIZES)
+@pytest.mark.parametrize("seed", [0, 42, 2 ** 31 - 1])
+def test_random_bits_and_permutation_match(seed, n):
+    kp = threefry.fold_in(threefry.prng_key(seed), 17)
+    kj = jax.random.fold_in(jax.random.PRNGKey(seed), 17)
+    bits = threefry.random_bits(kp, (n,))
+    assert bits.dtype == torch.int32 and tuple(bits.shape) == (n,)
+    assert np.array_equal(bits.numpy().view(np.uint32),
+                          np.asarray(jax.random.bits(kj, (n,), np.uint32)))
+    perm = threefry.permutation(kp, n)
+    assert np.array_equal(perm.numpy(), np.asarray(
+        jax.random.permutation(kj, n)))
+    assert sorted(perm.tolist()) == list(range(n))
+
+
+def test_permutation_rounds_follow_the_reference():
+    """0 rounds at n = 1, 1 up to about 1600, 2 at 5000."""
+    assert [threefry.permutation_rounds(n) for n in (1, 2, 1600, 1700,
+                                                     5000)] == [0, 1, 1, 2, 2]
+
+
+def test_batched_keys_equal_per_key_loops():
+    key = threefry.prng_key(5)
+    data = [0, 1, 7, 2 ** 24 + 3, 2 ** 32 - 1]
+    keys = threefry.fold_in(key, data)
+    assert keys.shape == (5, 2)
+    for i, d in enumerate(data):
+        assert torch.equal(keys[i], threefry.fold_in(key, d))
+    assert torch.equal(threefry.fold_in(keys, 9),
+                       torch.stack([threefry.fold_in(k, 9) for k in keys]))
+    assert torch.equal(threefry.fold_in(keys, torch.arange(5)), torch.stack(
+        [threefry.fold_in(k, i) for i, k in enumerate(keys)]))
+    pairs = threefry.split(keys, 3)
+    assert pairs.shape == (5, 3, 2)
+    for i, k in enumerate(keys):
+        assert torch.equal(pairs[i], threefry.split(k, 3))
+        kj = jnp.asarray(k.numpy().astype(np.uint32))
+        assert np.array_equal(
+            threefry.random_bits(keys, (4, 7))[i].numpy().view(np.uint32),
+            np.asarray(jax.random.bits(kj, (4, 7), np.uint32)))
+        assert torch.equal(threefry.uniform(keys, (31,))[i],
+                           threefry.uniform(k, (31,)))
+        assert torch.equal(threefry.permutation(keys, 2000)[i],
+                           threefry.permutation(k, 2000))
+
+
+def test_sort_key_val_is_stable_on_forced_ties():
+    """`permutation` sorts with `lax.sort_key_val`, stable in jax 0.9:
+    tied keys keep their input order, as `torch.sort(stable=True)`
+    keeps them; `argsort_unsigned` sorts the int32 bits as uint32."""
+    rng = np.random.RandomState(0)
+    for _ in range(20):
+        keys = rng.randint(0, 4, 300).astype(np.uint32)
+        keys[rng.rand(300) < 0.3] = 0xFFFFFFFF           # unsigned top
+        vals = rng.permutation(300).astype(np.int32)
+        _, want = jax.lax.sort_key_val(jnp.asarray(keys), jnp.asarray(vals))
+        order = threefry.argsort_unsigned(
+            torch.from_numpy(keys.view(np.int32)))
+        assert np.array_equal(vals[order.numpy()], np.asarray(want))
+
+
+def test_cpu_draws_run_the_plain_version():
+    keys = threefry.fold_in(threefry.prng_key(8), [1, 2, 3])
+    before = threefry.THREEFRY_LAUNCHES
+    for uni in (False, True):
+        got = threefry.draw(keys, 1001, uni, "cpu")
+        want = threefry.draw_plain(keys, 1001, uni, "cpu")
+        assert got.dtype == (torch.float32 if uni else torch.int32)
+        assert torch.equal(got, want)
+    assert threefry.THREEFRY_LAUNCHES == before
+    with pytest.raises(LightGBMError, match="no threefry kernel"):
+        threefry.draw(keys, 8, False, "meta")
 
 
 def test_seed_outside_the_range_raises():

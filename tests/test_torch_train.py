@@ -14,7 +14,12 @@ golden JSON (ROADMAP Queue 3 (a)):
     reference's byte for byte;
   * the port's model text loads into JAX `Booster(model_str=...)` and
     into the port's CPU `ServingRuntime`, which agree within rtol 1e-4;
-  * the eval log on a `create_valid` set agrees within 1e-4.
+  * the eval log on a `create_valid` set agrees within 1e-4;
+  * the samplers (bagging at two frequencies, per-class bagging,
+    feature_fraction, feature_fraction_bynode, extra_trees, GOSS by both
+    spellings on binary and multiclass, quantized with bagging and with
+    GOSS), under both growers: model text byte-identical to the
+    reference's, and different from the unsampled model's.
 Then the slice's scope: every refused setting raises `LightGBMError`,
 and training without `device_type="cpu"` raises on a machine with no
 GPU.
@@ -36,7 +41,7 @@ from golden_common import GOLDEN_CASES, make_case_data  # noqa: E402
 
 GOLDEN_LEAF_RTOL = 1e-4
 GOLDEN_LEAF_ATOL = 1e-9
-CASES = ("binary", "regression_l2", "multiclass")
+CASES = ("binary", "regression_l2", "multiclass", "goss_bagging")
 
 
 @pytest.fixture(autouse=True)
@@ -215,12 +220,6 @@ def test_segment_sum_and_auto_train_alike_on_the_cpu():
 
 
 REFUSED = [
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "threefry2x32"),
-    ({"boosting": "goss"}, "threefry2x32"),
-    ({"data_sample_strategy": "goss"}, "threefry2x32"),
-    ({"feature_fraction": 0.8}, "threefry2x32"),
-    ({"feature_fraction_bynode": 0.5}, "threefry2x32"),
-    ({"extra_trees": True}, "threefry2x32"),
     ({"monotone_constraints": [1, 0, 0, 0, 0, 0]}, "item 5d"),
     ({"interaction_constraints": "[0,1],[2,3]"}, "item 5d"),
     ({"cegb_penalty_split": 0.1}, "item 5d"),
@@ -340,3 +339,47 @@ def test_multiclass_model_text_byte_identical(policy):
     bj, bp = _train_both(dict(LINK_BASE, objective="multiclass",
                               num_class=3, tree_grow_policy=policy), X, y, 6)
     assert bp.model_to_string() == bj.model_to_string()
+
+
+#: the samplers, each on LINK_BASE's binary problem (multiclass where
+#: named) for 6 rounds.  GOSS waits int(1 / learning_rate) iterations
+#: (the golden `goss_bagging` family, at 0.1, never samples in its 10
+#: rounds), so its cases run at learning rate 0.5: rounds 2-5 sample.
+SAMPLED = {
+    "bagging_freq1": {"bagging_fraction": 0.7, "bagging_freq": 1},
+    "bagging_freq3": {"bagging_fraction": 0.6, "bagging_freq": 3},
+    "pos_neg_bagging": {"pos_bagging_fraction": 0.6,
+                        "neg_bagging_fraction": 0.8, "bagging_freq": 2},
+    "feature_fraction": {"feature_fraction": 0.8},
+    "bynode": {"feature_fraction_bynode": 0.5},
+    "extra_trees": {"extra_trees": True},
+    "goss": {"boosting": "goss", "learning_rate": 0.5},
+    "goss_multiclass": {"data_sample_strategy": "goss",
+                        "learning_rate": 0.5, "objective": "multiclass",
+                        "num_class": 3},
+    "quantized_bagging": {"use_quantized_grad": True,
+                          "bagging_fraction": 0.7, "bagging_freq": 1},
+    "quantized_goss": {"use_quantized_grad": True, "boosting": "goss",
+                       "learning_rate": 0.5},
+}
+
+
+@pytest.mark.parametrize("policy", ["leafwise", "wave"])
+@pytest.mark.parametrize("name", list(SAMPLED))
+def test_sampled_training_matches_the_reference(name, policy):
+    """The port draws the reference's rows and features: trees exact,
+    leaf values and model text bitwise; without the sampler the model
+    differs."""
+    extra = SAMPLED[name]
+    n_class = extra.get("num_class", 2)
+    X, y = _link_data(5, n_class=n_class)
+    params = dict(dict(LINK_BASE, objective="binary"),
+                  tree_grow_policy=policy, **extra)
+    bj, bp = _train_both(params, X, y, 6)
+    _assert_same_trees(bj, bp, bitwise=True)
+    assert bp.model_to_string() == bj.model_to_string()
+    plain = {k: v for k, v in params.items()
+             if k not in extra or k in ("objective", "num_class")}
+    unsampled = lt.train(plain, lt.Dataset(X, label=y), num_boost_round=6)
+    assert [t.to_string(i) for i, t in enumerate(unsampled.trees)] != \
+        [t.to_string(i) for i, t in enumerate(bp.trees)]
