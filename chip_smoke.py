@@ -5,6 +5,7 @@ and check them.
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --phases histogram,fused   # kernel phases alone
     python3 chip_smoke.py --phases threefry,train_sampled   # the samplers
+    python3 chip_smoke.py --phases train_categorical   # categorical, EFB
     python3 chip_smoke.py --phases golden,main       # serving alone
     python3 chip_smoke.py --phases compare --baseline DIR   # K1-K6, sum
     python3 chip_smoke.py --phases compare_serving --baseline DIR
@@ -162,6 +163,27 @@ Phases, each printing one JSON line:
           batched draw a sampler a tree) bitwise the CPU's, one host
           sync a split and one a tree as unsampled, two runs
           byte-identical.
+  train_categorical the repo's `categorical_efb` family
+          (`benchmarks/bench_families.py`, Criteo-like: 13 numerical
+          and 26 categorical columns of 3 to 10,000 levels; 500,000
+          rows, 50,000 held out) on the bench's wave, 10 rounds.  (a)
+          The 39 columns as published: two fused runs (K2/K3) and an
+          unfused run (K1 and the torch search) byte-identical, per
+          round K2 launches = 1 + waves that built histograms, K3
+          launches and host syncs as in train_wave (the categorical
+          search, torch ops on the carried histograms, adds no launch);
+          held-out AUC within 1e-3 of hist_impl=segment_sum; quantized
+          (K5/K3) within 0.02; strict at 255 leaves, 3 rounds, K1
+          launches = 255 a round; served on the card bitwise the host
+          walk; the categorical splits by case and the largest bitset.
+          (b) The one-hot variant (the 8 categoricals of at most 40
+          levels as 0/1 columns, 170 columns), which EFB bundles: the
+          wave unfused on K1 over the bundle columns, two runs
+          byte-identical, quantized on K4, held-out AUC within 1e-3 of
+          the same bins unbundled, served bitwise the host walk.  Round
+          times, binning seconds, the categorical search's share of a
+          round (CUDA events around its calls) and one profiled round
+          of (a).  Its launches go on its own line.
   compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5,
           the link kernel and the quantize step of this checkout and of
           the checkout in DIR on the same inputs: K1 and K2 agree within
@@ -1443,11 +1465,14 @@ def _without(text, *keys):
 
 
 def _fields_equal(a, b):
-    """Two SplitResults equal field for field, bitwise."""
+    """Two SplitResults equal field for field, bitwise (a numerical
+    search leaves the categorical fields None on both)."""
     import torch
-    return all(x.dtype == y_.dtype and torch.equal(x, y_)
-               and bool(torch.equal(torch.signbit(x.float()),
-                                    torch.signbit(y_.float())))
+    return all((x is None and y_ is None)
+               or (x is not None and y_ is not None
+                   and x.dtype == y_.dtype and torch.equal(x, y_)
+                   and bool(torch.equal(torch.signbit(x.float()),
+                                        torch.signbit(y_.float()))))
                for x, y_ in zip(a, b))
 
 
@@ -2907,6 +2932,422 @@ def phase_train_sampled(data: TrainData, modules, device=None,
     return launches
 
 
+# ------------------------------------------------------- categorical
+#: the categorical phase's problem: the repo's `categorical_efb` family
+#: (`benchmarks/bench_families.py:12`, `:70 make_criteo_like`, `:130`) as
+#: it runs by default: 500,000 training rows and 50,000 held out (`:37`,
+#: `:105`), binary, 31 leaves, max_bin 255, learning rate 0.1 and the
+#: bench's wave settings (`benchmarks/configs_r4.py` SHIPPED, as `:47`
+#: reads them: WAVE_PARAMS), 10 rounds
+CAT_ROWS = 500_000
+CAT_HOLD = 50_000
+CAT_PARAMS = dict(WAVE_PARAMS)
+CAT_QUANT = dict(CAT_PARAMS, **QUANT)
+#: the strict run: 255 leaves, 3 rounds (K1 at S = 1, 255 launches a tree)
+CAT_STRICT = dict(TRAIN_PARAMS)
+CAT_STRICT_ROUNDS = 3
+#: the cardinalities of `make_criteo_like`'s 26 categorical columns; those
+#: of at most CAT_ONEHOT_MAX levels are one-hot encoded in the bundled run
+CRITEO_CARDS = [3, 4, 8, 12, 16, 24, 32, 50, 64, 100, 120, 200, 300, 400,
+                500, 700, 1000, 1500, 2000, 3000, 4000, 6000, 8000, 10000,
+                40, 80]
+CAT_ONEHOT_MAX = 40
+#: the wide-bitset case: one categorical column whose levels are the top
+#: 16 of the family's 10,000 (9984 .. 9999, bitset word 312), so every
+#: split on it stores a bitset of 313 words, the widest the family's
+#: categoricals can need; trained and served on the card
+WIDE_LEVELS = np.arange(9984, 10000)
+WIDE_ROWS = 50_000
+WIDE_ROUNDS = 3
+
+
+def make_criteo_like(n_rows, seed=11):
+    """13 numeric + 26 categorical columns, a few of up to 10,000 levels:
+    the generator of the repo's `categorical_efb` family
+    (`benchmarks/bench_families.py:70 make_criteo_like`), copied so this
+    script imports nothing of that package."""
+    rng = np.random.RandomState(seed)
+    num = rng.lognormal(0.0, 1.0, (n_rows, 13)).astype(np.float32)
+    cats = np.stack([rng.randint(0, c, n_rows) for c in CRITEO_CARDS],
+                    axis=1).astype(np.float32)
+    w = rng.randn(13) * 0.4
+    score = num @ w
+    for j, c in ((0, 3), (5, 24), (17, 1500)):
+        eff = rng.randn(c) * 0.5
+        score = score + eff[cats[:, j].astype(np.int64)]
+    y = (score + rng.randn(n_rows) > np.median(score)).astype(np.float64)
+    X = np.concatenate([num, cats], axis=1)
+    return X, y, list(range(13, 39))
+
+
+def criteo_onehot(X):
+    """X with each categorical column of at most CAT_ONEHOT_MAX levels
+    replaced, in place, by its one-hot block of 0/1 numerical columns
+    (8 columns -> 139, 170 in all); returns (X, the categorical columns
+    left)."""
+    cols, cat_idx = [X[:, :13]], []
+    at = 13
+    for j, card in enumerate(CRITEO_CARDS):
+        v = X[:, 13 + j]
+        if card <= CAT_ONEHOT_MAX:
+            block = (v[:, None] == np.arange(card)[None, :])
+            cols.append(block.astype(np.float32))
+            at += card
+        else:
+            cols.append(v[:, None])
+            cat_idx.append(at)
+            at += 1
+    return np.concatenate(cols, axis=1), cat_idx
+
+
+class CatData:
+    """The categorical phase's data, binned once on the host: (a) the 39
+    columns as published, 26 categorical; (b) the one-hot variant, which
+    EFB bundles."""
+
+    def __init__(self, seed: int, n_train: int = CAT_ROWS,
+                 n_hold: int = CAT_HOLD):
+        import lightgbm_tpu_torch as lt
+        t_setup = time.perf_counter()
+        X, y, cat_idx = make_criteo_like(n_train + n_hold, seed=11 + seed)
+        self.y, self.y_hold = y[:n_train], y[n_train:]
+        self.X_hold = X[n_train:]
+        t0 = time.perf_counter()
+        self.dataset = lt.Dataset(X[:n_train], label=self.y,
+                                  categorical_feature=cat_idx,
+                                  params=dict(CAT_PARAMS)).construct()
+        self.binning_s = time.perf_counter() - t0
+        Xo, cat_o = criteo_onehot(X)
+        self.X_hold_onehot = Xo[n_train:]
+        t0 = time.perf_counter()
+        self.onehot = lt.Dataset(Xo[:n_train], label=self.y,
+                                 categorical_feature=cat_o,
+                                 params=dict(CAT_PARAMS)).construct()
+        self.onehot_binning_s = time.perf_counter() - t0
+        # generation, one-hot encoding and both binnings
+        self.setup_s = time.perf_counter() - t_setup
+
+
+def _cat_split_cases(trees, ds, max_cat_to_onehot):
+    """(one-vs-rest, sorted) counts of the categorical splits of `trees`,
+    by the case the search took: the trees are replayed on the training
+    bins, and a split whose feature has at most `max_cat_to_onehot` used
+    bins (>= 1, holding rows) at its node is one-vs-rest (case 2)."""
+    bins = ds.bin_data
+    nb = [m.num_bin for m in ds.bin_mappers]
+    missing = [m.missing_type for m in ds.bin_mappers]
+    ovr = srt = 0
+    for t in trees:
+        node = np.zeros(bins.shape[0], np.int64)
+        for i in range(t.num_leaves - 1):
+            rows = np.nonzero(node == i)[0]
+            f = int(t.split_feature[i])
+            b = bins[rows, f].astype(np.int64)
+            if t.decision_type[i] & 1:
+                used = np.count_nonzero(np.bincount(b, minlength=nb[f])[1:])
+                ovr += used <= max_cat_to_onehot
+                srt += used > max_cat_to_onehot
+                left = t.cat_bin_masks[int(t.threshold_bin[i])][b]
+            else:
+                left = b <= t.threshold_bin[i]
+                if missing[f] == 2:
+                    left = np.where(b == nb[f] - 1,
+                                    bool(t.decision_type[i] & 2), left)
+            node[rows] = np.where(left, t.left_child[i], t.right_child[i])
+    return int(ovr), int(srt)
+
+
+def _served_bitwise(bst, X, device, name):
+    """The model served by ServingRuntime on `device`, bitwise the host
+    walk at f32 thresholds (`f32_threshold_walk`); returns the runtime's
+    record bytes and largest bitset in words."""
+    import lightgbm_tpu_torch as lt
+    rt = lt.ServingRuntime(bst, device=device)
+    raw = rt.predict(X, raw_score=True)
+    _check(_bits_equal(raw, f32_threshold_walk(bst, X)),
+           f"train_categorical {name}: served scores != the host walk")
+    rec = rt._state.records
+    return {"record_bytes": int(rec.nodes.numel() * 4),
+            "bitset_bytes": int(rec.catw.numel() * 4)
+            if rec.catw is not None else 0, "bitset_words": int(rec.mw)}
+
+
+def _wide_bitset_served(params, device, seed: int):
+    """A model whose categorical splits all hold bitsets of 313 words
+    (the column's levels are WIDE_LEVELS), trained with `params` and
+    served by ServingRuntime on `device` bitwise the host walk on
+    held-out rows that also carry NaN, negative, unseen and out-of-range
+    categories; returns `_served_bitwise`'s record sizes and the
+    model's categorical splits."""
+    import lightgbm_tpu_torch as lt
+    rng = np.random.RandomState(seed + 23)
+    n, n_hold = WIDE_ROWS, WIDE_ROWS // 10
+    level = rng.randint(0, len(WIDE_LEVELS), n + n_hold)
+    x0 = rng.randn(n + n_hold)
+    score = rng.randn(len(WIDE_LEVELS))[level] + 0.5 * x0
+    y = (score + rng.randn(n + n_hold) > 0).astype(np.float64)
+    X = np.stack([x0, WIDE_LEVELS[level].astype(np.float64)], axis=1)
+    hold = X[n:].copy()
+    for k, v in enumerate((np.nan, -3.0, 5.0, 9983.0, 12000.0)):
+        hold[k::7, 1] = v
+    bst = lt.train(params, lt.Dataset(X[:n], label=y[:n],
+                                      categorical_feature=[1]),
+                   num_boost_round=WIDE_ROUNDS)
+    served = _served_bitwise(bst, hold, device, "wide bitset")
+    n_cat = sum(t.num_cat for t in bst.trees)
+    _check(n_cat > 0 and served["bitset_words"] == 313,
+           f"train_categorical wide bitset: {n_cat} categorical splits, "
+           f"{served}")
+    return dict(served, categorical_splits=int(n_cat),
+                levels=[int(WIDE_LEVELS[0]), int(WIDE_LEVELS[-1])],
+                rows=n, held_out=n_hold, rounds=WIDE_ROUNDS)
+
+
+def phase_train_categorical(cd: CatData, modules, device=None,
+                            timing: bool = True,
+                            rounds: int = TRAIN_ROUNDS):
+    """`lightgbm_tpu_torch.train` on the `categorical_efb` family.
+
+    (a) The 39 columns, 26 categorical: the fused wave (K2/K3, the main
+    run, between its own counter reads) timed, with per round K2
+    launches = 1 + waves that built histograms, K3 launches = those
+    waves, host syncs = 1 + those waves (the categorical features add no
+    launch of either); a second fused run and an unfused run (K1 and the
+    torch search) byte-identical to it; the held-out AUC within 1e-3 of
+    `hist_impl=segment_sum`; a quantized run (K5/K3) within 0.02 of it;
+    a strict run at 255 leaves, 3 rounds, K1 launches = 255 a round; the
+    f32 model served on the card bitwise the host walk; the categorical
+    splits counted by case and the largest bitset; a model whose bitsets
+    are 313 words (`_wide_bitset_served`) served bitwise the host
+    walk.  (b) The one-hot variant, 170 columns that EFB bundles: the
+    wave unfused on K1 over the bundle columns, two runs byte-identical;
+    quantized on K4; the held-out AUC within 1e-3 of the same bins
+    unbundled; served bitwise the host walk.  Then round times, the
+    categorical search's share (CUDA events around its calls), one
+    profiled round of (a), and the phase's wall seconds (`phase_s`;
+    `phase_with_setup_s` adds `cd.setup_s`, the data's generation and
+    binning).  Returns the phase's report."""
+    import copy
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import grow as grow_module
+    from lightgbm_tpu_torch.ops import grow_wave
+    t_phase = time.perf_counter()
+    params, quant, strict = (dict(CAT_PARAMS), dict(CAT_QUANT),
+                             dict(CAT_STRICT))
+    if device is not None:
+        for p in (params, quant, strict):
+            p["device_type"] = device
+    hold = cd.X_hold
+
+    # ---- (a) the main path, alone between the counter reads
+    _zero_quant_counters(modules)
+    t0 = time.perf_counter()
+    bst, rec = _wave_run(params, cd.dataset, modules, rounds, timing,
+                         patch=[(grow_wave, "fused_hist_split"),
+                                (grow_wave, "split_scan"),
+                                (grow_wave, "find_best_split")],
+                         counters=_quant_counters)
+    train_s = time.perf_counter() - t0
+    total = _quant_counters(modules)
+    spec = bst._grower_spec
+    _check(spec.fused and spec.has_cat and not spec.bundled,
+           f"train_categorical: the run is not fused on categoricals "
+           f"({spec.fused}, {spec.has_cat}, {spec.bundled})")
+    for r, c in enumerate(rec["per_round"]):
+        _check(c["k2"] == 1 + c["hist_waves"] and c["k3"] == c["hist_waves"]
+               and c["syncs"] == 1 + c["hist_waves"] and c["k1"] == 0
+               and c["k4"] == 0 and c["k5"] == 0 and c["hist_waves"] > 0,
+               f"train_categorical: round {r + 1} counted {c}")
+    _check(len(bst.trees) == rounds, "train_categorical: bad model")
+    text = bst.model_to_string()
+    _check(lt.train(params, cd.dataset, num_boost_round=rounds)
+           .model_to_string() == text,
+           "train_categorical: two fused runs differ")
+    _zero_quant_counters(modules)
+    unfused = lt.train(dict(params, tpu_fused_split=False), cd.dataset,
+                       num_boost_round=rounds)
+    uc = _quant_counters(modules)
+    _check(not unfused._grower_spec.fused and uc["k2"] == 0
+           and uc["k3"] == 0 and uc["k1"] == rounds + uc["hist_waves"],
+           f"train_categorical: the unfused run counted {uc}")
+    _check(_without(unfused.model_to_string(), "tpu_fused_split")
+           == _without(text, "tpu_fused_split"),
+           "train_categorical: fused and unfused models differ")
+    seg = lt.train(dict(params, hist_impl="segment_sum"), cd.dataset,
+                   num_boost_round=rounds)
+    raw = bst.predict(hold, raw_score=True)
+    _check(bool(np.all(np.isfinite(raw))),
+           "train_categorical: scores not finite")
+    auc_k = _auc(raw, cd.y_hold)
+    auc_s = _auc(seg.predict(hold, raw_score=True), cd.y_hold)
+    _check(abs(auc_k - auc_s) <= 1e-3,
+           f"train_categorical: held-out AUC {auc_k} vs segment_sum {auc_s}")
+    served = _served_bitwise(bst, hold, device, "f32")
+    ovr, srt = _cat_split_cases(bst.trees, cd.dataset,
+                                bst.config.max_cat_to_onehot)
+    cat_splits = sum(int(np.sum(t.decision_type[:t.num_leaves - 1] & 1))
+                     for t in bst.trees)
+    _check(cat_splits == ovr + srt and cat_splits > 0,
+           f"train_categorical: {cat_splits} categorical splits, "
+           f"{ovr} + {srt} by case")
+    max_words = max((int(np.diff(t.cat_boundaries).max())
+                     for t in bst.trees if t.num_cat), default=0)
+
+    _zero_quant_counters(modules)
+    qbst, qrec = _wave_run(quant, cd.dataset, modules, rounds, False,
+                           counters=_quant_counters)
+    qc = _quant_counters(modules)
+    _check(qbst._grower_spec.fused and qbst.hist_impl == "kernel_q",
+           "train_categorical: the quantized run is not fused on K5")
+    for r, c in enumerate(qrec["per_round"]):
+        _check(c["k5"] == 1 + c["hist_waves"] and c["k3"] == c["hist_waves"]
+               and c["k2"] == 0 and c["k1"] == 0 and c["k4"] == 0,
+               f"train_categorical quant: round {r + 1} counted {c}")
+    auc_q = _auc(qbst.predict(hold, raw_score=True), cd.y_hold)
+    _check(abs(auc_q - auc_k) <= 0.02,
+           f"train_categorical: quantized AUC {auc_q} vs f32 {auc_k}")
+
+    _zero_quant_counters(modules)
+    marks = []
+
+    def mark(env):
+        if timing:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    t0 = time.perf_counter()
+    sbst = lt.train(strict, cd.dataset, num_boost_round=CAT_STRICT_ROUNDS,
+                    callbacks=[mark])
+    sc = _quant_counters(modules)
+    leaves = [t.num_leaves for t in sbst.trees]
+    _check(sc["k1"] == sum(leaves) == 255 * CAT_STRICT_ROUNDS
+           and sc["syncs"] == sum(leaves) and sc["k2"] == 0,
+           f"train_categorical strict: {sc} for leaves {leaves}")
+    auc_strict = _auc(sbst.predict(hold, raw_score=True), cd.y_hold)
+    # the deeper trees split the wide categoricals: larger bitsets served
+    served_strict = _served_bitwise(sbst, hold, device, "strict")
+    wide = _wide_bitset_served(params, device, 0)
+
+    # ---- (b) the one-hot variant, bundled
+    ds = cd.onehot
+    efb = ds.efb
+    _check(efb is not None and len(efb.bundles) > 0,
+           "train_categorical: EFB found no bundle in the one-hot variant")
+    _zero_quant_counters(modules)
+    bbst, brec = _wave_run(params, ds, modules, rounds, timing,
+                           patch=[(grow_module, "histogram_multi")],
+                           counters=_quant_counters)
+    bc = _quant_counters(modules)
+    bspec = bbst._grower_spec
+    _check(bspec.bundled and not bspec.fused
+           and bspec.bundle_max_bin == efb.max_bin,
+           f"train_categorical bundled: spec {bspec}")
+    for r, c in enumerate(brec["per_round"]):
+        _check(c["k1"] == 1 + c["hist_waves"] and c["k2"] == 0
+               and c["k3"] == 0 and c["syncs"] == 1 + c["hist_waves"],
+               f"train_categorical bundled: round {r + 1} counted {c}")
+    btext = bbst.model_to_string()
+    _check(lt.train(params, ds, num_boost_round=rounds).model_to_string()
+           == btext, "train_categorical bundled: two runs differ")
+    _zero_quant_counters(modules)
+    bq = lt.train(quant, ds, num_boost_round=rounds)
+    bqc = _quant_counters(modules)
+    _check(bq._grower_spec.bundled and bqc["k4"] == rounds
+           + bqc["hist_waves"] and bqc["k5"] == 0 and bqc["k1"] == 0,
+           f"train_categorical bundled quant: counted {bqc}")
+    # the same bins without the bundles: what enable_bundle=False
+    # constructs (the bundle search runs after binning)
+    plain = copy.copy(ds)
+    plain.efb, plain.bundle_data = None, None
+    ub = lt.train(dict(params, enable_bundle=False), plain,
+                  num_boost_round=rounds)
+    _check(ub._dd.efb is None, "train_categorical: the unbundled run bundled")
+    hold_o = cd.X_hold_onehot
+    auc_b = _auc(bbst.predict(hold_o, raw_score=True), cd.y_hold)
+    auc_u = _auc(ub.predict(hold_o, raw_score=True), cd.y_hold)
+    auc_bq = _auc(bq.predict(hold_o, raw_score=True), cd.y_hold)
+    _check(abs(auc_b - auc_u) <= 1e-3,
+           f"train_categorical: bundled AUC {auc_b} vs unbundled {auc_u}")
+    _check(abs(auc_bq - auc_b) <= 0.02,
+           f"train_categorical: bundled quantized AUC {auc_bq} vs {auc_b}")
+    served_b = _served_bitwise(bbst, hold_o, device, "bundled")
+    # splits on the features EFB bundled: their partition decodes the
+    # bundle columns
+    members = sorted({f for b in efb.bundles for f in b})
+    member_splits = int(bbst.feature_importance()[members].sum())
+    _check(member_splits > 0,
+           "train_categorical bundled: no split on a bundled feature")
+
+    report = {
+        "phase": "train_categorical", "params": CAT_PARAMS,
+        "rows": int(cd.dataset.num_data()), "held_out": int(len(hold)),
+        "rounds": rounds, "binning_s": cd.binning_s,
+        "categorical": {
+            "features": int(cd.dataset.num_feature()),
+            "categorical_features": int(sum(
+                m.bin_type == 1 for m in cd.dataset.bin_mappers)),
+            "max_bin": int(bst._dd.max_bin),
+            "leaves_per_tree": [t.num_leaves for t in bst.trees],
+            "categorical_splits": cat_splits,
+            "one_vs_rest_splits": ovr, "sorted_splits": srt,
+            "largest_bitset_words": max_words,
+            "served": served, "served_bitwise_host_walk": True,
+            "auc_fused": auc_k, "auc_segment_sum": auc_s,
+            "auc_quantized": auc_q, "auc_strict_255": auc_strict,
+            "model_text_identical_fused_twice": True,
+            "model_text_identical_unfused": True,
+            "waves": total["waves"], "hist_waves": total["hist_waves"],
+            "host_syncs": total["syncs"],
+            "per_round_counts": rec["per_round"],
+            "launches": {"fused_hist_split": total["k2"],
+                         "split_scan": total["k3"],
+                         "unfused_histogram": uc["k1"],
+                         "quant_fused_hist_split_q": qc["k5"],
+                         "quant_split_scan": qc["k3"],
+                         "strict_histogram": sc["k1"]},
+            "strict_leaves_per_tree": leaves, "strict_served": served_strict,
+            "strict_categorical_splits": sum(t.num_cat for t in sbst.trees),
+            "wide_bitset": wide, "train_s": train_s},
+        "bundled": {
+            "binning_s": cd.onehot_binning_s,
+            "features": int(ds.num_feature()), "columns": int(efb.n_cols),
+            "bundle_max_bin": int(efb.max_bin),
+            "bundles": [list(b) for b in efb.bundles],
+            "leaves_per_tree": [t.num_leaves for t in bbst.trees],
+            "bundled_feature_splits": member_splits,
+            "auc": auc_b, "auc_unbundled": auc_u, "auc_quantized": auc_bq,
+            "model_text_identical_twice": True, "served": served_b,
+            "served_bitwise_host_walk": True,
+            "per_round_counts": brec["per_round"],
+            "launches": {"histogram": bc["k1"], "quant_histogram_q":
+                         bqc["k4"]}}}
+    if timing:
+        steady = rec["round_s"][1:]
+        search = rec["find_best_split_ms_per_round"]
+        k2 = rec["fused_hist_split_ms_per_round"]
+        report["categorical"].update({
+            "round_ms": [float(x) * 1e3 for x in rec["round_s"]],
+            "ms_per_round_2_to_10": float(steady.mean()) * 1e3,
+            "cat_search_ms_per_round": [float(x) for x in search],
+            "cat_search_share_2_to_10": float(
+                search[1:].sum() / (steady.sum() * 1e3)),
+            "k2_share_2_to_10": float(k2[1:].sum() / (steady.sum() * 1e3)),
+            "strict_round_ms": [float(x) * 1e3
+                                for x in np.diff([t0] + marks)],
+            "profiled_round": _profile_round(params, cd.dataset)})
+        bsteady = brec["round_s"][1:]
+        k1 = brec["histogram_multi_ms_per_round"]
+        report["bundled"].update({
+            "round_ms": [float(x) * 1e3 for x in brec["round_s"]],
+            "ms_per_round_2_to_10": float(bsteady.mean()) * 1e3,
+            "k1_share_2_to_10": float(k1[1:].sum() / (bsteady.sum() * 1e3))})
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["phase_with_setup_s"] = report["phase_s"] + cd.setup_s
+    report["setup_s"] = cd.setup_s
+    _emit(report)
+    return report
+
+
 def _import_port(root: str, name: str, *modules):
     """The named modules (e.g. "ops.hist_kernel") of the port package in
     another checkout at `root`, imported as package `name` beside this
@@ -3185,6 +3626,8 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                  "threefry": lambda d, s, b: phase_threefry(s),
                  "train_sampled": lambda d, s, b: phase_train_sampled(
                      d(), _train_modules()),
+                 "train_categorical": lambda d, s, b:
+                     phase_train_categorical(CatData(s), _train_modules()),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
                                              phase_compare_serving(s, b)),
                  "compare_serving":
@@ -3302,6 +3745,9 @@ def main(argv=None) -> int:
                    "fused": fused_module}, f32_wave=wave_report)
         draws["quantize_launches"] = quant["threefry"]
         kernels.append(draws)
+        phase_train_categorical(CatData(args.seed), {
+            "hist": hist_module, "hist_q": hist_q_module,
+            "fused": fused_module})
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
              "parity": ("within_tol" if k["name"] in WITHIN_TOL

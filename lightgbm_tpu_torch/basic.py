@@ -9,7 +9,11 @@ of the training slice.  Binning is the reference's own, on numpy
 data_random_seed)`, then every row is binned into one `[N, F]` uint8
 matrix (uint16 past 256 bins).  With `enable_bundle` on, construction
 runs the reference's EFB search (`utils/efb.py`), so the port decides
-bundling exactly as the JAX package does.
+bundling exactly as the JAX package does, and a training set that
+bundles also holds its [N, G] bundle matrix (`bundle_data`, the
+reference's `basic.py:329`).  A validation set (`create_valid`, or
+`reference=`) shares its reference's `BundleSpec`; it is only routed
+through trees on its own bins, so its bundle matrix is not built.
 
 Files, pandas, sparse matrices, the external-memory datastore and
 `save_binary` wait for later slices and raise with the reason.
@@ -96,6 +100,7 @@ class Dataset:
         self.bin_mappers: Optional[List[BinMapper]] = None
         self.num_total_bin = 0
         self.efb = None
+        self.bundle_data: Optional[np.ndarray] = None   # [N, G] when bundled
         self._feature_names: Optional[List[str]] = None
         self._num_data: Optional[int] = None
         self._num_feature: Optional[int] = None
@@ -187,6 +192,9 @@ class Dataset:
             self.efb = find_bundles(self.bin_data, self.bin_mappers,
                                     cfg.max_conflict_rate,
                                     cfg.data_random_seed)
+        if self.efb is not None and self.reference is None:
+            from .utils.efb import build_bundled
+            self.bundle_data = build_bundled(self.bin_data, self.efb)
         self._set_fields()
         self._handle_constructed = True
         if self.free_raw_data:

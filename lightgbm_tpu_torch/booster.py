@@ -8,7 +8,9 @@ gbdt_model_text.cpp `SaveModelToString` / `LoadModelFromString`).
 Training (`Booster(params, train_set)`, then `update`): the default path
 of the reference's `_init_train`, `_boost_from_average`, `update` /
 `_update_impl`, `__boost` and `_apply_tree_to_score`, for gbdt on
-numerical features with f32 histograms, or with quantized gradients
+numerical and categorical features, on the bin matrix or its EFB
+bundles (`Dataset.bundle_data`), with f32 histograms, or with quantized
+gradients
 (`use_quantized_grad`: the int8 lattice and its integer histograms),
 with every sampler of the reference (bagging, per-class bagging, GOSS,
 `feature_fraction`, `feature_fraction_bynode`, `extra_trees`), with the
@@ -51,7 +53,7 @@ from .objectives import (UNIT_HESSIAN_OBJECTIVES, Objective,
 from .ops.fused import (bagging_weights, feature_mask, goss_weights,
                         quantize_gradients)
 from .ops.grow import (QUANTIZED_IMPLS, DeviceTree, GrowerSpec, make_grower,
-                       split_go_left)
+                       split_go_left, to_device)
 from .ops.grow_wave import WAVE_WIDTH_DEFAULT, make_wave_grower
 from .ops.hist_kernel import MULTI_CHUNK
 from .ops.hist_kernel_q import MULTI_CHUNK_Q
@@ -64,7 +66,7 @@ from .utils.config import Config
 from .utils.log import LightGBMError
 
 #: ROADMAP items that the training slice's refusals name
-CATEGORICAL = "ROADMAP Queue 1 item 5b: the categorical/EFB grower"
+CONTINUED = "ROADMAP Queue 1 item 5c: cv and continued training"
 BREADTH = "ROADMAP Queue 1 item 5d: grower and boosting breadth"
 EXTERNAL = "ROADMAP Queue 1 item 5e: external memory and streaming"
 DISTRIBUTED = "ROADMAP Queue 1 item 5f: distributed training"
@@ -247,17 +249,21 @@ def resolve_grow_policy(cfg: Config) -> str:
                         "'leafwise' or 'wave')")
 
 
-def fused_split_of(cfg: Config, policy: str, hist_impl: str) -> bool:
+def fused_split_of(cfg: Config, policy: str, hist_impl: str,
+                   bundled: bool) -> bool:
     """Whether the wave grower takes the fused path (K2 + K3, or K5 + K3
     on the lattice), the reference's `_maybe_fuse_hist_impl`
     (`booster.py:1045`): the wave policy on the kernels' histogram path
-    with `tpu_fused_split` on (the default), no path smoothing and no
+    with `tpu_fused_split` on (the default), no path smoothing, no
     extra_trees (whose one threshold a feature the kernels' scan does
-    not take).  Otherwise the wave runs unfused on K1 (K4), with a
-    warning as in the reference; the port's kernels need no probe
-    (`chip_smoke.py` holds them to their plain versions).
-    `feature_fraction_bynode` stays fused: its mask gates
-    `decide_from_candidates`."""
+    not take) and no EFB bundles (the kernels scan the bundle columns'
+    histograms, not the features', `:1071`).  Otherwise the wave runs
+    unfused on K1 (K4), with a warning as in the reference; the port's
+    kernels need no probe (`chip_smoke.py` holds them to their plain
+    versions).  `feature_fraction_bynode` and categorical features stay
+    fused: the mask gates `decide_from_candidates`, and the categorical
+    features are searched on the carried histograms
+    (`ops/grow_wave.py`)."""
     if hist_impl not in ("kernel", "kernel_q") or not cfg.tpu_fused_split:
         return False
     reasons = []
@@ -267,6 +273,8 @@ def fused_split_of(cfg: Config, policy: str, hist_impl: str) -> bool:
             return False
         reasons.append("tree_grow_policy != wave (the strict policy "
                        "re-scans cached histograms per split)")
+    if bundled:
+        reasons.append("EFB bundling")
     if cfg.path_smooth > 0.0:
         reasons.append("path_smooth")
     if cfg.extra_trees:
@@ -282,9 +290,14 @@ def fused_split_of(cfg: Config, policy: str, hist_impl: str) -> bool:
 
 class _DeviceData:
     """A constructed Dataset's bins and labels on the training device
-    (the reference's `_DeviceData`)."""
+    (the reference's `_DeviceData`, `booster.py:63-129`).  A training
+    set that EFB bundles (`for_train`) also puts its [G, N] bundle
+    matrix there (`bundle_fm`, what the growers read) and the bundle
+    maps in `feat` (the reference's `_build_feat`, `:1122-1126`); a
+    validation set is only routed through trees on its own bins."""
 
-    def __init__(self, ds: Dataset, device: torch.device):
+    def __init__(self, ds: Dataset, device: torch.device,
+                 for_train: bool = False):
         ds.construct()
         self.num_data, self.num_feature = ds._num_data, ds._num_feature
         self.bins_fm = torch.from_numpy(
@@ -293,12 +306,33 @@ class _DeviceData:
         self.nb_np = np.array([m.num_bin for m in mappers], np.int32)
         self.missing_np = np.array([m.missing_type for m in mappers],
                                    np.int32)
+        self.is_cat_np = np.array(
+            [m.bin_type == BIN_TYPE_CATEGORICAL for m in mappers], bool)
         self.feat = dict(
             nb=torch.from_numpy(self.nb_np).to(device),
             missing=torch.from_numpy(self.missing_np).to(device),
             default=torch.from_numpy(np.array(
                 [m.default_bin for m in mappers], np.int32)).to(device),
+            is_cat=torch.from_numpy(self.is_cat_np).to(device),
             nb_np=self.nb_np, missing_np=self.missing_np)
+        self.efb = ds.efb if for_train else None
+        self.bundle_fm = None
+        if self.efb is not None:
+            if ds.bundle_data is None:
+                from .utils.efb import build_bundled
+                ds.bundle_data = build_bundled(ds.bin_data, self.efb)
+            self.bundle_fm = torch.from_numpy(
+                np.ascontiguousarray(ds.bundle_data.T)).to(device)
+            efb = self.efb
+            self.feat.update(
+                bundle_col=torch.from_numpy(
+                    efb.col_of_feature.astype(np.int64)).to(device),
+                bundle_off=torch.from_numpy(
+                    efb.off_of_feature.astype(np.int64)).to(device),
+                bundle_identity=torch.from_numpy(
+                    np.asarray(efb.identity, bool)).to(device),
+                bundle_col_np=efb.col_of_feature,
+                bundle_off_np=efb.off_of_feature)
         self.allowed = torch.from_numpy(np.array(
             [not m.is_trivial for m in mappers], bool)).to(device)
         self.max_bin = int(self.nb_np.max())
@@ -313,15 +347,21 @@ class _DeviceData:
 def replay_leaf_ids(dev: DeviceTree, dd: _DeviceData) -> torch.Tensor:
     """[N] leaf slots of `dd`'s rows in a grown tree, by replaying its
     splits in growth order on the bins (the reference's
-    `ops/predict.py replay_leaf_ids`; the same leaves as its bin-level
-    traversal `traverse_bins`)."""
-    lid = torch.zeros(dd.num_data, dtype=torch.int32,
-                      device=dd.bins_fm.device)
-    for i in range(dev.n_splits):
+    `ops/predict.py:75 replay_leaf_ids`; the same leaves as its
+    bin-level traversal `traverse_bins`): a categorical split gathers
+    its bin mask, uploaded once a tree without a sync."""
+    device = dd.bins_fm.device
+    lid = torch.zeros(dd.num_data, dtype=torch.int32, device=device)
+    ns = dev.n_splits
+    masks = to_device(dev.split_cat_mask[:ns], device) \
+        if dev.split_is_cat[:ns].any() else None
+    for i in range(ns):
         f = int(dev.split_feature[i])
         go_left = split_go_left(dd.bins_fm, f, int(dev.threshold_bin[i]),
                                 bool(dev.default_left[i]),
-                                int(dd.missing_np[f]), int(dd.nb_np[f]))
+                                int(dd.missing_np[f]), int(dd.nb_np[f]),
+                                cat_mask=masks[i] if dev.split_is_cat[i]
+                                else None)
         lid = torch.where((lid == int(dev.split_leaf[i])) & ~go_left,
                           i + 1, lid)
     return lid
@@ -385,19 +425,8 @@ class Booster:
         train_set.params = {**(train_set.params or {}), **{
             k: v for k, v in self.params.items() if k in _DATASET_PARAMS}}
         train_set.construct()
-        if train_set.efb is not None:
-            raise LightGBMError(
-                f"EFB found {len(train_set.efb.bundles)} feature bundle(s) "
-                f"in this dataset; bundled training is not ported yet "
-                f"({CATEGORICAL}); pass enable_bundle=False to train "
-                "unbundled")
-        if any(m.bin_type == BIN_TYPE_CATEGORICAL
-               for m in train_set.bin_mappers):
-            raise LightGBMError("categorical features are binned, but "
-                                f"training on them is not ported yet "
-                                f"({CATEGORICAL})")
         self.train_set = train_set
-        self._dd = _DeviceData(train_set, self.device)
+        self._dd = _DeviceData(train_set, self.device, for_train=True)
         obj: TrainObjective = create_objective(cfg)
         self._train_obj = obj
         self.objective_ = obj.link()
@@ -413,6 +442,7 @@ class Booster:
                                       for m in train_set.bin_mappers]
         self.hist_impl = hist_impl_of(cfg, self.device)
         wave = self._grow_policy == "wave"
+        efb = self._dd.efb
         self._grower_spec = GrowerSpec(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
             max_bin=self._dd.max_bin, lambda_l1=cfg.lambda_l1,
@@ -430,9 +460,16 @@ class Booster:
             wave_gain_ratio=self._wave_gain_ratio() if wave else 0.0,
             wave_overgrow=self._wave_overgrow() if wave else 0.0,
             wave_strict_tail=self._wave_strict_tail() if wave else 0,
-            fused=fused_split_of(cfg, self._grow_policy, self.hist_impl),
+            fused=fused_split_of(cfg, self._grow_policy, self.hist_impl,
+                                 efb is not None),
             feature_fraction_bynode=cfg.feature_fraction_bynode,
-            extra_trees=bool(cfg.extra_trees))
+            extra_trees=bool(cfg.extra_trees),
+            cat_smooth=cfg.cat_smooth, cat_l2=cfg.cat_l2,
+            max_cat_threshold=cfg.max_cat_threshold,
+            max_cat_to_onehot=cfg.max_cat_to_onehot,
+            has_cat=bool(self._dd.is_cat_np.any()),
+            bundled=efb is not None,
+            bundle_max_bin=efb.max_bin if efb is not None else 0)
         self._grower = make_wave_grower(self._grower_spec) if wave \
             else make_grower(self._grower_spec)
         K = self.num_tree_per_iteration
@@ -649,7 +686,8 @@ class Booster:
                 # `booster.py:1621-1626`)
                 feat_k = {**feat, "ff_key": fold_in(
                     fold_in(self._ff_key0, 2 ** 20 + it), k)}
-            dev = self._grower(dd.bins_fm, gk, hk, sw, feat_k, allowed)
+            dev = self._grower(dd.bins_fm if dd.bundle_fm is None
+                               else dd.bundle_fm, gk, hk, sw, feat_k, allowed)
             tree = Tree.from_device(dev, self.train_set.bin_mappers, lr)
             if tree.num_leaves > 1:
                 all_const = False

@@ -13,7 +13,7 @@ from typing import Any, Dict, List, Optional
 
 from . import callback as callback_mod
 from .basic import Dataset
-from .booster import BREADTH, Booster
+from .booster import CONTINUED, Booster
 from .utils.config import Config, canonical_param_name
 from .utils.log import LightGBMError
 
@@ -30,9 +30,9 @@ def train(params: Dict[str, Any], train_set: Dataset,
     unless `params` say `device_type="cpu"`."""
     if init_model is not None:
         raise LightGBMError("init_model (continued training) is not "
-                            f"ported yet ({BREADTH})")
+                            f"ported yet ({CONTINUED})")
     if feval is not None:
-        raise LightGBMError(f"feval is not ported yet ({BREADTH})")
+        raise LightGBMError(f"feval is not ported yet ({CONTINUED})")
     if not isinstance(train_set, Dataset):
         raise TypeError("train() only accepts a lightgbm_tpu_torch Dataset, "
                         f"got {type(train_set).__name__}")

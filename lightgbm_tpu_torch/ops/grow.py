@@ -2,7 +2,8 @@
 
 The port's counterpart of `lightgbm_tpu/ops/grow.py` `make_grower`
 (ref: src/treelearner/serial_tree_learner.cpp `SerialTreeLearner::Train`
-/ `FindBestSplits` / `Split`), for numerical features.  The reference
+/ `FindBestSplits` / `Split`), for numerical and categorical features,
+on the plain or the EFB-bundled bin matrix.  The reference
 compiles the whole best-first loop (`grow.py:887-1175`) into one XLA
 `while_loop`; here a Python loop drives tensors on the device:
 
@@ -20,7 +21,16 @@ compiles the whole best-first loop (`grow.py:887-1175`) into one XLA
     first-wins argmax over the cached gains, as `jnp.argmax` does;
   * per-node sampling (`feature_fraction_bynode`, `extra_trees`) reads
     masks drawn for every node id of the tree when it starts
-    (`make_node_samplers`), indexed on the device: no sync a node.
+    (`make_node_samplers`), indexed on the device: no sync a node;
+  * categorical splits (`spec.has_cat`): the search adds the reference's
+    cases 2-4, the host copy carries each decision's bin mask
+    (`SplitResult.pack`), and a device copy of each leaf's mask routes
+    the rows of a categorical split by a gather (`split_go_left`);
+  * EFB (`spec.bundled`): bins_fm holds the G bundle columns, the
+    histograms are [G, HB] and stay so in the leaf cache (parent minus
+    child is taken there); `make_bundled_expander` expands them to the
+    features' [F, MB] grid for the search only, and decodes a split
+    feature's bins from its bundle column for the partition.
 
 Root sums, leaf sums, gains and outputs stay f32, as the reference
 computes them (it never enables x64).  The root sums and the split
@@ -40,7 +50,7 @@ from .hist_kernel_q import histogram_multi_quantized, quantized_lattice_rows
 from .histogram import leaf_histogram_packed_multi
 from .reduce import tree_sum
 from .split import (MISSING_NAN, NEG_INF, PACK_COLS, find_best_split,
-                    leaf_output, smooth_output)
+                    leaf_output, pack_cols, smooth_output, unpack_cat)
 from .threefry import fold_in, permutation, uniform
 
 #: blocking device-to-host copies made by the growers (the strict grower:
@@ -56,9 +66,18 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device` without a host sync: pinned memory and
+    an asynchronous copy on a CUDA device."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 class GrowerSpec(NamedTuple):
     """Static configuration of one grower (the fields of the reference's
-    `GrowerSpec` that the strict numerical grower reads)."""
+    `GrowerSpec` that the port's growers read)."""
     num_leaves: int
     max_depth: int        # <= 0 means unlimited
     max_bin: int          # padded bin-axis size MB
@@ -106,6 +125,19 @@ class GrowerSpec(NamedTuple):
     #: `feat["ff_key"]`, the tree's key.
     feature_fraction_bynode: float = 1.0
     extra_trees: bool = False
+    #: categorical splits (the reference's fields of the same names,
+    #: `lightgbm_tpu/ops/grow.py:62-65`, `:136`): False promises every
+    #: feature is numerical, and the search skips the categorical cases
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
+    has_cat: bool = False
+    #: EFB: bins_fm holds the bundle columns [G, N], whose largest bin
+    #: count is `bundle_max_bin` (HB); `feat` carries `bundle_col`,
+    #: `bundle_off` and `bundle_identity` [F] (`make_bundled_expander`)
+    bundled: bool = False
+    bundle_max_bin: int = 0
 
 
 #: the hist_impl values whose payload is a quantized gradient lattice
@@ -113,9 +145,10 @@ QUANTIZED_IMPLS = ("kernel_q", "packed")
 
 
 class DeviceTree(NamedTuple):
-    """One grown tree (the reference's `ops/grow.py:158 DeviceTree`, for
-    numerical splits).  Node arrays are [L-1] and leaf arrays [L] host
-    numpy; `n_splits` gives the populated prefix.  Node i's left child
+    """One grown tree (the reference's `ops/grow.py:158 DeviceTree`).
+    Node arrays are [L-1] (`split_cat_mask` [L-1, MB], the left bins of
+    a categorical split) and leaf arrays [L] host numpy; `n_splits`
+    gives the populated prefix.  Node i's left child
     keeps leaf slot `split_leaf[i]`, its right child is leaf slot i + 1
     (ref: tree.h `Tree::Split`).  `leaf_id` [N] i32 (the final row to
     leaf map) and `values` [L] f32 (the leaf outputs, zero past the
@@ -125,6 +158,8 @@ class DeviceTree(NamedTuple):
     split_feature: np.ndarray
     threshold_bin: np.ndarray
     default_left: np.ndarray
+    split_is_cat: np.ndarray
+    split_cat_mask: np.ndarray
     split_gain: np.ndarray
     internal_g: np.ndarray
     internal_h: np.ndarray
@@ -137,12 +172,32 @@ class DeviceTree(NamedTuple):
     values: torch.Tensor
 
 
+def feature_bins(bins_fm: torch.Tensor, f: int,
+                 bundle: Optional[tuple] = None) -> torch.Tensor:
+    """[N] i32 bins of feature `f`: its row of bins_fm, or with `bundle`
+    = (col, off, nb) decoded from its bundle column (the reference's
+    `decode_bins`, `ops/grow.py:287`): column values off .. off + nb - 2
+    are the feature's bins 1 .. nb - 1, any other value its bin 0."""
+    if bundle is None:
+        return bins_fm[f].to(torch.int32)
+    col, off, nb = bundle
+    raw = bins_fm[col].to(torch.int32)
+    return torch.where((raw >= off) & (raw < off + nb - 1), raw - off + 1, 0)
+
+
 def split_go_left(bins_fm: torch.Tensor, f: int, t: int, dl: bool,
-                  missing: int, nb: int) -> torch.Tensor:
-    """[N] left/right routing of one numerical split (the reference's
-    `split_go_left`): bin <= t goes left, and the NaN bin of a
-    NaN-missing feature follows `dl`."""
-    fbins = bins_fm[f].to(torch.int32)
+                  missing: int, nb: int, bundle: Optional[tuple] = None,
+                  cat_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[N] left/right routing of one split (the reference's
+    `split_go_left`, `ops/grow.py:335`): bins from `feature_bins`; a
+    categorical split (`cat_mask`, its [MB] bool left bins on the
+    device, given only for a categorical node: the host knows which
+    from the split's copy) gathers the mask at the bins; a numerical
+    one sends bin <= t left, and the NaN bin of a NaN-missing feature
+    follows `dl`."""
+    fbins = feature_bins(bins_fm, f, bundle)
+    if cat_mask is not None:
+        return cat_mask[fbins.long()]
     go_left = fbins <= t
     if missing == MISSING_NAN:
         go_left = torch.where(fbins == nb - 1, dl, go_left)
@@ -152,11 +207,11 @@ def split_go_left(bins_fm: torch.Tensor, f: int, t: int, dl: bool,
 def tree_histograms(spec: GrowerSpec, bins_fm: torch.Tensor,
                     payload: torch.Tensor, feat: Dict):
     """One tree's histogram function `hist(leaf_id, slots) -> [S, F,
-    MB, 3]` for `spec.hist_impl`, and the int8 lattice it reads
-    ("kernel_q", else None).  The lattice is made once per tree (the
-    reference's `ops/grow.py:583-589`), with the scales of
-    `feat["qscales"]`."""
-    MB = spec.max_bin
+    MB, 3]` ([S, G, HB, 3] over bundle columns) for `spec.hist_impl`,
+    and the int8 lattice it reads ("kernel_q", else None).  The lattice
+    is made once per tree (the reference's `ops/grow.py:583-589`), with
+    the scales of `feat["qscales"]`."""
+    MB = spec.bundle_max_bin if spec.bundled else spec.max_bin
     impl = spec.hist_impl
     if impl == "kernel":
         return (lambda lid, sl: histogram_multi(bins_fm, payload, lid, sl,
@@ -182,6 +237,7 @@ class NodeMasks(NamedTuple):
     id indexes them there, so reading a node's mask costs no sync."""
     bynode: Optional[torch.Tensor]    # [R, F] bool, or None
     pick: Optional[torch.Tensor]      # [R, F] i64 extra_trees bin, or None
+    is_cat: Optional[torch.Tensor] = None   # [F] bool with categoricals
 
     def allowed(self, nid, allowed: torch.Tensor) -> torch.Tensor:
         """`allowed` and the bynode mask of `nid` (an int, a slice or an
@@ -190,11 +246,14 @@ class NodeMasks(NamedTuple):
 
     def cand(self, nid, mb: int) -> Optional[torch.Tensor]:
         """The extra_trees candidate grid [..., F, MB] of `nid`: each
-        feature's one drawn threshold; None without extra_trees."""
+        numerical feature's one drawn threshold, every candidate of a
+        categorical feature (the reference's `m | is_cat[:, None]`,
+        `ops/grow.py:326`); None without extra_trees."""
         if self.pick is None:
             return None
         bins = torch.arange(mb, device=self.pick.device)
-        return bins == self.pick[nid][..., None]
+        m = bins == self.pick[nid][..., None]
+        return m if self.is_cat is None else m | self.is_cat[:, None]
 
 
 def make_node_samplers(spec: GrowerSpec, feat: Dict, f_count: int,
@@ -204,14 +263,13 @@ def make_node_samplers(spec: GrowerSpec, feat: Dict, f_count: int,
     `make_node_samplers` (`lightgbm_tpu/ops/grow.py:298`) drawn for node
     ids 0 .. n_nodes - 1 at once: node `nid`'s bynode mask is the first
     max(1, int(feature_fraction_bynode F + 1e-9)) of
-    `permutation(fold_in(ff_key, nid), F)` (the reference permutes its
-    `num_features_hint`, the dataset's feature count, which is F while
-    no bundle merges features), and its extra_trees threshold of
-    feature f is int32(u_f x f32(max(nb_f - 2, 0) + 1)), clipped to
-    [0, MB), with u = `uniform(fold_in(ff_key, 2^24 + nid), (F,))`
-    (categorical features, which keep every candidate there, are not
-    ported: item 5b).  The node keys come from one batched `fold_in` on
-    the host; the draws are one threefry launch each on the card
+    `permutation(fold_in(ff_key, nid), F)`, F the feat arrays' length
+    (under EFB still the features, not the bundle columns), and its
+    extra_trees threshold of feature f is int32(u_f x f32(max(nb_f - 2,
+    0) + 1)), clipped to [0, MB), with u = `uniform(fold_in(ff_key,
+    2^24 + nid), (F,))`; a categorical feature keeps every candidate
+    (`NodeMasks.cand`).  The node keys come from one batched `fold_in`
+    on the host; the draws are one threefry launch each on the card
     ([n_nodes, F] bits, [n_nodes, F] uniforms), the permutations one
     batched sort there."""
     bynode_on = spec.feature_fraction_bynode < 1.0
@@ -234,19 +292,83 @@ def make_node_samplers(spec: GrowerSpec, feat: Dict, f_count: int,
         t_max = torch.clamp(feat["nb"] - 2, min=0)
         pick = (r * (t_max + 1).to(torch.float32)).to(torch.int32)
         pick = torch.clamp(pick, 0, spec.max_bin - 1).to(torch.int64)
-    return NodeMasks(bynode, pick)
+    return NodeMasks(bynode, pick, feat["is_cat"] if spec.has_cat else None)
+
+
+def make_bundled_expander(spec: GrowerSpec, feat: Dict):
+    """(expand_bundled, bundle_of) for an EFB bundle matrix (the
+    reference's `make_bundled_expander`, `ops/grow.py:257`).
+
+    expand_bundled(hist [B, G, HB, 3], parent [B, 3]) -> [B, F, MB, 3]:
+    a feature's bins 1 .. nb - 1 are a gather from its bundle column at
+    offset `bundle_off` - 1; its bin 0 is the column's bin 0 for a
+    feature alone in its column, else parent minus the sum of its other
+    bins (XLA's CPU order, `ops/reduce.py tree_sum`), the sparse-bin
+    identity the reference uses.  bundle_of(f) is the (col, off, nb)
+    that `feature_bins` decodes feature f's bins with."""
+    MB, HB = spec.max_bin, spec.bundle_max_bin
+    bcol, boff = feat["bundle_col"], feat["bundle_off"]
+    bident = feat["bundle_identity"]
+    ar = torch.arange(MB, device=bcol.device)
+    src = torch.clamp(boff[:, None] + ar[None, :] - 1, 0, HB - 1)
+    valid = (ar[None, :] >= 1) & (ar[None, :] < feat["nb"][:, None])
+    col_np, off_np, nb_np = (feat["bundle_col_np"], feat["bundle_off_np"],
+                             feat["nb_np"])
+
+    def expand_bundled(histg: torch.Tensor,
+                       parent: torch.Tensor) -> torch.Tensor:
+        hist = torch.where(valid[None, :, :, None],
+                           histg[:, bcol[:, None], src], 0.0)
+        rest = tree_sum(hist.transpose(2, 3))                    # [B, F, 3]
+        hist[:, :, 0, :] = torch.where(bident[None, :, None],
+                                       histg[:, bcol, 0, :],
+                                       parent[:, None, :] - rest)
+        return hist
+
+    def bundle_of(f: int) -> tuple:
+        return int(col_np[f]), int(off_np[f]), int(nb_np[f])
+
+    return expand_bundled, bundle_of
+
+
+def search_kwargs(spec: GrowerSpec, feat: Dict) -> Dict:
+    """`find_best_split`'s categorical arguments for a spec: none when
+    every feature is numerical."""
+    if not spec.has_cat:
+        return {}
+    return dict(is_cat=feat["is_cat"], cat_smooth=spec.cat_smooth,
+                cat_l2=spec.cat_l2, max_cat_threshold=spec.max_cat_threshold,
+                max_cat_to_onehot=spec.max_cat_to_onehot, has_cat=True)
+
+
+def node_arrays(n: int, mb: int) -> Dict[str, np.ndarray]:
+    """The host split log of a grower: [n] per node, [n, MB] masks."""
+    return dict(
+        split_leaf=np.zeros(n, np.int32),
+        split_feature=np.zeros(n, np.int32),
+        threshold_bin=np.zeros(n, np.int32),
+        default_left=np.zeros(n, bool),
+        split_is_cat=np.zeros(n, bool),
+        split_cat_mask=np.zeros((n, mb), bool),
+        split_gain=np.zeros(n, np.float32),
+        internal_g=np.zeros(n, np.float32),
+        internal_h=np.zeros(n, np.float32),
+        internal_cnt=np.zeros(n, np.float32))
 
 
 def make_grower(spec: GrowerSpec) -> Callable:
     """The grow function of a spec: `grow(bins_fm, grad, hess,
     sample_weight, feat, allowed) -> DeviceTree`.
 
-    bins_fm [F, N] u8/u16, grad/hess/sample_weight [N] f32 and allowed
-    [F] bool lie on one device; `feat` holds the per-feature metadata
-    as device tensors (`nb`, `missing`, `default`, [F] i32) and host
-    numpy copies (`nb_np`, `missing_np`)."""
+    bins_fm [F, N] (bundled: [G, N]) u8/u16, grad/hess/sample_weight
+    [N] f32 and allowed [F] bool lie on one device; `feat` holds the
+    per-feature metadata as device tensors (`nb`, `missing`, `default`,
+    [F] i32; `is_cat` [F] bool with categoricals; the bundle maps under
+    EFB) and host numpy copies (`nb_np`, `missing_np`, ...)."""
     L = spec.num_leaves
     MB = spec.max_bin
+    HB = spec.bundle_max_bin if spec.bundled else MB
+    PC = pack_cols(MB, spec.has_cat)
     l1, l2, mds = spec.lambda_l1, spec.lambda_l2, spec.max_delta_step
     ps = spec.path_smooth
 
@@ -256,12 +378,14 @@ def make_grower(spec: GrowerSpec) -> Callable:
         return smooth_output(leaf_output(g, h, l1, l2, mds), c, parent_out,
                              ps)
 
-    def search(hist, g, h, c, allowed, p_out, feat, cand=None):
+    def search(hist, g, h, c, allowed, p_out, feat, cand, expand):
+        if expand is not None:
+            hist = expand(hist, torch.stack([g, h, c], dim=-1))
         return find_best_split(
             hist, g, h, c, feat["nb"], feat["missing"], feat["default"],
             allowed, l1, l2, spec.min_data_in_leaf,
             spec.min_sum_hessian_in_leaf, spec.min_gain_to_split, mds, ps,
-            p_out, cand)
+            p_out, cand, **search_kwargs(spec, feat))
 
     def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              sample_weight: torch.Tensor, feat: Dict,
@@ -272,32 +396,37 @@ def make_grower(spec: GrowerSpec) -> Callable:
         payload = torch.stack([grad * sample_weight, hess * sample_weight,
                                sample_weight], dim=1).contiguous()
         hist_fn, _ = tree_histograms(spec, bins_fm, payload, feat)
+        expand, bundle_of = make_bundled_expander(spec, feat) \
+            if spec.bundled else (None, lambda f: None)
         # node ids: the root 0, the children of split k 2k + 1 and 2k + 2
         masks = make_node_samplers(spec, feat, f_count, 2 * L - 1, dev)
         slots = torch.arange(L, dtype=torch.int32, device=dev)
         no_feature = torch.zeros_like(allowed)
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
-        hist = torch.empty((L, f_count, MB, 3), dtype=torch.float32,
+        # the leaf cache holds the histograms as built: [G, HB] under EFB
+        hist = torch.empty((L, bins_fm.shape[0], HB, 3), dtype=torch.float32,
                            device=dev)
         hist[0] = hist_fn(leaf_id, slots[:1])[0]
 
         # ---- root: sums, output, split, all in one host copy ----
         root_g, root_h, root_c = tree_sum(payload.t())
         root_out = leaf_output(root_g, root_h, l1, l2, mds)
-        s0 = search(hist[0], root_g, root_h, root_c,
-                    masks.allowed(0, allowed), root_out, feat,
-                    masks.cand(0, MB))
+        s0 = search(hist[:1], root_g[None], root_h[None], root_c[None],
+                    masks.allowed(0, allowed), root_out[None], feat,
+                    masks.cand(0, MB), expand)
         # device mirror of the per-leaf records the children read:
-        # the cached split (PACK_COLS) and the leaf's output
-        rec_dev = torch.zeros((L, PACK_COLS), dtype=torch.float32,
-                              device=dev)
+        # the cached split (pack_cols), its categorical mask, the output
+        rec_dev = torch.zeros((L, PC), dtype=torch.float32, device=dev)
         out_dev = torch.zeros(L, dtype=torch.float32, device=dev)
-        rec_dev[0] = s0.pack()
+        rec_dev[0] = s0.pack()[0]
         out_dev[0] = root_out
+        if spec.has_cat:
+            mask_dev = torch.zeros((L, MB), dtype=torch.bool, device=dev)
+            mask_dev[0] = s0.cat_mask[0]
         host = to_host(torch.cat([torch.stack([root_g, root_h, root_c,
                                                root_out]), rec_dev[0]]))
 
-        rec = np.zeros((L, PACK_COLS), np.float32)
+        rec = np.zeros((L, PC), np.float32)
         rec[:, 0] = NEG_INF
         rec[0] = host[4:]
         leaf_g = np.zeros(L, np.float32)
@@ -306,38 +435,36 @@ def make_grower(spec: GrowerSpec) -> Callable:
         leaf_out = np.zeros(L, np.float32)
         leaf_depth = np.zeros(L, np.int64)
         leaf_g[0], leaf_h[0], leaf_c[0], leaf_out[0] = host[:4]
-        nodes = dict(
-            split_leaf=np.zeros(L - 1, np.int32),
-            split_feature=np.zeros(L - 1, np.int32),
-            threshold_bin=np.zeros(L - 1, np.int32),
-            default_left=np.zeros(L - 1, bool),
-            split_gain=np.zeros(L - 1, np.float32),
-            internal_g=np.zeros(L - 1, np.float32),
-            internal_h=np.zeros(L - 1, np.float32),
-            internal_cnt=np.zeros(L - 1, np.float32))
+        nodes = node_arrays(L - 1, MB)
         missing = feat["missing_np"]
         nb = feat["nb_np"]
 
         step, nl = 0, 1
         while step < L - 1 and rec[:, 0].max() > 0.0:
             best = int(np.argmax(rec[:, 0]))
-            gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = rec[best]
+            gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = rec[best, :PACK_COLS]
             f, t, dl = int(f), int(t), bool(dl)
+            node_cat, node_mask = unpack_cat(rec[best, PACK_COLS:], MB) \
+                if spec.has_cat else (False, None)
             new = nl
 
             # ---- partition: dense leaf_id update ----
-            go_left = split_go_left(bins_fm, f, t, dl, int(missing[f]),
-                                    int(nb[f]))
+            go_left = split_go_left(
+                bins_fm, f, t, dl, int(missing[f]), int(nb[f]), bundle_of(f),
+                mask_dev[best] if node_cat else None)
             leaf_id = torch.where((leaf_id == best) & ~go_left,
                                   slots[new], leaf_id)
 
             for key, v in (("split_leaf", best), ("split_feature", f),
                            ("threshold_bin", t), ("default_left", dl),
+                           ("split_is_cat", node_cat),
                            ("split_gain", gain_s),
                            ("internal_g", leaf_g[best]),
                            ("internal_h", leaf_h[best]),
                            ("internal_cnt", leaf_c[best])):
                 nodes[key][step] = v
+            if node_cat:
+                nodes["split_cat_mask"][step] = node_mask
 
             # ---- histograms: the smaller child scanned, the larger by
             # subtraction ----
@@ -349,7 +476,7 @@ def make_grower(spec: GrowerSpec) -> Callable:
             hist[new] = large_hist if left_smaller else small_hist
 
             # ---- the children: outputs, then both searches at once ----
-            sums = rec_dev[best, 4:].reshape(2, 3)       # left, right
+            sums = rec_dev[best, 4:PACK_COLS].reshape(2, 3)  # left, right
             p_out = out_dev[best]
             child_out = out_of(sums[:, 0], sums[:, 1], sums[:, 2], p_out)
             depth = int(leaf_depth[best]) + 1
@@ -358,14 +485,18 @@ def make_grower(spec: GrowerSpec) -> Callable:
             res = search(hist[[best, new]], sums[:, 0], sums[:, 1],
                          sums[:, 2], masks.allowed(
                              kids, allowed if deep_ok else no_feature),
-                         child_out, feat, masks.cand(kids, MB)).pack()
-            rec_dev[best], rec_dev[new] = res[0], res[1]
+                         child_out, feat, masks.cand(kids, MB), expand)
+            packed = res.pack()
+            rec_dev[best], rec_dev[new] = packed[0], packed[1]
             out_dev[best], out_dev[new] = child_out[0], child_out[1]
-            host = to_host(torch.cat([res.reshape(-1), child_out]))
+            if spec.has_cat:
+                mask_dev[best], mask_dev[new] = res.cat_mask[0], \
+                    res.cat_mask[1]
+            host = to_host(torch.cat([packed.reshape(-1), child_out]))
 
-            rec[best] = host[:PACK_COLS]
-            rec[new] = host[PACK_COLS:2 * PACK_COLS]
-            leaf_out[best], leaf_out[new] = host[2 * PACK_COLS:]
+            rec[best] = host[:PC]
+            rec[new] = host[PC:2 * PC]
+            leaf_out[best], leaf_out[new] = host[2 * PC:]
             leaf_g[best], leaf_h[best], leaf_c[best] = lg, lh, lc
             leaf_g[new], leaf_h[new], leaf_c[new] = rg, rh, rc
             leaf_depth[best] = leaf_depth[new] = depth

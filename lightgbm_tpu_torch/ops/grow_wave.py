@@ -2,7 +2,8 @@
 
 The port's counterpart of `lightgbm_tpu/ops/grow_wave.py` (`wave_sizes`
 `:81`, `make_wave_grower` `:94`, `prune_wave_tail` `:937`), for
-numerical features on one device.  The wave policy changes the order of
+numerical and categorical features, on the plain or the EFB-bundled bin
+matrix, on one device.  The wave policy changes the order of
 growth, not the split math: each wave splits every ready leaf (one that
 existed when the wave began) whose cached best gain is positive,
 best-first, up to the wave's width; then the new smaller children's
@@ -38,10 +39,16 @@ records the pick loop reads live on the host:
     reads all N rows, so no pad slot is launched;
   * **larger children**: f32 parent minus smaller (`:793-799`), then one K3
     launch on them (fused, `split_scan`) or one batched
-    `find_best_split` over all 2w children (unfused); the candidates are
-    routed to the left and new children as at `:816-822`;
+    `find_best_split` over all 2w children (unfused; under EFB on their
+    histograms expanded from the bundle columns, `:413-416`); the
+    candidates are routed to the left and new children as at
+    `:816-822`;
   * **decide and copy**: a batched `decide_from_candidates` over the 2w
-    children with the `max_depth` gate (`:828-832`), then one packed
+    children with the `max_depth` gate (`:828-832`); with categorical
+    features the numerical features only, then the categorical search
+    (`find_best_split(..., numerical=False)`) over the children's carried
+    histograms (K2's, K5's dequantized ones, or parent minus child) and
+    `merge_split_results` (`split_of_fused`, `:417-441`); then one packed
     device-to-host copy per wave, counted in `ops/grow.py HOST_SYNCS`;
   * **tree full**: when the picks reach LB - 1 splits, the histogram and
     find phase is skipped (`:856-863`): that wave makes no copy;
@@ -67,11 +74,14 @@ import torch
 from ..utils.log import LightGBMError
 from .fused_kernel import (fused_hist_split, fused_hist_split_quantized,
                            split_scan)
-from .grow import (DeviceTree, GrowerSpec, make_node_samplers,
-                   split_go_left, to_host, tree_histograms)
+from .grow import (DeviceTree, GrowerSpec, make_bundled_expander,
+                   make_node_samplers, node_arrays, search_kwargs,
+                   split_go_left, to_device, to_host,
+                   tree_histograms)
 from .reduce import tree_sum
 from .split import (NEG_INF, PACK_COLS, decide_from_candidates,
-                    find_best_split, leaf_output, smooth_output)
+                    find_best_split, leaf_output, merge_split_results,
+                    pack_cols, smooth_output, unpack_cat)
 
 #: the reference's accuracy-sweep default width (`grow_wave.py:77`); the
 #: booster resolves `tpu_wave_width=0` to it
@@ -90,15 +100,6 @@ def wave_sizes(spec: GrowerSpec):
     LB = L if spec.wave_overgrow <= 1.0 else \
         max(L, int(math.ceil(spec.wave_overgrow * L)))
     return LB, max(1, min(spec.wave_width or WAVE_WIDTH_DEFAULT, LB - 1))
-
-
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on `device` without a host sync: pinned memory and
-    an asynchronous copy on a CUDA device."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 def prune_wave_tail(nodes: Dict[str, np.ndarray], n: int,
@@ -150,7 +151,8 @@ def prune_wave_tail(nodes: Dict[str, np.ndarray], n: int,
     for k, v in nodes.items():
         picked = new_slot[sl[old_of_new]] if k == "split_leaf" \
             else v[old_of_new]
-        out_nodes[k] = np.where(valid, picked, np.zeros((), v.dtype)) \
+        keep = valid.reshape((-1,) + (1,) * (v.ndim - 1))
+        out_nodes[k] = np.where(keep, picked, np.zeros((), v.dtype)) \
             .astype(v.dtype)
     big_of = np.zeros(L, np.int64)
     big_of[new_idx[alive] + 1] = idx[alive] + 1
@@ -169,11 +171,13 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
     ps = spec.path_smooth
     fused = spec.fused
     if fused and (spec.hist_impl not in ("kernel", "kernel_q")
-                  or ps > 0.0 or spec.extra_trees):
+                  or ps > 0.0 or spec.extra_trees or spec.bundled):
         raise LightGBMError("the fused wave path needs hist_impl 'kernel' "
-                            "or 'kernel_q', no path smoothing and no "
-                            "extra_trees (booster.fused_split_of decides "
-                            "it)")
+                            "or 'kernel_q', no path smoothing, no "
+                            "extra_trees and no EFB bundles "
+                            "(booster.fused_split_of decides it)")
+    HB = spec.bundle_max_bin if spec.bundled else MB
+    PC = pack_cols(MB, spec.has_cat)
     scan_kw = dict(l1=l1, l2=l2, min_data_in_leaf=spec.min_data_in_leaf,
                    min_sum_hessian=spec.min_sum_hessian_in_leaf,
                    min_gain_to_split=spec.min_gain_to_split)
@@ -194,12 +198,37 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                            torch.from_numpy(np.asarray(h, np.float32)),
                            l1, l2, mds).numpy()
 
-    def search(hist, sums, allowed, p_out, feat, cand=None):
+    def search(hist, sums, allowed, p_out, feat, cand=None, expand=None,
+               numerical=True):
+        """The unfused search over [B] histograms (expanded from the
+        bundle columns under EFB); `numerical=False` is the fused path's
+        categorical search."""
+        if expand is not None:
+            hist = expand(hist, sums)
         return find_best_split(
             hist, sums[:, 0], sums[:, 1], sums[:, 2], feat["nb"],
             feat["missing"], feat["default"], allowed, l1, l2,
             spec.min_data_in_leaf, spec.min_sum_hessian_in_leaf,
-            spec.min_gain_to_split, mds, ps, p_out, cand)
+            spec.min_gain_to_split, mds, ps, p_out, cand,
+            numerical=numerical, **search_kwargs(spec, feat))
+
+    def fused_split(cand, hist, sums, allowed, p_out, feat):
+        """`split_of_fused` (the reference's `grow_wave.py:417-441`):
+        the numerical features' decisions from the kernels' candidates;
+        with categorical features, those over the numerical features
+        only, merged with the categorical search on the carried
+        histograms."""
+        if not spec.has_cat:
+            return decide_from_candidates(
+                cand, sums[:, 0], sums[:, 1], sums[:, 2], feat["missing"],
+                feat["default"], allowed)
+        is_cat = feat["is_cat"][None, :]
+        num = decide_from_candidates(
+            cand, sums[:, 0], sums[:, 1], sums[:, 2], feat["missing"],
+            feat["default"], allowed & ~is_cat)
+        cat = search(hist, sums, allowed & is_cat, p_out, feat,
+                     numerical=False)
+        return merge_split_results(num, cat)
 
     def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              sample_weight: torch.Tensor, feat: Dict,
@@ -211,6 +240,8 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         payload = torch.stack([grad * sample_weight, hess * sample_weight,
                                sample_weight], dim=1).contiguous()
         hist_fn, pw3 = tree_histograms(spec, bins_fm, payload, feat)
+        expand, bundle_of = make_bundled_expander(spec, feat) \
+            if spec.bundled else (None, lambda f: None)
 
         def fused_fn(lid, sl, parent):
             """(hist, cand) of the slots `sl`: K2, or K5 over the
@@ -227,8 +258,9 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         masks = make_node_samplers(spec, feat, f_count, 2 * LB - 1, dev)
         slots = torch.arange(LB, dtype=torch.int32, device=dev)
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
-        hist = torch.empty((LB, f_count, MB, 3), dtype=torch.float32,
-                           device=dev)
+        # the leaf cache holds the histograms as built: [G, HB] under EFB
+        hist = torch.empty((LB, bins_fm.shape[0], HB, 3),
+                           dtype=torch.float32, device=dev)
 
         # ---- root: sums, output, histogram and split, one host copy ----
         root_g, root_h, root_c = tree_sum(payload.t())
@@ -236,22 +268,25 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         root_sums = torch.stack([root_g, root_h, root_c])[None]   # [1, 3]
         if fused:
             h0, c0 = fused_fn(leaf_id, slots[:1], root_sums)
-            s0 = decide_from_candidates(c0, root_g[None], root_h[None],
-                                        root_c[None], feat["missing"],
-                                        feat["default"],
-                                        masks.allowed(0, allowed))
+            s0 = fused_split(c0, h0, root_sums, masks.allowed(0, allowed)
+                             [None], root_out[None], feat)
         else:
             h0 = hist_fn(leaf_id, slots[:1])
             s0 = search(h0, root_sums, masks.allowed(0, allowed),
-                        root_out[None], feat, masks.cand(0, MB))
+                        root_out[None], feat, masks.cand(0, MB), expand)
         hist[0] = h0[0]
+        if spec.has_cat:
+            # each leaf's categorical mask on the device, for the partition
+            mask_dev = torch.zeros((LB, MB), dtype=torch.bool, device=dev)
+            mask_dev[0] = s0.cat_mask[0]
         host = to_host(torch.cat([root_sums[0], root_out[None],
                                   s0.pack().reshape(-1)]))
 
-        # per-leaf records: the cached best split (PACK_COLS: gain,
+        # per-leaf records: the cached best split (`pack_cols`: gain,
         # feature, threshold, default_left, left g/h/count, right g/h/
-        # count), the leaf's sums, output and depth
-        rec = np.zeros((LB, PACK_COLS), np.float32)
+        # count, with categoricals is_cat and the mask words), the leaf's
+        # sums, output and depth
+        rec = np.zeros((LB, PC), np.float32)
         rec[:, 0] = NEG_INF
         rec[0] = host[4:]
         leaf_g = np.zeros(LB, np.float32)
@@ -260,15 +295,7 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         leaf_out = np.zeros(LB, np.float32)
         leaf_depth = np.zeros(LB, np.int64)
         leaf_g[0], leaf_h[0], leaf_c[0], leaf_out[0] = host[:4]
-        nodes = dict(
-            split_leaf=np.zeros(LB - 1, np.int32),
-            split_feature=np.zeros(LB - 1, np.int32),
-            threshold_bin=np.zeros(LB - 1, np.int32),
-            default_left=np.zeros(LB - 1, bool),
-            split_gain=np.zeros(LB - 1, np.float32),
-            internal_g=np.zeros(LB - 1, np.float32),
-            internal_h=np.zeros(LB - 1, np.float32),
-            internal_cnt=np.zeros(LB - 1, np.float32))
+        nodes = node_arrays(LB - 1, MB)
         missing = feat["missing_np"]
         nb = feat["nb_np"]
 
@@ -293,10 +320,16 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                     break
                 best = int(np.argmax(ready_gain))
                 new = step + 1                     # nl == step + 1
-                gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = rec[best]
+                gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = \
+                    rec[best, :PACK_COLS]
                 f, t, dl = int(f), int(t), bool(dl)
+                node_cat, node_mask = unpack_cat(rec[best, PACK_COLS:], MB) \
+                    if spec.has_cat else (False, None)
+                if node_cat:
+                    nodes["split_cat_mask"][step] = node_mask
                 for key, v in (("split_leaf", best), ("split_feature", f),
                                ("threshold_bin", t), ("default_left", dl),
+                               ("split_is_cat", node_cat),
                                ("split_gain", gain_s),
                                ("internal_g", leaf_g[best]),
                                ("internal_h", leaf_h[best]),
@@ -314,13 +347,14 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                 leaf_c[best], leaf_c[new] = lc, rc
                 leaf_out[best], leaf_out[new] = l_out, r_out
                 leaf_depth[best] = leaf_depth[new] = leaf_depth[best] + 1
-                picks.append((best, new, small, f, t, dl))
+                picks.append((best, new, small, f, t, dl, node_cat))
                 step, nl = step + 1, nl + 1
 
             # ---- partition ----
-            for best, new, _, f, t, dl in picks:
-                go_left = split_go_left(bins_fm, f, t, dl, int(missing[f]),
-                                        int(nb[f]))
+            for best, new, _, f, t, dl, node_cat in picks:
+                go_left = split_go_left(
+                    bins_fm, f, t, dl, int(missing[f]), int(nb[f]),
+                    bundle_of(f), mask_dev[best] if node_cat else None)
                 leaf_id = torch.where((leaf_id == best) & ~go_left,
                                       slots[new], leaf_id)
             if step >= LB - 1:
@@ -343,12 +377,12 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                       for i, sl in enumerate(small_is_left)]
             # node ids: split k = new - 1 made children 2k + 1 and 2k + 2
             nids = [2 * nw - 1 for nw in p_new] + [2 * nw for nw in p_new]
-            idx = _upload(np.array(p_left + p_small + p_large + route
+            idx = to_device(np.array(p_left + p_small + p_large + route
                                    + child.tolist() + nids, np.int64), dev)
             stats = np.stack([leaf_g, leaf_h, leaf_c], axis=1)     # [LB, 3]
             deep_ok = (spec.max_depth <= 0) | \
                 (leaf_depth[child] < spec.max_depth)
-            vals = _upload(np.concatenate([
+            vals = to_device(np.concatenate([
                 stats[p_small].ravel(), stats[p_large].ravel(),
                 stats[child].ravel(), leaf_out[child],
                 deep_ok.astype(np.float32)]).astype(np.float32), dev)
@@ -382,20 +416,22 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                                         par_large, **scan_kw)
                 cand = torch.cat([cand_small, cand_large]).index_select(
                     0, route_t)
-                res = decide_from_candidates(
-                    cand, sums[:, 0], sums[:, 1], sums[:, 2],
-                    feat["missing"], feat["default"], child_allowed)
+                res = fused_split(cand, hist.index_select(0, child_t)
+                                  if spec.has_cat else None, sums,
+                                  child_allowed, child_out, feat)
             else:
                 res = search(hist.index_select(0, child_t), sums,
                              child_allowed, child_out, feat,
-                             masks.cand(nid_t, MB))
-            rec[child] = to_host(res.pack()).reshape(2 * w, PACK_COLS)
+                             masks.cand(nid_t, MB), expand)
+            if spec.has_cat:
+                mask_dev.index_copy_(0, child_t, res.cat_mask)
+            rec[child] = to_host(res.pack()).reshape(2 * w, PC)
 
         leaves = dict(out=leaf_out, g=leaf_g, h=leaf_h, c=leaf_c)
         if LB > L:
             nodes, leaves, new_slot, step = prune_wave_tail(
                 nodes, step, leaves, LB=LB, L=L, clamp_output=clamp_output)
-            leaf_id = _upload(new_slot.astype(np.int32), dev)[leaf_id.long()]
+            leaf_id = to_device(new_slot.astype(np.int32), dev)[leaf_id.long()]
         # a single-leaf tree predicts 0 (ref: GBDT "no more leaves that
         # meet the split requirements"); slots past the tree stay zero
         nl = step + 1
@@ -404,6 +440,6 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         return DeviceTree(n_splits=step, leaf_value=values,
                           leaf_g=leaves["g"], leaf_h=leaves["h"],
                           leaf_cnt=leaves["c"], leaf_id=leaf_id,
-                          values=_upload(values, dev), **nodes)
+                          values=to_device(values, dev), **nodes)
 
     return grow

@@ -2,7 +2,7 @@
 
 The port's copy of `lightgbm_tpu/tree.py`: the same flat arrays, text
 format and host walk; `from_device` builds a tree from the port's
-grower (numerical splits).
+growers, numerical and categorical splits.
 
 TPU-native re-design of the reference's tree container
 (ref: include/LightGBM/tree.h `Tree` [flat arrays split_feature_/threshold_/
@@ -85,18 +85,28 @@ class Tree:
     def from_device(cls, dev, bin_mappers: List[BinMapper],
                     shrinkage: float) -> "Tree":
         """Build a host Tree from a grown `ops.grow.DeviceTree` (the JAX
-        package's `tree.py:81 Tree.from_device`, numerical splits).
+        package's `tree.py:81 Tree.from_device`).
 
         Child pointers are fixed up here: the grower records only
         (step -> split leaf); the reference's `Tree::Split` pointer
         surgery (the split leaf keeps its index as the left child, the
         new leaf step + 1 is the right child) is reproduced on the host.
         Real thresholds come from the bin mappers (`bin_to_value`), leaf
-        values are the f32 outputs times the shrinkage, in f32."""
+        values are the f32 outputs times the shrinkage, in f32.  A
+        categorical split (`tree.py:143-177`) gets decision_type
+        K_CATEGORICAL_MASK, its cat index as threshold, and the bitset
+        of the raw categories of its left bins (`bin_2_categorical`)
+        in `cat_threshold`, bounded by `cat_boundaries` (ref: tree.h
+        `Tree::Split`, categorical overload)."""
         ns = int(dev.n_splits)
         nl = ns + 1
         t = cls(nl)
         t.shrinkage = shrinkage
+        cat_masks = np.asarray(dev.split_cat_mask)[:ns]
+        t.cat_bin_masks = np.zeros((0, cat_masks.shape[1] if ns else 0),
+                                   dtype=bool)
+        cat_bounds = [0]
+        cat_words: List[np.ndarray] = []
         leaf_pos = {0: (-1, False)}
         for i in range(ns):
             leaf = int(dev.split_leaf[i])
@@ -113,11 +123,27 @@ class Tree:
             f = int(dev.split_feature[i])
             m = bin_mappers[f]
             t.split_feature[i] = f
-            t.threshold_bin[i] = int(dev.threshold_bin[i])
-            t.threshold[i] = m.bin_to_value(int(dev.threshold_bin[i]))
-            dt = (m.missing_type & 3) << 2
-            if bool(dev.default_left[i]):
-                dt |= K_DEFAULT_LEFT_MASK
+            if bool(dev.split_is_cat[i]):
+                cats = [m.bin_2_categorical[b - 1]
+                        for b in np.nonzero(cat_masks[i])[0] if b >= 1]
+                n_words = (max(cats) // 32 + 1) if cats else 1
+                words = np.zeros(n_words, dtype=np.uint32)
+                for c in cats:
+                    words[c // 32] |= np.uint32(1 << (c % 32))
+                t.threshold_bin[i] = t.num_cat
+                t.threshold[i] = float(t.num_cat)
+                cat_words.append(words)
+                cat_bounds.append(cat_bounds[-1] + n_words)
+                t.cat_bin_masks = np.concatenate(
+                    [t.cat_bin_masks, cat_masks[i][None, :]])
+                t.num_cat += 1
+                dt = K_CATEGORICAL_MASK
+            else:
+                t.threshold_bin[i] = int(dev.threshold_bin[i])
+                t.threshold[i] = m.bin_to_value(int(dev.threshold_bin[i]))
+                dt = (m.missing_type & 3) << 2
+                if bool(dev.default_left[i]):
+                    dt |= K_DEFAULT_LEFT_MASK
             t.decision_type[i] = dt
             t.split_gain[i] = float(dev.split_gain[i])
             ih = dev.internal_h[i]
@@ -126,6 +152,9 @@ class Tree:
                 * shrinkage
             t.internal_weight[i] = float(ih)
             t.internal_count[i] = float(dev.internal_cnt[i])
+        if t.num_cat > 0:
+            t.cat_boundaries = np.asarray(cat_bounds, dtype=np.int64)
+            t.cat_threshold = np.concatenate(cat_words).astype(np.uint32)
         lv = np.asarray(dev.leaf_value, np.float32)[:nl]
         t.leaf_value = (lv * shrinkage).astype(np.float64)
         t.leaf_weight = np.asarray(dev.leaf_h)[:nl].astype(np.float64)

@@ -1,4 +1,5 @@
-"""Exclusive Feature Bundling (EFB): the bundle search only.
+"""Exclusive Feature Bundling (EFB): the bundle search and the bundled
+matrix.
 
 A copy of the JAX package's `utils/efb.py` `BundleSpec`, `find_bundles`
 and its greedy core (ref: src/io/dataset.cpp `Dataset::FindGroups`
@@ -6,10 +7,11 @@ and its greedy core (ref: src/io/dataset.cpp `Dataset::FindGroups`
 numpy, so `Dataset.construct` decides bundling exactly as the reference
 does: the same row sample under `np.random.RandomState(seed)`, the same
 most-used-first order (an unstable `np.argsort`, whose tie order is part
-of the reference's behaviour), the same budget and bin caps.
-
-Training on a bundled matrix is not ported yet: the booster refuses a
-dataset whose search found a bundle (ROADMAP Queue 1 item 5).
+of the reference's behaviour), the same budget and bin caps; and
+`build_bundled` (`utils/efb.py:217`, ref: FastFeatureBundling), the
+dense [N, G] matrix the growers train on (`ops/grow.py
+make_bundled_expander` reads it back per feature).  `build_bundled_sparse`
+waits for sparse input (ROADMAP Queue 1 item 5d).
 """
 from __future__ import annotations
 
@@ -159,3 +161,24 @@ def _greedy_bundle(col_mask, nz_cnt: np.ndarray, ns: int, f: int,
         gi += 1
     return BundleSpec(col_of, off_of, identity, G, col_nb,
                       tuple(tuple(sorted(b)) for b in real_bundles))
+
+
+def build_bundled(bin_nf: np.ndarray, spec: BundleSpec) -> np.ndarray:
+    """The bundled [N, G] matrix (the reference's `build_bundled`, ref:
+    FastFeatureBundling): a feature alone in its column keeps its bins;
+    a bundle member's nonzero bin b is stored as b + off - 1.  Where two
+    members of a bundle are nonzero in one row, the last in feature
+    order wins, as in the reference."""
+    n, f = bin_nf.shape
+    dtype = np.uint8 if spec.col_num_bin.max() <= 256 else np.uint16
+    out = np.zeros((n, spec.n_cols), dtype=dtype)
+    for j in range(f):
+        g = spec.col_of_feature[j]
+        col = bin_nf[:, j].astype(np.int64)
+        if spec.identity[j]:
+            out[:, g] = col.astype(dtype)
+        else:
+            nzr = col != 0
+            out[nzr, g] = (col[nzr] + spec.off_of_feature[j] - 1) \
+                .astype(dtype)
+    return out

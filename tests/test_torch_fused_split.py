@@ -220,7 +220,8 @@ def test_decide_reproduces_find_best_split(scan):
     allowed = np.ones(F, bool)
     cand, got, want = _decide_both(hist, parent, allowed, SCANS[scan])
     for name, a, b in zip(got._fields, got, want):
-        assert _same(a, b), name
+        # a numerical search leaves the categorical fields None on both
+        assert (a is None and b is None) or _same(a, b), name
     assert int(got.feature[3]) == -1           # the all-rejected slot
     assert (got.feature[:3] >= 0).all()
     # ... and the reference's decide on the same candidates
@@ -246,7 +247,8 @@ def test_decide_applies_the_feature_gate_after_the_scan():
                         [1, 0, 0, 1, 0, 1], [1, 1, 1, 1, 1, 1]], bool)
     _, got, want = _decide_both(hist, parent, allowed, kw)
     for name, a, b in zip(got._fields, got, want):
-        assert _same(a, b), name
+        # a numerical search leaves the categorical fields None on both
+        assert (a is None and b is None) or _same(a, b), name
     for s in range(3):
         assert allowed[s, int(got.feature[s])]
 

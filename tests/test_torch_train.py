@@ -41,7 +41,8 @@ from golden_common import GOLDEN_CASES, make_case_data  # noqa: E402
 
 GOLDEN_LEAF_RTOL = 1e-4
 GOLDEN_LEAF_ATOL = 1e-9
-CASES = ("binary", "regression_l2", "multiclass", "goss_bagging")
+CASES = ("binary", "regression_l2", "multiclass", "goss_bagging",
+         "categorical")
 
 
 @pytest.fixture(autouse=True)
@@ -89,8 +90,10 @@ def golden_models():
     for name in CASES:
         case = GOLDEN_CASES[name]
         X, y = make_case_data(case)
+        kw = {"categorical_feature": case["categorical"]} \
+            if case.get("categorical") else {}
         out[name] = (X,) + _train_both(case["params"], X, y,
-                                       case["rounds"])
+                                       case["rounds"], **kw)
     return out
 
 
@@ -269,13 +272,6 @@ def test_refused_data_and_entry_points_raise():
     X = np.random.RandomState(0).randn(300, 5)
     y = (X[:, 0] > 0).astype(float)
     cpu = {"objective": "binary", "verbosity": -1, "device_type": "cpu"}
-    with pytest.raises(lt.LightGBMError, match="categorical"):
-        lt.train(cpu, lt.Dataset(np.round(np.abs(X) * 2), label=y,
-                                 categorical_feature=[0]), 1)
-    Xs = np.zeros((2000, 6))
-    Xs[np.arange(2000), np.random.RandomState(1).randint(0, 6, 2000)] = 1.0
-    with pytest.raises(lt.LightGBMError, match="bundle"):
-        lt.train(cpu, lt.Dataset(Xs, label=Xs[:, 0]), 1)
     with pytest.raises(lt.LightGBMError, match="fobj"):
         lt.train(dict(cpu, objective=lambda p, d: (p, p)),
                  lt.Dataset(X, label=y), 1)
