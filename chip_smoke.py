@@ -6,6 +6,7 @@ and check them.
     python3 chip_smoke.py --phases histogram,fused   # kernel phases alone
     python3 chip_smoke.py --phases threefry,train_sampled   # the samplers
     python3 chip_smoke.py --phases train_categorical   # categorical, EFB
+    python3 chip_smoke.py --phases train_api   # cv, init_model, sklearn
     python3 chip_smoke.py --phases golden,main       # serving alone
     python3 chip_smoke.py --phases compare --baseline DIR   # K1-K6, sum
     python3 chip_smoke.py --phases compare_serving --baseline DIR
@@ -184,6 +185,30 @@ Phases, each printing one JSON line:
           times, binning seconds, the categorical search's share of a
           round (CUDA events around its calls) and one profiled round
           of (a).  Its launches go on its own line.
+  train_api the user API around training on the train phase's data at
+          the bench's wave configuration, a line a step: (a) 5 rounds
+          saved, then 5 more from the file (`init_model`): the first 5
+          tree blocks byte-identical, the uploaded train score bitwise
+          the f32 cast of the init model's `predict(raw_score=True)`,
+          held-out AUC within 1e-3 of 10 uninterrupted rounds, per round
+          K2, K3 and syncs as train_wave's; (b) 6 updates with the
+          held-out set, rolled back once (model text that of 5 updates,
+          scores within the f32 rounding of (s + c) - c) and again (the
+          bin-level replay, 4 updates' text); (c) `add_valid` of 50,000
+          held-out rows after 5 updates, the card's replay bitwise the
+          CPU's, the rows that differ from a booster that had them from
+          the start counted; (d) `refit` on the held-out rows on the
+          card and on the CPU, model texts byte-identical, a link launch
+          a round; (e) `reset_parameter` (learning rate 0.1 * 0.95^i,
+          num_leaves 31 then 15 from round 5): the shrinkage lines follow
+          it, trees 6-10 within 15 leaves, K2 a round that of a fresh
+          booster; (f) `cv` (3 stratified folds on the 2M rows, AUC, 10
+          rounds, early stopping 3): each round's mean and stdv bitwise
+          `_agg_cv_result` over three `train` runs on the same subsets,
+          K2 launches equal; (g) `LGBMClassifier` with scikit-learn's
+          import hidden: its model text `train`'s with the estimator's
+          params, and its trees those of the 10-round WAVE_PARAMS run,
+          `predict_proba` bitwise `Booster.predict` stacked.  Then the phase's seconds by step and launches.
   compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5,
           the link kernel and the quantize step of this checkout and of
           the checkout in DIR on the same inputs: K1 and K2 agree within
@@ -201,7 +226,8 @@ Phases, each printing one JSON line:
           beside; histogram: train; fused_hist_split and
           split_scan: train_wave; fused_hist_split_q: train_quant's main
           run; histogram_q: its strict run; threefry: train_sampled's
-          main run, with train_quant's quantizer launches beside),
+          main run, with train_quant's quantizer launches beside;
+          K2, K3, K1 and the link also show their train_api launches),
           parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
@@ -1058,8 +1084,11 @@ class TrainData:
         self.X, self.y = X[:n_train], y[:n_train]
         self.X_hold, self.y_hold = X[n_train:], y[n_train:]
         t0 = time.perf_counter()
+        # the raw rows stay with the dataset (they are held here anyway):
+        # continued training predicts the init model on them
         self.dataset = lt.Dataset(self.X, label=self.y,
-                                  params=dict(TRAIN_PARAMS)).construct()
+                                  params=dict(TRAIN_PARAMS),
+                                  free_raw_data=False).construct()
         self.binning_s = time.perf_counter() - t0
 
 
@@ -1685,11 +1714,12 @@ def _zero_wave_counters(modules):
 
 
 def _wave_run(params, dataset, modules, rounds, timing, patch=None,
-              counters=_wave_counters):
+              counters=_wave_counters, **train_kw):
     """One wave training run with per-round `counters`, round marks and,
     with `timing`, CUDA events around every call of the functions
     `patch` names ((module, attribute) pairs; default K2 and K3 as the
-    wave grower calls them).  Returns the booster and what was
+    wave grower calls them); `train_kw` go to `train` (its callbacks
+    after the round marks).  Returns the booster and what was
     recorded."""
     import torch
     import lightgbm_tpu_torch as lt
@@ -1733,8 +1763,9 @@ def _wave_run(params, dataset, modules, rounds, timing, patch=None,
         setattr(owner[key], key, timed(key))
     try:
         t0 = time.perf_counter()
+        callbacks = [mark_round] + list(train_kw.pop("callbacks", []))
         bst = lt.train(params, dataset, num_boost_round=rounds,
-                       callbacks=[mark_round])
+                       callbacks=callbacks, **train_kw)
     finally:
         for key, fn in real.items():
             setattr(owner[key], key, fn)
@@ -3613,6 +3644,373 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
     return report
 
 
+# ----------------------------------------------------------- train_api
+#: the user API slice on the train phase's data at the bench's wave
+#: configuration: rounds of (a), (d), (e), (f), (g) and the 5 of (a)-(c)
+API_ROUNDS = 10
+API_HALF = 5
+#: rows of the held-out set that (c) replays onto on the card and on the
+#: CPU, and that (g) compares `predict_proba` on
+API_SLICE = 50_000
+#: (e): the learning rate decays by 0.95 a round, and num_leaves goes
+#: from 31 to 15 at round 5
+API_LR = 0.1
+API_LEAVES = [31] * API_HALF + [15] * (API_ROUNDS - API_HALF)
+
+
+def _tree_blocks(text, n):
+    """The first `n` `Tree=` blocks of a model text, each to the blank
+    line that ends it."""
+    body = text.split("end of trees")[0]
+    return ["Tree=" + b.rstrip("\n") for b in body.split("Tree=")[1:n + 1]]
+
+
+def _shrinkage_lines(text):
+    return [ln for ln in text.splitlines() if ln.startswith("shrinkage=")]
+
+
+def _api_counters(modules):
+    import lightgbm_tpu_torch.booster as booster_module
+    from lightgbm_tpu_torch.ops import xla_math
+    c = _wave_counters(modules)
+    c["link"] = xla_math.LINK_LAUNCHES
+    c["eval_copies"] = booster_module.EVAL_COPIES
+    return c
+
+
+def _zero_api_counters(modules):
+    import lightgbm_tpu_torch.booster as booster_module
+    from lightgbm_tpu_torch.ops import xla_math
+    _zero_wave_counters(modules)
+    xla_math.LINK_LAUNCHES = 0
+    booster_module.EVAL_COPIES = 0
+
+
+def _hidden_sklearn():
+    """The port's sklearn module reloaded with scikit-learn's import
+    hidden (as on a machine without it), and a function that restores
+    both."""
+    import importlib
+    import lightgbm_tpu_torch.sklearn as mod
+    saved = {k: v for k, v in sys.modules.items()
+             if k == "sklearn" or k.startswith("sklearn.")}
+    for k in saved:
+        del sys.modules[k]
+    sys.modules["sklearn"] = None
+    hidden = importlib.reload(mod)
+
+    def restore():
+        del sys.modules["sklearn"]
+        sys.modules.update(saved)
+        importlib.reload(mod)
+    return hidden, restore
+
+
+def phase_train_api(data: TrainData, modules, device=None,
+                    wave_report=None, rounds: int = API_ROUNDS,
+                    half: int = API_HALF, api_slice: int = API_SLICE):
+    """The user API around training (`lightgbm_tpu_torch` engine, booster
+    and sklearn) on the train phase's data at the bench's wave
+    configuration (WAVE_PARAMS), each step on a line of its own:
+    (a) continued training from a saved model, (b) rollback, (c)
+    `add_valid` after training started, (d) `refit`, (e) a
+    `reset_parameter` schedule, (f) `cv`, (g) `LGBMClassifier` without
+    scikit-learn.  Returns the phase's launches of K2, K3, K1 and the
+    link kernel."""
+    import tempfile
+    import torch
+    import lightgbm_tpu_torch as lt
+    import lightgbm_tpu_torch.booster as booster_module
+    from lightgbm_tpu_torch import engine
+    t_phase = time.perf_counter()
+    params = dict(WAVE_PARAMS)
+    if device is not None:
+        params["device_type"] = device
+    dev = torch.device(device or "cuda")
+    cpu = torch.device("cpu")
+    steps = {}
+    _zero_api_counters(modules)
+
+    def done(name, t0, report):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        report["step_s"] = time.perf_counter() - t0
+        steps[name] = report["step_s"]
+        _emit(dict({"phase": "train_api", "step": name}, **report))
+
+    def serve_auc(bst):
+        raw = lt.ServingRuntime(bst, device=device).predict(
+            data.X_hold, raw_score=True)
+        return _auc(raw, data.y_hold)
+
+    # ---- (a) continued training
+    t0 = time.perf_counter()
+    first, rec1 = _wave_run(params, data.dataset, modules, half, False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_api_")
+    path = os.path.join(tmp, "first.txt")
+    first.save_model(path)
+    with open(path) as f:
+        saved = f.read()
+    captured, uploaded = {}, {}
+    real_predict = lt.Booster.predict
+
+    def predict_spy(self, X, *a, **kw):
+        out = real_predict(self, X, *a, **kw)
+        captured.setdefault("raw", out)
+        return out
+
+    def grab_upload(env):
+        if env.iteration == env.begin_iteration:
+            uploaded["score"] = env.model._train_score.cpu().numpy().copy()
+    grab_upload.before_iteration = True
+    lt.Booster.predict = predict_spy
+    try:
+        cont, rec2 = _wave_run(params, data.dataset, modules, half, False,
+                               init_model=path, callbacks=[grab_upload])
+    finally:
+        lt.Booster.predict = real_predict
+    full = lt.train(params, data.dataset, num_boost_round=rounds)
+    raw = captured["raw"]
+    check_rows = first.predict(data.X[:api_slice], raw_score=True)
+    _check(raw.shape == (data.X.shape[0],) and uploaded["score"].dtype
+           == np.float32 and _bits_equal(uploaded["score"],
+                                         raw.astype(np.float32))
+           and _bits_equal(raw[:api_slice], check_rows),
+           "train_api (a): the uploaded train score is not the f32 cast "
+           "of the init model's raw prediction")
+    cont_text = cont.model_to_string()
+    _check(_tree_blocks(cont_text, half) == _tree_blocks(saved, half)
+           and len(cont.trees) == rounds,
+           "train_api (a): the continued model's first trees are not the "
+           "saved model's")
+    auc_cont, auc_full = serve_auc(cont), serve_auc(full)
+    _check(abs(auc_cont - auc_full) <= 1e-3,
+           f"train_api (a): held-out AUC {auc_cont} continued vs "
+           f"{auc_full} uninterrupted")
+    per_round = rec1["per_round"] + rec2["per_round"]
+    for r, c in enumerate(per_round):
+        _check(c["k2"] == 1 + c["hist_waves"] and c["k3"] == c["hist_waves"]
+               and c["syncs"] == 1 + c["hist_waves"],
+               f"train_api (a): round {r + 1} counted {c}")
+    wave_rounds = (wave_report or {}).get("per_round_counts")
+    done("continued", t0, {
+        "rounds": [half, half], "saved_trees_identical": True,
+        "uploaded_score_bitwise_f32_predict": True,
+        "upload_rows": int(raw.shape[0]),
+        "auc_continued": auc_cont, "auc_uninterrupted": auc_full,
+        "per_round_k2_k3_syncs": [(c["k2"], c["k3"], c["syncs"])
+                                  for c in per_round],
+        "train_wave_per_round_k2_k3_syncs":
+            [(c["k2"], c["k3"], c["syncs"]) for c in wave_rounds]
+            if wave_rounds else None})
+
+    # ---- (b) rollback
+    t0 = time.perf_counter()
+    hold = lt.Dataset(data.X_hold, label=data.y_hold,
+                      reference=data.dataset).construct()
+
+    def booster_with_hold(updates):
+        b = lt.Booster(params=params, train_set=data.dataset)
+        b.add_valid(hold, "held")
+        for _ in range(updates):
+            b.update()
+        return b
+
+    six = booster_with_hold(half + 1)
+    five = booster_with_hold(half)
+    before = [six._train_score.clone(), six._valid_scores[0].clone()]
+    six.rollback_one_iter()
+    _check(six.model_to_string() == five.model_to_string(),
+           "train_api (b): rolled-back model text != 5-update model's")
+    worst = []
+    for s6, r, s in zip(before, [six._train_score, six._valid_scores[0]],
+                        [five._train_score, five._valid_scores[0]]):
+        s6, r, s = (x.cpu().numpy() for x in (s6, r, s))
+        diff = np.abs(r.astype(np.float64) - s.astype(np.float64))
+        bound = np.spacing(np.maximum(np.abs(s6), np.abs(s)))
+        _check(bool(np.all(diff <= bound)),
+               "train_api (b): rolled-back scores beyond the rounding of "
+               "(s + c) - c")
+        worst.append((float(diff.max()), int(np.sum(diff > 0))))
+    replays = [0]
+    real_ids = booster_module.tree_leaf_ids
+
+    def count_ids(tree, dd):
+        replays[0] += 1
+        return real_ids(tree, dd)
+    booster_module.tree_leaf_ids = count_ids
+    try:
+        six.rollback_one_iter()
+    finally:
+        booster_module.tree_leaf_ids = real_ids
+    four = booster_with_hold(half - 1)
+    _check(six.model_to_string() == four.model_to_string()
+           and replays[0] == 2,
+           f"train_api (b): the second rollback ({replays[0]} replays) "
+           "does not give the 4-update model")
+    deep = float(np.max(np.abs(six._train_score.cpu().numpy().astype(
+        np.float64) - four._train_score.cpu().numpy())))
+    done("rollback", t0, {
+        "model_text_identical": True,
+        "train_max_abs_diff_and_rows": worst[0],
+        "valid_max_abs_diff_and_rows": worst[1],
+        "second_rollback_replays": replays[0],
+        "second_rollback_text_identical": True,
+        "second_rollback_train_max_abs_diff": deep})
+
+    # ---- (c) add_valid after the model's first iterations
+    t0 = time.perf_counter()
+    part = hold.subset(np.arange(api_slice)).construct()
+    late = lt.Booster(params=params, train_set=data.dataset)
+    for _ in range(half):
+        late.update()
+    late.add_valid(part, "late")
+    card = late._valid_scores[0].cpu().numpy()
+    host = late._replay_model(booster_module._DeviceData(part, cpu)).numpy()
+    _check(_bits_equal(card, host),
+           "train_api (c): the card's replay != the CPU's")
+    from_start = five._valid_scores[0][:api_slice].cpu().numpy()
+    _check(late.model_to_string() == five.model_to_string(),
+           "train_api (c): the 5-update models differ")
+    done("add_valid", t0, {
+        "rows": api_slice, "replay_bitwise_cpu": True,
+        "rows_differing_from_start": int(np.sum(card != from_start)),
+        "max_abs_diff_from_start": float(np.max(np.abs(
+            card.astype(np.float64) - from_start)))})
+
+    # ---- (d) refit on the held-out rows
+    t0 = time.perf_counter()
+    from lightgbm_tpu_torch.ops import xla_math
+    link0 = xla_math.LINK_LAUNCHES
+    ref_card = full.refit(data.X_hold, data.y_hold, decay_rate=0.9)
+    link = xla_math.LINK_LAUNCHES - link0
+    ref_cpu = full.refit(data.X_hold, data.y_hold, decay_rate=0.9,
+                         device_type="cpu")
+    _check(ref_card.model_to_string() == ref_cpu.model_to_string()
+           and ref_card.model_to_string() != full.model_to_string(),
+           "train_api (d): refit on the card != on the CPU")
+    _check(link == rounds if dev.type == "cuda" else True,
+           f"train_api (d): {link} link launches for {rounds} rounds")
+    done("refit", t0, {"rows": int(data.X_hold.shape[0]),
+                       "decay_rate": 0.9, "model_text_identical_cpu": True,
+                       "link_launches": link,
+                       "auc_refit": serve_auc(ref_card)})
+
+    # ---- (e) a reset_parameter schedule
+    t0 = time.perf_counter()
+    reset = lt.reset_parameter(learning_rate=lambda i: API_LR * 0.95 ** i,
+                               num_leaves=list(API_LEAVES))
+    sched, rec = _wave_run(dict(params, learning_rate=API_LR), data.dataset,
+                           modules, rounds, False, callbacks=[reset])
+    fresh_params = dict(params, num_leaves=API_LEAVES[-1],
+                        learning_rate=API_LR * 0.95 ** half)
+    _, fresh_rec = _wave_run(fresh_params, data.dataset, modules, 1, False)
+    shrink = _shrinkage_lines(sched.model_to_string())
+    want = [f"shrinkage={API_LR * 0.95 ** i:.17g}" for i in range(rounds)]
+    leaves = [t.num_leaves for t in sched.trees]
+    k2 = [c["k2"] for c in rec["per_round"]]
+    _check(shrink == want, f"train_api (e): shrinkage lines {shrink}")
+    _check(all(n <= API_LEAVES[-1] for n in leaves[half:])
+           and all(c == fresh_rec["per_round"][0]["k2"] for c in k2[half:]),
+           f"train_api (e): leaves {leaves}, K2 a round {k2} against a "
+           f"fresh booster's {fresh_rec['per_round'][0]['k2']}")
+    done("reset_parameter", t0, {
+        "leaves_per_tree": leaves, "k2_per_round": k2,
+        "fresh_booster_k2": fresh_rec["per_round"][0]["k2"],
+        "shrinkage_follows_schedule": True})
+
+    # ---- (f) cv, and the same folds as three train runs
+    t0 = time.perf_counter()
+    cv_params = dict(params, metric="auc", early_stopping_round=3)
+    ran = [0]
+
+    def count_round(env):
+        ran[0] += 1
+    c0 = _api_counters(modules)
+    res = lt.cv(cv_params, data.dataset, rounds, nfold=3, stratified=True,
+                callbacks=[count_round])
+    c1 = _api_counters(modules)
+    kept = len(res["valid auc-mean"])
+    folds = engine._make_n_folds(data.dataset, None, 3, cv_params, 0,
+                                 True, True)
+    train_params = {k: v for k, v in cv_params.items()
+                    if k != "early_stopping_round"}
+    per_fold = []
+    for tr_idx, te_idx in folds:
+        hist = {}
+        lt.train(train_params, data.dataset.subset(tr_idx), ran[0],
+                 valid_sets=[data.dataset.subset(te_idx)],
+                 valid_names=["valid"],
+                 callbacks=[lt.record_evaluation(hist)])
+        per_fold.append(hist["valid"]["auc"])
+    c2 = _api_counters(modules)
+    for r in range(kept):
+        agg = engine._agg_cv_result([[("valid", "auc", f[r], True)]
+                                     for f in per_fold])[0]
+        _check(res["valid auc-mean"][r] == agg[2]
+               and res["valid auc-stdv"][r] == agg[4],
+               f"train_api (f): round {r + 1} cv {res['valid auc-mean'][r]}"
+               f" +- {res['valid auc-stdv'][r]} against {agg[2]} +- "
+               f"{agg[4]}")
+    k2_cv, k2_runs = c1["k2"] - c0["k2"], c2["k2"] - c1["k2"]
+    _check(k2_cv == k2_runs and k2_cv > 0,
+           f"train_api (f): K2 launches cv {k2_cv}, three runs {k2_runs}")
+    done("cv", t0, {
+        "rows": int(data.X.shape[0]), "nfold": 3, "rounds_run": ran[0],
+        "rounds_kept": kept, "auc_mean": res["valid auc-mean"],
+        "auc_stdv": res["valid auc-stdv"], "bitwise_three_runs": True,
+        "k2_cv": k2_cv, "k2_three_runs": k2_runs,
+        "eval_copies_cv": c1["eval_copies"] - c0["eval_copies"]})
+
+    # ---- (g) LGBMClassifier, scikit-learn absent
+    t0 = time.perf_counter()
+    sk, restore = _hidden_sklearn()
+    try:
+        _check(not sk._SKLEARN, "train_api (g): scikit-learn not hidden")
+        kw = {k: v for k, v in params.items() if k != "objective"}
+        clf = sk.LGBMClassifier(n_estimators=rounds, objective="binary",
+                                **kw)
+        t_fit = time.perf_counter()
+        clf.fit(data.X, data.y)
+        fit_s = time.perf_counter() - t_fit
+        text = clf.booster_.model_to_string()
+        same = lt.train(dict(clf.booster_.params), data.dataset,
+                        num_boost_round=rounds)
+        _check(text == same.model_to_string()
+               and _without_params(text) == _without_params(
+                   full.model_to_string()),
+               "train_api (g): the estimator's model != lt.train's")
+        Xs = data.X_hold[:api_slice]
+        proba = clf.predict_proba(Xs)
+        p = clf.booster_.predict(Xs)
+        _check(_bits_equal(proba, np.vstack([1.0 - p, p]).T)
+               and _bits_equal(p, full.predict(Xs))
+               and list(clf.classes_) == [0.0, 1.0],
+               "train_api (g): predict_proba != Booster.predict stacked")
+    finally:
+        restore()
+    done("sklearn", t0, {"sklearn_present": False,
+                         "model_text_identical_to_train": True,
+                         "trees_identical_to_wave_params_train": True,
+                         "predict_proba_bitwise": True, "rows": api_slice,
+                         "fit_s": fit_s})
+
+    total = _api_counters(modules)
+    launches = {"fused_hist_split": total["k2"], "split_scan": total["k3"],
+                "histogram": total["k1"], "xla_link": total["link"]}
+    _emit({"phase": "train_api", "steps_s": steps, "launches": launches,
+           "host_syncs": total["syncs"], "eval_copies": total["eval_copies"],
+           "phase_s": time.perf_counter() - t_phase,
+           "phase_with_setup_s": time.perf_counter() - t_phase
+           + data.binning_s})
+    return launches
+
+
+def _without_params(text):
+    """A model text less its `[key: value]` parameter lines."""
+    return "\n".join(ln for ln in text.splitlines() if not ln.startswith("["))
+
+
 #: the phases that hold one kernel against its plain version on the
 #: train phase's data, runnable alone with --phases; `compare` needs
 #: --baseline
@@ -3628,6 +4026,8 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                      d(), _train_modules()),
                  "train_categorical": lambda d, s, b:
                      phase_train_categorical(CatData(s), _train_modules()),
+                 "train_api": lambda d, s, b: phase_train_api(
+                     d(), _train_modules()),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
                                              phase_compare_serving(s, b)),
                  "compare_serving":
@@ -3748,6 +4148,13 @@ def main(argv=None) -> int:
         phase_train_categorical(CatData(args.seed), {
             "hist": hist_module, "hist_q": hist_q_module,
             "fused": fused_module})
+        api = phase_train_api(data, {"hist": hist_module,
+                                     "hist_q": hist_q_module,
+                                     "fused": fused_module},
+                              wave_report=wave_report)
+        for k in kernels:
+            if k["name"] in api:
+                k["train_api_launches"] = api[k["name"]]
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
              "parity": ("within_tol" if k["name"] in WITHIN_TOL

@@ -1,7 +1,8 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-It trains LightGBM models on an NVIDIA GPU (`train`, `Dataset`: the
-strict leaf-wise grower on hand-written CUDA histograms) and serves them
+It trains LightGBM models on an NVIDIA GPU (`train`, `cv`, `Dataset`,
+the scikit-learn estimators: both growers on hand-written CUDA
+histogram and split kernels) and serves them
 (`Booster` loads model text, `ServingRuntime` answers requests through
 hand-written CUDA kernels, `csrc/`).  It imports torch and numpy, never
 jax and nothing of `lightgbm_tpu`, which stays the reference the port is
@@ -10,13 +11,15 @@ tested against.
 from .basic import Dataset
 from .booster import Booster
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
-                       record_evaluation)
-from .engine import train
+                       record_evaluation, reset_parameter)
+from .engine import CVBooster, cv, train
 from .serving import ServingRuntime
+from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 from .utils.log import LightGBMError
 
 __version__ = "0.2.0"
 
-__all__ = ["Dataset", "Booster", "train", "ServingRuntime", "LightGBMError",
-           "EarlyStopException", "early_stopping", "log_evaluation",
-           "record_evaluation"]
+__all__ = ["Dataset", "Booster", "train", "cv", "CVBooster", "ServingRuntime",
+           "LightGBMError", "EarlyStopException", "early_stopping",
+           "log_evaluation", "record_evaluation", "reset_parameter",
+           "LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker"]

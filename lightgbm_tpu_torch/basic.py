@@ -15,8 +15,12 @@ reference's `basic.py:329`).  A validation set (`create_valid`, or
 `reference=`) shares its reference's `BundleSpec`; it is only routed
 through trees on its own bins, so its bundle matrix is not built.
 
-Files, pandas, sparse matrices, the external-memory datastore and
-`save_binary` wait for later slices and raise with the reason.
+`subset` makes a row subset that shares its parent's bin mappers and
+bin rows (the reference's `basic.py:967`; `cv` folds are subsets), and
+`init_score` (`set_init_score`) is the base every score starts from.
+Files, pandas, sparse matrices, query groups, the external-memory
+datastore and `save_binary` wait for later slices and raise with the
+reason.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from .utils.log import LightGBMError
 __all__ = ["Dataset"]
 
 _LATER = "ROADMAP Queue 1 item 5"
+_RANKING = "ROADMAP Queue 1 item 5d: grower and boosting breadth"
 
 
 def _to_2d_float(data: Any) -> np.ndarray:
@@ -83,13 +88,12 @@ class Dataset:
                  free_raw_data: bool = True):
         if group is not None:
             raise LightGBMError("query groups (ranking) are not ported yet "
-                                f"({_LATER})")
-        if init_score is not None:
-            raise LightGBMError("init_score is not ported yet "
-                                f"({_LATER})")
+                                f"({_RANKING})")
         self.data = data
         self.label = label
         self.weight = weight
+        self.init_score = init_score
+        self.used_indices: Optional[np.ndarray] = None
         self.reference = reference
         self.params = copy.deepcopy(params) if params else {}
         self.free_raw_data = free_raw_data
@@ -106,6 +110,7 @@ class Dataset:
         self._num_feature: Optional[int] = None
         self._label_arr: Optional[np.ndarray] = None
         self._weight_arr: Optional[np.ndarray] = None
+        self._init_score_arr: Optional[np.ndarray] = None
         self._categorical_indices: List[int] = []
 
     # ------------------------------------------------------------- info
@@ -160,6 +165,9 @@ class Dataset:
             return self
         if self.reference is not None:
             self.reference.construct()
+        if self.used_indices is not None and self.reference is not None:
+            self._construct_subset()
+            return self
         if self.data is None:
             raise LightGBMError("Cannot construct Dataset: no raw data "
                                 "(was it freed by free_raw_data?)")
@@ -241,7 +249,36 @@ class Dataset:
             out[:, j] = m.values_to_bins(raw[:, j]).astype(dtype)
         return out
 
+    def _construct_subset(self) -> None:
+        """The rows `used_indices` of the reference: its mappers, bundles
+        and categorical indices shared, its bin rows (and bundle rows)
+        gathered, never re-binned (the reference's
+        `_construct_subset`, `basic.py:781`).  Label and weight come from
+        the parent unless given; `init_score` does not carry over, as in
+        the reference."""
+        ref = self.reference
+        idx = np.asarray(self.used_indices, dtype=np.int64)
+        self.bin_mappers = ref.bin_mappers
+        self.bin_data = ref.bin_data[idx]
+        self.efb = ref.efb
+        if self.efb is not None and ref.bundle_data is not None:
+            self.bundle_data = ref.bundle_data[idx]
+        self._categorical_indices = ref._categorical_indices
+        self._feature_names = ref._feature_names
+        self._num_data = len(idx)
+        self._num_feature = ref._num_feature
+        self.num_total_bin = ref.num_total_bin
+        if self.label is None and ref._label_arr is not None:
+            self._label_arr = ref._label_arr[idx]
+        if self.weight is None and ref._weight_arr is not None:
+            self._weight_arr = ref._weight_arr[idx]
+        self._set_fields()
+        self._handle_constructed = True
+
     def _set_fields(self) -> None:
+        if self.init_score is not None:
+            self._init_score_arr = np.asarray(self.init_score,
+                                              dtype=np.float64)
         if self.label is not None:
             self._label_arr = _to_1d(self.label, np.float32)
             if len(self._label_arr) != self._num_data:
@@ -266,16 +303,46 @@ class Dataset:
         return _to_1d(self.weight, np.float32) \
             if self.weight is not None else None
 
+    def get_init_score(self) -> Optional[np.ndarray]:
+        return self._init_score_arr
+
+    def set_init_score(self, init_score: Any) -> "Dataset":
+        """The base score of every row (ref: basic.py
+        `Dataset.set_init_score`): [N], or [N * K] class-major for K
+        trees an iteration."""
+        self.init_score = init_score
+        if self._handle_constructed:
+            self._init_score_arr = np.asarray(init_score, dtype=np.float64) \
+                if init_score is not None else None
+        return self
+
+    def get_group(self) -> Optional[np.ndarray]:
+        """Query group sizes; always None here (groups raise, item 5d)."""
+        return None
+
+    def subset(self, used_indices: SequenceT[int],
+               params: Optional[dict] = None) -> "Dataset":
+        """Row subset sharing this dataset's bins (ref: basic.py
+        `Dataset.subset`); constructed lazily, sorted indices."""
+        ret = Dataset(None, reference=self, feature_name=self.feature_name,
+                      categorical_feature=self.categorical_feature,
+                      params=params if params is not None else self.params,
+                      free_raw_data=self.free_raw_data)
+        ret.used_indices = np.sort(np.asarray(used_indices, dtype=np.int64))
+        return ret
+
     def get_data(self):
         if self.data is None and self.free_raw_data:
             raise LightGBMError("Raw data was freed (free_raw_data=True)")
         return self.data
 
     def create_valid(self, data: Any, label: Any = None, weight: Any = None,
+                     init_score: Any = None,
                      params: Optional[dict] = None) -> "Dataset":
         """Validation set binned with this dataset's mappers
         (ref: basic.py `Dataset.create_valid`)."""
         return Dataset(data, label=label, reference=self, weight=weight,
+                       init_score=init_score,
                        feature_name=self.feature_name,
                        categorical_feature=self.categorical_feature,
                        params=params if params is not None else self.params,

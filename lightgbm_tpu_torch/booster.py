@@ -31,6 +31,16 @@ one launch of `csrc/threefry.cu` a draw on the card) from the same
 keys.  Everything the slice does not implement raises `LightGBMError`
 naming its ROADMAP item.
 
+Around training (the reference's `booster.py:1358-3388`): `init_score`
+as every score's base, `add_valid` after training started and the
+scores rebuilt after `set_leaf_output` (the model replayed on the set's
+bins in boosting order, `tree_leaf_ids`), `rollback_one_iter` (the last
+iteration's cached contributions subtracted, deeper ones replayed),
+`reset_parameter` (the grower rebuilt from the new config), `refit`,
+`eval` / `eval_train` / `eval_valid` with `feval` (one device-to-host
+copy of a set's scores a call, counted in `EVAL_COPIES`), and the
+model's IO, analysis and pickling.
+
 Loading: model text in and out, the host f64 tree walk (`tree.py`, the
 same per-tree, boosting-order sum as the JAX package's host path), and
 the stacked traversal planes plus the f64 leaf-value table
@@ -39,9 +49,10 @@ the stacked traversal planes plus the f64 leaf-value table
 from __future__ import annotations
 
 import copy
+import hashlib
 import io
 import json
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,17 +70,21 @@ from .ops.hist_kernel import MULTI_CHUNK
 from .ops.hist_kernel_q import MULTI_CHUNK_Q
 from .ops.histogram import PACKED_MAX_QUANT_BINS
 from .ops.threefry import fold_in, prng_key
-from .tree import Tree
+from .tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree
 from .utils import log
 from .utils.binning import BIN_TYPE_CATEGORICAL
 from .utils.config import Config
 from .utils.log import LightGBMError
 
 #: ROADMAP items that the training slice's refusals name
-CONTINUED = "ROADMAP Queue 1 item 5c: cv and continued training"
 BREADTH = "ROADMAP Queue 1 item 5d: grower and boosting breadth"
 EXTERNAL = "ROADMAP Queue 1 item 5e: external memory and streaming"
 DISTRIBUTED = "ROADMAP Queue 1 item 5f: distributed training"
+USER_API = "ROADMAP Queue 1 item 5h: the rest of the user API"
+
+#: blocking device-to-host copies of a set's scores for evaluation
+#: (metrics and `feval`), one a set a call (`Booster._eval_score`)
+EVAL_COPIES = 0
 
 #: Dataset parameters a training params dict hands to `construct()`
 _DATASET_PARAMS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
@@ -136,6 +151,13 @@ def refusals(cfg: Config) -> List[str]:
         out.append(f"tree_learner={cfg.tree_learner}, num_machines="
                    f"{cfg.num_machines} ({DISTRIBUTED})")
     return out
+
+
+def _refuse(cfg: Config) -> None:
+    reasons = refusals(cfg)
+    if reasons:
+        raise LightGBMError("the training slice of lightgbm_tpu_torch "
+                            "does not cover: " + "; ".join(reasons))
 
 
 #: `hist_impl` requests and the grower path of each (the fused names
@@ -342,29 +364,76 @@ class _DeviceData:
         w = ds.get_weight()
         self.weight = torch.from_numpy(w.astype(np.float32)).to(device) \
             if w is not None else None
+        self.init_score = ds.get_init_score()
+
+
+def _replay_splits(split_leaf, split_feature, threshold_bin, default_left,
+                   is_cat, cat_masks, dd: _DeviceData) -> torch.Tensor:
+    """[N] leaf slots of `dd`'s rows after the splits, in growth order:
+    split i sends the rows of slot `split_leaf[i]` that go right to slot
+    i + 1 (tree.h `Tree::Split`).  `cat_masks` [S, MB] are the left bins
+    of the categorical splits (rows of the others unused), uploaded once
+    without a sync; None when no split is categorical."""
+    device = dd.bins_fm.device
+    lid = torch.zeros(dd.num_data, dtype=torch.int32, device=device)
+    masks = to_device(cat_masks, device) if cat_masks is not None else None
+    for i in range(len(split_leaf)):
+        f = int(split_feature[i])
+        go_left = split_go_left(dd.bins_fm, f, int(threshold_bin[i]),
+                                bool(default_left[i]),
+                                int(dd.missing_np[f]), int(dd.nb_np[f]),
+                                cat_mask=masks[i] if is_cat[i] else None)
+        lid = torch.where((lid == int(split_leaf[i])) & ~go_left,
+                          i + 1, lid)
+    return lid
 
 
 def replay_leaf_ids(dev: DeviceTree, dd: _DeviceData) -> torch.Tensor:
     """[N] leaf slots of `dd`'s rows in a grown tree, by replaying its
     splits in growth order on the bins (the reference's
     `ops/predict.py:75 replay_leaf_ids`; the same leaves as its
-    bin-level traversal `traverse_bins`): a categorical split gathers
-    its bin mask, uploaded once a tree without a sync."""
-    device = dd.bins_fm.device
-    lid = torch.zeros(dd.num_data, dtype=torch.int32, device=device)
+    bin-level traversal `traverse_bins`)."""
     ns = dev.n_splits
-    masks = to_device(dev.split_cat_mask[:ns], device) \
-        if dev.split_is_cat[:ns].any() else None
-    for i in range(ns):
-        f = int(dev.split_feature[i])
-        go_left = split_go_left(dd.bins_fm, f, int(dev.threshold_bin[i]),
-                                bool(dev.default_left[i]),
-                                int(dd.missing_np[f]), int(dd.nb_np[f]),
-                                cat_mask=masks[i] if dev.split_is_cat[i]
-                                else None)
-        lid = torch.where((lid == int(dev.split_leaf[i])) & ~go_left,
-                          i + 1, lid)
-    return lid
+    is_cat = np.asarray(dev.split_is_cat[:ns], bool)
+    return _replay_splits(dev.split_leaf[:ns], dev.split_feature[:ns],
+                          dev.threshold_bin[:ns], dev.default_left[:ns],
+                          is_cat, dev.split_cat_mask[:ns]
+                          if is_cat.any() else None, dd)
+
+
+def tree_leaf_ids(tree: Tree, dd: _DeviceData) -> torch.Tensor:
+    """[N] leaf indices of `dd`'s rows in a host `Tree`, by the same
+    bin-level replay (`replay_leaf_ids`): the leaves of the reference's
+    `traverse_bins` over `_traverse_padded`.  Node i's split leaf is the
+    leaf its left chain ends in (the split leaf keeps its index on the
+    left); categorical nodes take their bin masks from
+    `tree.cat_bin_masks`, so a loaded tree needs
+    `recompute_threshold_bins` first."""
+    ni = tree.num_internal()
+    left, right = tree.left_child[:ni], tree.right_child[:ni]
+    order = np.arange(ni)
+    if ((left >= 0) & (left <= order)).any() or \
+            ((right >= 0) & (right <= order)).any():
+        raise LightGBMError("bin-level replay needs the nodes in growth "
+                            "order (every child after its parent)")
+    split_leaf = np.empty(ni, np.int64)
+    for i in range(ni):
+        c = int(left[i])
+        while c >= 0:
+            c = int(tree.left_child[c])
+        split_leaf[i] = ~c
+    dtype = tree.decision_type[:ni]
+    is_cat = (dtype & K_CATEGORICAL_MASK) != 0
+    masks = None
+    if is_cat.any():
+        masks = np.zeros((ni, dd.max_bin), bool)
+        for i in np.nonzero(is_cat)[0]:
+            m = tree.cat_bin_masks[int(tree.threshold_bin[i])]
+            masks[i, :min(len(m), dd.max_bin)] = m[:dd.max_bin]
+    return _replay_splits(split_leaf, tree.split_feature[:ni],
+                          tree.threshold_bin[:ni],
+                          (dtype & K_DEFAULT_LEFT_MASK) != 0, is_cat, masks,
+                          dd)
 
 
 class Booster:
@@ -393,6 +462,9 @@ class Booster:
         self.valid_sets: List[Dataset] = []
         self.name_valid_sets: List[str] = []
         self.cur_iter = 0
+        self._attr: Dict[str, str] = {}
+        self._last_contribs: List = []
+        self._scores_stale = False
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be a "
@@ -416,11 +488,7 @@ class Booster:
             raise LightGBMError(f"custom objectives (fobj) are not ported "
                                 f"yet ({BREADTH})")
         cfg = self.config = Config(self.params)
-        reasons = refusals(cfg)
-        if reasons:
-            raise LightGBMError("the training slice of lightgbm_tpu_torch "
-                                "does not cover: " + "; ".join(reasons))
-        self._grow_policy = resolve_grow_policy(cfg)
+        _refuse(cfg)
         self.device = train_device(cfg.device_type)
         train_set.params = {**(train_set.params or {}), **{
             k: v for k, v in self.params.items() if k in _DATASET_PARAMS}}
@@ -440,9 +508,33 @@ class Booster:
         self._loaded_feature_names = train_set.get_feature_name()
         self._loaded_feature_infos = [m.feature_info_str()
                                       for m in train_set.bin_mappers]
+        self._build_grower()
+        K = self.num_tree_per_iteration
+        self._init_scores = [0.0] * K
+        self._boost_from_average_done = False
+        self._train_score = self._zero_score(self._dd)
+        self._valid_dd: List[_DeviceData] = []
+        self._valid_scores: List[torch.Tensor] = []
+        self._ones = torch.ones(self._dd.num_data, dtype=torch.float32,
+                                device=self.device)
+        # threefry keys, kept on the host: their words reach the card as
+        # kernel arguments, no sync.  key0 draws the bags, GOSS and the
+        # quantizer's rounding; ff_key0 the trees' and nodes' features
+        self._rng_key0 = prng_key(cfg.bagging_seed % (2 ** 31))
+        self._ff_key0 = prng_key(cfg.feature_fraction_seed % (2 ** 31))
+
+    def _build_grower(self) -> None:
+        """The grower of `self.config`, built anew: the histogram path,
+        the spec (the wave's width, strict tail and slot chunk, the
+        quantized path's constant-hessian level) and the grow function
+        (`_init_train`, and `reset_parameter` after a change)."""
+        cfg = self.config
+        self._grow_policy = resolve_grow_policy(cfg)
+        self._use_goss = uses_goss(cfg)
         self.hist_impl = hist_impl_of(cfg, self.device)
         wave = self._grow_policy == "wave"
         efb = self._dd.efb
+        obj = self._train_obj
         self._grower_spec = GrowerSpec(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
             max_bin=self._dd.max_bin, lambda_l1=cfg.lambda_l1,
@@ -453,8 +545,7 @@ class Booster:
             max_delta_step=cfg.max_delta_step, path_smooth=cfg.path_smooth,
             hist_impl=self.hist_impl,
             packed_const_hess_level=packed_const_hess_level(
-                cfg, self.hist_impl, obj.name,
-                train_set.get_weight() is not None),
+                cfg, self.hist_impl, obj.name, self._dd.weight is not None),
             debug_checks=bool(cfg.tpu_debug_nans),
             wave_width=self._wave_width() if wave else 0,
             wave_gain_ratio=self._wave_gain_ratio() if wave else 0.0,
@@ -472,20 +563,6 @@ class Booster:
             bundle_max_bin=efb.max_bin if efb is not None else 0)
         self._grower = make_wave_grower(self._grower_spec) if wave \
             else make_grower(self._grower_spec)
-        K = self.num_tree_per_iteration
-        self._init_scores = [0.0] * K
-        self._boost_from_average_done = False
-        self._train_score = self._zero_score(self._dd)
-        self._valid_dd: List[_DeviceData] = []
-        self._valid_scores: List[torch.Tensor] = []
-        self._ones = torch.ones(self._dd.num_data, dtype=torch.float32,
-                                device=self.device)
-        # threefry keys, kept on the host: their words reach the card as
-        # kernel arguments, no sync.  key0 draws the bags, GOSS and the
-        # quantizer's rounding; ff_key0 the trees' and nodes' features
-        self._use_goss = uses_goss(cfg)
-        self._rng_key0 = prng_key(cfg.bagging_seed % (2 ** 31))
-        self._ff_key0 = prng_key(cfg.feature_fraction_seed % (2 ** 31))
 
     # ---- the wave policy's knobs (the reference's `booster.py:703-774`)
     WAVE_GAIN_RATIO_DEFAULT = 0.0
@@ -534,37 +611,75 @@ class Booster:
         return val
 
     def _zero_score(self, dd: _DeviceData) -> torch.Tensor:
+        """A set's score base: zeros plus its `init_score` ([N * K]
+        class-major), uploaded pinned (the reference's `_zero_score`,
+        `booster.py:1349`)."""
         K = self.num_tree_per_iteration
         shape = (dd.num_data,) if K == 1 else (dd.num_data, K)
-        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+        device = dd.bins_fm.device
+        score = torch.zeros(shape, dtype=torch.float32, device=device)
+        if dd.init_score is not None:
+            s = np.asarray(dd.init_score, dtype=np.float32)
+            score = score + to_device(s.reshape(shape, order="F"), device)
+        return score
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
-        """ref: basic.py `Booster.add_valid`.  Must come before the first
-        `update` (continued training is not ported)."""
-        if self.cur_iter:
-            raise LightGBMError("add_valid after training started replays "
-                                "the model onto the new set, which is not "
-                                f"ported yet ({BREADTH})")
+        """ref: basic.py `Booster.add_valid` (the JAX package's
+        `booster.py:1358`): after training started, the model so far is
+        replayed onto the new set's bins in boosting order, onto the bare
+        init-score base (iteration 0's trees carry the folded-in
+        boost_from_average bias)."""
+        self._require_train_data()
         if data.reference is None:
             data.reference = self.train_set
         dd = _DeviceData(data, self.device)
         self.valid_sets.append(data)
         self.name_valid_sets.append(name)
         self._valid_dd.append(dd)
-        self._valid_scores.append(self._zero_score(dd))
+        self._valid_scores.append(self._replay_model(dd))
         return self
 
-    def _add_init(self, score: torch.Tensor) -> torch.Tensor:
-        add = np.asarray(self._init_scores, dtype=np.float32)
-        if score.dim() == 1:
-            return score + float(add[0])
-        return score + torch.from_numpy(add).to(score.device)[None, :]
+    def _replay_model(self, dd: _DeviceData) -> torch.Tensor:
+        """`dd`'s scores from the trees of every iteration so far, onto
+        its bare init-score base (the reference's replay in `add_valid`
+        and `_rebuild_train_scores`), on `dd`'s device."""
+        score = self._zero_score(dd)
+        K = self.num_tree_per_iteration
+        for it in range(self.cur_iter):
+            for k in range(K):
+                self._apply_tree_to_score(score, self.trees[it * K + k], dd,
+                                          k, bias_included=True)
+        return score
+
+    def _apply_tree_to_score(self, score: torch.Tensor, tree: Tree,
+                             dd: _DeviceData, k: int, bias_included: bool,
+                             subtract: bool = False, bias: float = 0.0
+                             ) -> torch.Tensor:
+        """Add (or `subtract`) one tree's contribution to `score` in
+        place, by bin-level replay (the reference's
+        `_apply_tree_to_score` and `_subtract_tree`, `booster.py:1774,
+        2320`): the f32 cast of `leaf_value - bias` at each row's leaf; a
+        single-leaf tree adds its value only with `bias_included`.
+        Returns the contribution."""
+        device = dd.bins_fm.device
+        if tree.num_leaves <= 1:
+            const = float(tree.leaf_value[0]) - bias \
+                if bias_included and len(tree.leaf_value) else 0.0
+            contrib = torch.full((dd.num_data,), const, dtype=torch.float32,
+                                 device=device)
+        else:
+            vals = to_device(np.asarray(tree.leaf_value - bias, np.float32),
+                             device)
+            contrib = vals[tree_leaf_ids(tree, dd).long()]
+        self._add_tree(score, k, -contrib if subtract else contrib)
+        return contrib
 
     def _boost_from_average(self) -> None:
         """ref: the JAX package's `_boost_from_average` (`booster.py:1383`):
         the objective's initial score, added to every score once and
-        folded into the first tree's leaves."""
-        if self._boost_from_average_done:
+        folded into the first tree's leaves; none when the training set
+        has an `init_score`."""
+        if self._boost_from_average_done or self._dd.init_score is not None:
             return
         self._boost_from_average_done = True
         if not self.config.boost_from_average:
@@ -578,9 +693,15 @@ class Booster:
             inits = inits * K
         self._init_scores = [float(v) for v in inits]
         if any(abs(v) > 1e-35 for v in self._init_scores):
-            self._train_score = self._add_init(self._train_score)
-            self._valid_scores = [self._add_init(s)
-                                  for s in self._valid_scores]
+            add = np.asarray(self._init_scores, dtype=np.float32)
+            if K == 1:
+                self._train_score = self._train_score + float(add[0])
+                self._valid_scores = [v + float(add[0])
+                                      for v in self._valid_scores]
+            else:
+                row = torch.from_numpy(add).to(self.device)[None, :]
+                self._train_score = self._train_score + row
+                self._valid_scores = [v + row for v in self._valid_scores]
 
     def update(self, train_set: Optional[Dataset] = None,
                fobj=None) -> bool:
@@ -590,11 +711,9 @@ class Booster:
         if fobj is not None:
             raise LightGBMError(f"custom objectives (fobj) are not ported "
                                 f"yet ({BREADTH})")
-        if getattr(self, "_dd", None) is None:
-            raise LightGBMError("Cannot train a Booster that was loaded "
-                                "from model text")
         if train_set is not None and train_set is not self.train_set:
             self._init_train(train_set)
+        self._require_train_data()
         self._boost_from_average()
         grad, hess = self._train_obj.grad_hess(
             self._train_score, self._dd.label, self._dd.weight)
@@ -658,7 +777,9 @@ class Booster:
                             other_rate=cfg.other_rate, goss_start_iter=start)
 
     def _boost(self, grad: torch.Tensor, hess: torch.Tensor) -> bool:
-        """ref: the JAX package's `__boost` (`booster.py:1581`)."""
+        """ref: the JAX package's `__boost` (`booster.py:1581`).  Each
+        tree's train and valid contributions are kept for
+        `rollback_one_iter` until the next iteration."""
         cfg = self.config
         lr = cfg.learning_rate
         K = self.num_tree_per_iteration
@@ -675,6 +796,7 @@ class Booster:
                 feat = {**feat, "qscales": qscales}
         node_sampling = cfg.feature_fraction_bynode < 1.0 or cfg.extra_trees
         all_const = True
+        self._last_contribs = []
         for k in range(K):
             gk = grad if K == 1 else grad[:, k].contiguous()
             hk = hess if K == 1 else hess[:, k].contiguous()
@@ -694,10 +816,14 @@ class Booster:
             # the train score reads the grower's final leaf_id; the
             # scores are updated in place (the reference's are immutable)
             scaled = dev.values * lr
-            self._add_tree(self._train_score, k, scaled[dev.leaf_id.long()])
-            for vdd, vscore in zip(self._valid_dd, self._valid_scores):
-                lid = replay_leaf_ids(dev, vdd)
-                self._add_tree(vscore, k, scaled[lid.long()])
+            contrib = scaled[dev.leaf_id.long()]
+            self._add_tree(self._train_score, k, contrib)
+            self._last_contribs.append(("train", 0, k, contrib))
+            for vi, (vdd, vscore) in enumerate(zip(self._valid_dd,
+                                                   self._valid_scores)):
+                contrib = scaled[replay_leaf_ids(dev, vdd).long()]
+                self._add_tree(vscore, k, contrib)
+                self._last_contribs.append(("valid", vi, k, contrib))
             if it == 0 and abs(self._init_scores[k]) > 1e-35:
                 tree.add_bias(self._init_scores[k])
             self.trees.append(tree)
@@ -727,27 +853,260 @@ class Booster:
     def current_iteration(self) -> int:
         return self.cur_iter
 
-    def _eval_one(self, score: torch.Tensor, ds: Dataset,
-                  name: str) -> List[Tuple[str, str, float, bool]]:
+    def rollback_one_iter(self) -> "Booster":
+        """Undo the last iteration (ref: `GBDT::RollbackOneIter`; the JAX
+        package's `booster.py:1803`): the cached contributions of the
+        last update are subtracted, so the scores are `(s + c) - c`;
+        deeper, each tree's contribution is replayed on the bins and
+        subtracted (iteration 0's less its folded-in bias)."""
+        if self.cur_iter <= 0:
+            return self
+        self._require_train_data()
+        K = self.num_tree_per_iteration
+        if self._last_contribs:
+            for kind, vi, k, contrib in self._last_contribs:
+                score = self._train_score if kind == "train" \
+                    else self._valid_scores[vi]
+                self._add_tree(score, k, -contrib)
+            self._last_contribs = []
+        else:
+            rolling_first = self.cur_iter == 1
+            for k in range(K):
+                tree = self.trees[-K + k]
+                bias = self._init_scores[k] if rolling_first else 0.0
+                for dd, score in [(self._dd, self._train_score)] + list(
+                        zip(self._valid_dd, self._valid_scores)):
+                    self._apply_tree_to_score(score, tree, dd, k, True,
+                                              subtract=True, bias=bias)
+        del self.trees[-K:]
+        self.cur_iter -= 1
+        self._export_cache = None
+        return self
+
+    # ------------------------------------------------------ evaluation
+    def _require_train_data(self) -> None:
+        if self.train_set is None or getattr(self, "_dd", None) is None:
+            raise LightGBMError("No training data attached: the booster was "
+                                "loaded from model text or its data freed "
+                                "by free_dataset(); prediction and model IO "
+                                "remain available")
+        if self._scores_stale:
+            self._rebuild_train_scores()
+
+    def _rebuild_train_scores(self) -> None:
+        """Every score replayed from the current trees (after
+        `set_leaf_output`; the reference's `booster.py:3322`)."""
+        self._train_score = self._replay_model(self._dd)
+        self._valid_scores = [self._replay_model(dd) for dd in self._valid_dd]
+        self._scores_stale = False
+
+    def _eval_score(self, score: torch.Tensor) -> np.ndarray:
+        """A set's scores on the host as f64: the one blocking copy of
+        an evaluation, counted in `EVAL_COPIES`."""
+        global EVAL_COPIES
+        EVAL_COPIES += 1
         s = score.detach().cpu().numpy().astype(np.float64)
+        if self._average_output and self.cur_iter > 0:
+            s = s / self.cur_iter
+        return s
+
+    def _eval_one(self, s: np.ndarray, ds: Dataset, name: str, feval
+                  ) -> List[Tuple[str, str, float, bool]]:
+        """ref: the JAX package's `_eval_one_impl` (`booster.py:2364`):
+        the metrics, then each `feval(preds, ds)` on the f32 scores
+        through the objective's link (on the host, the plain version's
+        bits), flattened class-major; a feval returns one
+        (name, value, higher_better) tuple or a list of them."""
         label = ds.get_label()
         weight = ds.get_weight()
         label64 = label.astype(np.float64) if label is not None else None
         w64 = weight.astype(np.float64) if weight is not None else None
-        return [(name, mname, val, m.higher_better)
-                for m in self.metrics_
-                for mname, val in m.eval(s, label64, w64, None)]
+        out = [(name, mname, val, m.higher_better)
+               for m in self.metrics_
+               for mname, val in m.eval(s, label64, w64, None)]
+        if feval is None:
+            return out
+        preds = s
+        if self.objective_ is not None and getattr(
+                self._train_obj, "need_convert", False):
+            preds = self.objective_.convert_output(
+                torch.from_numpy(s.astype(np.float32))).numpy()
+        for fe in (feval if isinstance(feval, (list, tuple)) else [feval]):
+            res = fe(preds.reshape(-1, order="F") if preds.ndim > 1
+                     else preds, ds)
+            for item in (res if isinstance(res, list)
+                         else [] if res is None else [res]):
+                fname, val, hib = item
+                out.append((name, fname, val, hib))
+        return out
 
-    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
-        return self._eval_one(self._train_score, self.train_set,
-                              getattr(self, "_train_data_name", "training"))
+    def eval_with_scores(self, score_np: np.ndarray, data: Dataset,
+                         name: str, feval, it_count: int):
+        """Metrics and `feval` on a host score snapshot (the reference's
+        `booster.py:2185`)."""
+        s = np.asarray(score_np, dtype=np.float64)
+        if self._average_output and it_count > 0:
+            s = s / it_count
+        return self._eval_one(s, data, name, feval)
 
-    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+    def eval_train(self, feval=None) -> List[Tuple[str, str, float, bool]]:
+        self._require_train_data()
+        return self._eval_one(self._eval_score(self._train_score),
+                              self.train_set,
+                              getattr(self, "_train_data_name", "training"),
+                              feval)
+
+    def eval_valid(self, feval=None) -> List[Tuple[str, str, float, bool]]:
+        self._require_train_data()
         out = []
         for name, ds, score in zip(self.name_valid_sets, self.valid_sets,
                                    self._valid_scores):
-            out.extend(self._eval_one(score, ds, name))
+            out.extend(self._eval_one(self._eval_score(score), ds, name,
+                                      feval))
         return out
+
+    def eval(self, data: Dataset, name: str, feval=None):
+        """ref: basic.py `Booster.eval`: the training set or a set given
+        to `add_valid`."""
+        if data is self.train_set:
+            return self.eval_train(feval)
+        self._require_train_data()
+        for i, vs in enumerate(self.valid_sets):
+            if data is vs:
+                return self._eval_one(self._eval_score(self._valid_scores[i]),
+                                      data, name, feval)
+        raise LightGBMError("Data for eval must be training or validation "
+                            "data (use add_valid first)")
+
+    # ------------------------------------------------ changing the model
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """New parameters for the next iterations (ref: basic.py
+        `Booster.reset_parameter`; the JAX package's `booster.py:3344`):
+        the config is updated and the grower rebuilt from it, spec and
+        all (`_build_grower`: leaves, depth, regularisers, histogram
+        path, the wave's width, strict tail, buffers and K2's slot
+        count, the quantized constant-hessian level), as a fresh booster
+        with these parameters would build it.  `learning_rate` takes
+        effect at the next update."""
+        self.params.update(params)
+        if getattr(self, "_dd", None) is None:
+            return self
+        self.config.update(params)
+        _refuse(self.config)
+        self._build_grower()
+        return self
+
+    def refit(self, data, label, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """A new booster with every tree's structure kept and its leaf
+        values refitted on `data` (ref: basic.py `Booster.refit`;
+        gbdt.cpp `GBDT::RefitTree`; the JAX package's `booster.py:1851`):
+        in boosting order, each row's leaf by the host walk
+        (`Tree.predict_leaf_index`), the gradients at the running f32
+        score from the port's objective on the training device (the
+        booster's, or `device_type=`; on the card through the link
+        kernel), the leaf sums in f64 (`bincount`), the closed-form
+        output times the learning rate blended as `decay_rate * old +
+        (1 - decay_rate) * new`; leaves no row reaches keep their value.
+        `weight=` weights the rows; `group=` raises (item 5d)."""
+        if self.objective_ is None:
+            raise LightGBMError("Cannot refit due to null objective function")
+        if kwargs.get("group") is not None:
+            raise LightGBMError("refit with query groups (ranking) is not "
+                                f"ported yet ({BREADTH})")
+        cfg = self.config
+        device = train_device(kwargs.get("device_type") or cfg.device_type)
+        new_bst = Booster(model_str=self.model_to_string(num_iteration=-1),
+                          params={**{k: v for k, v in self.params.items()
+                                     if not callable(v)}, "verbosity": -1})
+        X = _to_2d_float(data)
+        y = np.asarray(label, dtype=np.float64).reshape(-1)
+        n = X.shape[0]
+        if len(y) != n:
+            raise LightGBMError("Length of label is not same with #data")
+        weight = kwargs.get("weight")
+        obj = create_objective(new_bst.config)
+        obj.init_meta(y, np.asarray(weight, np.float64)
+                      if weight is not None else None)
+        K = self.num_tree_per_iteration
+        lr = 1.0 if self._average_output else cfg.learning_rate
+
+        def host_leaf_output(g, h):
+            # ops/split.py leaf_output in f64
+            t = np.sign(g) * np.maximum(np.abs(g) - cfg.lambda_l1, 0.0)
+            denom = h + cfg.lambda_l2
+            out = np.where(denom > 0, -t / np.where(denom > 0, denom, 1.0),
+                           0.0)
+            if cfg.max_delta_step > 0:
+                out = np.clip(out, -cfg.max_delta_step, cfg.max_delta_step)
+            return out
+
+        label_d = to_device(y.astype(np.float32), device)
+        w_d = to_device(np.asarray(weight, np.float32), device) \
+            if weight is not None else None
+        score = np.zeros(n if K == 1 else (n, K), np.float32)
+        for it in range(len(new_bst.trees) // K):
+            # an averaged (RF) model's gradients are taken at the constant
+            # base score (ref: rf.hpp `RF::Boosting`)
+            at = np.zeros_like(score) if self._average_output else score
+            g, h = obj.grad_hess(to_device(at, device), label_d, w_d)
+            g = g.cpu().numpy().astype(np.float64)
+            h = h.cpu().numpy().astype(np.float64)
+            for k in range(K):
+                t = new_bst.trees[it * K + k]
+                gk = g if K == 1 else g[:, k]
+                hk = h if K == 1 else h[:, k]
+                li = t.predict_leaf_index(X)
+                nl = t.num_leaves
+                sg = np.bincount(li, weights=gk, minlength=nl)
+                sh = np.bincount(li, weights=hk, minlength=nl)
+                cnt = np.bincount(li, minlength=nl)
+                new_out = host_leaf_output(sg, sh) * lr
+                old = np.asarray(t.leaf_value, np.float64)
+                mixed = np.where(cnt > 0, decay_rate * old
+                                 + (1.0 - decay_rate) * new_out, old)
+                t.leaf_value = mixed
+                contrib = mixed[li].astype(np.float32)
+                if K == 1:
+                    score = score + contrib
+                else:
+                    score[:, k] += contrib
+        new_bst._export_cache = None
+        return new_bst
+
+    def set_leaf_output(self, tree_id: int, leaf_id: int,
+                        value: float) -> "Booster":
+        """Overwrite one leaf's output (ref: basic.py
+        `Booster.set_leaf_output`); the scores are replayed from the
+        trees before the next update or evaluation."""
+        self.trees[tree_id].leaf_value[leaf_id] = float(value)
+        self._scores_stale = True
+        self._last_contribs = []
+        self._export_cache = None
+        return self
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        return float(self.trees[tree_id].leaf_value[leaf_id])
+
+    def shuffle_models(self, start_iteration: int = 0,
+                       end_iteration: int = -1) -> "Booster":
+        """Permute whole iterations of trees in [start_iteration,
+        end_iteration) with numpy's global generator (ref: basic.py
+        `Booster.shuffle_models`); the full sum is unchanged."""
+        K = self.num_tree_per_iteration
+        n_iter = len(self.trees) // K
+        end = n_iter if end_iteration < 0 else min(end_iteration, n_iter)
+        start = max(0, start_iteration)
+        if end - start > 1:
+            idx = np.arange(start, end)
+            np.random.shuffle(idx)
+            blocks = [self.trees[i * K:(i + 1) * K] for i in range(n_iter)]
+            reordered = blocks[:start] + [blocks[i] for i in idx] + \
+                blocks[end:]
+            self.trees = [t for b in reordered for t in b]
+            self._last_contribs = []
+            self._export_cache = None
+        return self
 
     # ------------------------------------------------------ model text
     def model_from_string(self, model_str: str) -> "Booster":
@@ -782,14 +1141,23 @@ class Booster:
             if in_params and ln.startswith("[") and ":" in ln:
                 k, v = ln[1:-1].split(":", 1)
                 self.params.setdefault(k.strip(), v.strip())
-        self.objective_ = parse_objective(
-            header.get("objective", "regression"), self.params)
+        obj_line = header.get("objective", "regression")
+        self.objective_ = parse_objective(obj_line, self.params)
+        # the training view of the model's parameters (what `refit` and
+        # continued training read), as the reference builds it
+        params = dict(self.params)
+        toks = obj_line.split()
+        params["objective"] = toks[0] if toks else "regression"
+        params.update(tok.split(":", 1) for tok in toks[1:] if ":" in tok)
+        params.setdefault("verbosity", -1)
+        self.config = Config(params)
         self._export_cache = None
         text = "\n".join(lines[i:])
         self.trees = []
         for section in text.split("Tree=")[1:]:
             section = section.split("\nend of trees")[0]
             self.trees.append(Tree.from_string("Tree=" + section))
+        self.cur_iter = len(self.trees) // max(self.num_tree_per_iteration, 1)
         for ln in reversed(lines):
             if ln.startswith("pandas_categorical:"):
                 try:
@@ -846,9 +1214,232 @@ class Booster:
                   json.dumps(self.pandas_categorical) + "\n")
         return buf.getvalue()
 
+    def save_model(self, filename: str, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> "Booster":
+        with open(filename, "w") as f:
+            f.write(self.model_to_string(num_iteration, start_iteration,
+                                         importance_type))
+        return self
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> Dict:
+        """The model as a JSON-ready dict (ref: `GBDT::DumpModel`; the
+        JAX package's `booster.py:2982`, its fields and their order)."""
+        trees = self._slice_trees(start_iteration, num_iteration)
+        fnames = self.feature_name()
+
+        def node_to_dict(t: Tree, node: int) -> Dict:
+            if node < 0:
+                leaf = ~node
+                return {"leaf_index": int(leaf),
+                        "leaf_value": float(t.leaf_value[leaf]),
+                        "leaf_weight": float(t.leaf_weight[leaf]),
+                        "leaf_count": int(t.leaf_count[leaf])}
+            return {
+                "split_index": int(node),
+                "split_feature": int(t.split_feature[node]),
+                "split_gain": float(t.split_gain[node]),
+                "threshold": float(t.threshold[node]),
+                "decision_type": "<=",
+                "default_left": bool(t.decision_type[node] & 2),
+                "missing_type": ["None", "Zero", "NaN"][
+                    (t.decision_type[node] >> 2) & 3],
+                "internal_value": float(t.internal_value[node]),
+                "internal_weight": float(t.internal_weight[node]),
+                "internal_count": int(t.internal_count[node]),
+                "left_child": node_to_dict(t, t.left_child[node]),
+                "right_child": node_to_dict(t, t.right_child[node]),
+            }
+
+        return {
+            "name": "tree", "version": "v4",
+            "num_class": max(self.num_tree_per_iteration, 1),
+            "num_tree_per_iteration": self.num_tree_per_iteration,
+            "label_index": 0, "max_feature_idx": len(fnames) - 1,
+            "objective": self.objective_.to_string()
+            if self.objective_ else "custom",
+            "feature_names": fnames,
+            "tree_info": [{
+                "tree_index": i, "num_leaves": t.num_leaves,
+                "num_cat": t.num_cat, "shrinkage": t.shrinkage,
+                "tree_structure": node_to_dict(
+                    t, 0 if t.num_leaves > 1 else ~0),
+            } for i, t in enumerate(trees)],
+            "pandas_categorical": self.pandas_categorical,
+        }
+
+    def model_fingerprint(self) -> str:
+        """The model's identity: the first 16 hex digits of the sha256 of
+        its model text less the `[param: value]` lines (the JAX
+        package's `booster.py:2665`), so a model hashes the same trained
+        or loaded."""
+        body = "\n".join(ln for ln in self.model_to_string().splitlines()
+                         if not ln.startswith("["))
+        return hashlib.sha256(body.encode()).hexdigest()[:16]
+
     # -------------------------------------------------------- queries
     def num_feature(self) -> int:
         return len(self._loaded_feature_names)
+
+    def num_model_per_iteration(self) -> int:
+        return self.num_tree_per_iteration
+
+    def feature_name(self) -> List[str]:
+        return list(self._loaded_feature_names)
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        self._train_data_name = str(name)
+        return self
+
+    def free_dataset(self) -> "Booster":
+        """Drop the training and validation data and their device
+        copies (ref: basic.py `Booster.free_dataset`): prediction and
+        model IO keep working, training and evaluation raise."""
+        self.train_set = None
+        self._dd = None
+        self._train_score = None
+        self._ones = None
+        self._valid_dd = []
+        self._valid_scores = []
+        self.valid_sets = []
+        self.name_valid_sets = []
+        self._last_contribs = []
+        return self
+
+    def set_attr(self, **kwargs) -> "Booster":
+        """String attributes kept with the booster in memory (ref:
+        basic.py `Booster.set_attr`); None deletes one."""
+        for k, v in kwargs.items():
+            if v is None:
+                self._attr.pop(k, None)
+            else:
+                self._attr[k] = str(v)
+        return self
+
+    def get_attr(self, name: str) -> Optional[str]:
+        return self._attr.get(name)
+
+    def lower_bound(self) -> float:
+        """The least raw score: each tree's smallest leaf, summed (ref:
+        `GBDT::GetLowerBoundValue`)."""
+        return float(sum(float(np.min(t.leaf_value[:t.num_leaves]))
+                         for t in self.trees)) if self.trees else 0.0
+
+    def upper_bound(self) -> float:
+        """ref: `GBDT::GetUpperBoundValue`."""
+        return float(sum(float(np.max(t.leaf_value[:t.num_leaves]))
+                         for t in self.trees)) if self.trees else 0.0
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """Histogram of the model's numerical thresholds on one feature
+        (ref: basic.py `Booster.get_split_value_histogram`): (counts,
+        edges) as `np.histogram`, one bin per distinct value by default;
+        with `xgboost_style` the [SplitValue, Count] rows of the bins in
+        use, a pandas DataFrame where pandas is installed."""
+        fnames = self.feature_name()
+        fidx = fnames.index(feature) if isinstance(feature, str) \
+            else int(feature)
+        values = [t.threshold[i] for t in self.trees
+                  for i in range(t.num_internal())
+                  if t.split_feature[i] == fidx
+                  and not (t.decision_type[i] & K_CATEGORICAL_MASK)]
+        n_unique = len(np.unique(values)) if values else 0
+        if bins is None or (not isinstance(bins, str)
+                            and np.isscalar(bins) and bins > n_unique):
+            bins = max(n_unique, 1)
+        hist, edges = np.histogram(values, bins=bins)
+        if not xgboost_style:
+            return hist, edges
+        rows = np.column_stack([edges[1:], hist]).astype(np.float64)
+        rows = rows[rows[:, 1] > 0]
+        try:
+            import pandas as pd
+        except ImportError:
+            return rows
+        return pd.DataFrame(rows, columns=["SplitValue", "Count"])
+
+    def trees_to_dataframe(self):
+        """The model's nodes and leaves as one pandas DataFrame (ref:
+        basic.py `Booster.trees_to_dataframe`, the JAX package's columns
+        and rows).  Needs pandas, imported here."""
+        import pandas as pd
+        fnames = self.feature_name()
+        rows = []
+        for ti, t in enumerate(self.trees):
+            ni = t.num_internal()
+            parent = {}
+            depth = {("S", 0): 1} if ni else {("L", 0): 1}
+            for i in range(ni):
+                for child in (t.left_child[i], t.right_child[i]):
+                    key = ("L", ~child) if child < 0 else ("S", child)
+                    parent[key] = i
+                    depth[key] = depth.get(("S", i), 1) + 1
+
+            def node_index(key, ti=ti):
+                return f"{ti}-{key[0]}{key[1]}"
+
+            def child_index(c):
+                return node_index(("L", ~c) if c < 0 else ("S", c))
+
+            for i in range(ni):
+                dt = int(t.decision_type[i])
+                f = int(t.split_feature[i])
+                rows.append({
+                    "tree_index": ti,
+                    "node_depth": depth.get(("S", i), 1),
+                    "node_index": node_index(("S", i)),
+                    "left_child": child_index(int(t.left_child[i])),
+                    "right_child": child_index(int(t.right_child[i])),
+                    "parent_index": node_index(("S", parent[("S", i)]))
+                    if ("S", i) in parent else None,
+                    "split_feature": fnames[f] if f < len(fnames)
+                    else str(f),
+                    "split_gain": float(t.split_gain[i]),
+                    "threshold": float(t.threshold[i]),
+                    "decision_type": "==" if dt & 1 else "<=",
+                    "missing_direction": "left" if dt & 2 else "right",
+                    "missing_type": {0: "None", 1: "Zero", 2: "NaN"}[
+                        (dt >> 2) & 3],
+                    "value": float(t.internal_value[i]),
+                    "weight": float(t.internal_weight[i]),
+                    "count": int(t.internal_count[i]),
+                })
+            for li in range(t.num_leaves):
+                key = ("L", li)
+                rows.append({
+                    "tree_index": ti,
+                    "node_depth": depth.get(key, 1),
+                    "node_index": node_index(key),
+                    "left_child": None, "right_child": None,
+                    "parent_index": node_index(("S", parent[key]))
+                    if key in parent else None,
+                    "split_feature": None, "split_gain": None,
+                    "threshold": None, "decision_type": None,
+                    "missing_direction": None, "missing_type": None,
+                    "value": float(t.leaf_value[li]),
+                    "weight": float(t.leaf_weight[li]),
+                    "count": int(t.leaf_count[li]),
+                })
+        return pd.DataFrame(rows)
+
+    # ------------------------------------------------------- pickling
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, _):
+        return Booster(model_str=self.model_to_string(num_iteration=-1))
+
+    def __getstate__(self):
+        return {"model_str": self.model_to_string(num_iteration=-1),
+                "params": self.params, "best_iteration": self.best_iteration}
+
+    def __setstate__(self, state):
+        self.__init__(params=state.get("params"),
+                      model_str=state["model_str"])
+        self.best_iteration = state.get("best_iteration", -1)
 
     def num_trees(self) -> int:
         return len(self.trees)
@@ -882,11 +1473,16 @@ class Booster:
     # ------------------------------------------------------ prediction
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False) -> np.ndarray:
         """Host prediction: the f64 tree walk, summed tree by tree in
         boosting order (ref: gbdt_prediction.cpp `GBDT::PredictRaw`).
         Converted outputs pass the f32 downcast of the raw sum through
-        the objective's link on the CPU."""
+        the objective's link on the CPU.  `pred_leaf` and `pred_contrib`
+        raise (item 5h)."""
+        if pred_leaf or pred_contrib:
+            raise LightGBMError("pred_leaf and pred_contrib are not ported "
+                                f"yet ({USER_API})")
         X = _to_2d_float(data)
         K = self.num_tree_per_iteration
         trees = self._slice_trees(start_iteration, num_iteration)

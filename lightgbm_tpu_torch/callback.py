@@ -1,9 +1,10 @@
 """Training callbacks (API parity: python-package/lightgbm/callback.py).
 
 A copy of the JAX package's `callback.py`: `CallbackEnv`,
-`early_stopping`, `log_evaluation` and `record_evaluation`, with the
-reference's best_iter / best_score bookkeeping.  `reset_parameter`
-needs `Booster.reset_parameter`, which waits for a later slice.
+`early_stopping`, `log_evaluation`, `record_evaluation` and
+`reset_parameter`, with the reference's best_iter / best_score
+bookkeeping and its `before_iteration` flag (the engine runs those
+callbacks before each update).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Callable, Dict, List, Union
 from .utils import log
 
 __all__ = ["EarlyStopException", "CallbackEnv", "early_stopping",
-           "log_evaluation", "record_evaluation"]
+           "log_evaluation", "record_evaluation", "reset_parameter"]
 
 
 class EarlyStopException(Exception):
@@ -78,6 +79,39 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]) -> Callabl
             eval_result[data_name][eval_name].append(result)
 
     _callback.order = 20  # type: ignore
+    return _callback
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """ref: callback.py `reset_parameter`: a parameter schedule, each
+    value a list indexed by the round (its length the number of rounds)
+    or a callable of the round; a change calls
+    `env.model.reset_parameter` before the round's update."""
+
+    def _callback(env: CallbackEnv) -> None:
+        new_parameters = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(
+                        f"Length of list {key!r} has to equal to "
+                        f"'num_boost_round'.")
+                new_param = value[env.iteration - env.begin_iteration]
+            elif callable(value):
+                new_param = value(env.iteration - env.begin_iteration)
+            else:
+                raise ValueError("Only list and callable values are "
+                                 "supported as a mapping from boosting round "
+                                 "index to new parameter value.")
+            if new_param != env.params.get(key, None):
+                new_parameters[key] = new_param
+        if new_parameters:
+            if env.model is not None:
+                env.model.reset_parameter(new_parameters)
+            env.params.update(new_parameters)
+
+    _callback.before_iteration = True  # type: ignore
+    _callback.order = 10  # type: ignore
     return _callback
 
 

@@ -275,10 +275,6 @@ def test_refused_data_and_entry_points_raise():
     with pytest.raises(lt.LightGBMError, match="fobj"):
         lt.train(dict(cpu, objective=lambda p, d: (p, p)),
                  lt.Dataset(X, label=y), 1)
-    with pytest.raises(lt.LightGBMError, match="init_model"):
-        lt.train(cpu, lt.Dataset(X, label=y), 1, init_model="m.txt")
-    with pytest.raises(lt.LightGBMError, match="feval"):
-        lt.train(cpu, lt.Dataset(X, label=y), 1, feval=lambda p, d: 0)
     bst = lt.train(cpu, lt.Dataset(X, label=y), 1)
     with pytest.raises(lt.LightGBMError, match="fobj"):
         bst.update(fobj=lambda p, d: (p, p))
