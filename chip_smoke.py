@@ -8,6 +8,7 @@ and check them.
     python3 chip_smoke.py --phases train_categorical   # categorical, EFB
     python3 chip_smoke.py --phases train_api   # cv, init_model, sklearn
     python3 chip_smoke.py --phases golden,main       # serving alone
+    python3 chip_smoke.py --phases predict_api   # device_predict, options
     python3 chip_smoke.py --phases compare --baseline DIR   # K1-K6, sum
     python3 chip_smoke.py --phases compare_serving --baseline DIR
 
@@ -48,6 +49,26 @@ Phases, each printing one JSON line:
           bounds, and a sweep of the fused kernel's launch plans
           (FUSED_SWEEP, each bitwise first); the plain versions at 4096;
           one 4096-row request split into its stages.
+  predict_api `Booster.predict`'s options on the main phase's model:
+          `device_predict` (the JAX package's f32 batch program: the
+          standalone traverse `csrc/traverse.cu` a depth bucket and the
+          f32 boosting-order sum, the f32 instance of
+          `csrc/accumulate.cu`, a chunk of 65,536 rows, then the link a
+          converted chunk) at 1, 256, 4096, 10,000 and 100,000 rows (two
+          chunks), raw and converted, bitwise the same program with every
+          plain version on the card and, up to 10,000 rows, the port's
+          CPU result; the rows whose leaves differ from the f64 host
+          walk's (0 on this model's f32-exact rows and thresholds) and
+          the f32 sums' largest difference from the walk; the five golden
+          models and a random-forest text (the binary golden text with
+          `average_output`) the same way on adversarial rows; launches
+          a request (the fused serving kernel 0, the traverse once a
+          bucket a chunk, the f32 sum once a chunk, the link once a
+          converted chunk) and for the phase; the f32 sum at 4096 rows
+          timed warm and L2-flushed beside its bound, its plain version
+          and the f64 standalone sum; the host seconds of `pred_leaf`,
+          prediction early stop and `pred_contrib` (TreeSHAP) on 20 rows
+          of the binary golden model.
   objective the objectives' links (`ops/xla_math.py`, XLA's CPU exp,
           sigmoid and softmax): the link kernel (`csrc/links.cu`) bitwise
           its plain version (torch ops) on the card and on the CPU, for
@@ -222,8 +243,9 @@ Phases, each printing one JSON line:
           program bitwise DIR's `compiled_predict`, each timed in turns.
   kernels one line per kernel: launches on its path's phase (the fused
           serving kernel and the link: main, where the standalone
-          traverse and accumulate show 0 and their golden-phase launches
-          beside; histogram: train; fused_hist_split and
+          traverse and accumulate show 0 and their golden-phase and
+          predict_api launches beside; the f32 sum: predict_api;
+          histogram: train; fused_hist_split and
           split_scan: train_wave; fused_hist_split_q: train_quant's main
           run; histogram_q: its strict run; threefry: train_sampled's
           main run, with train_quant's quantizer launches beside;
@@ -610,6 +632,8 @@ def phase_env():
            "device_count": torch.cuda.device_count(),
            "nvidia_smi": smi.stdout.strip(), "build_s": build_s,
            "compiled": {n: b.compiled for n, b in built.items()},
+           "entries": {n: [sym for sym, _ in _build._SIGNATURES[n]]
+                       for n in built},
            "ptxas": {n: b.ptxas for n, b in built.items()},
            "empty_launch_ms": empty_launch_ms()})
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
@@ -4006,6 +4030,305 @@ def phase_train_api(data: TrainData, modules, device=None,
     return launches
 
 
+# ------------------------------------------------------- predict_api
+#: `device_predict`'s request sizes (100,000 rows: two chunks of 65,536)
+PREDICT_ROWS = (1, 256, 4096, 10_000, 100_000)
+#: up to here the port's CPU result is computed too (the CPU's plain
+#: traversal of 500 trees is slow beyond), and the f64 host walk
+PREDICT_CPU_ROWS = 10_000
+#: the host-side options are timed on this many rows of the binary
+#: golden model
+PREDICT_HOST_ROWS = 20
+#: timed `device_predict` requests a size (the median is reported)
+PREDICT_REPEATS = 7
+
+
+class _plain_kernels:
+    """Within it, `device_predict` runs its plain versions on the card:
+    the standalone traverse, the f32 sum and the link's wrappers are
+    swapped for their plain versions (which count no launch), so the
+    program's staging, chunks and padding stay the booster's own."""
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.compiler import kernel
+        from lightgbm_tpu_torch.ops import predict, xla_math
+        self.saved = [(kernel, "traverse_bucket", kernel.traverse_bucket),
+                      (kernel, "accumulate_slots_f32",
+                       kernel.accumulate_slots_f32),
+                      (xla_math, "_link", xla_math._link)]
+        kernel.traverse_bucket = (
+            lambda *a, plan=None: kernel.traverse_bucket_plain(*a))
+        kernel.accumulate_slots_f32 = predict.accumulate_slots_f32_plain
+        xla_math._link = lambda x, sigmoid: (
+            xla_math.xla_sigmoid_plain(x) if sigmoid
+            else xla_math.xla_exp_f32_plain(x))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _predict_counters():
+    from lightgbm_tpu_torch.compiler import kernel
+    from lightgbm_tpu_torch.ops import predict, xla_math
+    return {"serve": kernel.SERVE_LAUNCHES,
+            "traverse": kernel.TRAVERSE_LAUNCHES,
+            "accumulate_f32": predict.ACCUMULATE_F32_LAUNCHES,
+            "accumulate": predict.ACCUMULATE_LAUNCHES,
+            "xla_link": xla_math.LINK_LAUNCHES}
+
+
+def _zero_predict_counters():
+    from lightgbm_tpu_torch.compiler import kernel
+    from lightgbm_tpu_torch.ops import predict, xla_math
+    kernel.SERVE_LAUNCHES = 0
+    kernel.TRAVERSE_LAUNCHES = 0
+    predict.ACCUMULATE_F32_LAUNCHES = 0
+    predict.ACCUMULATE_LAUNCHES = 0
+    xla_math.LINK_LAUNCHES = 0
+
+
+def _rf_text(text):
+    """A model text as a random forest's: its header with
+    `average_output`, so every output is the mean over its iterations
+    (the reference's `boosting=rf` texts carry that line)."""
+    head, sep, rest = text.partition("\nfeature_names=")
+    return head + "\naverage_output" + sep + rest
+
+
+def _device_predicts(name, bst, cpu_bst, X, device_type, cpu_rows,
+                     host=None):
+    """`bst.predict(X, device_predict=True)` raw and converted, counted,
+    then held against the same program with every plain version on the
+    card (`_plain_kernels`) and, up to `cpu_rows` rows, against
+    `cpu_bst`'s on the CPU, bitwise.  With `host` (the f64 walk's raw
+    scores and leaves of X[:len(host[0])]), the rows whose leaves differ
+    from the walk's and the f32 sums' largest difference from it.
+    Returns (raw, launches, report)."""
+    import torch
+    n = X.shape[0]
+    kw = {"device_predict": True, "device_type": device_type}
+    c0 = _predict_counters()
+    raw = bst.predict(X, raw_score=True, **kw)
+    c1 = _predict_counters()
+    conv = bst.predict(X, **kw)
+    c2 = _predict_counters()
+    raw_l = {k: c1[k] - c0[k] for k in c0}
+    conv_l = {k: c2[k] - c1[k] for k in c0}
+    with _plain_kernels():
+        p_raw = bst.predict(X, raw_score=True, **kw)
+        p_conv = bst.predict(X, **kw)
+    _check(_predict_counters() == c2,
+           f"predict_api: {name}: a plain version counted a launch")
+    _check(_bits_equal(raw, p_raw) and _bits_equal(conv, p_conv),
+           f"predict_api: {name}, {n} rows: device_predict != its plain "
+           f"versions on the card")
+    _check(raw.dtype == np.float64 and np.all(np.isfinite(raw))
+           and raw.shape[0] == n and np.all(np.isfinite(conv)),
+           f"predict_api: {name}, {n} rows: outputs not finite")
+    rep = {"rows": n, "bitwise_plain_card": True, "raw_launches": raw_l,
+           "converted_launches": conv_l}
+    if n <= cpu_rows:
+        ckw = dict(kw, device_type="cpu")
+        _check(_bits_equal(raw, cpu_bst.predict(X, raw_score=True, **ckw))
+               and _bits_equal(conv, cpu_bst.predict(X, **ckw)),
+               f"predict_api: {name}, {n} rows: the card != the CPU")
+        rep["bitwise_cpu"] = True
+    if host is not None:
+        h_raw, h_leaf = host
+        m = min(n, len(h_raw))
+        st = bst._device_predict_state(0, None, torch.device(device_type))
+        K = st.num_class
+        leaves = [_device_leaves(st, X[lo:min(lo + 4096, m)])
+                  for lo in range(0, m, 4096)]
+        leaves = np.concatenate(leaves) if leaves else h_leaf[:0]
+        rep["rows_routed_otherwise"] = int(
+            (leaves != h_leaf[:m]).any(axis=1).sum())
+        rep["max_abs_diff_vs_f64_walk"] = _max_abs_err(
+            raw[:m].reshape(m, K), h_raw[:m].reshape(m, K))
+    return raw, {"raw": raw_l, "converted": conv_l}, rep
+
+
+def _device_leaves(st, Xc):
+    """The leaves of the rows Xc (at most one chunk), [rows, T] in
+    boosting order, staged as `Booster._predict_device` stages them, by
+    the standalone K6's plain version (bitwise the kernel's slots in the
+    golden and main phases), so that no launch is counted."""
+    from lightgbm_tpu_torch.booster import stage_rows
+    from lightgbm_tpu_torch.compiler import kernel
+    with _plain_kernels():
+        slots = kernel.traverse_all(stage_rows(Xc, st.values.device),
+                                    st.planes, st.meta)
+    return slots[st.gidx.long()][:, :len(Xc)].t().cpu().numpy()
+
+
+def _host_walk(bst, X):
+    """The f64 host walk's raw scores and [rows, T] leaves of X."""
+    return bst.predict(X, raw_score=True), bst.predict(X, pred_leaf=True)
+
+
+def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
+                      cpu_rows=PREDICT_CPU_ROWS, timing=True,
+                      num_trees=500):
+    """`Booster.predict`'s options on the main phase's model (500 trees x
+    255 leaves x 28 features, from `seed`): `device_predict` (the
+    standalone traverse a depth bucket and the f32 sum a chunk of 65,536
+    rows, the link a converted chunk) at each of `rows`, raw and
+    converted, bitwise its plain versions on the card and, up to
+    `cpu_rows`, the port's CPU result; the rows routed otherwise than the
+    f64 host walk and the f32 sums' largest difference from it; the five
+    golden models and a random-forest text the same way; the launches
+    of the phase (the fused serving kernel 0); the f32 sum timed at 4096
+    rows beside its bound, its plain version and the f64 standalone sum;
+    the host seconds of `pred_leaf`, prediction early stop and
+    `pred_contrib` on 20 rows of the binary golden model.  Returns the
+    f32 sum's kernels-line entry and the phase's launches."""
+    import torch
+    from lightgbm_tpu_torch import Booster
+    from lightgbm_tpu_torch.booster import DEVICE_PREDICT_CHUNK
+    from lightgbm_tpu_torch.ops.predict import (
+        accumulate_slots_exact, accumulate_slots_f32,
+        accumulate_slots_f32_plain)
+    t_phase = time.perf_counter()
+    dev = torch.device(device_type)
+    text = synthetic_forest_text(seed, num_trees=num_trees)
+    bst, cpu_bst = Booster(model_str=text), Booster(model_str=text)
+    X_all = request_rows(np.random.RandomState(seed + 2), max(rows))
+    _zero_predict_counters()
+    t0 = time.perf_counter()
+    st = bst._device_predict_state(0, None, dev)
+    setup_s = time.perf_counter() - t0
+    buckets = len(st.planes)
+    host = _host_walk(bst, X_all[:min(cpu_rows, max(rows))])
+    report = {"phase": "predict_api", "trees": num_trees,
+              "buckets": buckets, "setup_s": setup_s, "sizes": {}}
+    for n in rows:
+        t0 = time.perf_counter()
+        _, launches, rep = _device_predicts(
+            f"main {n}", bst, cpu_bst, X_all[:n], device_type, cpu_rows,
+            host=host if n <= cpu_rows else None)
+        chunks = -(-n // DEVICE_PREDICT_CHUNK)
+        want = {"serve": 0, "traverse": buckets * chunks,
+                "accumulate_f32": chunks, "accumulate": 0, "xla_link": 0}
+        _check(launches["raw"] == want
+               and launches["converted"] == dict(want, xla_link=chunks),
+               f"predict_api: {n} rows: launches {launches}, want {want} "
+               f"(and the link once a converted chunk)")
+        if n <= cpu_rows:
+            _check(rep["rows_routed_otherwise"] == 0,
+                   f"predict_api: {n} rows: rows routed otherwise than the "
+                   f"f64 walk on f32-exact rows and thresholds")
+        rep["chunks"] = chunks
+        rep["s"] = time.perf_counter() - t0
+        report["sizes"][str(n)] = rep
+    main_launches = _predict_counters()
+
+    # ---- the golden models and a random forest, the same way
+    models = [(name, open(os.path.join(
+        ROOT, "tests", "data", f"golden_{name}.model.txt")).read())
+        for name in GOLDEN]
+    models.append(("rf_binary", _rf_text(models[0][1])))
+    report["golden"] = {}
+    for name, mtext in models:
+        g, g_cpu = Booster(model_str=mtext), Booster(model_str=mtext)
+        _check(g._average_output == (name == "rf_binary"),
+               f"predict_api: {name}: average_output read wrong")
+        nf = g.num_feature()
+        rng = np.random.RandomState(seed + 3)
+        X = np.vstack([adversarial_rows(g.trees, nf, seed),
+                       rng.randn(256, nf)])
+        _, _, rep = _device_predicts(name, g, g_cpu, X, device_type,
+                                     cpu_rows, host=_host_walk(g, X))
+        if name == "rf_binary":
+            rep["average_factor"] = int(g._device_predict_state(
+                0, None, dev).average_factor)
+            _check(rep["average_factor"] == g.num_trees(),
+                   "predict_api: the forest is not averaged")
+        report["golden"][name] = rep
+    phase_launches = _predict_counters()
+    _check(phase_launches["serve"] == 0 and phase_launches["accumulate"] == 0,
+           f"predict_api: the fused kernel or the f64 sum ran: "
+           f"{phase_launches}")
+
+    # ---- a raw request's wall time by size, synchronised (after the
+    # phase's launches were read)
+    for n in rows if timing else ():
+        times = []
+        for _ in range(PREDICT_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst.predict(X_all[:n], raw_score=True, device_predict=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        report["sizes"][str(n)]["p50_ms"] = float(np.median(times)) * 1e3
+
+    # ---- the f32 sum at 4096 rows: parity, times, bound
+    Xd = torch.from_numpy(X_all[:4096].astype(np.float32)).to(dev)
+    from lightgbm_tpu_torch.compiler.kernel import traverse_all
+    slots = traverse_all(Xd, st.planes, st.meta)
+    ex = bst.export_predict_arrays(0, -1, device=dev)
+    n_trees, nl = st.values.shape
+    f32 = accumulate_slots_f32(slots, st.gidx, st.values)
+    f32_p = accumulate_slots_f32_plain(slots, st.gidx, st.values)
+    err = _max_abs_err(f32.cpu().numpy(), f32_p.cpu().numpy())
+    _check(err == 0.0 and _bits_equal(f32.cpu().numpy(),
+                                      f32_p.cpu().numpy()),
+           "predict_api: the f32 sum != its plain version at 4096 rows")
+    nbytes = (n_trees * 4096 * 4 + n_trees * 4 + n_trees * nl * 4
+              + 4096 * 4)
+    bound_ms, bound_by = _bound(nbytes, n_trees * 4096,
+                                DISPATCH_LANES_PER_S)
+    entry = {"name": "accumulate_f32", "route": "cuda",
+             "source": "lightgbm_tpu_torch/csrc/accumulate.cu",
+             "replaces": "lightgbm_tpu/ops/predict.py:188",
+             "launches": phase_launches["accumulate_f32"],
+             "max_abs_err": err, "ms": None, "plain_ms": None,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_bytes": nbytes, "library_ms": None,
+             "library_note": "no single torch call sums in boosting order",
+             "rows": 4096}
+    if timing:
+        entry["ms"] = _cuda_ms(lambda: accumulate_slots_f32(
+            slots, st.gidx, st.values), queued=True)
+        entry["f64_sum_ms"] = _cuda_ms(lambda: accumulate_slots_exact(
+            slots, st.gidx, ex["value_f64"]), queued=True)
+        entry["plain_ms"] = _cuda_ms(lambda: accumulate_slots_f32_plain(
+            slots, st.gidx, st.values), iters=3, warmup=1)
+        entry["cold_ms"] = _cuda_ms(lambda: accumulate_slots_f32(
+            slots, st.gidx, st.values), queued=True,
+            flush=_flusher(dev))
+    else:
+        entry["ms"] = entry["plain_ms"] = entry["f64_sum_ms"] = 0.0
+
+    # ---- the host-side options on 20 rows of the binary golden model
+    g = Booster(model_file=os.path.join(ROOT, "tests", "data",
+                                        "golden_binary.model.txt"))
+    Xh = np.random.RandomState(seed + 4).randn(PREDICT_HOST_ROWS,
+                                               g.num_feature())
+    host_s = {}
+    for label, kw in (("pred_leaf", {"pred_leaf": True}),
+                      ("early_stop", {"pred_early_stop": True,
+                                      "pred_early_stop_freq": 1,
+                                      "pred_early_stop_margin": 0.5}),
+                      ("pred_contrib", {"pred_contrib": True})):
+        t0 = time.perf_counter()
+        out = g.predict(Xh, **kw)
+        host_s[label] = time.perf_counter() - t0
+        _check(np.all(np.isfinite(out)), f"predict_api: {label} not finite")
+    contrib = g.predict(Xh, pred_contrib=True)
+    _check(np.allclose(contrib.sum(axis=1), g.predict(Xh, raw_score=True),
+                       rtol=0, atol=1e-6),
+           "predict_api: pred_contrib rows do not sum to the raw scores")
+    report.update({"launches_main_model": main_launches,
+                   "launches": phase_launches, "host_s": host_s,
+                   "f32_sum_4096": entry,
+                   "phase_s": time.perf_counter() - t_phase})
+    _emit(report)
+    return entry, phase_launches
+
+
 def _without_params(text):
     """A model text less its `[key: value]` parameter lines."""
     return "\n".join(ln for ln in text.splitlines() if not ln.startswith("["))
@@ -4028,6 +4351,7 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                      phase_train_categorical(CatData(s), _train_modules()),
                  "train_api": lambda d, s, b: phase_train_api(
                      d(), _train_modules()),
+                 "predict_api": lambda d, s, b: phase_predict_api(s),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
                                              phase_compare_serving(s, b)),
                  "compare_serving":
@@ -4113,6 +4437,12 @@ def main(argv=None) -> int:
         for k in kernels:                # the standalone entries' golden
             if k["name"] in ("traverse", "accumulate_exact"):   # launches
                 k["golden_launches"] = golden[k["name"].split("_")[0]]
+        f32_sum, predict_launches = phase_predict_api(args.seed)
+        for k in kernels:       # device_predict's path: K6 and the f32 sum
+            if k["name"] in ("traverse", "accumulate_exact"):
+                k["predict_api_launches"] = predict_launches[
+                    k["name"].split("_")[0]]
+        kernels.append(f32_sum)
         link = phase_objective(args.seed)
         link["launches"] = link_launches
         link["max_abs_err"] = max(link["max_abs_err"], link_err)

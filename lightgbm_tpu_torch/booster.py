@@ -44,7 +44,12 @@ model's IO, analysis and pickling.
 Loading: model text in and out, the host f64 tree walk (`tree.py`, the
 same per-tree, boosting-order sum as the JAX package's host path), and
 the stacked traversal planes plus the f64 leaf-value table
-(`export_predict_arrays`) that `ServingRuntime` compiles.
+(`export_predict_arrays`) that `ServingRuntime` compiles.  `predict`
+also gives leaf indices, TreeSHAP contributions (`contrib.py`) and
+prediction early stop on the host, and with `device_predict` runs the
+JAX package's f32 batch program on the card (the standalone traverse
+and the f32 sum kernel).  The chunk entries (`update_chunk_eval`)
+run 16 iterations with the scores after each.
 """
 from __future__ import annotations
 
@@ -52,12 +57,14 @@ import copy
 import hashlib
 import io
 import json
-from typing import Any, Dict, List, Optional, Tuple
+from collections import deque
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .basic import Dataset
+from .contrib import predict_contrib
 from .metrics import Metric, create_metrics
 from .objectives import (UNIT_HESSIAN_OBJECTIVES, Objective,
                          TrainObjective, create_objective, parse_objective)
@@ -80,7 +87,6 @@ from .utils.log import LightGBMError
 BREADTH = "ROADMAP Queue 1 item 5d: grower and boosting breadth"
 EXTERNAL = "ROADMAP Queue 1 item 5e: external memory and streaming"
 DISTRIBUTED = "ROADMAP Queue 1 item 5f: distributed training"
-USER_API = "ROADMAP Queue 1 item 5h: the rest of the user API"
 
 #: blocking device-to-host copies of a set's scores for evaluation
 #: (metrics and `feval`), one a set a call (`Booster._eval_score`)
@@ -103,6 +109,51 @@ def _to_2d_float(data) -> np.ndarray:
         raise LightGBMError(f"expected a 2-D feature matrix, got "
                             f"{X.ndim} dimensions")
     return X
+
+
+def _flag(v) -> bool:
+    """A boolean option; params reloaded from model text are strings."""
+    return str(v).lower() in ("true", "1") if isinstance(v, str) \
+        else bool(v)
+
+
+#: rows a `device_predict` chunk holds
+DEVICE_PREDICT_CHUNK = 1 << 16
+
+
+class _PendingChunk(NamedTuple):
+    """A chunk of `Booster.dispatch_chunk_eval` not harvested yet: its
+    finished flag and the scores after each of its iterations, on the
+    training device."""
+    finished: bool                  # no tree of the chunk could split
+    train: Optional[torch.Tensor]   # [C, ...] train scores, or None
+    valid: Tuple                    # per valid set, [C, ...] scores
+
+
+class _DevicePredict(NamedTuple):
+    """`device_predict`'s compiled tree slice on one device."""
+    planes: Tuple           # per depth bucket (words, kids, pal, catw)
+    meta: Tuple             # per depth bucket (depth, mw)
+    gidx: torch.Tensor      # [T] int32: tree t's row in the plan's slots
+    cls: Optional[torch.Tensor]   # [T] int32 class of tree t (K > 1)
+    values: torch.Tensor    # [T, NL] float32 leaf values
+    min_features: int
+    num_class: int
+    average_factor: int     # random-forest divisor (1: a plain sum)
+
+
+def stage_rows(X: np.ndarray, device) -> torch.Tensor:
+    """Rows X [m, F] as f32 on `device` (f64 values beyond the f32 range
+    saturate to +-inf, the routing wanted), zero rows padded on to a
+    multiple of ROW_BLOCK when m is above it (the standalone traverse's
+    batches are bucket-padded); the caller slices the padding away."""
+    from .compiler.kernel import ROW_BLOCK
+    m = X.shape[0]
+    rows = m if m <= ROW_BLOCK else -(-m // ROW_BLOCK) * ROW_BLOCK
+    buf = np.zeros((rows, X.shape[1]), np.float32)
+    with np.errstate(over="ignore"):
+        buf[:m] = X
+    return torch.from_numpy(buf).to(device)
 
 
 def train_device(device_type) -> torch.device:
@@ -458,6 +509,8 @@ class Booster:
         self._loaded_feature_names: List[str] = []
         self._loaded_feature_infos: List[str] = []
         self._export_cache = None
+        self._device_predict_cache = None
+        self._inflight: "deque[_PendingChunk]" = deque()
         self.train_set: Optional[Dataset] = None
         self.valid_sets: List[Dataset] = []
         self.name_valid_sets: List[str] = []
@@ -849,6 +902,54 @@ class Booster:
         for _ in range(n_rounds):
             finished = self.update()
         return finished
+
+    #: rounds a chunk of `dispatch_chunk_eval` runs (the reference's
+    #: `_BULK_CHUNK`)
+    _BULK_CHUNK = 16
+
+    def dispatch_chunk_eval(self, want_train_scores: bool) -> _PendingChunk:
+        """One chunk of `_BULK_CHUNK` iterations with a snapshot of the
+        scores after each (the reference's `booster.py:2160`, which
+        enqueues a fused device program and returns at once).  The port
+        has no device program a chunk could overlap (ROADMAP item 6), so
+        the chunk's `update` calls run here, in order; the snapshots stay
+        on the training device until `harvest_chunk_eval`.  As after the
+        reference's chunk, `rollback_one_iter` then replays rather than
+        subtracting cached contributions."""
+        self._require_train_data()
+        self._boost_from_average()
+        finished = True
+        train, valid = [], [[] for _ in self._valid_scores]
+        for _ in range(self._BULK_CHUNK):
+            finished = self.update() and finished
+            if want_train_scores:
+                train.append(self._train_score.clone())
+            for snaps, score in zip(valid, self._valid_scores):
+                snaps.append(score.clone())
+        self._last_contribs = []
+        pending = _PendingChunk(
+            finished, torch.stack(train) if want_train_scores else None,
+            tuple(torch.stack(v) for v in valid))
+        self._inflight.append(pending)
+        return pending
+
+    def harvest_chunk_eval(self, pending: _PendingChunk):
+        """A dispatched chunk's results, in dispatch order (out of order
+        raises, as in the reference): (finished, train scores [C, ...] or
+        None, [valid scores [C, ...]]) as host numpy, one copy a set."""
+        if not self._inflight or self._inflight[0] is not pending:
+            raise LightGBMError("pipeline harvest out of dispatch order")
+        self._inflight.popleft()
+        train = None if pending.train is None \
+            else pending.train.cpu().numpy()
+        return (pending.finished, train,
+                [v.cpu().numpy() for v in pending.valid])
+
+    def update_chunk_eval(self, want_train_scores: bool):
+        """One chunk dispatched and harvested: (finished, train scores
+        [C, ...] or None, [valid scores [C, ...]])."""
+        return self.harvest_chunk_eval(
+            self.dispatch_chunk_eval(want_train_scores))
 
     def current_iteration(self) -> int:
         return self.cur_iter
@@ -1474,21 +1575,81 @@ class Booster:
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
-                pred_contrib: bool = False) -> np.ndarray:
-        """Host prediction: the f64 tree walk, summed tree by tree in
-        boosting order (ref: gbdt_prediction.cpp `GBDT::PredictRaw`).
-        Converted outputs pass the f32 downcast of the raw sum through
-        the objective's link on the CPU.  `pred_leaf` and `pred_contrib`
-        raise (item 5h)."""
-        if pred_leaf or pred_contrib:
-            raise LightGBMError("pred_leaf and pred_contrib are not ported "
-                                f"yet ({USER_API})")
+                pred_contrib: bool = False, data_has_header: bool = False,
+                validate_features: bool = False, **kwargs) -> np.ndarray:
+        """ref: basic.py `Booster.predict` -> gbdt_prediction.cpp; the JAX
+        package's `booster.py:2449`.
+
+        - `pred_leaf`: [N, T] int32 leaf indices, each tree's host f64
+          walk (`Tree.predict_leaf_index`).
+        - `pred_contrib`: TreeSHAP on the host (`contrib.py`), [N, (F + 1)
+          * K] with each class's bias last in its block.
+        - Prediction early stop (`pred_early_stop`, `_freq`, `_margin`;
+          binary, or K > 1): the host walk, every `freq` iterations a row
+          whose margin reaches `margin` stops (ref:
+          prediction_early_stop.cpp).  It takes precedence over
+          `device_predict`, as in the reference.
+        - `device_predict`: the JAX package's f32 batch program on the
+          card (`_predict_device`), or on the CPU with
+          `device_type="cpu"`.
+        - Otherwise the host walk: f64, summed tree by tree in boosting
+          order (ref: `GBDT::PredictRaw`).
+
+        Options are read from `kwargs`, then from the booster's params
+        (strings such as "true" count, as params reloaded from model text
+        are strings).  Converted outputs pass the f32 downcast of the raw
+        sum through the objective's link.  A file name as `data` raises
+        (file input is item 5d)."""
+        if isinstance(data, str):
+            raise LightGBMError(f"prediction from a data file is not ported "
+                                f"yet ({BREADTH})")
         X = _to_2d_float(data)
+        n = X.shape[0]
         K = self.num_tree_per_iteration
         trees = self._slice_trees(start_iteration, num_iteration)
-        raw = np.zeros((X.shape[0], K), dtype=np.float64)
-        for i, t in enumerate(trees):
-            raw[:, i % K] += t.predict(X)
+        if pred_leaf:
+            out = np.zeros((n, len(trees)), dtype=np.int32)
+            for i, t in enumerate(trees):
+                out[:, i] = t.predict_leaf_index(X)
+            return out
+        if pred_contrib:
+            return self._predict_contrib(X, trees)
+
+        def opt(name, default):
+            return kwargs.get(name, self.params.get(name, default))
+
+        es = _flag(opt("pred_early_stop", False))
+        es = es and (str(self.config.objective) == "binary" or K > 1)
+        if _flag(opt("device_predict", False)) and not es and trees:
+            device = train_device(kwargs.get("device_type",
+                                              self.config.device_type))
+            return self._predict_device(
+                X, start_iteration, num_iteration, device,
+                convert=not raw_score and self.objective_ is not None)
+        raw = np.zeros((n, K), dtype=np.float64)
+        if es and trees:
+            freq = max(int(opt("pred_early_stop_freq", 10)), 1)
+            margin = float(opt("pred_early_stop_margin", 10.0))
+            active = np.ones(n, dtype=bool)
+            all_active = True   # no masked copies until a row is decided
+            for i, t in enumerate(trees):
+                if all_active:
+                    raw[:, i % K] += t.predict(X)
+                else:
+                    if not active.any():
+                        break
+                    raw[active, i % K] += t.predict(X[active])
+                if (i + 1) % (freq * K) == 0:
+                    if K == 1:
+                        decided = 2.0 * np.abs(raw[:, 0]) >= margin
+                    else:
+                        part = np.partition(raw, K - 2, axis=1)
+                        decided = (part[:, K - 1] - part[:, K - 2]) >= margin
+                    active &= ~decided
+                    all_active = bool(active.all())
+        else:
+            for i, t in enumerate(trees):
+                raw[:, i % K] += t.predict(X)
         if self._average_output and len(trees) >= K:
             raw /= max(len(trees) // K, 1)
         if K == 1:
@@ -1497,6 +1658,97 @@ class Booster:
             return raw
         return self.objective_.convert_output(
             torch.from_numpy(raw).to(torch.float32)).numpy()
+
+    def _predict_contrib(self, X: np.ndarray, trees: List[Tree]) -> np.ndarray:
+        """TreeSHAP feature contributions (ref: PredictContrib -> tree.cpp
+        TreeSHAP recursion); host numpy."""
+        return predict_contrib(X, trees, self.num_tree_per_iteration)
+
+    def _device_predict_state(self, start_iteration: int,
+                              num_iteration: Optional[int],
+                              device: torch.device) -> "_DevicePredict":
+        """The compiled plan of the tree slice on `device`, cached with
+        the slice's export (`export_predict_arrays`, which every change
+        to the model drops).  Random-forest texts plan with averaging
+        off: the division comes after the f32 sum, on the host."""
+        if num_iteration is None:
+            num_iteration = self.best_iteration \
+                if self.best_iteration > 0 else -1
+        ex = self.export_predict_arrays(start_iteration, num_iteration,
+                                        device=device)
+        cached = self._device_predict_cache
+        if cached is not None and cached[0] is ex:
+            return cached[1]
+        from .compiler import PlanNotCompilable, build_plan
+        from .compiler.kernel import device_planes
+        from .serving.runtime import DEFAULT_TILE_KB
+        try:
+            plan = build_plan(dict(ex, average_factor=1),
+                              tile_vmem_kb=DEFAULT_TILE_KB)
+        except PlanNotCompilable as e:
+            raise LightGBMError(
+                f"device_predict cannot compile this model: {e} (ROADMAP "
+                f"Queue 3 (q): the port's plan has limits the reference's "
+                f"scan does not; predict without device_predict)") from e
+        planes, meta = device_planes(plan, device)
+        K = ex["num_class"]
+        stacked = ex["stacked"]
+        state = _DevicePredict(
+            planes, meta, torch.from_numpy(plan.gather_idx).to(device),
+            stacked["cls"] if K > 1 else None, stacked["value"],
+            int(stacked["min_features"]), K, ex["average_factor"])
+        self._device_predict_cache = (ex, state)
+        return state
+
+    def _predict_device(self, X: np.ndarray, start_iteration: int,
+                        num_iteration: Optional[int], device: torch.device,
+                        convert: bool) -> np.ndarray:
+        """The JAX package's `_predict_raw_device` (`booster.py:2732`,
+        the program `ops/predict.py:188 predict_raw_ensemble`): rows and
+        thresholds in f32, leaf values the f32 `value` plane, summed in
+        f32 in boosting order from +0.0.  Rows go in chunks of
+        DEVICE_PREDICT_CHUNK (65,536; slots are [T, rows] int32, so 2M
+        rows of 500 trees would take 4 GB); rows are independent, so the
+        chunk does not change a bit.  A chunk is staged by `stage_rows`,
+        and on the card runs one standalone traverse (`csrc/traverse.cu`) a
+        depth bucket and one f32 sum (`csrc/accumulate.cu`), then with
+        `convert` the objective's link (`csrc/links.cu`).  On the CPU
+        the same program runs the plain versions.  Raw scores are the
+        f64 cast of the f32 sums (divided in f64 by the iterations of a
+        random forest, as the reference does); converted ones the link of
+        their f32 cast."""
+        from .compiler.kernel import predict_raw_f32
+        st = self._device_predict_state(start_iteration, num_iteration,
+                                        device)
+        K = st.num_class
+        n = X.shape[0]
+        if X.shape[1] < st.min_features:
+            raise LightGBMError(
+                f"X has {X.shape[1]} features; the model splits on feature "
+                f"{st.min_features - 1}")
+        outs = []
+        for lo in range(0, n, DEVICE_PREDICT_CHUNK):
+            Xc = X[lo:lo + DEVICE_PREDICT_CHUNK]
+            sums = predict_raw_f32(
+                stage_rows(Xc, device), st.planes, st.gidx, st.values,
+                st.cls, meta=st.meta, n_class=K)[:Xc.shape[0]]
+            if st.average_factor != 1:
+                raw = sums.cpu().numpy().astype(np.float64) \
+                    / st.average_factor
+                if convert:
+                    raw = self.objective_.convert_output(
+                        torch.from_numpy(raw).to(device).to(torch.float32)
+                    ).cpu().numpy()
+                outs.append(raw)
+            elif convert:
+                outs.append(self.objective_.convert_output(sums)
+                            .cpu().numpy())
+            else:
+                outs.append(sums.cpu().numpy().astype(np.float64))
+        if not outs:
+            return np.zeros((0,) if K == 1 else (0, K),
+                            np.float32 if convert else np.float64)
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
     def _stack_for_device(self, trees: List[Tree], device) -> Optional[Dict]:
         """Pad the trees into stacked [T, NI] / [T, NL] planes, built in

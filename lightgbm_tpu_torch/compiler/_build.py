@@ -12,7 +12,7 @@ Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC -Xptxas=-v`, and never `--use_fast_math`, `-ftz=true`
 or `-prec-*=false`: the traverse kernel's contract includes NaN tests,
 subnormal inputs and an `abs(fv) <= 1e-35` compare in IEEE f32.  The
-accumulation, the fused serving kernel (`serve`), the fused split scan
+accumulations (`accumulate`: the f64 and the f32 sum), the fused serving kernel (`serve`), the fused split scan
 (`fused_split`, K2, K3 and K5) and the objectives' links (`links`) add
 `-fmad=false` so that no add is ever contracted; the histogram
 kernels only add (K1) or add integers and scale with `__fmul_rn` (K4),
@@ -61,9 +61,9 @@ _SIGNATURES = {
     "traverse": [("lgbt_traverse",
                   [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P, _P])],
-    "accumulate": [("lgbt_accumulate",
-                    [_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
-                     _P])],
+    "accumulate": [(sym, [_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I,
+                          _I, _P, _P])
+                   for sym in ("lgbt_accumulate", "lgbt_accumulate_f32")],
     "serve": [("lgbt_serve",
                [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                 _I, _I, _I, _I, _I, _P, _P])],

@@ -17,6 +17,10 @@ The port's counterpart of `lightgbm_tpu/compiler/kernel.py`.
 * `compiled_predict` — the compiled path's device program: the fused
   entry when the records are given, else every bucket's traverse and
   the standalone sum (the JAX package's program).
+* `predict_raw_f32` — `Booster.predict(device_predict=True)`'s device
+  program: every bucket's traverse, then the f32 boosting-order sum
+  (`ops.predict.accumulate_slots_f32`), the JAX package's
+  `predict_raw_ensemble` on the same f32 rows and thresholds.
 
 Each wrapper launches its hand-written CUDA kernel for CUDA tensors and
 runs its plain version for CPU tensors.  There is no fallback from one
@@ -29,7 +33,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops.predict import _ZERO_THRESHOLD, accumulate_slots_exact
+from ..ops.predict import (_ZERO_THRESHOLD, accumulate_slots_exact,
+                           accumulate_slots_f32)
 from ..utils.log import LightGBMError
 from .records import (ForestPlan, ForestRecords, RowPlan, forest_plan,
                       traverse_plan)
@@ -321,6 +326,28 @@ Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                Optional[torch.Tensor]]
 
 
+def device_planes(plan, device) -> Tuple[Tuple[Planes, ...],
+                                         Tuple[Tuple[int, int], ...]]:
+    """A `CompiledPlan`'s packed planes on `device`: per bucket `(words,
+    kids, pal, catw | None)`, and the matching `(depth, mw)`."""
+    planes = tuple(tuple(None if a is None else torch.from_numpy(a).to(device)
+                         for a in (p["words"], p["kids"], p["pal"],
+                                   p.get("catw")))
+                   for p in plan.planes)
+    meta = tuple((p["depth"], p["catw"].shape[-1] if "catw" in p else 0)
+                 for p in plan.planes)
+    return planes, meta
+
+
+def traverse_all(X: torch.Tensor, planes: Sequence[Planes],
+                 meta: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Every bucket's `traverse_bucket` over X, the slots stacked in
+    plan order: [plan rows, B] int32."""
+    parts = [traverse_bucket(X, words, kids, pal, catw, depth, mw)
+             for (words, kids, pal, catw), (depth, mw) in zip(planes, meta)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
 def compiled_predict(X: torch.Tensor, planes: Sequence[Planes],
                      gather_idx: torch.Tensor, leaf_values: torch.Tensor,
                      cls: Optional[torch.Tensor] = None, *,
@@ -341,12 +368,24 @@ def compiled_predict(X: torch.Tensor, planes: Sequence[Planes],
     if records is not None:
         raw = serve_forest(X, records, leaf_values, n_class)
     else:
-        parts = [traverse_bucket(X, words, kids, pal, catw, depth, mw)
-                 for (words, kids, pal, catw), (depth, mw)
-                 in zip(planes, meta)]
-        slots = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-        raw = accumulate_slots_exact(slots, gather_idx, leaf_values,
+        raw = accumulate_slots_exact(traverse_all(X, planes, meta),
+                                     gather_idx, leaf_values,
                                      n_class=n_class, cls=cls)
     if convert is None:
         return raw
     return convert(raw.to(torch.float32))
+
+
+def predict_raw_f32(X: torch.Tensor, planes: Sequence[Planes],
+                    gather_idx: torch.Tensor, leaf_values: torch.Tensor,
+                    cls: Optional[torch.Tensor] = None, *,
+                    meta: Sequence[Tuple[int, int]], n_class: int = 1
+                    ) -> torch.Tensor:
+    """`device_predict`'s device program: every bucket's traverse (the
+    standalone K6, one launch a bucket on the card), then
+    `accumulate_slots_f32` (one launch) adds each tree's f32 leaf value
+    `leaf_values[t, slot]` ([T, NL] float32), read at its plan row
+    `gather_idx[t]`, in boosting order from +0.0 into its class `cls[t]`:
+    [B] or [B, K] float32."""
+    return accumulate_slots_f32(traverse_all(X, planes, meta), gather_idx,
+                                leaf_values, n_class=n_class, cls=cls)

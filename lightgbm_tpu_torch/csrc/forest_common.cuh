@@ -21,6 +21,8 @@
 // (row, class), in boosting order, with __dadd_rn from +0.0: the order of
 // `ops/predict.py accumulate_slots_exact`, hence its bits at any chunk
 // size.  No atomics, no tree reduction, no partial sums merged later.
+// Its f32 instance (`accumulate.cu`, `device_predict`'s sum) adds f32
+// values with __fadd_rn in the same order.
 
 #pragma once
 
@@ -148,15 +150,24 @@ __host__ __device__ inline Layout layout(int R, int cluster, int trees,
   return l;
 }
 
+// Round-to-nearest-even adds, never contracted: the f64 sum's and the
+// f32 sum's.
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
 // The ordered-sum stage.  Chunk trees t0, t0 + 1, ... (< T) were walked
 // by `owners` blocks, `per` trees each, block b's values at
 // vals.of(b)[c * R + r] for its c-th tree; this block's threads (one per
 // (row, class) of rows [r0, r0 + rs) of its R) add them into
-// acc[(r - r0) * K + k] in tree order.  With kMulti, tree t adds only
-// into class cls[t * cls_stride]; else K is 1.  Loads go 16 ahead of the
-// dependent adds.
-template <bool kMulti, class Vals>
-__device__ __forceinline__ void ordered_sum(double* acc, const Vals& vals,
+// acc[(r - r0) * K + k] in tree order, in V (double or float).  With
+// kMulti, tree t adds only into class cls[t * cls_stride]; else K is 1.
+// Loads go 16 ahead of the dependent adds.
+template <bool kMulti, class V, class Vals>
+__device__ __forceinline__ void ordered_sum(V* acc, const Vals& vals,
                                             const int* __restrict__ cls,
                                             int cls_stride, int owners,
                                             int per, int t0, int T, int R,
@@ -167,33 +178,35 @@ __device__ __forceinline__ void ordered_sum(double* acc, const Vals& vals,
     const int rr = kMulti ? i / K : i;
     const int k = kMulti ? i - rr * K : 0;
     const int r = r0 + rr;
-    double a = acc[i];
+    V a = acc[i];
     for (int b = 0; b < owners; ++b) {
-      const double* v = vals.of(b) + r;
+      const V* v = vals.of(b) + r;
       const int tb = t0 + b * per;
       const int n = min(per, T - tb);
       int c0 = 0;
       for (; c0 + kAhead <= n; c0 += kAhead) {
-        double buf[kAhead];
+        V buf[kAhead];
 #pragma unroll
         for (int u = 0; u < kAhead; ++u) buf[u] = v[(c0 + u) * R];
 #pragma unroll
         for (int u = 0; u < kAhead; ++u)
           if (!kMulti || __ldg(cls + (tb + c0 + u) * cls_stride) == k)
-            a = __dadd_rn(a, buf[u]);
+            a = add_rn(a, buf[u]);
       }
       for (; c0 < n; ++c0)
         if (!kMulti || __ldg(cls + (tb + c0) * cls_stride) == k)
-          a = __dadd_rn(a, v[c0 * R]);
+          a = add_rn(a, v[c0 * R]);
     }
     acc[i] = a;
   }
 }
 
 // The value buffers of this block alone.
-struct LocalVals {
-  const double* v;
-  __device__ const double* of(int) const { return v; }
+template <class V>
+struct LocalValsOf {
+  const V* v;
+  __device__ const V* of(int) const { return v; }
 };
+using LocalVals = LocalValsOf<double>;
 
 }  // namespace forest

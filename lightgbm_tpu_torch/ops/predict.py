@@ -17,6 +17,13 @@ The port's counterpart of `lightgbm_tpu/ops/predict.py`, for serving:
   plain version, `accumulate_slots_exact_plain`.  The serving path sums
   inside the fused kernel (`compiler/kernel.py serve_forest`); this
   standalone sum is for callers that hold slots.
+* `accumulate_slots_f32` — the boosting-order f32 sum of pre-routed
+  leaf slots, `Booster.predict(device_predict=True)`'s: the JAX
+  package's f32 scan (`lightgbm_tpu/ops/predict.py:188
+  predict_raw_ensemble`, `:212` multiclass), an f32 carry from +0.0 and
+  one round-to-nearest-even add a tree.  CUDA tensors go through the f32
+  instance of `csrc/accumulate.cu`, CPU tensors through its plain
+  version `accumulate_slots_f32_plain`.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ from ..utils.log import LightGBMError
 
 #: accumulate-kernel launches made by `accumulate_slots_exact`
 ACCUMULATE_LAUNCHES = 0
+#: f32 accumulate-kernel launches made by `accumulate_slots_f32`
+ACCUMULATE_F32_LAUNCHES = 0
 
 #: missing-type Zero's threshold (tree.h kZeroThreshold), compared in f32
 _ZERO_THRESHOLD = float(np.float32(1e-35))
@@ -99,13 +108,14 @@ def predict_leaf_ensemble(stacked: Dict, X: torch.Tensor) -> torch.Tensor:
                        cat_nwords=stacked.get("cat_nwords"))
 
 
-def _check_accumulate(slots, gather_idx, leaf_values, n_class, cls):
+def _check_accumulate(slots, gather_idx, leaf_values, n_class, cls,
+                      dtype=torch.float64):
     if slots.dim() != 2 or slots.dtype != torch.int32:
         raise LightGBMError("slots must be [R, B] int32")
     if gather_idx.dim() != 1 or gather_idx.dtype != torch.int32:
         raise LightGBMError("gather_idx must be [T] int32")
-    if leaf_values.dim() != 2 or leaf_values.dtype != torch.float64:
-        raise LightGBMError("leaf_values must be [T, NL] float64")
+    if leaf_values.dim() != 2 or leaf_values.dtype != dtype:
+        raise LightGBMError(f"leaf_values must be [T, NL] {dtype}")
     if gather_idx.shape[0] != leaf_values.shape[0]:
         raise LightGBMError(
             f"gather_idx names {gather_idx.shape[0]} trees, leaf_values "
@@ -119,6 +129,62 @@ def _check_accumulate(slots, gather_idx, leaf_values, n_class, cls):
         raise LightGBMError("accumulate inputs lie on different devices")
 
 
+def _accumulate_plain(slots, gather_idx, leaf_values, n_class, cls,
+                      dtype):
+    """The plain sum in `dtype`: a loop over trees in boosting order,
+    from +0.0; tree t reads row `gather_idx[t]` of `slots` [R, B] and
+    adds `leaf_values[t, slot]` into its class column `cls[t]`.  Indices
+    past the tables clamp, as the JAX package's gathers do."""
+    _check_accumulate(slots, gather_idx, leaf_values, n_class, cls, dtype)
+    r, b = slots.shape
+    nl = leaf_values.shape[1]
+    gidx = gather_idx.clamp(0, r - 1).tolist()
+    cls_host = cls.tolist() if n_class > 1 else None
+    shape = (b, n_class) if n_class > 1 else (b,)
+    acc = torch.zeros(shape, dtype=dtype, device=slots.device)
+    for t, g in enumerate(gidx):
+        v = leaf_values[t][slots[g].long().clamp(0, nl - 1)]
+        if n_class > 1:
+            k = cls_host[t]
+            acc[:, k] = acc[:, k] + v
+        else:
+            acc = acc + v
+    return acc
+
+
+def _accumulate(symbol, slots, gather_idx, leaf_values, n_class, cls,
+                dtype):
+    """Launch `csrc/accumulate.cu`'s entry `symbol` (the kernel in
+    `dtype`) at `records.accumulate_plan`: [B] or [B, K] of `dtype`."""
+    if slots.device.type != "cuda":
+        raise LightGBMError(f"no accumulate kernel for {slots.device}")
+    _check_accumulate(slots, gather_idx, leaf_values, n_class, cls, dtype)
+    for t in (slots, gather_idx, leaf_values, cls):
+        if t is not None and not t.is_contiguous():
+            raise LightGBMError("accumulate inputs must be contiguous")
+    from ..compiler import _build
+    from ..compiler.records import accumulate_plan
+    lib = _build.load("accumulate")
+    r, b = slots.shape
+    t_trees, nl = leaf_values.shape
+    k = max(n_class, 1)
+    shape = (b, n_class) if n_class > 1 else (b,)
+    out = torch.empty(shape, dtype=dtype, device=slots.device)
+    if b == 0:
+        return out
+    plan = accumulate_plan(b, t_trees, k)
+    entry = getattr(lib, symbol)
+    rc = _build.on_stream(slots.device, lambda stream: entry(
+        slots.data_ptr(), r, b, gather_idx.data_ptr(),
+        leaf_values.data_ptr(), t_trees, nl,
+        cls.data_ptr() if n_class > 1 else None, k, plan.rows, plan.trees,
+        plan.threads, plan.smem, out.data_ptr(), ctypes.c_void_p(stream)))
+    if rc != 0:
+        raise LightGBMError(f"accumulate kernel launch failed: CUDA error "
+                            f"{rc}")
+    return out
+
+
 def accumulate_slots_exact_plain(slots: torch.Tensor,
                                  gather_idx: torch.Tensor,
                                  leaf_values: torch.Tensor,
@@ -130,21 +196,8 @@ def accumulate_slots_exact_plain(slots: torch.Tensor,
     `gather_idx[t]` of `slots` [R, B] and adds `leaf_values[t, slot]`
     into its class column `cls[t]`.  Indices past the tables clamp, as
     the JAX package's gathers do.  Returns [B] or [B, K] float64."""
-    _check_accumulate(slots, gather_idx, leaf_values, n_class, cls)
-    r, b = slots.shape
-    nl = leaf_values.shape[1]
-    gidx = gather_idx.clamp(0, r - 1).tolist()
-    cls_host = cls.tolist() if n_class > 1 else None
-    shape = (b, n_class) if n_class > 1 else (b,)
-    acc = torch.zeros(shape, dtype=torch.float64, device=slots.device)
-    for t, g in enumerate(gidx):
-        v = leaf_values[t][slots[g].long().clamp(0, nl - 1)]
-        if n_class > 1:
-            k = cls_host[t]
-            acc[:, k] = acc[:, k] + v
-        else:
-            acc = acc + v
-    return acc
+    return _accumulate_plain(slots, gather_idx, leaf_values, n_class, cls,
+                             torch.float64)
 
 
 def accumulate_slots_exact(slots: torch.Tensor, gather_idx: torch.Tensor,
@@ -161,30 +214,40 @@ def accumulate_slots_exact(slots: torch.Tensor, gather_idx: torch.Tensor,
     if slots.device.type == "cpu":
         return accumulate_slots_exact_plain(slots, gather_idx, leaf_values,
                                             n_class, cls)
-    if slots.device.type != "cuda":
-        raise LightGBMError(f"no accumulate kernel for {slots.device}")
-    _check_accumulate(slots, gather_idx, leaf_values, n_class, cls)
-    for t in (slots, gather_idx, leaf_values, cls):
-        if t is not None and not t.is_contiguous():
-            raise LightGBMError("accumulate inputs must be contiguous")
-    from ..compiler import _build
-    from ..compiler.records import accumulate_plan
-    lib = _build.load("accumulate")
-    r, b = slots.shape
-    t_trees, nl = leaf_values.shape
-    k = max(n_class, 1)
-    shape = (b, n_class) if n_class > 1 else (b,)
-    out = torch.empty(shape, dtype=torch.float64, device=slots.device)
-    if b == 0:
-        return out
-    plan = accumulate_plan(b, t_trees, k)
-    rc = _build.on_stream(slots.device, lambda stream: lib.lgbt_accumulate(
-        slots.data_ptr(), r, b, gather_idx.data_ptr(),
-        leaf_values.data_ptr(), t_trees, nl,
-        cls.data_ptr() if n_class > 1 else None, k, plan.rows, plan.trees,
-        plan.threads, plan.smem, out.data_ptr(), ctypes.c_void_p(stream)))
-    if rc != 0:
-        raise LightGBMError(f"accumulate kernel launch failed: CUDA error "
-                            f"{rc}")
-    ACCUMULATE_LAUNCHES += 1
+    out = _accumulate("lgbt_accumulate", slots, gather_idx, leaf_values,
+                      n_class, cls, torch.float64)
+    if out.shape[0]:
+        ACCUMULATE_LAUNCHES += 1
+    return out
+
+
+def accumulate_slots_f32_plain(slots: torch.Tensor,
+                               gather_idx: torch.Tensor,
+                               leaf_values: torch.Tensor, n_class: int = 1,
+                               cls: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Plain version of the f32 accumulate kernel: the loop of
+    `accumulate_slots_exact_plain` in f32 (leaf values [T, NL] float32),
+    from +0.0, one f32 add a tree: the JAX package's scan carry.
+    Returns [B] or [B, K] float32."""
+    return _accumulate_plain(slots, gather_idx, leaf_values, n_class, cls,
+                             torch.float32)
+
+
+def accumulate_slots_f32(slots: torch.Tensor, gather_idx: torch.Tensor,
+                         leaf_values: torch.Tensor, n_class: int = 1,
+                         cls: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Boosting-order f32 sum of pre-routed leaf slots (`device_predict`):
+    [B] or [B, K] float32 from f32 leaf values [T, NL].  CUDA tensors go
+    through the f32 instance of `csrc/accumulate.cu` (the f64 sum's
+    design and launch plan, `__fadd_rn`, `-fmad=false`); CPU tensors
+    through the plain version."""
+    global ACCUMULATE_F32_LAUNCHES
+    if slots.device.type == "cpu":
+        return accumulate_slots_f32_plain(slots, gather_idx, leaf_values,
+                                          n_class, cls)
+    out = _accumulate("lgbt_accumulate_f32", slots, gather_idx, leaf_values,
+                      n_class, cls, torch.float32)
+    if out.shape[0]:
+        ACCUMULATE_F32_LAUNCHES += 1
     return out

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..compiler import PlanNotCompilable, build_plan
-from ..compiler.kernel import ROW_BLOCK, DeviceRecords, compiled_predict
+from ..compiler.kernel import (ROW_BLOCK, DeviceRecords, compiled_predict,
+                               device_planes)
 from ..compiler.records import build_records
 from ..ops.predict import predict_leaf_ensemble
 from ..utils.log import LightGBMError
@@ -148,19 +149,12 @@ class ServingRuntime:
             except PlanNotCompilable as e:
                 raise LightGBMError(
                     f"model cannot be compiled for serving: {e}") from e
-            planes = []
-            for p in plan.planes:
-                arrs = [p["words"], p["kids"], p["pal"], p.get("catw")]
-                planes.append(tuple(
-                    torch.from_numpy(a).to(self.device)
-                    if a is not None else None for a in arrs))
-            meta = tuple((p["depth"], p["catw"].shape[-1]
-                          if "catw" in p else 0) for p in plan.planes)
+            planes, meta = device_planes(plan, self.device)
             gidx = torch.from_numpy(plan.gather_idx).to(self.device)
             cls = ex["stacked"].get("cls") if ex["num_class"] > 1 else None
             rec = build_records(
                 plan, None if cls is None else cls.cpu().numpy())
-            st = _ServeState(ex, plan, tuple(planes), meta, gidx, cls,
+            st = _ServeState(ex, plan, planes, meta, gidx, cls,
                              DeviceRecords.of(rec, self.device))
             self._probe_compiled(st)
             self._state = st

@@ -217,7 +217,7 @@ class LGBMModel(BaseEstimator):
 
     def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, pred_leaf: bool = False,
-                pred_contrib: bool = False):
+                pred_contrib: bool = False, **kwargs):
         self._check_fitted()
         X2 = _to_2d_float(X)
         if X2.shape[1] != self._n_features:
@@ -228,7 +228,7 @@ class LGBMModel(BaseEstimator):
         return self._Booster.predict(
             X2, raw_score=raw_score, start_iteration=start_iteration,
             num_iteration=num_iteration, pred_leaf=pred_leaf,
-            pred_contrib=pred_contrib)
+            pred_contrib=pred_contrib, **kwargs)
 
     def _check_fitted(self):
         if not self.fitted_:
@@ -333,9 +333,10 @@ class LGBMClassifier(ClassifierMixin, LGBMModel):
 
     def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, pred_leaf: bool = False,
-                pred_contrib: bool = False):
+                pred_contrib: bool = False, **kwargs):
         result = self.predict_proba(X, raw_score, start_iteration,
-                                    num_iteration, pred_leaf, pred_contrib)
+                                    num_iteration, pred_leaf, pred_contrib,
+                                    **kwargs)
         if raw_score or pred_leaf or pred_contrib:
             return result
         return self._classes[np.argmax(result, axis=1)]
@@ -343,11 +344,13 @@ class LGBMClassifier(ClassifierMixin, LGBMModel):
     def predict_proba(self, X, raw_score: bool = False,
                       start_iteration: int = 0,
                       num_iteration: Optional[int] = None,
-                      pred_leaf: bool = False, pred_contrib: bool = False):
+                      pred_leaf: bool = False, pred_contrib: bool = False,
+                      **kwargs):
         """Class probabilities: `Booster.predict`'s, stacked as [1 - p, p]
         for binary."""
         result = LGBMModel.predict(self, X, raw_score, start_iteration,
-                                   num_iteration, pred_leaf, pred_contrib)
+                                   num_iteration, pred_leaf, pred_contrib,
+                                   **kwargs)
         if raw_score or pred_leaf or pred_contrib:
             return result
         if result.ndim == 1:

@@ -307,8 +307,9 @@ def test_estimator_refusals_and_unfitted():
                       device_type="cpu").fit(X, y)
     m = LGBMClassifier(n_estimators=2, device_type="cpu", verbosity=-1)
     m.fit(X, (y > 0).astype(int))
-    with pytest.raises(lt.LightGBMError, match="item 5h"):
-        m.predict(X, pred_leaf=True)
+    leaves = m.predict(X, pred_leaf=True)
+    assert leaves.dtype == np.int32 and leaves.shape == (len(X), 2)
+    assert np.array_equal(leaves, m.booster_.predict(X, pred_leaf=True))
     with pytest.raises(ValueError, match="n_features"):
         m.predict(X[:, :3])
 

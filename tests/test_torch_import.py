@@ -28,7 +28,8 @@ MODULES = ("serving.runtime", "interop", "basic", "booster", "callback",
            "ops.fused", "ops.threefry", "ops.xla_math",
            "ops.histogram", "ops.reduce", "ops.split", "ops.predict",
            "compiler.kernel", "compiler._build", "compiler.plan",
-           "compiler.quantize", "compiler.records", "utils.log", "sklearn")
+           "compiler.quantize", "compiler.records", "utils.log", "sklearn",
+           "contrib", "plotting", "convert")
 
 
 def test_every_module_is_listed():
