@@ -9,6 +9,7 @@ and check them.
     python3 chip_smoke.py --phases train_api   # cv, init_model, sklearn
     python3 chip_smoke.py --phases golden,main       # serving alone
     python3 chip_smoke.py --phases predict_api   # device_predict, options
+    python3 chip_smoke.py --phases serve_plane   # rungs, registry, HTTP
     python3 chip_smoke.py --phases compare --baseline DIR   # K1-K6, sum
     python3 chip_smoke.py --phases compare_serving --baseline DIR
 
@@ -69,6 +70,33 @@ Phases, each printing one JSON line:
           and the f64 standalone sum; the host seconds of `pred_leaf`,
           prediction early stop and `pred_contrib` (TreeSHAP) on 20 rows
           of the binary golden model.
+  serve_plane the serving plane on the main phase's model.  Between the
+          counter reads: a ServingRuntime pinned to each rung by its
+          options (compiled, device_sum, slot_path, bounded at 8 and 16
+          bits) answering 1, 256 and 4096 rows raw and converted, each
+          exact rung bitwise the f64 host walk, the bounded one within
+          its published bound; a narrow request (28 columns of a model
+          that needs 41: the main model plus one guard tree behind a
+          root no row passes) walked on the host.  Launches a request by
+          rung and each rung's p50.  The stacked-plane traversal
+          (`csrc/stacked.cu`) bitwise its plain version at 1, 256 and
+          4096 rows on the main model, the golden models with
+          adversarial rows and a categorical model with bitsets of 3, 7
+          and 313 words, timed warm and L2-flushed beside its bound; the
+          bounded sum (`csrc/bounded.cu`) bitwise its plain version (and
+          the CPU's) on the K6 slots of the bounded rung at 8 and 16
+          bits, raw and converted, its error against the f64 sum beside
+          the bound, its planes' bytes under a third of the compiled
+          planes', timed.  The (q) model (feature 27 renamed 4096) on
+          the device-sum rung and `device_predict`'s stacked route, both
+          bitwise.  ModelRegistry + MicroBatcher + make_server on
+          127.0.0.1: 8 client threads of 200 requests of 1-256 rows,
+          every response bitwise the runtime's direct answer, p50/p99
+          over HTTP and direct, rows per batch, /healthz and /metrics.
+          Faults after the load: an injected error answers 503, opens
+          only the compiled breaker and is counted; after disarm and the
+          0.2 s backoff the re-probe closes it and the bytes are those
+          before; a hang is bounded by a 500 ms watchdog.
   objective the objectives' links (`ops/xla_math.py`, XLA's CPU exp,
           sigmoid and softmax): the link kernel (`csrc/links.cu`) bitwise
           its plain version (torch ops) on the card and on the CPU, for
@@ -240,11 +268,14 @@ Phases, each printing one JSON line:
   compare_serving (with --phases and --baseline DIR only) the main
           phase's model at 1, 256 and 4096 rows: the standalone K6 and
           sum of both checkouts bitwise, this checkout's fused request
-          program bitwise DIR's `compiled_predict`, each timed in turns.
+          program bitwise DIR's `compiled_predict`, each timed in turns;
+          then a converted request through each checkout's
+          ServingRuntime, bitwise, its p50 in turns.
   kernels one line per kernel: launches on its path's phase (the fused
           serving kernel and the link: main, where the standalone
           traverse and accumulate show 0 and their golden-phase and
-          predict_api launches beside; the f32 sum: predict_api;
+          predict_api launches beside; the f32 sum: predict_api; the
+          stacked traversal and the bounded sum: serve_plane;
           histogram: train; fused_hist_split and
           split_scan: train_wave; fused_hist_split_q: train_quant's main
           run; histogram_q: its strict run; threefry: train_sampled's
@@ -624,7 +655,7 @@ def phase_env():
     build_s = time.perf_counter() - t0
     _check(set(built) == {"traverse", "accumulate", "serve", "histogram",
                           "histogram_q", "fused_split", "links",
-                          "threefry"},
+                          "threefry", "stacked", "bounded"},
            f"build_all built {sorted(built)}")
     _emit({"phase": "env", "torch": torch.__version__,
            "cuda": torch.version.cuda,
@@ -3441,7 +3472,10 @@ def phase_compare_serving(seed: int, baseline: str, device=None,
     TIMED_ROWS rows: the standalone traverse (every depth bucket)
     bitwise the baseline's, the standalone sum bitwise on the same
     slots, and this checkout's request program (the fused entry)
-    bitwise the baseline's `compiled_predict`; each timed in turns."""
+    bitwise the baseline's `compiled_predict`; each timed in turns.  Then
+    a whole converted request through each checkout's `ServingRuntime`
+    (its own `Booster`), bitwise, its host-clock p50 in turns
+    (`_request_turns`)."""
     import torch
     from lightgbm_tpu_torch import Booster, ServingRuntime
     from lightgbm_tpu_torch.compiler import kernel
@@ -3486,8 +3520,39 @@ def phase_compare_serving(seed: int, baseline: str, device=None,
                 lambda: _serve(rt, Xd),
                 lambda: base_kernel.compiled_predict(
                     Xd, st.planes, st.gidx, vals, meta=st.meta), timing)}
+    base_booster, base_runtime = _import_port(
+        baseline, "baseline_port", "booster", "serving.runtime")
+    text = synthetic_forest_text(seed)
+    base_rt = base_runtime.ServingRuntime(
+        base_booster.Booster(model_str=text), device=device)
+    for b in TIMED_ROWS:
+        _check(_bits_equal(rt.predict(X[:b]), base_rt.predict(X[:b])),
+               f"compare: {b} rows: the runtimes' answers differ")
+        report[str(b)]["runtime_p50_ms"] = _request_turns(
+            lambda: rt.predict(X[:b]), lambda: base_rt.predict(X[:b]),
+            timing)
     _emit(report)
     return report
+
+
+def _request_turns(this, base, timing=True, repeats=30):
+    """Host-clock p50 (ms) of `this` and `base`, each a synchronised
+    request, in turns (this, base, base, this) of `repeats` runs."""
+    import torch
+    if not timing:
+        return {}
+    runs = {0: [], 1: []}
+    for side in (0, 1, 1, 0):
+        fn = (this, base)[side]
+        fn()
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs[side].append(time.perf_counter() - t)
+    return {"ms": float(np.median(runs[0])) * 1e3,
+            "baseline_ms": float(np.median(runs[1])) * 1e3}
 
 
 def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
@@ -4329,6 +4394,848 @@ def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
     return entry, phase_launches
 
 
+# ------------------------------------------------------------ serve_plane
+#: the serve_plane phase's HTTP load: client threads x requests each, of
+#: 1 to SERVE_HTTP_MAX_ROWS rows
+SERVE_HTTP_THREADS = 8
+SERVE_HTTP_REQUESTS = 200
+SERVE_HTTP_MAX_ROWS = 256
+#: timed requests a (rung, size) in serve_plane (the median is reported)
+SERVE_REPEATS = 15
+#: the interpreter's switch interval of serve_plane's third HTTP run
+HTTP_SHORT_SWITCH_S = 2e-4
+
+
+def _serve_counters():
+    import lightgbm_tpu_torch.booster as booster
+    from lightgbm_tpu_torch.compiler import kernel
+    from lightgbm_tpu_torch.ops import predict, xla_math
+    return {"serve": kernel.SERVE_LAUNCHES,
+            "traverse": kernel.TRAVERSE_LAUNCHES,
+            "accumulate": predict.ACCUMULATE_LAUNCHES,
+            "accumulate_f32": predict.ACCUMULATE_F32_LAUNCHES,
+            "stacked": predict.STACKED_LAUNCHES,
+            "bounded": predict.ACCUMULATE_BOUNDED_LAUNCHES,
+            "xla_link": xla_math.LINK_LAUNCHES,
+            "device_predict_stacked": booster.DEVICE_PREDICT_STACKED}
+
+
+def _zero_serve_counters():
+    import lightgbm_tpu_torch.booster as booster
+    from lightgbm_tpu_torch.compiler import kernel
+    from lightgbm_tpu_torch.ops import predict, xla_math
+    kernel.SERVE_LAUNCHES = kernel.TRAVERSE_LAUNCHES = 0
+    predict.ACCUMULATE_LAUNCHES = predict.ACCUMULATE_F32_LAUNCHES = 0
+    predict.STACKED_LAUNCHES = predict.ACCUMULATE_BOUNDED_LAUNCHES = 0
+    xla_math.LINK_LAUNCHES = 0
+    booster.DEVICE_PREDICT_STACKED = 0
+
+
+def _counted(fn):
+    """(fn(), the launches it made)."""
+    before = _serve_counters()
+    out = fn()
+    after = _serve_counters()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def wide_bitset_text(text, words, seed=0):
+    """A categorical model text with its first tree's categorical nodes
+    given bitsets of `words[0]`, `words[1]`, ... random words (the
+    categorical golden model has two such nodes in its first tree)."""
+    rng = np.random.RandomState(seed)
+    bits = [rng.randint(0, 1 << 32, size=w, dtype=np.uint64)
+            for w in words]
+    bounds = np.concatenate([[0], np.cumsum(words)])
+    lines = text.splitlines()
+    i = next(k for k, ln in enumerate(lines)
+             if ln.startswith("cat_boundaries="))
+    _check(lines[i + 1].startswith("cat_threshold="),
+           "wide_bitset_text: no cat_threshold line")
+    lines[i] = "cat_boundaries=" + " ".join(str(int(b)) for b in bounds)
+    lines[i + 1] = "cat_threshold=" + " ".join(
+        str(int(v)) for b in bits for v in b)
+    return "\n".join(lines) + "\n"
+
+
+def _widen_text(text, num_features, feature_map=None, extra_tree=None):
+    """`text` over `num_features` columns: split features renamed by
+    `feature_map` (old id -> new id), and `extra_tree` (a tree's text
+    lines) appended; the header's feature lines and tree sizes follow."""
+    head, _, rest = text.partition("\nTree=")
+    body, _, footer = ("Tree=" + rest).partition("end of trees")
+    trees = [t for t in body.split("\n\n\n") if t.strip()]
+    if feature_map:
+        out = []
+        for t in trees:
+            lines = t.splitlines()
+            for k, ln in enumerate(lines):
+                if ln.startswith("split_feature="):
+                    lines[k] = "split_feature=" + " ".join(
+                        str(feature_map.get(int(v), int(v)))
+                        for v in ln.split("=", 1)[1].split())
+            out.append("\n".join(lines))
+        trees = out
+    if extra_tree is not None:
+        trees.append("\n".join([f"Tree={len(trees)}"] + extra_tree))
+    trees = [t.strip("\n") + "\n\n" for t in trees]
+    hl = head.splitlines()
+    for k, ln in enumerate(hl):
+        if ln.startswith("max_feature_idx="):
+            hl[k] = f"max_feature_idx={num_features - 1}"
+        elif ln.startswith("feature_names="):
+            hl[k] = "feature_names=" + " ".join(
+                f"Column_{i}" for i in range(num_features))
+        elif ln.startswith("feature_infos="):
+            hl[k] = "feature_infos=" + " ".join(["none"] * num_features)
+        elif ln.startswith("tree_sizes="):
+            hl[k] = "tree_sizes=" + " ".join(str(len(t) + 1) for t in trees)
+    return "\n".join(hl) + "\n" + "\n".join(trees) + "end of trees" + footer
+
+
+def guard_tree_text(text, num_features, guard_feature):
+    """`text` plus one tree that splits on `guard_feature` only behind a
+    root no row passes (feature 0 <= -1e30, missing type None): the model
+    needs `guard_feature + 1` columns, and a request of `num_features`
+    columns is narrower than it, yet walks on the host without reading
+    the absent column."""
+    tree = ["num_leaves=3", "num_cat=0",
+            f"split_feature=0 {guard_feature}", "split_gain=1 1",
+            "threshold=-1.0000000000000000e+30 0", "decision_type=0 0",
+            "left_child=1 -1", "right_child=-3 -2",
+            "leaf_value=0.25 -0.5 0.125", "leaf_weight=1 1 1",
+            "leaf_count=1 1 1", "internal_value=0 0",
+            "internal_weight=1 1", "internal_count=2 1", "is_linear=0",
+            "shrinkage=1"]
+    return _widen_text(text, guard_feature + 1, extra_tree=tree)
+
+
+def _stacked_bytes(stacked, b, nf):
+    """Bytes the stacked traversal must move: its planes, X, the slots."""
+    planes = sum(int(v.numel() * v.element_size())
+                 for k, v in stacked.items()
+                 if k in ("feat", "thr", "dtype", "left", "right",
+                          "cat_words", "cat_nwords"))
+    return planes + b * nf * 4 + int(stacked["feat"].shape[0]) * b * 4
+
+
+def _bounded_bytes(dev, b, K):
+    """Bytes the bounded sum must move: one slot a tree and row (the
+    trees' rows of the slots, read through `gather_idx`), the codes, the
+    tile map and groups, the scales, the scores."""
+    side = sum(int(t.numel() * t.element_size())
+               for t in (dev.qval, dev.tile, dev.scales, dev.gidx)
+               + tuple(dev.groups) if t is not None)
+    return int(dev.qval.shape[0]) * b * 4 + side + b * K * 4
+
+
+#: an HTTP client in a process of its own: reads [[thread, body], ...]
+#: on stdin, posts each body to argv[1] + "/predict" from argv[2]
+#: threads, writes [[seconds, response], ...] (or an error string) out
+_HTTP_CLIENT = r"""
+import json, sys, threading, time, urllib.request
+base, nthreads = sys.argv[1], int(sys.argv[2])
+plan = json.load(sys.stdin)
+out = [None] * len(plan)
+def run(t):
+    for k, (tt, body) in enumerate(plan):
+        if tt != t:
+            continue
+        try:
+            req = urllib.request.Request(
+                base + "/predict", data=body.encode(),
+                headers={"Content-Type": "application/json"})
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                data = r.read().decode()
+            out[k] = [time.perf_counter() - t1, data]
+        except Exception as e:
+            out[k] = repr(e)
+threads = [threading.Thread(target=run, args=(t,)) for t in range(nthreads)]
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+json.dump(out, sys.stdout)
+"""
+
+
+def _http_clients_in_a_process(base, threads, plan, timeout=600):
+    """`_HTTP_CLIENT` run over `plan` in a Python process of its own (so
+    the clients' JSON work shares no interpreter with the server's);
+    the process is killed if it outlives `timeout`."""
+    proc = subprocess.Popen([sys.executable, "-c", _HTTP_CLIENT, base,
+                             str(threads)], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        out, _ = proc.communicate(json.dumps(plan), timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    _check(proc.returncode == 0,
+           f"serve_plane: the HTTP client process exited {proc.returncode}")
+    return json.loads(out)
+
+
+def _stage_medians(traces, results, http_ms):
+    """Where an HTTP request's time went: the median of each serving
+    stage of the server's request traces (`SERVE_RECORDER`, every
+    request kept), their end-to-end median, and the median of the
+    client's time less the server's end to end for the same request
+    (matched by request id): the HTTP, JSON and socket share."""
+    ok = {t["id"]: t for t in traces if t["status"] == "ok"}
+    stages = sorted({s for t in ok.values() for s in t["stages_ms"]})
+    outside = [ms - ok[r[1]["request_id"]]["e2e_ms"]
+               for r, ms in zip(results, http_ms)
+               if r[1]["request_id"] in ok]
+    _check(len(outside) == len(results),
+           f"serve_plane: {len(outside)} of {len(results)} requests have a "
+           "server trace")
+    return {"server_stage_p50_ms": {
+                s: float(np.median([t["stages_ms"].get(s, 0.0)
+                                    for t in ok.values()]))
+                for s in stages},
+            "server_e2e_p50_ms": float(np.median(
+                [t["e2e_ms"] for t in ok.values()])),
+            "client_less_server_p50_ms": float(np.median(outside))}
+
+
+def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
+                      rows=TIMED_ROWS, http_threads=SERVE_HTTP_THREADS,
+                      http_requests=SERVE_HTTP_REQUESTS):
+    """The serving plane on the main phase's model (500 trees x 255
+    leaves x 28 features, from `seed`): every rung pinned by options
+    (compiled, device_sum, slot_path, bounded at 8 and 16 bits; the host
+    walk on a narrow request) answering 1, 256 and 4096 rows between the
+    counter reads; the stacked-plane traversal (`csrc/stacked.cu`) and
+    the bounded sum (`csrc/bounded.cu`) bitwise their plain versions; the
+    (q) model; the registry, batcher and HTTP front end under load; the
+    fault cycle.  Returns the two kernels' kernels-line entries."""
+    import threading
+    import urllib.error
+    import urllib.request
+    import torch
+    from lightgbm_tpu_torch import Booster, ServingRuntime
+    from lightgbm_tpu_torch.compiler.kernel import traverse_all
+    from lightgbm_tpu_torch.ops import predict
+    from lightgbm_tpu_torch.resilience import FAULTS, DeviceTimeoutError
+    from lightgbm_tpu_torch.serving import (
+        ModelRegistry, ServingClient, ServingDeviceError, make_server)
+    from lightgbm_tpu_torch.telemetry import REGISTRY, SERVE_RECORDER
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    text = synthetic_forest_text(seed, num_trees=num_trees)
+    bst = Booster(model_str=text)
+    nf = bst.num_feature()
+    rng = np.random.RandomState(seed + 5)
+    reqs = {n: request_rows(rng, n) for n in rows}
+    host = {n: (bst.predict(reqs[n], raw_score=True), bst.predict(reqs[n]))
+            for n in rows}
+    report = {"phase": "serve_plane", "trees": num_trees, "rungs": {}}
+
+    # ---- 1. the main path: each rung, pinned, between the counter reads
+    pins = {"compiled": {}, "device_sum": {"compiled": "off"},
+            "slot_path": {"compiled": "off", "device_sum": "off"},
+            "bounded": {"precision": "bounded"},
+            "bounded16": {"precision": "bounded", "quant_bits": 16}}
+    guard = guard_tree_text(text, nf, 40)
+    g_bst = Booster(model_str=guard)
+    _zero_serve_counters()
+    rts, answers = {}, {}
+    for name, opts in pins.items():
+        t0 = time.perf_counter()
+        rts[name] = ServingRuntime(bst, device=dev, name=name, **opts)
+        rung = rts[name].rung
+        _check(rung == name.replace("16", ""),
+               f"serve_plane: {name} pinned, {rung} chosen")
+        report["rungs"][name] = {"setup_s": time.perf_counter() - t0,
+                                 "device_bytes": rts[name].device_bytes()}
+        answers[name] = {n: (rts[name].predict(reqs[n], raw_score=True),
+                             rts[name].predict(reqs[n])) for n in rows}
+    g_rt = ServingRuntime(g_bst, device=dev, name="guard")
+    walked = REGISTRY.counter("serve.host_walk", cause="forced").value
+    narrow = {n: g_rt.predict(reqs[n], raw_score=True) for n in rows}
+    launches = _serve_counters()
+    _check(REGISTRY.counter("serve.host_walk", cause="forced").value
+           == walked + len(rows), "serve_plane: the narrow requests were "
+           "not walked on the host")
+    for k in ("serve", "stacked", "accumulate", "bounded", "traverse",
+              "xla_link"):
+        _check(launches[k] > 0, f"serve_plane: the main path launched no "
+               f"{k} kernel: {launches}")
+    report["launches"] = launches
+
+    # answers: each exact rung bitwise the f64 host walk (f32-exact rows
+    # and thresholds), raw and converted; the bounded rung within bound
+    for name, rt in rts.items():
+        rep = report["rungs"][name]
+        for n in rows:
+            raw, conv = answers[name][n]
+            if rt.rung == "bounded":
+                err = _max_abs_err(raw, host[n][0])
+                rep.setdefault("max_abs_err_vs_f64", 0.0)
+                rep["max_abs_err_vs_f64"] = max(rep["max_abs_err_vs_f64"],
+                                                err)
+                _check(err <= rt.bounded_bound and raw.dtype == np.float32,
+                       f"serve_plane: {name} {n} rows: error {err} above "
+                       f"the bound {rt.bounded_bound}")
+                _check(_max_abs_err(conv, host[n][1]) <= rt.bounded_bound,
+                       f"serve_plane: {name} {n} rows: converted scores "
+                       "outside the bound")
+            else:
+                _check(_bits_equal(raw, host[n][0])
+                       and _bits_equal(conv, host[n][1]),
+                       f"serve_plane: {name} {n} rows != the f64 host walk")
+        if rt.rung == "bounded":
+            rep.update(bound=rt.bounded_bound,
+                       probe_measured=rt.bounded_measured_error)
+    for n in rows:
+        # the guard tree adds its right leaf (0.125) after the 500 trees
+        _check(_bits_equal(narrow[n], host[n][0] + 0.125),
+               f"serve_plane: the narrow host walk at {n} rows != the "
+               "model's walk")
+    report["rungs"]["host_walk"] = {"requests": len(rows),
+                                    "cause": "forced",
+                                    "rung_of_runtime": g_rt.rung}
+
+    # launches a request, and each rung's p50 by size
+    big = max(rows)
+    per_req = {}
+    for name, rt in rts.items():
+        _, raw_l = _counted(lambda: rt.predict(reqs[big], raw_score=True))
+        _, conv_l = _counted(lambda: rt.predict(reqs[big]))
+        per_req[name] = {"raw": raw_l, "converted": conv_l}
+        if timing:
+            p50 = {}
+            for n in rows:
+                ts = []
+                for _ in range(SERVE_REPEATS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rt.predict(reqs[n])
+                    torch.cuda.synchronize()
+                    ts.append(time.perf_counter() - t0)
+                p50[str(n)] = float(np.median(ts)) * 1e3
+            report["rungs"][name]["p50_ms"] = p50
+    buckets = len(rts["compiled"]._state.meta)
+    want = {"compiled": {"serve": 1, "xla_link": 1},
+            "device_sum": {"stacked": 1, "accumulate": 1, "xla_link": 1},
+            "slot_path": {"stacked": 1, "xla_link": 1},
+            "bounded": {"traverse": buckets, "bounded": 1, "xla_link": 1},
+            "bounded16": {"traverse": buckets, "bounded": 1, "xla_link": 1}}
+    for name, w in want.items():
+        _check(per_req[name]["converted"] == w,
+               f"serve_plane: {name} launches a converted request "
+               f"{per_req[name]['converted']}, want {w}")
+    report["launches_per_request"] = per_req
+    if timing:
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            g_rt.predict(reqs[256], raw_score=True)
+            ts.append(time.perf_counter() - t0)
+        report["rungs"]["host_walk"]["p50_ms_256"] = float(
+            np.median(ts)) * 1e3
+
+    # ---- 2. kernel A, the stacked-plane traversal, against its plain
+    # version: the main model, the golden models with adversarial rows,
+    # a categorical model with bitsets of several and of 313 words
+    flush = _flusher(dev)
+    ex = bst.export_predict_arrays(device=dev)
+    stacked = ex["stacked"]
+    a_rows, a_err = {}, 0
+    for b in rows:
+        Xd = rts["compiled"]._stage32(reqs[b], b)
+        k_sl, _ = _counted(lambda: predict.predict_leaf_ensemble(stacked, Xd))
+        p_sl = predict.predict_leaf_ensemble_plain(stacked, Xd)
+        a_err = max(a_err, int((k_sl - p_sl).abs().max()))
+        _check(torch.equal(k_sl, p_sl),
+               f"serve_plane: stacked traversal != plain at {b} rows")
+        row = {"bytes": _stacked_bytes(stacked, b, nf)}
+        row["bound_ms"], row["bound_by"] = _bound(
+            row["bytes"], int(_leaf_visits(ex, k_sl)), INT32_OPS_PER_S)
+        if timing:
+            row["ms"] = _cuda_ms(lambda: predict.predict_leaf_ensemble(
+                stacked, Xd), queued=True)
+            row["cold_ms"] = _cuda_ms(lambda: predict.predict_leaf_ensemble(
+                stacked, Xd), queued=True, flush=flush)
+        a_rows[b] = row
+    a_golden = {}
+    goldens = [(name, open(os.path.join(
+        ROOT, "tests", "data", f"golden_{name}.model.txt")).read())
+        for name in GOLDEN]
+    cat_text = dict(goldens)["categorical"]
+    goldens += [("categorical_3_7_words", wide_bitset_text(cat_text, (3, 7))),
+                ("categorical_313_words",
+                 wide_bitset_text(cat_text, (313, 2), seed=1))]
+    for name, gtext in goldens:
+        g = Booster(model_str=gtext)
+        gex = g.export_predict_arrays(device=dev)
+        gnf = max(g.num_feature(), gex["stacked"]["min_features"])
+        X = adversarial_rows(g.trees, gnf, seed)
+        if "words" in name:
+            cats = np.random.RandomState(seed).randint(
+                -3, 32 * 313 + 40, size=512).astype(np.float64)
+            Xc = np.random.RandomState(seed + 1).randn(512, gnf)
+            Xc[:, 0] = cats
+            X = np.vstack([X, Xc])
+        for b in (1, 256, 4096):
+            Xb = np.resize(X, (b, gnf)) if b > len(X) else X[:b]
+            Xd = rts["compiled"]._stage32(Xb, b)
+            _check(torch.equal(
+                predict.predict_leaf_ensemble(gex["stacked"], Xd),
+                predict.predict_leaf_ensemble_plain(gex["stacked"], Xd)),
+                f"serve_plane: stacked traversal != plain on {name}, {b} "
+                "rows")
+        a_golden[name] = {"rows": len(X), "mw": int(
+            gex["stacked"]["cat_words"].shape[-1])
+            if "cat_words" in gex["stacked"] else 0}
+        if "words" not in name:
+            # ROADMAP Queue 3 (i): the rows the served (f32-routed) raw
+            # scores route otherwise than the f64 walk
+            served = ServingRuntime(g, device=dev).predict(X, raw_score=True)
+            walk = g.predict(X, raw_score=True)
+            differ = (served.view(np.uint64) != walk.view(np.uint64))
+            a_golden[name]["rows_differ_from_f64_walk"] = int(
+                differ.reshape(len(X), -1).any(axis=1).sum())
+    a_plain_ms = None
+    if timing:
+        Xd = rts["compiled"]._stage32(reqs[big], big)
+        a_plain_ms = _cuda_ms(lambda: predict.predict_leaf_ensemble_plain(
+            stacked, Xd), iters=3, warmup=1)
+
+    # ---- 3. kernel B, the bounded sum, against its plain version at 8
+    # and 16 bits, raw and converted, on the bounded rung's own layout
+    # (the standalone K6's slots read through gather_idx)
+    conv_fn = bst.objective_.convert_output
+    b_rows, b_err, b_bits = {}, 0.0, {}
+    for name in ("bounded", "bounded16"):
+        rt = rts[name]
+        st = rt._state
+        d = st.dev
+        compiled_bytes = sum(int(a.numel() * a.element_size())
+                             for bk in d.planes for a in bk
+                             if a is not None)
+        bounded_bytes = sum(int(t.numel() * t.element_size())
+                            for t in (d.qval, d.tile, d.scales))
+        _check(bounded_bytes <= compiled_bytes / 3,
+               f"serve_plane: {name} planes {bounded_bytes} B, compiled "
+               f"planes {compiled_bytes} B: not under a third")
+        worst = 0.0
+        for b in rows:
+            Xd = rt._stage32(reqs[b], rt._chunk_rows(b))
+            slots = traverse_all(Xd, d.planes, st.meta)
+            args = (slots, d.qval, d.tile, d.scales, 1)
+            k_out, _ = _counted(lambda: predict.accumulate_slots_bounded(
+                *args, gather_idx=d.gidx, groups=d.groups))
+            p_out = predict.accumulate_slots_bounded_plain(
+                *args, gather_idx=d.gidx)
+            b_err = max(b_err, _max_abs_err(k_out.cpu().numpy(),
+                                            p_out.cpu().numpy()))
+            _check(_bits_equal(k_out.cpu().numpy(), p_out.cpu().numpy()),
+                   f"serve_plane: bounded sum != plain ({name}, {b} rows)")
+            _check(_bits_equal(conv_fn(k_out).cpu().numpy(),
+                               conv_fn(p_out).cpu().numpy()),
+                   f"serve_plane: converted bounded sum != plain ({name})")
+            cpu = predict.accumulate_slots_bounded_plain(
+                *(a.cpu() for a in args[:4]), 1, gather_idx=d.gidx.cpu())
+            _check(_bits_equal(k_out.cpu().numpy(), cpu.numpy()),
+                   f"serve_plane: bounded sum on the card != the CPU "
+                   f"({name}, {b} rows)")
+            exact = predict.accumulate_slots_exact(slots, d.gidx,
+                                                   ex["value_f64"])
+            err = _max_abs_err(k_out.double().cpu().numpy(),
+                               exact.cpu().numpy())
+            worst = max(worst, err)
+            _check(err <= rt.bounded_bound,
+                   f"serve_plane: {name} error {err} above the bound "
+                   f"{rt.bounded_bound}")
+            if name == "bounded":
+                row = {"bytes": _bounded_bytes(d, b, 1)}
+                row["bound_ms"], row["bound_by"] = _bound(
+                    row["bytes"], int(d.qval.shape[0]) * b,
+                    DISPATCH_LANES_PER_S)
+                if timing:
+                    row["ms"] = _cuda_ms(
+                        lambda: predict.accumulate_slots_bounded(
+                            *args, gather_idx=d.gidx, groups=d.groups),
+                        queued=True)
+                    row["cold_ms"] = _cuda_ms(
+                        lambda: predict.accumulate_slots_bounded(
+                            *args, gather_idx=d.gidx, groups=d.groups),
+                        queued=True, flush=flush)
+                    if b == big:
+                        row["plain_ms"] = _cuda_ms(
+                            lambda: predict.accumulate_slots_bounded_plain(
+                                *args, gather_idx=d.gidx), iters=3,
+                            warmup=1)
+                b_rows[b] = row
+        b_bits[name] = {"bound": rt.bounded_bound, "max_abs_err": worst,
+                        "bounded_plane_bytes": bounded_bytes,
+                        "compiled_plane_bytes": compiled_bytes}
+
+    # ---- 3b. kernel B on a multiclass model (the class loop over
+    # `cls_start`): the bounded rung with `compiled` on and "off" (both
+    # traverse the plan), at 8 and 16 bits, raw and converted; and the
+    # stacked program (kernel A, then kernel B through the identity
+    # gather) bitwise its plain version and the plan's bytes
+    mc = Booster(model_str=dict(goldens)["multiclass"])
+    mc_nf = max(mc.num_feature(),
+                int(mc.export_predict_arrays()["stacked"]["min_features"]))
+    mc_X = adversarial_rows(mc.trees, mc_nf, seed)
+    mc_conv = mc.objective_.convert_output
+    b_multiclass = {}
+    for bits in (8, 16):
+        for comp in ("on", "off"):
+            rt = ServingRuntime(mc, device=dev, precision="bounded",
+                                quant_bits=bits, compiled=comp)
+            st, d = rt._state, rt._state.dev
+            K = rt.num_class
+            _check(rt.rung == "bounded" and K > 1,
+                   f"serve_plane: multiclass bounded ({bits}, compiled "
+                   f"{comp}) on {rt.rung}, K = {K}")
+            worst = 0.0
+            for b in (1, 256, 4096):
+                Xb = np.resize(mc_X, (b, mc_nf))
+                Xd = rt._stage32(Xb, rt._chunk_rows(b))
+                slots = traverse_all(Xd, d.planes, st.meta)
+                args = (slots, d.qval, d.tile, d.scales, K)
+                k_out = predict.accumulate_slots_bounded(
+                    *args, gather_idx=d.gidx, groups=d.groups)
+                p_out = predict.accumulate_slots_bounded_plain(
+                    *args, gather_idx=d.gidx)
+                b_err = max(b_err, _max_abs_err(k_out.cpu().numpy(),
+                                                p_out.cpu().numpy()))
+                _check(_bits_equal(k_out.cpu().numpy(), p_out.cpu().numpy())
+                       and _bits_equal(mc_conv(k_out).cpu().numpy(),
+                                       mc_conv(p_out).cpu().numpy()),
+                       f"serve_plane: multiclass bounded sum != plain "
+                       f"({bits} bits, compiled {comp}, {b} rows)")
+                s_out = predict.predict_raw_ensemble_bounded(
+                    d.stacked, Xd, d.qval, d.tile, d.scales, K,
+                    groups=d.groups)
+                s_plain = predict.accumulate_slots_bounded_plain(
+                    predict.predict_leaf_ensemble_plain(d.stacked, Xd),
+                    d.qval, d.tile, d.scales, K)
+                _check(_bits_equal(s_out.cpu().numpy(),
+                                   s_plain.cpu().numpy())
+                       and _bits_equal(s_out.cpu().numpy(),
+                                       k_out.cpu().numpy()),
+                       f"serve_plane: the stacked bounded program != its "
+                       f"plain version or the plan's ({bits} bits, {b} "
+                       "rows)")
+                served = rt.predict(Xb, raw_score=True)
+                _check(_bits_equal(served, k_out[:b].cpu().numpy()),
+                       f"serve_plane: multiclass bounded rung != kernel B "
+                       f"({bits} bits, compiled {comp}, {b} rows)")
+                # the exact f64 sum over the same (f32-routed) slots:
+                # adversarial rows may route otherwise than the f64 walk
+                exact = predict.accumulate_slots_exact(
+                    slots, d.gidx, d.value_f64, K, d.stacked.get("cls"))
+                err = _max_abs_err(served, exact[:b].cpu().numpy())
+                worst = max(worst, err)
+                _check(err <= rt.bounded_bound,
+                       f"serve_plane: multiclass bounded error {err} above "
+                       f"the bound {rt.bounded_bound}")
+            b_multiclass[f"{bits}_compiled_{comp}"] = {
+                "bound": rt.bounded_bound, "max_abs_err_vs_exact": worst,
+                "exact_rung": rt.status()["exact_rung"]}
+
+    # ---- 4. the (q) model: feature 27 renamed 4096, past the plan's
+    # 12-bit field: served on the device-sum rung, and device_predict
+    # takes the stacked route
+    q_text = _widen_text(text, 4097, feature_map={nf - 1: 4096})
+    q_bst, q_cpu = Booster(model_str=q_text), Booster(model_str=q_text)
+    Xq = np.zeros((256, 4097))
+    Xq[:, :nf - 1] = reqs[256][:, :nf - 1]
+    Xq[:, 4096] = reqs[256][:, nf - 1]
+    q_host = q_bst.predict(Xq, raw_score=True)
+    _check(_bits_equal(q_host, host[256][0]),
+           "serve_plane: the (q) model's walk != the main model's")
+    (q_rt, q_rt_l) = _counted(lambda: ServingRuntime(q_bst, device=dev))
+    _check(q_rt.rung == "device_sum"
+           and q_rt.status()["cause"] == "plan_refused",
+           f"serve_plane: the (q) model is served on {q_rt.rung}")
+    q_raw, q_l = _counted(lambda: q_rt.predict(Xq, raw_score=True))
+    _check(_bits_equal(q_raw, q_host),
+           "serve_plane: the (q) model served != its f64 walk")
+    q_dp, q_dp_l = _counted(lambda: q_bst.predict(
+        Xq, raw_score=True, device_predict=True, device_type=dev.type))
+    _check(q_dp_l.get("device_predict_stacked") == 1
+           and q_dp_l.get("stacked") == 1,
+           f"serve_plane: (q) device_predict launches {q_dp_l}")
+    _check(_bits_equal(q_dp, q_cpu.predict(Xq, raw_score=True,
+                                           device_predict=True,
+                                           device_type="cpu")),
+           "serve_plane: (q) device_predict on the card != the CPU")
+    q_st = q_bst._device_predict_state(0, None, dev)
+    Xqd = torch.from_numpy(Xq.astype(np.float32)).to(dev)
+    _check(torch.equal(predict.predict_leaf_ensemble(q_st.stacked, Xqd),
+                       predict.predict_leaf_ensemble_plain(q_st.stacked,
+                                                           Xqd)),
+           "serve_plane: (q) stacked traversal != plain")
+    report["q_model"] = {"rung": q_rt.rung, "refresh_launches": q_rt_l,
+                         "request_launches": q_l,
+                         "device_predict_launches": q_dp_l,
+                         "max_abs_diff_device_predict_vs_walk":
+                             _max_abs_err(q_dp, q_host)}
+
+    # ---- 5. the front end: registry + batcher + HTTP under 8 threads
+    reg = ModelRegistry({"serve_warmup": True, "serve_max_wait_ms": 1.0,
+                         "serve_breaker_backoff_s": 0.2,
+                         "serve_queue_depth": 4096,
+                         "device_type": dev.type})
+    t0 = time.perf_counter()
+    client = ServingClient(registry=reg)
+    client.load("default", bst)
+    load_s = time.perf_counter() - t0
+    rt = reg.get("default").runtime
+    srv = make_server(client, "127.0.0.1", 0)
+    srv_t = threading.Thread(target=srv.serve_forever, daemon=True)
+    srv_t.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    pool = request_rows(np.random.RandomState(seed + 6), 4096)
+
+    def post(X, raw, timeout=120):
+        data = json.dumps({"rows": X.tolist(), "raw_score": raw}).encode()
+        req = urllib.request.Request(
+            base + "/predict", data=data,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read())
+
+    plan = []
+    prng = np.random.RandomState(seed + 7)
+    for t in range(http_threads):
+        for i in range(http_requests):
+            n = int(prng.randint(1, SERVE_HTTP_MAX_ROWS + 1))
+            lo = int(prng.randint(0, len(pool) - n + 1))
+            plan.append((t, lo, n, bool(i % 2)))
+    bodies = [json.dumps({"rows": pool[lo:lo + n].tolist(),
+                          "raw_score": raw}) for _, lo, n, raw in plan]
+    recorder_was = (SERVE_RECORDER.capacity, SERVE_RECORDER.sample_every)
+    SERVE_RECORDER.configure(capacity=len(plan) + 64, sample_every=1)
+
+    def in_process():
+        results = [None] * len(plan)
+        errors = []
+
+        def client_thread(t):
+            try:
+                for k, (tt, lo, n, raw) in enumerate(plan):
+                    if tt != t:
+                        continue
+                    t1 = time.perf_counter()
+                    body = post(pool[lo:lo + n], raw)
+                    results[k] = (time.perf_counter() - t1, body)
+            except Exception as e:  # reported after the join
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client_thread, args=(t,))
+                   for t in range(http_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        return results, errors
+
+    def out_of_process():
+        out = _http_clients_in_a_process(base, http_threads, [
+            (t, b) for (t, _, _, _), b in zip(plan, bodies)])
+        errors = [r for r in out if not isinstance(r, list)]
+        return ([(r[0], json.loads(r[1])) if isinstance(r, list) else None
+                 for r in out], errors)
+
+    def out_of_process_short_switch():
+        # the interpreter lock handed over every 0.2 ms, not 5 ms: how
+        # much of the server's time is waiting for the lock
+        was = sys.getswitchinterval()
+        sys.setswitchinterval(HTTP_SHORT_SWITCH_S)
+        try:
+            return out_of_process()
+        finally:
+            sys.setswitchinterval(was)
+
+    runs = {}
+    for name, run in (("clients_in_process", in_process),
+                      ("clients_in_a_process", out_of_process),
+                      ("clients_in_a_process_switch_0.2ms",
+                       out_of_process_short_switch)):
+        SERVE_RECORDER.clear()
+        rows0 = REGISTRY.counter("serve.rows").value
+        batches0 = REGISTRY.counter("serve.batches").value
+        t0 = time.perf_counter()
+        results, errors = run()
+        wall = time.perf_counter() - t0
+        _check(not errors and all(r is not None for r in results),
+               f"serve_plane: HTTP clients ({name}) failed: {errors[:3]}")
+        batches = REGISTRY.counter("serve.batches").value - batches0
+        served_rows = REGISTRY.counter("serve.rows").value - rows0
+        http_ms = [r[0] * 1e3 for r in results]
+        runs[name] = {
+            "wall_s": wall, "requests_per_s": len(plan) / wall,
+            "p50_ms": float(np.percentile(http_ms, 50)),
+            "p99_ms": float(np.percentile(http_ms, 99)),
+            "batches": batches,
+            "rows_per_batch": served_rows / max(batches, 1),
+            **_stage_medians(SERVE_RECORDER.snapshot()["requests"],
+                             results, http_ms)}
+        runs[name]["results"] = results
+    direct_ms, json_ms = [], []
+    for k, (_, lo, n, raw) in enumerate(plan):
+        t1 = time.perf_counter()
+        want_k = rt.predict(pool[lo:lo + n], raw_score=raw)
+        direct_ms.append((time.perf_counter() - t1) * 1e3)
+        # the handler's own Python work around the trace, alone: the
+        # body parsed into rows, the answer written as JSON
+        t1 = time.perf_counter()
+        np.asarray(json.loads(bodies[k])["rows"], np.float64)
+        json.dumps({"model": "default", "rows": n,
+                    "predictions": np.asarray(want_k).tolist(),
+                    "request_id": "0" * 32}).encode()
+        json_ms.append((time.perf_counter() - t1) * 1e3)
+        for name, r in runs.items():
+            got = np.asarray(r["results"][k][1]["predictions"],
+                             np.float64 if raw else np.float32)
+            _check(_bits_equal(got, want_k),
+                   f"serve_plane: HTTP response {k} ({name}) != the "
+                   "runtime's answer")
+    for r in runs.values():
+        del r["results"]
+    SERVE_RECORDER.configure(capacity=recorder_was[0],
+                             sample_every=recorder_was[1])
+    hz = json.loads(urllib.request.urlopen(base + "/healthz",
+                                           timeout=60).read())
+    metrics = urllib.request.urlopen(base + "/metrics",
+                                     timeout=60).read().decode()
+    _check(hz["status"] == "ok" and hz["rungs"]["default"]["rung"]
+           == "compiled" and hz["device_bytes"]["default"] > 0,
+           f"serve_plane: /healthz {hz}")
+    _check("lgbm_tpu_serve_rows" in metrics,
+           "serve_plane: /metrics lacks the serving counters")
+    report["http"] = {
+        "requests": len(plan), "threads": http_threads, "load_s": load_s,
+        **runs.pop("clients_in_process"), **runs,
+        "handler_json_p50_ms": float(np.median(json_ms)),
+        "handler_json_s_total": float(np.sum(json_ms)) / 1e3,
+        "direct_p50_ms": float(np.percentile(direct_ms, 50)),
+        "direct_p99_ms": float(np.percentile(direct_ms, 99)),
+        "healthz": hz, "metrics_lines": len(metrics.splitlines())}
+
+    # ---- 6. faults, armed after the load
+    X5 = pool[:5]
+    before = post(X5, True)["predictions"]
+    errs0 = REGISTRY.counter("serve.device_errors", rung="compiled").value
+    walks0 = sum(c.value for c in REGISTRY.counter_family(
+        "serve.host_walk"))
+    FAULTS.arm("serve.dispatch.compiled:error")
+    try:
+        post(X5, True)
+        _check(False, "serve_plane: an injected error did not fail the "
+               "request")
+    except urllib.error.HTTPError as e:
+        _check(e.code == 503 and e.headers.get("Retry-After") is not None,
+               f"serve_plane: injected error answered {e.code}")
+    states = rt.breaker_states()
+    _check(states["compiled"] == "open"
+           and all(s == "closed" for r, s in states.items()
+                   if r != "compiled"),
+           f"serve_plane: breakers after the fault {states}")
+    _check(REGISTRY.counter("serve.device_errors", rung="compiled").value
+           == errs0 + 1 and sum(c.value for c in REGISTRY.counter_family(
+               "serve.host_walk")) == walks0,
+           "serve_plane: the fault was not counted, or a lower rung answered")
+    FAULTS.disarm()
+    time.sleep(0.25)                     # past the 0.2 s backoff
+    try:
+        post(X5, True)                   # fails fast, starts the re-probe
+        _check(False, "serve_plane: a request passed an open breaker")
+    except urllib.error.HTTPError as e:
+        _check(e.code == 503, f"serve_plane: open breaker answered {e.code}")
+    rt.join_reprobes(timeout=120)
+    _check(rt.breaker_states()["compiled"] == "closed",
+           "serve_plane: the re-probe did not close the breaker")
+    after = post(X5, True)["predictions"]
+    _check(after == before, "serve_plane: bytes after recovery differ")
+    h_rt = ServingRuntime(bst, device=dev, name="watchdog",
+                          dispatch_timeout_ms=500.0)
+    fired0 = REGISTRY.counter("serve.watchdog.fired",
+                              site="serve.dispatch.compiled").value
+    FAULTS.arm("serve.dispatch.compiled:hang")
+    try:
+        try:
+            h_rt.predict(X5)
+            _check(False, "serve_plane: a hang was not bounded")
+        except ServingDeviceError as e:
+            _check(isinstance(e.__cause__, DeviceTimeoutError),
+                   f"serve_plane: hang raised {e.__cause__!r}")
+    finally:
+        FAULTS.disarm()
+    _check(REGISTRY.counter("serve.watchdog.fired",
+                            site="serve.dispatch.compiled").value
+           == fired0 + 1, "serve_plane: the watchdog did not count")
+    report["faults"] = {"error_http": 503, "open_then_recovered": True,
+                        "bytes_after_recovery_equal": True,
+                        "hang_bounded_ms": 500.0}
+    srv.shutdown()
+    srv.server_close()
+    srv_t.join(60)
+    client.close()
+
+    report["kernels_by_rows"] = {"stacked_slots": {str(b): a_rows[b]
+                                                   for b in rows},
+                                 "accumulate_bounded": {
+                                     str(b): b_rows[b] for b in rows}}
+    report["stacked_golden"] = a_golden
+    report["bounded"] = b_bits
+    report["bounded_multiclass"] = b_multiclass
+    report["phase_s"] = time.perf_counter() - t_phase
+    _emit(report)
+    big_a, big_b = a_rows[big], b_rows[big]
+    return [
+        {"name": "stacked_slots", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/stacked.cu",
+         "replaces": "lightgbm_tpu/ops/predict.py:114",
+         "launches": launches["stacked"], "max_abs_err": float(a_err),
+         "ms": big_a.get("ms"), "plain_ms": a_plain_ms,
+         "bound_ms": big_a["bound_ms"], "bound_by": big_a["bound_by"],
+         "library_ms": None,
+         "library_note": "no torch call walks trees", "rows": big,
+         "ms_by_rows": {str(b): a_rows[b].get("ms") for b in rows},
+         "cold_ms_by_rows": {str(b): a_rows[b].get("cold_ms")
+                             for b in rows},
+         "bound_ms_by_rows": {str(b): a_rows[b]["bound_ms"] for b in rows}},
+        {"name": "accumulate_bounded", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/bounded.cu",
+         "replaces": "lightgbm_tpu/ops/predict.py:567",
+         "launches": launches["bounded"], "max_abs_err": b_err,
+         "ms": big_b.get("ms"), "plain_ms": big_b.get("plain_ms"),
+         "bound_ms": big_b["bound_ms"], "bound_by": big_b["bound_by"],
+         "library_ms": None,
+         "library_note": "no torch call sums per (tile, class) and "
+                         "combines in this order", "rows": big,
+         "ms_by_rows": {str(b): b_rows[b].get("ms") for b in rows},
+         "cold_ms_by_rows": {str(b): b_rows[b].get("cold_ms")
+                             for b in rows},
+         "bound_ms_by_rows": {str(b): b_rows[b]["bound_ms"] for b in rows},
+         "max_abs_err_vs_exact": {n: v["max_abs_err"]
+                                  for n, v in b_bits.items()},
+         "published_bound": {n: v["bound"] for n, v in b_bits.items()}},
+    ]
+
+
+def _leaf_visits(ex, slots):
+    """Internal nodes visited by the rows of `slots` [T, B]: the sum of
+    their leaves' depths."""
+    trees = ex["trees"]
+    nl = ex["leaf_values"].shape[1]
+    depth = _leaf_depths(trees, nl)
+    s = slots.cpu().numpy().clip(0, nl - 1)
+    return int(np.take_along_axis(depth, s, axis=1).sum())
+
+
 def _without_params(text):
     """A model text less its `[key: value]` parameter lines."""
     return "\n".join(ln for ln in text.splitlines() if not ln.startswith("["))
@@ -4352,6 +5259,7 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                  "train_api": lambda d, s, b: phase_train_api(
                      d(), _train_modules()),
                  "predict_api": lambda d, s, b: phase_predict_api(s),
+                 "serve_plane": lambda d, s, b: phase_serve_plane(s),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
                                              phase_compare_serving(s, b)),
                  "compare_serving":
@@ -4443,6 +5351,7 @@ def main(argv=None) -> int:
                 k["predict_api_launches"] = predict_launches[
                     k["name"].split("_")[0]]
         kernels.append(f32_sum)
+        kernels += phase_serve_plane(args.seed)
         link = phase_objective(args.seed)
         link["launches"] = link_launches
         link["max_abs_err"] = max(link["max_abs_err"], link_err)

@@ -130,16 +130,24 @@ class _PendingChunk(NamedTuple):
     valid: Tuple                    # per valid set, [C, ...] scores
 
 
+#: `device_predict` chunks routed through the stacked-plane traversal
+#: (a model the compiled plan refuses: ROADMAP Queue 3 (q))
+DEVICE_PREDICT_STACKED = 0
+
+
 class _DevicePredict(NamedTuple):
-    """`device_predict`'s compiled tree slice on one device."""
-    planes: Tuple           # per depth bucket (words, kids, pal, catw)
+    """`device_predict`'s tree slice on one device: the compiled plan's
+    planes, or for a model the plan refuses the stacked planes alone
+    (`planes` None)."""
+    planes: Optional[Tuple]  # per depth bucket (words, kids, pal, catw)
     meta: Tuple             # per depth bucket (depth, mw)
-    gidx: torch.Tensor      # [T] int32: tree t's row in the plan's slots
+    gidx: torch.Tensor      # [T] int32: tree t's row in the slots
     cls: Optional[torch.Tensor]   # [T] int32 class of tree t (K > 1)
     values: torch.Tensor    # [T, NL] float32 leaf values
     min_features: int
     num_class: int
     average_factor: int     # random-forest divisor (1: a plain sum)
+    stacked: Optional[Dict]  # the stacked planes (the stacked route)
 
 
 def stage_rows(X: np.ndarray, device) -> torch.Tensor:
@@ -510,6 +518,9 @@ class Booster:
         self._loaded_feature_infos: List[str] = []
         self._export_cache = None
         self._device_predict_cache = None
+        #: bumped by every change to the trees (`_model_changed`); the
+        #: serving runtime compares it with its export's to say `stale`
+        self._model_version = 0
         self._inflight: "deque[_PendingChunk]" = deque()
         self.train_set: Optional[Dataset] = None
         self.valid_sets: List[Dataset] = []
@@ -880,7 +891,7 @@ class Booster:
             if it == 0 and abs(self._init_scores[k]) > 1e-35:
                 tree.add_bias(self._init_scores[k])
             self.trees.append(tree)
-        self._export_cache = None
+        self._model_changed()
         self.cur_iter += 1
         if all_const:
             log.warning("Stopped training because there are no more leaves "
@@ -981,7 +992,7 @@ class Booster:
                                               subtract=True, bias=bias)
         del self.trees[-K:]
         self.cur_iter -= 1
-        self._export_cache = None
+        self._model_changed()
         return self
 
     # ------------------------------------------------------ evaluation
@@ -1172,7 +1183,7 @@ class Booster:
                     score = score + contrib
                 else:
                     score[:, k] += contrib
-        new_bst._export_cache = None
+        new_bst._model_changed()
         return new_bst
 
     def set_leaf_output(self, tree_id: int, leaf_id: int,
@@ -1183,7 +1194,7 @@ class Booster:
         self.trees[tree_id].leaf_value[leaf_id] = float(value)
         self._scores_stale = True
         self._last_contribs = []
-        self._export_cache = None
+        self._model_changed()
         return self
 
     def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
@@ -1206,7 +1217,7 @@ class Booster:
                 blocks[end:]
             self.trees = [t for b in reordered for t in b]
             self._last_contribs = []
-            self._export_cache = None
+            self._model_changed()
         return self
 
     # ------------------------------------------------------ model text
@@ -1252,7 +1263,7 @@ class Booster:
         params.update(tok.split(":", 1) for tok in toks[1:] if ":" in tok)
         params.setdefault("verbosity", -1)
         self.config = Config(params)
-        self._export_cache = None
+        self._model_changed()
         text = "\n".join(lines[i:])
         self.trees = []
         for section in text.split("Tree=")[1:]:
@@ -1670,7 +1681,12 @@ class Booster:
         """The compiled plan of the tree slice on `device`, cached with
         the slice's export (`export_predict_arrays`, which every change
         to the model drops).  Random-forest texts plan with averaging
-        off: the division comes after the f32 sum, on the host."""
+        off: the division comes after the f32 sum, on the host.  A model
+        the plan refuses (`PlanNotCompilable`: a split feature past the
+        12-bit field, a palette or bitset past 16 bits) takes the stacked
+        route instead, chosen here from the model before anything is
+        launched: the stacked-plane traversal, then the same f32 sum with
+        the slots in boosting order."""
         if num_iteration is None:
             num_iteration = self.best_iteration \
                 if self.best_iteration > 0 else -1
@@ -1682,21 +1698,24 @@ class Booster:
         from .compiler import PlanNotCompilable, build_plan
         from .compiler.kernel import device_planes
         from .serving.runtime import DEFAULT_TILE_KB
+        K = ex["num_class"]
+        stacked = ex["stacked"]
         try:
             plan = build_plan(dict(ex, average_factor=1),
                               tile_vmem_kb=DEFAULT_TILE_KB)
-        except PlanNotCompilable as e:
-            raise LightGBMError(
-                f"device_predict cannot compile this model: {e} (ROADMAP "
-                f"Queue 3 (q): the port's plan has limits the reference's "
-                f"scan does not; predict without device_predict)") from e
-        planes, meta = device_planes(plan, device)
-        K = ex["num_class"]
-        stacked = ex["stacked"]
+        except PlanNotCompilable:
+            plan = None
+        if plan is None:
+            planes, meta = None, ()
+            gidx = torch.arange(len(ex["trees"]), dtype=torch.int32,
+                                device=device)
+        else:
+            planes, meta = device_planes(plan, device)
+            gidx = torch.from_numpy(plan.gather_idx).to(device)
         state = _DevicePredict(
-            planes, meta, torch.from_numpy(plan.gather_idx).to(device),
-            stacked["cls"] if K > 1 else None, stacked["value"],
-            int(stacked["min_features"]), K, ex["average_factor"])
+            planes, meta, gidx, stacked["cls"] if K > 1 else None,
+            stacked["value"], int(stacked["min_features"]), K,
+            ex["average_factor"], None if plan is not None else stacked)
         self._device_predict_cache = (ex, state)
         return state
 
@@ -1711,13 +1730,16 @@ class Booster:
         rows of 500 trees would take 4 GB); rows are independent, so the
         chunk does not change a bit.  A chunk is staged by `stage_rows`,
         and on the card runs one standalone traverse (`csrc/traverse.cu`) a
-        depth bucket and one f32 sum (`csrc/accumulate.cu`), then with
-        `convert` the objective's link (`csrc/links.cu`).  On the CPU
+        depth bucket, or on the stacked route one stacked-plane traversal
+        (`csrc/stacked.cu`), and one f32 sum (`csrc/accumulate.cu`), then
+        with `convert` the objective's link (`csrc/links.cu`).  On the CPU
         the same program runs the plain versions.  Raw scores are the
         f64 cast of the f32 sums (divided in f64 by the iterations of a
         random forest, as the reference does); converted ones the link of
         their f32 cast."""
+        global DEVICE_PREDICT_STACKED
         from .compiler.kernel import predict_raw_f32
+        from .ops.predict import accumulate_slots_f32, predict_leaf_ensemble
         st = self._device_predict_state(start_iteration, num_iteration,
                                         device)
         K = st.num_class
@@ -1729,9 +1751,16 @@ class Booster:
         outs = []
         for lo in range(0, n, DEVICE_PREDICT_CHUNK):
             Xc = X[lo:lo + DEVICE_PREDICT_CHUNK]
-            sums = predict_raw_f32(
-                stage_rows(Xc, device), st.planes, st.gidx, st.values,
-                st.cls, meta=st.meta, n_class=K)[:Xc.shape[0]]
+            Xd = stage_rows(Xc, device)
+            if st.planes is None:
+                DEVICE_PREDICT_STACKED += 1
+                sums = accumulate_slots_f32(
+                    predict_leaf_ensemble(st.stacked, Xd), st.gidx,
+                    st.values, n_class=K, cls=st.cls)[:Xc.shape[0]]
+            else:
+                sums = predict_raw_f32(
+                    Xd, st.planes, st.gidx, st.values, st.cls, meta=st.meta,
+                    n_class=K)[:Xc.shape[0]]
             if st.average_factor != 1:
                 raw = sums.cpu().numpy().astype(np.float64) \
                     / st.average_factor
@@ -1806,6 +1835,12 @@ class Booster:
         out["min_features"] = int(feat.max()) + 1 if feat.size else 0
         return out
 
+    def _model_changed(self) -> None:
+        """The trees changed: drop the cached export (and so the device
+        predict state keyed on it) and bump `_model_version`."""
+        self._export_cache = None
+        self._model_version += 1
+
     def export_predict_arrays(self, start_iteration: int = 0,
                               num_iteration: Optional[int] = None,
                               device="cpu") -> Dict:
@@ -1823,6 +1858,7 @@ class Booster:
           trees          — the resolved host Tree slice
           num_class      — trees per iteration (K)
           average_factor — RF averaging divisor (1 = plain sum)
+          version        — `_model_version` at export time
         """
         trees = self._slice_trees(start_iteration, num_iteration)
         device = torch.device(device)
@@ -1841,6 +1877,6 @@ class Booster:
             if self._average_output and len(trees) >= K else 1
         export = {"stacked": stacked, "leaf_values": leaf_values,
                   "value_f64": value_f64, "trees": trees, "num_class": K,
-                  "average_factor": avg}
+                  "average_factor": avg, "version": self._model_version}
         self._export_cache = (key, export)
         return export

@@ -5,9 +5,11 @@
                 and its inverse so the f64 accumulation stays in
                 boosting order.
   quantize.py — pack each node into an int32 node word plus an int32
-                child word, with a per-tile f32 threshold palette.
-  kernel.py   — the traverse kernel's wrapper and its plain version,
-                and `compiled_predict`, the whole device program.
+                child word, with a per-tile f32 threshold palette;
+                `pack_bounded`, the bounded tier's quantized leaf values.
+  kernel.py   — the serving kernels' wrappers and plain versions, and
+                `compiled_predict` / `compiled_predict_bounded`, the
+                device programs over the plan.
   _build.py   — builds the CUDA sources in `csrc/` on first use.
 """
 from .plan import (CompiledPlan, PlanNotCompilable, build_plan,

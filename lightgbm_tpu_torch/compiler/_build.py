@@ -17,7 +17,9 @@ accumulations (`accumulate`: the f64 and the f32 sum), the fused serving kernel 
 `-fmad=false` so that no add is ever contracted; the histogram
 kernels only add (K1) or add integers and scale with `__fmul_rn` (K4),
 so contraction cannot touch them; the threefry draws (`threefry`)
-are integer arithmetic and one exact f32 subtract.  A source may
+are integer arithmetic and one exact f32 subtract.  The stacked-plane
+traversal (`stacked`) and the bounded sum (`bounded`, whose f32 combine
+is explicit `__fmul_rn` / `__fmaf_rn`) add `-fmad=false` too.  A source may
 include the shared headers `csrc/*.cuh` (the histograms' first stages:
 K1's, which K2 shares, and K4's, which K5 shares; the serving kernels'
 walk and ordered sum, `forest_common.cuh`); they are part of every
@@ -51,7 +53,8 @@ _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _EXTRA_FLAGS = {"traverse": [], "accumulate": ["-fmad=false"],
                 "serve": ["-fmad=false"], "histogram": [], "histogram_q": [],
                 "fused_split": ["-fmad=false"], "links": ["-fmad=false"],
-                "threefry": []}
+                "threefry": [], "stacked": ["-fmad=false"],
+                "bounded": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,6 +90,12 @@ _SIGNATURES = {
     "threefry": [("lgbt_threefry",
                   [_P, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong,
                    ctypes.c_longlong, _I, _P, _P])],
+    "stacked": [("lgbt_stacked_slots",
+                 [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                  _P])],
+    "bounded": [("lgbt_accumulate_bounded",
+                 [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                  _I, _P, _P])],
 }
 
 

@@ -17,6 +17,10 @@ The port's counterpart of `lightgbm_tpu/compiler/kernel.py`.
 * `compiled_predict` — the compiled path's device program: the fused
   entry when the records are given, else every bucket's traverse and
   the standalone sum (the JAX package's program).
+* `compiled_predict_bounded` — the bounded rung's program over the
+  plan: every bucket's traverse, then `ops.predict.
+  accumulate_slots_bounded` reads each tree's slots at its plan row
+  (the JAX package's `:200 compiled_predict_bounded`).
 * `predict_raw_f32` — `Booster.predict(device_predict=True)`'s device
   program: every bucket's traverse, then the f32 boosting-order sum
   (`ops.predict.accumulate_slots_f32`), the JAX package's
@@ -33,7 +37,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops.predict import (_ZERO_THRESHOLD, accumulate_slots_exact,
+from ..ops.predict import (_ZERO_THRESHOLD, BoundedGroups,
+                           accumulate_slots_bounded, accumulate_slots_exact,
                            accumulate_slots_f32)
 from ..utils.log import LightGBMError
 from .records import (ForestPlan, ForestRecords, RowPlan, forest_plan,
@@ -374,6 +379,28 @@ def compiled_predict(X: torch.Tensor, planes: Sequence[Planes],
     if convert is None:
         return raw
     return convert(raw.to(torch.float32))
+
+
+def compiled_predict_bounded(X: torch.Tensor, planes: Sequence[Planes],
+                             gather_idx: torch.Tensor, qval: torch.Tensor,
+                             tile_of_tree: torch.Tensor,
+                             scales: torch.Tensor, *,
+                             meta: Sequence[Tuple[int, int]],
+                             n_class: int = 1,
+                             convert: Optional[Callable] = None,
+                             groups: Optional[BoundedGroups] = None
+                             ) -> torch.Tensor:
+    """The bounded twin of `compiled_predict`'s unfused program: every
+    bucket's traverse (the standalone K6, one launch a bucket on the
+    card), then `accumulate_slots_bounded` (one launch) over the plan's
+    slots, tree t's at row `gather_idx[t]`: f32 scores within the
+    published bound ([B] or [B, K]), or `convert` of them.  Routing is
+    the compiled rung's, bitwise the stacked planes', so the bytes equal
+    `ops.predict.predict_raw_ensemble_bounded`'s."""
+    out = accumulate_slots_bounded(traverse_all(X, planes, meta), qval,
+                                   tile_of_tree, scales, n_class,
+                                   gather_idx=gather_idx, groups=groups)
+    return out if convert is None else convert(out)
 
 
 def predict_raw_f32(X: torch.Tensor, planes: Sequence[Planes],

@@ -26,8 +26,15 @@ PATTERNS, not `threshold_bin`: text-loaded models carry zero bins for
 numeric nodes until `recompute_threshold_bins`, and serving must not
 depend on train-time state.)
 
-numpy-only — see plan.py.  The bounded tier's `pack_bounded` is not
-ported yet.
+The bounded serving tier (`serve_precision=bounded`) extends the same
+scheme to leaf VALUES: `pack_bounded` (a copy of the JAX package's
+`lightgbm_tpu/compiler/quantize.py:161`) emits per-tile-scaled
+int8/int16 leaf-value planes with a worst-case error bound computed at
+pack time.  This plane is lossy by design: the bound, not bit parity,
+is the published contract, and the serving runtime's probe measures the
+real error against it before the rung may serve.
+
+numpy-only — see plan.py.
 """
 from __future__ import annotations
 
@@ -149,3 +156,96 @@ def pack_bucket(trees, bucket, mw: int) -> Tuple[Dict, List[Dict]]:
     if mw:
         planes["catw"] = catw.view(np.int32)
     return planes, stats
+
+
+def pack_bounded(trees, plan, leaf_values: np.ndarray, num_class: int,
+                 bits: int = 8) -> Dict:
+    """Quantize the f64 leaf-value table into per-tile-scaled integer
+    codes plus a worst-case max-abs-error bound (the bounded serving
+    rung's published contract).
+
+    Per tile t the scale is `max|leaf value in t| / qmax` (stored f32 —
+    the combine multiplies in f32, so the bound must be computed
+    against the f32 scale actually used, not the f64 ideal).  Codes are
+    round-to-nearest, clipped to ±qmax.  The bound is, per class, the
+    SUM over that class's trees of the tree's measured max per-leaf
+    representation error (each row gathers exactly one leaf per tree),
+    plus a conservative slop term for the f32 combine arithmetic:
+    int32 partials cast exactly to f32 under the `qmax *
+    trees_per_tile_class < 2^24` guard (refused otherwise), leaving one
+    rounding per `partial * scale` product and per addition of the
+    S-term ascending-tile sum — bounded by `4 * (S + 1) * 2^-24 *
+    max_k Σ_t scale_t * qmax * n_trees(t, k)`.
+
+    Returns planes in BOOSTING order (aligned with the exact ladder's
+    `leaf_values` layout, so the same gathered slots index them):
+      qval         [T, NL] int8/int16 leaf codes
+      tile_of_tree [T] i32 global tile index (plan bucket/tile order)
+      scales       [S] f32 per-tile scales
+      bound        float   worst-case |bounded_f32 - exact_f64| on raw
+                           scores, any row, any class
+      bits, n_tiles, bytes — plane accounting (`device_bytes`).
+
+    Raises `PlanNotCompilable` for configurations outside the format
+    (bad bit width, non-finite leaf values, partial-overflow guard); the
+    serving runtime then serves its exact rung and counts
+    `serve.bounded_disabled{cause=format}`.
+    """
+    if bits not in (8, 16):
+        raise PlanNotCompilable(
+            f"serve_quant_bits must be 8 or 16, got {bits}")
+    qmax = (1 << (bits - 1)) - 1
+    dtype = np.int8 if bits == 8 else np.int16
+    t_trees, nl = leaf_values.shape
+    if not np.all(np.isfinite(leaf_values)):
+        raise PlanNotCompilable(
+            "non-finite leaf values cannot be bounded-quantized")
+
+    tiles = [tile for bucket in plan.buckets for tile in bucket.tiles]
+    n_tiles = len(tiles)
+    tile_of_tree = np.full(t_trees, -1, np.int32)
+    scales = np.zeros(n_tiles, np.float32)
+    qval = np.zeros((t_trees, nl), dtype)
+    tree_err = np.zeros(t_trees, np.float64)
+    for s, tile in enumerate(tiles):
+        vmax = 0.0
+        for i in tile:
+            k = max(int(trees[i].num_leaves), 1)
+            vmax = max(vmax, float(np.max(np.abs(leaf_values[i, :k]))))
+        # all-zero tiles quantize to all-zero codes under scale 1.0
+        # (zero error); the f32 cast is what the combine really uses
+        scale = np.float32(vmax / qmax) if vmax > 0.0 else np.float32(1.0)
+        if not np.isfinite(scale) or float(scale) == 0.0:
+            raise PlanNotCompilable(
+                f"tile {s}: degenerate quantization scale {scale!r}")
+        scales[s] = scale
+        for i in tile:
+            tile_of_tree[i] = s
+            k = max(int(trees[i].num_leaves), 1)
+            v = leaf_values[i, :k]
+            q = np.clip(np.rint(v / np.float64(scale)), -qmax, qmax)
+            qval[i, :k] = q.astype(dtype)
+            tree_err[i] = float(np.max(np.abs(v - np.float64(scale) * q)))
+    if np.any(tile_of_tree < 0):
+        raise AssertionError("bounded packer missed a tree")  # impossible
+
+    # int32 partial -> f32 cast must be exact at the combine: the
+    # per-(tile, class) sum of codes is bounded by qmax * member count
+    counts = np.zeros((n_tiles, num_class), np.int64)
+    for i in range(t_trees):
+        counts[tile_of_tree[i], i % num_class] += 1
+    if int(np.max(counts, initial=0)) * qmax >= (1 << 24):
+        raise PlanNotCompilable(
+            f"tile of {int(np.max(counts))} same-class trees at qmax "
+            f"{qmax} overflows the exact-f32 range of int32 partials")
+
+    per_class = np.zeros(num_class, np.float64)
+    for i in range(t_trees):
+        per_class[i % num_class] += tree_err[i]
+    amax = (scales.astype(np.float64)[:, None] * qmax * counts).sum(axis=0)
+    slop = 4.0 * (n_tiles + 1) * 2.0 ** -24 * amax
+    bound = float(np.max(per_class + slop))
+    return {"qval": qval, "tile_of_tree": tile_of_tree, "scales": scales,
+            "bound": bound, "bits": int(bits), "n_tiles": int(n_tiles),
+            "bytes": int(qval.nbytes + tile_of_tree.nbytes
+                         + scales.nbytes)}

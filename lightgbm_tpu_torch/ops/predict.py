@@ -2,12 +2,16 @@
 
 The port's counterpart of `lightgbm_tpu/ops/predict.py`, for serving:
 
-* `_leaf_slots` / `predict_leaf_ensemble` — the plain routing
-  reference over the stacked [T, NI] planes (`Booster.export_predict_
-  arrays`): every tree and every row step together, one depth level per
-  iteration.  Decision semantics mirror tree.h `NumericalDecision` /
-  `CategoricalDecision` in f32, as the JAX package's `_leaf_slots` does.
-  The serving runtime's parity probe routes its probe batch with it.
+* `predict_leaf_ensemble` — the [T, N] int32 leaf slots of every tree
+  of the stacked [T, NI] planes (`Booster.export_predict_arrays`), the
+  JAX package's `:114 _leaf_slots` / `:632 predict_leaf_ensemble` (an
+  XLA scan there).  CUDA tensors launch the stacked-plane traversal
+  `csrc/stacked.cu`; CPU tensors run the plain version
+  `predict_leaf_ensemble_plain` (`_leaf_slots`: every tree and every row
+  step together, one depth level per iteration, decision semantics of
+  tree.h `NumericalDecision` / `CategoricalDecision` in f32).  The
+  serving runtime's parity probes route their probe batch with the plain
+  version.
 * `accumulate_slots_exact` — the boosting-order f64 sum of pre-routed
   leaf slots.  The JAX package adds binary64 in software out of u32 ops
   (the TPU has no f64); here a CUDA kernel (`csrc/accumulate.cu`, the
@@ -24,11 +28,23 @@ The port's counterpart of `lightgbm_tpu/ops/predict.py`, for serving:
   one round-to-nearest-even add a tree.  CUDA tensors go through the f32
   instance of `csrc/accumulate.cu`, CPU tensors through its plain
   version `accumulate_slots_f32_plain`.
+* `accumulate_slots_bounded` — the bounded rung's sum (the JAX
+  package's `:567 accumulate_slots_bounded`): int8 / int16 leaf codes
+  summed exactly in int32 per (tile, class), then combined with the f32
+  tile scales in ascending tile order, in the arithmetic XLA's CPU build
+  gives that combine (`_combine_tiles`).  CUDA tensors launch
+  `csrc/bounded.cu`, CPU tensors run `accumulate_slots_bounded_plain`.
+* `predict_raw_ensemble_exact` / `predict_raw_ensemble_bounded` — the
+  device-sum and the bounded program over the stacked planes: the
+  stacked-plane traversal, then the exact f64 or the bounded sum.  The
+  serving runtime's bounded rung runs `compiler.kernel.
+  compiled_predict_bounded` over the plan instead; the stacked program
+  is the JAX package's counterpart, bytewise the same.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,6 +55,10 @@ from ..utils.log import LightGBMError
 ACCUMULATE_LAUNCHES = 0
 #: f32 accumulate-kernel launches made by `accumulate_slots_f32`
 ACCUMULATE_F32_LAUNCHES = 0
+#: stacked-plane traversal launches made by `predict_leaf_ensemble`
+STACKED_LAUNCHES = 0
+#: bounded-sum launches made by `accumulate_slots_bounded`
+ACCUMULATE_BOUNDED_LAUNCHES = 0
 
 #: missing-type Zero's threshold (tree.h kZeroThreshold), compared in f32
 _ZERO_THRESHOLD = float(np.float32(1e-35))
@@ -53,7 +73,10 @@ def _leaf_slots(node_feat, node_thr, node_dtype, node_left, node_right, X,
     default_left; categorical nodes (decision_type bit 0) test the
     category's bit in `cat_words` [T, NI, MW] (int32 bit patterns) with
     the double-space range guard: NaN, out-of-span and v <= -1 go right.
-    The loop ends when every cursor has reached a leaf."""
+    A feature id outside [0, F) reads 0.0 and a node id at or past NI
+    routes to leaf 0 (malformed planes; `csrc/stacked.cu` has the same
+    rules).  The loop ends when every cursor has reached a leaf, or after
+    NI + 1 steps."""
     one = node_feat.dim() == 1
     if one:
         node_feat, node_thr, node_dtype, node_left, node_right = (
@@ -68,13 +91,18 @@ def _leaf_slots(node_feat, node_thr, node_dtype, node_left, node_right, X,
     nd = torch.zeros((t_trees, n), dtype=torch.int64, device=X.device)
     tree_ix = torch.arange(t_trees, device=X.device)[:, None]
     zero = torch.zeros((), dtype=torch.float32, device=X.device)
+    n_feat = X.shape[1]
     for _ in range(ni + 1):
+        nd = torch.where(nd >= ni, -1, nd)
         active = nd >= 0
         if not bool(active.any()):
             break
         idx = torch.where(active, nd, 0)
         f = torch.gather(node_feat, 1, idx).long()
-        fval = torch.gather(xt, 0, f)
+        f_ok = (f >= 0) & (f < n_feat)
+        fval = torch.gather(xt, 0, torch.where(f_ok, f, 0)) if n_feat \
+            else zero.expand(f.shape)
+        fval = torch.where(f_ok, fval, zero)
         dt = torch.gather(node_dtype, 1, idx)
         missing_type = (dt >> 2) & 3
         default_left = (dt & 2) != 0
@@ -100,12 +128,79 @@ def _leaf_slots(node_feat, node_thr, node_dtype, node_left, node_right, X,
     return slots[0] if one else slots
 
 
-def predict_leaf_ensemble(stacked: Dict, X: torch.Tensor) -> torch.Tensor:
-    """[T, N] int32 leaf slots of every stacked tree for rows X."""
+def predict_leaf_ensemble_plain(stacked: Dict, X: torch.Tensor
+                                ) -> torch.Tensor:
+    """Plain version of the stacked-plane traversal: [T, N] int32 leaf
+    slots of every stacked tree for rows X [N, F] f32 (`_leaf_slots`)."""
     return _leaf_slots(stacked["feat"], stacked["thr"], stacked["dtype"],
                        stacked["left"], stacked["right"], X,
                        cat_words=stacked.get("cat_words"),
                        cat_nwords=stacked.get("cat_nwords"))
+
+
+def _check_stacked(stacked: Dict, X: torch.Tensor) -> None:
+    if X.dim() != 2 or X.dtype != torch.float32:
+        raise LightGBMError("X must be [N, F] float32")
+    feat = stacked["feat"]
+    if feat.dim() != 2:
+        raise LightGBMError("stacked planes must be [T, NI]")
+    for k in ("feat", "dtype", "left", "right"):
+        if stacked[k].shape != feat.shape or stacked[k].dtype != torch.int32:
+            raise LightGBMError(f"stacked {k} must be [T, NI] int32")
+    if stacked["thr"].shape != feat.shape \
+            or stacked["thr"].dtype != torch.float32:
+        raise LightGBMError("stacked thr must be [T, NI] float32")
+    cw = stacked.get("cat_words")
+    if cw is not None and (cw.dim() != 3 or cw.shape[:2] != feat.shape
+                           or cw.dtype != torch.int32
+                           or stacked["cat_nwords"].shape != feat.shape):
+        raise LightGBMError("cat_words must be [T, NI, MW] int32 beside "
+                            "cat_nwords [T, NI]")
+    tensors = [X] + [stacked[k] for k in ("feat", "thr", "dtype", "left",
+                                          "right")]
+    if cw is not None:
+        tensors += [cw, stacked["cat_nwords"]]
+    if any(t.device != X.device for t in tensors):
+        raise LightGBMError("traversal inputs lie on different devices")
+
+
+def predict_leaf_ensemble(stacked: Dict, X: torch.Tensor) -> torch.Tensor:
+    """[T, N] int32 leaf slots of every stacked tree for rows X [N, F]
+    f32.  CUDA tensors launch `csrc/stacked.cu` (one thread a (tree,
+    row)); CPU tensors run `predict_leaf_ensemble_plain`."""
+    global STACKED_LAUNCHES
+    if X.device.type == "cpu":
+        return predict_leaf_ensemble_plain(stacked, X)
+    if X.device.type != "cuda":
+        raise LightGBMError(f"no traversal kernel for {X.device}")
+    _check_stacked(stacked, X)
+    cw = stacked.get("cat_words")
+    planes = [X, stacked["feat"], stacked["thr"], stacked["dtype"],
+              stacked["left"], stacked["right"]]
+    if cw is not None:
+        planes += [cw, stacked["cat_nwords"]]
+    if not all(t.is_contiguous() for t in planes):
+        raise LightGBMError("traversal inputs must be contiguous")
+    from ..compiler import _build
+    lib = _build.load("stacked")
+    t_trees, ni = stacked["feat"].shape
+    n, f = X.shape
+    out = torch.empty((t_trees, n), dtype=torch.int32, device=X.device)
+    if n == 0 or t_trees == 0:
+        return out
+    rc = _build.on_stream(X.device, lambda stream: lib.lgbt_stacked_slots(
+        X.data_ptr(), n, f, stacked["feat"].data_ptr(),
+        stacked["thr"].data_ptr(), stacked["dtype"].data_ptr(),
+        stacked["left"].data_ptr(), stacked["right"].data_ptr(),
+        None if cw is None else cw.data_ptr(),
+        None if cw is None else stacked["cat_nwords"].data_ptr(), t_trees,
+        ni, 0 if cw is None else cw.shape[2], out.data_ptr(),
+        ctypes.c_void_p(stream)))
+    if rc != 0:
+        raise LightGBMError(f"stacked traversal launch failed: CUDA error "
+                            f"{rc}")
+    STACKED_LAUNCHES += 1
+    return out
 
 
 def _check_accumulate(slots, gather_idx, leaf_values, n_class, cls,
@@ -251,3 +346,210 @@ def accumulate_slots_f32(slots: torch.Tensor, gather_idx: torch.Tensor,
     if out.shape[0]:
         ACCUMULATE_F32_LAUNCHES += 1
     return out
+
+
+def _identity_gather(t_trees: int, device) -> torch.Tensor:
+    """gather_idx of slots in boosting order: row t for tree t."""
+    return torch.arange(t_trees, dtype=torch.int32, device=device)
+
+
+def predict_raw_ensemble_exact(stacked: Dict, X: torch.Tensor,
+                               value_f64: torch.Tensor, n_class: int = 1,
+                               convert: Optional[Callable] = None
+                               ) -> torch.Tensor:
+    """The device-sum program (the JAX package's `predict_raw_ensemble_
+    exact`): `predict_leaf_ensemble`, then `accumulate_slots_exact` over
+    the slots in boosting order.  f64 raw sums ([N] or [N, K]), or
+    `convert` of their round-to-nearest-even f32 downcast."""
+    slots = predict_leaf_ensemble(stacked, X)
+    raw = accumulate_slots_exact(
+        slots, _identity_gather(slots.shape[0], X.device), value_f64,
+        n_class, stacked.get("cls") if n_class > 1 else None)
+    return raw if convert is None else convert(raw.to(torch.float32))
+
+
+# ------------------------------------------------------- the bounded sum
+class BoundedGroups(NamedTuple):
+    """The trees listed by (class, tile), tiles ascending within a class:
+    class k's groups are `cls_start[k]:cls_start[k + 1]`, group g holds
+    tile `grp_tile[g]` and the trees `grp_trees[grp_start[g]:
+    grp_start[g + 1]]`.  All int32 tensors on one device."""
+    grp_tile: torch.Tensor
+    grp_start: torch.Tensor
+    grp_trees: torch.Tensor
+    cls_start: torch.Tensor
+
+
+def bounded_groups(tile_of_tree: np.ndarray, n_class: int,
+                   device) -> BoundedGroups:
+    """The `BoundedGroups` of `tile_of_tree` [T] (tree t's class t % K,
+    the stacked planes' `cls`), built on the host at refresh."""
+    tile = np.asarray(tile_of_tree, np.int64)
+    t_trees = len(tile)
+    cls = np.arange(t_trees) % max(n_class, 1)
+    order = np.lexsort((np.arange(t_trees), tile, cls))
+    key = cls[order] * (int(tile.max(initial=0)) + 1) + tile[order]
+    first = np.ones(t_trees, bool)
+    first[1:] = key[1:] != key[:-1]
+    starts = np.flatnonzero(first)
+    grp_cls = cls[order][starts]
+    cls_start = np.searchsorted(grp_cls, np.arange(max(n_class, 1) + 1))
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    return BoundedGroups(put(tile[order][starts]),
+                         put(np.append(starts, t_trees)), put(order),
+                         put(cls_start))
+
+
+def _fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """f32 a * b + c rounded once, as the card's `fma` (and XLA's CPU
+    contraction) rounds it, for f32 tensors a, c and an f32-exact b.
+
+    a * b is exact in f64 (24 + 24 bits); s = p + c is rounded there and
+    TwoSum gives its error e exactly.  Rounding s to odd (its last bit set
+    when e != 0) keeps what the second rounding needs, so the cast to f32
+    is the correctly rounded a * b + c."""
+    p = a.double() * b
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    inexact = (e != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    away = (e > 0) == (s > 0)
+    bits = torch.where(inexact, torch.where(away, bits + 1, bits - 1), bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def _combine_tiles(partial: torch.Tensor, scales: torch.Tensor
+                   ) -> torch.Tensor:
+    """The f32 combine of int32 partials [S, ...] under scales [S], in
+    the arithmetic of the JAX package on XLA's CPU build, where LLVM
+    contracts `p_0 s_0 + p_1 s_1 + ...`: one tile gives round(p_0 s_0);
+    more give fma(p_0, s_0, round(p_1 s_1)), then fma(p_s, s_s, out) for
+    s = 2, 3, ... (`csrc/bounded.cu` does the same with __fmul_rn and
+    __fmaf_rn)."""
+    pf = partial.to(torch.float32)
+    sc = scales.tolist()
+    if len(sc) == 1:
+        return (pf[0].double() * sc[0]).to(torch.float32)
+    out = _fma_f32(pf[0], sc[0],
+                   (pf[1].double() * sc[1]).to(torch.float32))
+    for s in range(2, len(sc)):
+        out = _fma_f32(pf[s], sc[s], out)
+    return out
+
+
+def _check_bounded(slots, qval, tile_of_tree, scales, n_class, gather_idx):
+    if slots.dim() != 2 or slots.dtype != torch.int32:
+        raise LightGBMError("slots must be [R, B] int32")
+    if qval.dim() != 2 or qval.dtype not in (torch.int8, torch.int16):
+        raise LightGBMError("qval must be [T, NL] int8 or int16")
+    if tile_of_tree.shape != qval.shape[:1] \
+            or tile_of_tree.dtype != torch.int32:
+        raise LightGBMError("tile_of_tree must be [T] int32")
+    if scales.dim() != 1 or scales.dtype != torch.float32 \
+            or scales.shape[0] == 0:
+        raise LightGBMError("scales must be [S] float32, S >= 1")
+    if gather_idx.shape != qval.shape[:1] or gather_idx.dtype != torch.int32:
+        raise LightGBMError("gather_idx must be [T] int32")
+    if n_class < 1:
+        raise LightGBMError(f"n_class must be positive, got {n_class}")
+    if any(t.device != slots.device
+           for t in (qval, tile_of_tree, scales, gather_idx)):
+        raise LightGBMError("bounded-sum inputs lie on different devices")
+
+
+def accumulate_slots_bounded_plain(slots: torch.Tensor, qval: torch.Tensor,
+                                   tile_of_tree: torch.Tensor,
+                                   scales: torch.Tensor, n_class: int = 1,
+                                   gather_idx: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """Plain version of the bounded sum: tree t's code `qval[t, slot]`
+    (its slot read at row `gather_idx[t]` of `slots` [R, B], default row
+    t; indices past the tables clamp) is added in int32 into the partial
+    of (tile_of_tree[t], t % K); the partials are combined per class by
+    `_combine_tiles`.  [B] or [B, K] float32."""
+    t_trees = qval.shape[0]
+    if gather_idx is None:
+        gather_idx = _identity_gather(t_trees, slots.device)
+    _check_bounded(slots, qval, tile_of_tree, scales, n_class, gather_idx)
+    r, b = slots.shape
+    nl = qval.shape[1]
+    n_tiles = scales.shape[0]
+    rows = slots[gather_idx.long().clamp(0, r - 1)].long().clamp(0, nl - 1)
+    codes = torch.gather(qval, 1, rows).to(torch.int32)          # [T, B]
+    key = (tile_of_tree.long().clamp(0, n_tiles - 1) * n_class
+           + torch.arange(t_trees, device=slots.device) % n_class)
+    partial = torch.zeros((n_tiles * n_class, b), dtype=torch.int32,
+                          device=slots.device).index_add_(0, key, codes)
+    out = _combine_tiles(partial.view(n_tiles, n_class, b), scales)
+    return out[0] if n_class == 1 else out.t().contiguous()
+
+
+def accumulate_slots_bounded(slots: torch.Tensor, qval: torch.Tensor,
+                             tile_of_tree: torch.Tensor,
+                             scales: torch.Tensor, n_class: int = 1,
+                             gather_idx: Optional[torch.Tensor] = None,
+                             groups: Optional[BoundedGroups] = None
+                             ) -> torch.Tensor:
+    """The bounded sum of pre-routed leaf slots: [B] or [B, K] float32
+    within the bound `compiler.quantize.pack_bounded` publishes.  CUDA
+    tensors launch `csrc/bounded.cu` over `groups` (default: built from
+    `tile_of_tree`, a host copy; the serving runtime builds them once at
+    refresh); CPU tensors run `accumulate_slots_bounded_plain`."""
+    global ACCUMULATE_BOUNDED_LAUNCHES
+    if slots.device.type == "cpu":
+        return accumulate_slots_bounded_plain(slots, qval, tile_of_tree,
+                                              scales, n_class, gather_idx)
+    if slots.device.type != "cuda":
+        raise LightGBMError(f"no bounded-sum kernel for {slots.device}")
+    t_trees, nl = qval.shape
+    if gather_idx is None:
+        gather_idx = _identity_gather(t_trees, slots.device)
+    _check_bounded(slots, qval, tile_of_tree, scales, n_class, gather_idx)
+    if groups is None:
+        groups = bounded_groups(tile_of_tree.cpu().numpy(), n_class,
+                                slots.device)
+    tensors = (slots, qval, tile_of_tree, scales, gather_idx) + tuple(groups)
+    if any(t.device != slots.device for t in groups):
+        raise LightGBMError("bounded-sum inputs lie on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise LightGBMError("bounded-sum inputs must be contiguous")
+    from ..compiler import _build
+    lib = _build.load("bounded")
+    r, b = slots.shape
+    out = torch.empty((b, n_class) if n_class > 1 else (b,),
+                      dtype=torch.float32, device=slots.device)
+    if b == 0:
+        return out
+    bits = 8 if qval.dtype == torch.int8 else 16
+    rc = _build.on_stream(slots.device, lambda stream:
+                          lib.lgbt_accumulate_bounded(
+        slots.data_ptr(), r, b, gather_idx.data_ptr(), qval.data_ptr(),
+        bits, t_trees, nl, groups.grp_tile.data_ptr(),
+        groups.grp_start.data_ptr(), groups.grp_trees.data_ptr(),
+        groups.cls_start.data_ptr(), n_class, scales.data_ptr(),
+        scales.shape[0], out.data_ptr(), ctypes.c_void_p(stream)))
+    if rc != 0:
+        raise LightGBMError(f"bounded-sum launch failed: CUDA error {rc}")
+    ACCUMULATE_BOUNDED_LAUNCHES += 1
+    return out
+
+
+def predict_raw_ensemble_bounded(stacked: Dict, X: torch.Tensor,
+                                 qval: torch.Tensor,
+                                 tile_of_tree: torch.Tensor,
+                                 scales: torch.Tensor, n_class: int = 1,
+                                 convert: Optional[Callable] = None,
+                                 groups: Optional[BoundedGroups] = None
+                                 ) -> torch.Tensor:
+    """The bounded program over the stacked planes (the JAX package's
+    `predict_raw_ensemble_bounded`): `predict_leaf_ensemble`, then
+    `accumulate_slots_bounded` in boosting order; `convert` applied to
+    the f32 scores when given."""
+    out = accumulate_slots_bounded(predict_leaf_ensemble(stacked, X), qval,
+                                   tile_of_tree, scales, n_class,
+                                   groups=groups)
+    return out if convert is None else convert(out)

@@ -305,8 +305,10 @@ _PARAMS: Dict[str, Tuple[Any, str, Tuple[str, ...]]] = {
     "serve_quant_bits": (8, "int", ("quant_bits",)),
     # compiler tile budget: the packed planes of one tree tile (node
     # words + threshold palette + categorical bitsets) must fit this
-    # many KB, so a tile's working set stays VMEM-resident
-    "serve_tile_vmem_kb": (512.0, "float", ("tile_vmem_kb",)),
+    # many KB (the JAX package's 512 is a TPU VMEM figure; 48 KB is the
+    # shared memory an H100 block gets without opting in:
+    # serving/runtime.py DEFAULT_TILE_KB)
+    "serve_tile_vmem_kb": (48.0, "float", ("tile_vmem_kb",)),
     # co-residency budget for registry exports in MB (stacked traversal
     # planes + leaf-value bit planes); a load over budget demotes LRU
     # entries to host copies and, still over, is rejected with a clear

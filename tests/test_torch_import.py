@@ -29,7 +29,11 @@ MODULES = ("serving.runtime", "interop", "basic", "booster", "callback",
            "ops.histogram", "ops.reduce", "ops.split", "ops.predict",
            "compiler.kernel", "compiler._build", "compiler.plan",
            "compiler.quantize", "compiler.records", "utils.log", "sklearn",
-           "contrib", "plotting", "convert")
+           "contrib", "plotting", "convert", "utils.locks",
+           "resilience.breaker", "resilience.faults", "resilience.supervise",
+           "telemetry.metrics", "telemetry.sinks", "telemetry.spans",
+           "telemetry.request_trace", "serving.batcher", "serving.client",
+           "serving.http", "serving.registry")
 
 
 def test_every_module_is_listed():

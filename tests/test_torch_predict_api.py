@@ -223,16 +223,27 @@ def test_device_predict_params_and_refusals(models, monkeypatch):
         ours.predict(X, device_predict=True)
 
 
-def test_plan_limits_raise():
+def test_plan_limits_take_the_stacked_route():
     """A split on feature 4096 leaves the plan's 12-bit feature field:
-    `device_predict` raises naming the limit (ROADMAP Queue 3 (q))."""
+    `device_predict` takes the stacked-plane traversal and the f32 sum,
+    bitwise the reference's `predict(device_predict=True)`, raw and
+    converted (ROADMAP Queue 3 (q), closed)."""
     X, y, params, _ = _data("regression")
     text = lgb.train(params, lgb.Dataset(X, label=y),
                      num_boost_round=2).model_to_string()
     ours = lt.Booster(model_str=text)
-    ours.trees[0].split_feature[0] = 4096
-    with pytest.raises(lt.LightGBMError, match="12-bit feature"):
-        ours.predict(np.zeros((2, 4097)), device_predict=True, **CPU)
+    ref = lgb.Booster(model_str=text)
+    for bst in (ours, ref):
+        bst.trees[0].split_feature[0] = 4096
+    rng = np.random.RandomState(3)
+    Xq = np.zeros((200, 4097))
+    Xq[:, :X.shape[1]] = X[:200]
+    Xq[:, 4096] = rng.randn(200)
+    Xq[::9, 4096] = np.nan
+    for raw in (True, False):
+        got = ours.predict(Xq, raw_score=raw, device_predict=True, **CPU)
+        want = ref.predict(Xq, raw_score=raw, device_predict=True)
+        assert _bits(got, want)
 
 
 @pytest.mark.parametrize("k", [1, 3])

@@ -108,13 +108,26 @@ def test_probe_raises_on_corrupted_plane(monkeypatch):
 
 
 def test_models_outside_the_compiled_path_raise():
+    """Models the compiled rung cannot serve used to raise here; the
+    ladder now chooses a rung for them (tests/test_torch_serving_ladder.py
+    holds each rung): a random forest is served on the slot path, byte-
+    identical to `Booster.predict`, and an X narrower than the model is
+    walked on the host, which answers (or raises) as `Booster.predict`
+    does."""
     text = (ROOT / "tests" / "data" / "golden_binary.model.txt").read_text()
     rf = text.replace("objective=binary sigmoid:1\n",
                       "objective=binary sigmoid:1\naverage_output\n")
-    with pytest.raises(lt.LightGBMError, match="random-forest"):
-        lt.ServingRuntime(lt.Booster(model_str=rf), device="cpu")
+    bp = lt.Booster(model_str=rf)
+    rt = lt.ServingRuntime(bp, device="cpu")
+    assert rt.rung == "slot_path" and not rt.compiled_active
+    X, _ = make_case_data(GOLDEN_CASES["binary"])
+    for raw in (True, False):
+        assert np.array_equal(rt.predict(X[:300], raw_score=raw),
+                              bp.predict(X[:300], raw_score=raw))
     rt = lt.ServingRuntime(lt.Booster(model_str=text), device="cpu")
-    with pytest.raises(lt.LightGBMError, match="features"):
+    with pytest.raises(IndexError):
+        lt.Booster(model_str=text).predict(np.zeros((3, 2)))
+    with pytest.raises(IndexError):
         rt.predict(np.zeros((3, 2)))
 
 
