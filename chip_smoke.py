@@ -7,6 +7,7 @@ and check them.
     python3 chip_smoke.py --phases threefry,train_sampled   # the samplers
     python3 chip_smoke.py --phases train_categorical   # categorical, EFB
     python3 chip_smoke.py --phases train_api   # cv, init_model, sklearn
+    python3 chip_smoke.py --phases train_breadth   # constraints, modes
     python3 chip_smoke.py --phases golden,main       # serving alone
     python3 chip_smoke.py --phases predict_api   # device_predict, options
     python3 chip_smoke.py --phases serve_plane   # rungs, registry, HTTP
@@ -258,6 +259,32 @@ Phases, each printing one JSON line:
           import hidden: its model text `train`'s with the estimator's
           params, and its trees those of the 10-round WAVE_PARAMS run,
           `predict_proba` bitwise `Booster.predict` stacked.  Then the phase's seconds by step and launches.
+  train_breadth the grower's constraints and the boosting modes on the
+          train phase's data, the bench's wave (10 rounds) or the strict
+          grower at 255 leaves (3 rounds), a line a run: (a) monotone
+          basic [1, -1, 1, -1, 0, ...] on the wave, f32 (K1) and
+          quantized (K4); (b) intermediate, strict, with bynode 0.5; (c)
+          interaction constraints (four groups of 7) with CEGB (split
+          1e-6, a coupled vector) on the fused wave (K2/K3) and quantized
+          (K5/K3); (d) forced splits (the root and both children) on the
+          wave and the strict grower; (e) the histogram pool at 8 slots,
+          strict, beside the unpooled run; (f) DART (drop_rate 0.1,
+          skip_drop 0.5); (g) RF (bagging 0.8 every round,
+          feature_fraction 0.8); (h) linear trees (linear_lambda 0.01, 5
+          rounds: the host fit binds);
+          (i) a numpy binary logloss as `fobj`.  Each: two runs
+          byte-identical, held-out AUC within 1e-3 of
+          hist_impl=segment_sum, served by ServingRuntime on its rung
+          bitwise the host walk, its kernels launched every round (the
+          fused runs' K2/K5 = 1 + waves and K3 = waves); the monotone
+          grids (1,000 held-out rows x 64 points) without a violation,
+          IC paths inside one group, every tree led by the forced
+          splits, the pool's slots in [1, 254] and its trees the
+          unpooled run's up to near-ties (the trees that differ counted),
+          DART's drops and RF's average_output with a
+          bitwise text round trip.  Per run ms a round beside the plain
+          wave's, launches and syncs a tree, policy, hist_impl, the
+          linear fit's host seconds.
   compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5,
           the link kernel and the quantize step of this checkout and of
           the checkout in DIR on the same inputs: K1 and K2 agree within
@@ -280,8 +307,8 @@ Phases, each printing one JSON line:
           split_scan: train_wave; fused_hist_split_q: train_quant's main
           run; histogram_q: its strict run; threefry: train_sampled's
           main run, with train_quant's quantizer launches beside;
-          K2, K3, K1 and the link also show their train_api launches),
-          parity, times, bound.
+          K2, K3, K1 and the link also show their train_api launches,
+          K1-K5 their train_breadth launches), parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line `{"ok": true, "device": {...}}`.  Any failure exits
@@ -4095,6 +4122,339 @@ def phase_train_api(data: TrainData, modules, device=None,
     return launches
 
 
+# ------------------------------------------------------ train_breadth
+#: the grower's constraints and the boosting modes on the train phase's
+#: data, each setting as upstream LightGBM's docs/Parameters.rst defines
+#: it: the bench's wave (WAVE_PARAMS, 31 leaves, 10 rounds), or the strict
+#: grower at the train phase's 255 leaves for 3 rounds where the setting
+#: needs it (the intermediate monotone method) or the case is the strict
+#: grower's own (forced splits, the pool)
+BREADTH_ROUNDS = TRAIN_ROUNDS
+BREADTH_STRICT_ROUNDS = 3
+BREADTH_STRICT = dict(TRAIN_PARAMS)
+#: increasing, decreasing, increasing, decreasing on the first four of the
+#: 28 features (`monotone_constraints`)
+BREADTH_MONO = [1, -1, 1, -1] + [0] * (TRAIN_FEATURES - 4)
+#: four groups of 7 features (`interaction_constraints`)
+BREADTH_IC = [list(range(7 * g, 7 * g + 7)) for g in range(4)]
+#: `cegb_penalty_split` and a coupled penalty a feature (charged once a
+#: model), with the default `cegb_tradeoff` 1
+BREADTH_CEGB = {"cegb_penalty_split": 1e-6,
+                "cegb_penalty_feature_coupled": [
+                    50.0 * (1 + f % 4) for f in range(TRAIN_FEATURES)]}
+#: the root and both its children (`forcedsplits_filename`)
+BREADTH_FORCED = {"feature": 0, "threshold": 0.0,
+                  "left": {"feature": 1, "threshold": 0.0},
+                  "right": {"feature": 2, "threshold": 0.0}}
+#: `histogram_pool_size` in MB for 8 histograms of 28 x 255 x 3 f32
+BREADTH_POOL_SLOTS = 8
+BREADTH_POOL_MB = BREADTH_POOL_SLOTS * TRAIN_FEATURES * 255 * 3 * 4 / 2 ** 20
+#: the linear run's rounds: its host fit takes over a second a round at
+#: 2M rows and each of its three runs pays it, so its depth is cut to keep
+#: the script well inside its time limit
+BREADTH_LINEAR_ROUNDS = 5
+#: rows of the held-out set whose predictions walk each monotone grid
+BREADTH_GRID_ROWS = 1000
+BREADTH_GRID_POINTS = 64
+
+
+def _binary_logloss(preds, dataset):
+    """The custom objective of the fobj run: binary logloss in numpy."""
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return p - dataset.get_label(), p * (1.0 - p)
+
+
+def _breadth_runs():
+    """(name, params, rounds, kernels) of the train_breadth runs; the
+    kernels are the counters of `_quant_counters` the run must launch."""
+    strict = dict(BREADTH_STRICT)
+    wave = dict(WAVE_PARAMS)
+    mono = {"monotone_constraints": BREADTH_MONO}
+    ic = dict(BREADTH_CEGB, interaction_constraints=BREADTH_IC)
+    return [
+        ("mono_basic", dict(wave, **mono), BREADTH_ROUNDS, ("k1",)),
+        ("mono_basic_quant", dict(wave, **mono, **QUANT), BREADTH_ROUNDS,
+         ("k4",)),
+        ("mono_intermediate", dict(
+            strict, **mono, monotone_constraints_method="intermediate",
+            feature_fraction_bynode=0.5), BREADTH_STRICT_ROUNDS, ("k1",)),
+        ("ic_cegb", dict(wave, **ic), BREADTH_ROUNDS, ("k2", "k3")),
+        ("ic_cegb_quant", dict(wave, **ic, **QUANT), BREADTH_ROUNDS,
+         ("k5", "k3")),
+        ("forced_wave", dict(wave), BREADTH_ROUNDS, ("k2", "k3")),
+        ("forced_strict", dict(strict), BREADTH_STRICT_ROUNDS, ("k1",)),
+        ("pool", dict(strict, histogram_pool_size=BREADTH_POOL_MB),
+         BREADTH_STRICT_ROUNDS, ("k1",)),
+        ("dart", dict(wave, boosting="dart", drop_rate=0.1, skip_drop=0.5),
+         BREADTH_ROUNDS, ("k2", "k3")),
+        ("rf", dict(wave, boosting="rf", bagging_fraction=0.8,
+                    bagging_freq=1, feature_fraction=0.8), BREADTH_ROUNDS,
+         ("k2", "k3")),
+        ("linear", dict(wave, linear_tree=True, linear_lambda=0.01),
+         BREADTH_LINEAR_ROUNDS, ("k2", "k3")),
+        ("fobj", dict(wave, objective=_binary_logloss), BREADTH_ROUNDS,
+         ("k2", "k3")),
+    ]
+
+
+def _root_paths(tree):
+    """The split features of every root-to-leaf path of a host Tree."""
+    out, stack = [], [(0, [])]
+    while stack:
+        node, feats = stack.pop()
+        if node < 0:
+            out.append(feats)
+            continue
+        f = int(tree.split_feature[node])
+        stack += [(int(tree.left_child[node]), feats + [f]),
+                  (int(tree.right_child[node]), feats + [f])]
+    return out
+
+
+def _monotone_violations(bst, X, mono, rows, points):
+    """Steps against each constrained feature's direction along a grid of
+    `points` values over its held-out range, at `rows` held-out rows."""
+    bad = 0
+    base = np.repeat(X[:rows].astype(np.float64), points, axis=0)
+    for f, d in enumerate(mono):
+        if d == 0:
+            continue
+        grid = np.linspace(float(X[:, f].min()), float(X[:, f].max()),
+                           points)
+        Xg = base.copy()
+        Xg[:, f] = np.tile(grid, rows)
+        p = bst.predict(Xg, raw_score=True).reshape(rows, points)
+        bad += int((np.diff(p, axis=1) * d < 0).sum())
+    return bad
+
+
+def _structure_diffs(a, b, rtol=1e-5):
+    """Trees of `a` and `b` (the same data and settings) whose structure
+    differs, and the largest relative gap between the two gains at the
+    first split that differs: 0 when every tree is the same.  A tree
+    whose first difference is not a near-tie (gains further apart than
+    `rtol`) counts as a miss."""
+    differ, misses, gap = 0, 0, 0.0
+    for ta, tb in zip(a.trees, b.trees):
+        n = max(ta.num_internal(), tb.num_internal())
+        for i in range(n):
+            if i >= min(ta.num_internal(), tb.num_internal()) or \
+                    ta.split_feature[i] != tb.split_feature[i] or \
+                    ta.threshold_bin[i] != tb.threshold_bin[i]:
+                differ += 1
+                if i < min(ta.num_internal(), tb.num_internal()):
+                    ga = float(ta.split_gain[i])
+                    gb = float(tb.split_gain[i])
+                    g = abs(ga - gb) / max(abs(ga), abs(gb), 1e-30)
+                else:
+                    g = float("inf")
+                gap = max(gap, g)
+                misses += g > rtol
+                break
+    return {"trees_differ": differ, "not_near_ties": misses,
+            "first_diff_gain_rel_gap": gap}
+
+
+def phase_train_breadth(data: TrainData, modules, device=None,
+                        timing=True, serve_rows: int = HOLD_ROWS):
+    """The grower's constraints and the boosting modes (`_breadth_runs`)
+    through `lightgbm_tpu_torch.train` on the train phase's data, each
+    run between its own counter reads: (a) monotone basic on the wave,
+    f32 (unfused: K1) and quantized (K4); (b) monotone intermediate on
+    the strict grower with feature_fraction_bynode 0.5 (K1); (c)
+    interaction constraints (four groups of 7) with CEGB on the fused
+    wave (K2/K3) and quantized (K5/K3); (d) forced splits (the root and
+    both children) on the wave and the strict grower; (e) the histogram
+    pool at 8 slots of the 255-leaf strict tree, beside the unpooled run;
+    (f) DART; (g) RF; (h) linear trees; (i) a numpy binary logloss as
+    `fobj`.  Gates, each with zero misses: two kernel-trained runs
+    byte-identical; held-out AUC within 1e-3 of the same settings with
+    `hist_impl=segment_sum`; the model served by ServingRuntime on its
+    rung bitwise the host walk (at f32 thresholds on the exact rungs,
+    `f32_threshold_walk`; the f64 walk itself on the host-walk rung of
+    linear trees); the expected kernels launched every round; and each
+    run's own (monotone grids, IC paths, forced prefixes, pool structure,
+    DART and RF text round trips).  Printed a run: ms per round beside
+    the plain bench wave round, launches and host syncs a tree, the
+    resolved policy and `hist_impl`, the linear fit's host seconds; with
+    `timing`, one profiled round of the monotone basic run.  Returns the
+    phase's launches of K1-K5."""
+    import json as json_module
+    import tempfile
+    import torch
+    import lightgbm_tpu_torch as lt
+    import lightgbm_tpu_torch.booster as booster_module
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="breadth_")
+    forced_path = os.path.join(tmp, "forced.json")
+    with open(forced_path, "w") as fh:
+        json_module.dump(BREADTH_FORCED, fh)
+    hold_X, hold_y = data.X_hold[:serve_rows], data.y_hold[:serve_rows]
+    phase_total = {k: 0 for k in ("k1", "k2", "k3", "k4", "k5")}
+
+    def with_device(p):
+        return dict(p, device_type=device) if device is not None else p
+
+    # the plain bench wave round of this call, the runs' yardstick
+    _zero_quant_counters(modules)
+    _, plain = _wave_run(with_device(dict(WAVE_PARAMS)), data.dataset,
+                         modules, BREADTH_ROUNDS, False,
+                         counters=_quant_counters)
+    plain_ms = float(np.mean(plain["round_s"][1:])) * 1e3
+    for name, params, rounds, kernels in _breadth_runs():
+        t_run = time.perf_counter()
+        params = with_device(params)
+        if name.startswith("forced"):
+            params["forcedsplits_filename"] = forced_path
+        drops = []
+
+        def record_drops(env):
+            drops.append(list(env.model.dart_dropped))
+
+        _zero_quant_counters(modules)
+        booster_module.LINEAR_FIT_S = 0.0
+        bst, rec = _wave_run(params, data.dataset, modules, rounds, False,
+                             counters=_quant_counters,
+                             callbacks=[record_drops])
+        total = _quant_counters(modules)
+        fit_s = booster_module.LINEAR_FIT_S
+        for k in phase_total:
+            phase_total[k] += total[k]
+        spec = bst._grower_spec
+        trees = len(bst.trees)
+        _check(trees == rounds, f"train_breadth {name}: {trees} trees")
+        for r, c in enumerate(rec["per_round"]):
+            _check(all(c[k] > 0 for k in kernels),
+                   f"train_breadth {name}: round {r + 1} launched {c}, "
+                   f"wants {kernels}")
+            if "k2" in kernels or "k5" in kernels:
+                main = "k2" if "k2" in kernels else "k5"
+                _check(c[main] == 1 + c["hist_waves"]
+                       and c["k3"] == c["hist_waves"],
+                       f"train_breadth {name}: round {r + 1} counted {c}")
+        text = bst.model_to_string()
+        again = lt.train(params, data.dataset, num_boost_round=rounds)
+        _check(again.model_to_string() == text,
+               f"train_breadth {name}: two kernel runs differ")
+        seg = lt.train(dict(params, hist_impl="segment_sum"), data.dataset,
+                       num_boost_round=rounds)
+        raw = bst.predict(hold_X, raw_score=True)
+        _check(bool(np.all(np.isfinite(raw))),
+               f"train_breadth {name}: scores not finite")
+        auc = _auc(raw, hold_y)
+        auc_seg = _auc(seg.predict(hold_X, raw_score=True), hold_y)
+        _check(abs(auc - auc_seg) <= 1e-3,
+               f"train_breadth {name}: held-out AUC {auc} vs segment_sum "
+               f"{auc_seg}")
+        rt = lt.ServingRuntime(bst, device=device or "cuda")
+        served = rt.predict(hold_X, raw_score=True)
+        walk = raw if rt.rung == "host_walk" \
+            else f32_threshold_walk(bst, hold_X)
+        _check(_bits_equal(served, walk),
+               f"train_breadth {name}: served scores on the {rt.rung} rung "
+               "!= the host walk")
+        report = {
+            "phase": "train_breadth", "run": name, "rounds": rounds,
+            "policy": bst._grow_policy, "hist_impl": spec.hist_impl,
+            "fused": spec.fused, "serve_rung": rt.rung,
+            "ms_per_round_2_on": float(np.mean(rec["round_s"][1:])) * 1e3,
+            "plain_wave_ms_per_round": plain_ms,
+            "launches_per_round": {k: total[k] / rounds for k in
+                                   ("k1", "k2", "k3", "k4", "k5")},
+            "host_syncs_per_tree": total["syncs"] / trees,
+            "waves_per_tree": total["waves"] / trees,
+            "leaves_per_tree": [t.num_leaves for t in bst.trees],
+            "auc": auc, "auc_segment_sum": auc_seg,
+            "model_text_identical_twice": True, "served_bitwise": True}
+
+        # ---- each run's own gates
+        if name.startswith("mono"):
+            mono = BREADTH_MONO
+            bad = _monotone_violations(bst, hold_X, mono, BREADTH_GRID_ROWS,
+                                       BREADTH_GRID_POINTS)
+            _check(bad == 0, f"train_breadth {name}: {bad} monotone "
+                   "violations")
+            report["monotone_grid_violations"] = bad
+            _check(not spec.fused, f"train_breadth {name}: fused")
+            _check(spec.monotone_intermediate == (name == "mono_"
+                                                  "intermediate"),
+                   f"train_breadth {name}: method {spec}")
+        if name.startswith("ic"):
+            groups = [set(g) for g in BREADTH_IC]
+            bad = sum(1 for t in bst.trees if t.num_leaves > 1
+                      for feats in _root_paths(t)
+                      if not any(set(feats) <= g for g in groups))
+            _check(bad == 0, f"train_breadth {name}: {bad} paths cross "
+                   "groups")
+            report["ic_paths_crossing_groups"] = bad
+            report["cegb_used_features"] = int(bst._cegb_used.sum())
+        if name.startswith("forced"):
+            mappers = data.dataset.bin_mappers
+            want = [(n["feature"], mappers[n["feature"]].bin_to_value(
+                mappers[n["feature"]].value_to_bin(n["threshold"])))
+                for n in (BREADTH_FORCED, BREADTH_FORCED["left"],
+                          BREADTH_FORCED["right"])]
+            bad = sum(1 for t in bst.trees
+                      if [(int(t.split_feature[i]), float(t.threshold[i]))
+                          for i in range(min(3, t.num_internal()))] != want)
+            _check(bad == 0, f"train_breadth {name}: {bad} trees without "
+                   "the forced prefix")
+            report["trees_without_forced_prefix"] = bad
+        if name == "pool":
+            slots = spec.hist_pool_slots
+            _check(1 <= slots <= 254 and bst._grow_policy == "leafwise",
+                   f"train_breadth pool: {slots} slots")
+            # a parent recomputed from its rows is not bitwise the one
+            # the unpooled run subtracts (ROADMAP Queue 3 (t)): the trees
+            # must be the unpooled run's up to near-ties
+            unpooled, urec = _wave_run(
+                dict(params, histogram_pool_size=-1), data.dataset,
+                modules, rounds, False, counters=_quant_counters)
+            diffs = _structure_diffs(bst, unpooled)
+            _check(diffs["not_near_ties"] == 0,
+                   f"train_breadth pool: trees differ from the unpooled "
+                   f"run's beyond near-ties: {diffs}")
+            report.update(
+                hist_pool_slots=slots, against_unpooled=diffs,
+                unpooled_ms_per_round_2_on=float(
+                    np.mean(urec["round_s"][1:])) * 1e3,
+                unpooled_k1_per_round=urec["per_round"][-1]["k1"])
+        if name in ("dart", "rf"):
+            again = lt.Booster(model_str=text)
+            _check(_bits_equal(again.predict(hold_X, raw_score=True), raw),
+                   f"train_breadth {name}: the text round trip predicts "
+                   "otherwise")
+            report["text_round_trip_bitwise"] = True
+        if name == "dart":
+            report["dropped_per_round"] = drops
+            _check(any(drops), "train_breadth dart: no round dropped")
+        if name == "rf":
+            _check("\naverage_output\n" in text,
+                   "train_breadth rf: no average_output line")
+            report["average_output"] = True
+        if name == "linear":
+            _check(all(t.is_linear for t in bst.trees if t.num_leaves > 1),
+                   "train_breadth linear: trees not linear")
+            report["linear_fit_host_s_per_round"] = fit_s / rounds
+        if timing and name == "mono_basic":
+            # (the intermediate run's round holds over 100,000 launches,
+            # which the profiler takes tens of seconds to list)
+            report["profiled_round"] = _profile_round(params, data.dataset)
+        report["run_s"] = time.perf_counter() - t_run
+        _emit(report)
+    launches = {"histogram": phase_total["k1"],
+                "fused_hist_split": phase_total["k2"],
+                "split_scan": phase_total["k3"],
+                "histogram_q": phase_total["k4"],
+                "fused_hist_split_q": phase_total["k5"]}
+    _emit({"phase": "train_breadth", "launches": launches,
+           "plain_wave_ms_per_round": plain_ms,
+           "phase_s": time.perf_counter() - t_phase,
+           "phase_with_setup_s": time.perf_counter() - t_phase
+           + data.binning_s})
+    return launches
+
+
 # ------------------------------------------------------- predict_api
 #: `device_predict`'s request sizes (100,000 rows: two chunks of 65,536)
 PREDICT_ROWS = (1, 256, 4096, 10_000, 100_000)
@@ -5258,6 +5618,8 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                      phase_train_categorical(CatData(s), _train_modules()),
                  "train_api": lambda d, s, b: phase_train_api(
                      d(), _train_modules()),
+                 "train_breadth": lambda d, s, b: phase_train_breadth(
+                     d(), _train_modules()),
                  "predict_api": lambda d, s, b: phase_predict_api(s),
                  "serve_plane": lambda d, s, b: phase_serve_plane(s),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
@@ -5394,6 +5756,12 @@ def main(argv=None) -> int:
         for k in kernels:
             if k["name"] in api:
                 k["train_api_launches"] = api[k["name"]]
+        breadth = phase_train_breadth(data, {"hist": hist_module,
+                                             "hist_q": hist_q_module,
+                                             "fused": fused_module})
+        for k in kernels:
+            if k["name"] in breadth:
+                k["train_breadth_launches"] = breadth[k["name"]]
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
              "parity": ("within_tol" if k["name"] in WITHIN_TOL

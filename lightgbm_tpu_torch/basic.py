@@ -205,7 +205,9 @@ class Dataset:
             self.bundle_data = build_bundled(self.bin_data, self.efb)
         self._set_fields()
         self._handle_constructed = True
-        if self.free_raw_data:
+        # linear trees fit and score their leaves on the raw values
+        # (the reference's `basic.py:305`)
+        if self.free_raw_data and not cfg.linear_tree:
             self.data = None
         return self
 

@@ -5,18 +5,23 @@ The port's counterpart of `lightgbm_tpu/booster.py` (ref:
 src/boosting/gbdt.cpp `GBDT::{Init,TrainOneIter,UpdateScore}`;
 gbdt_model_text.cpp `SaveModelToString` / `LoadModelFromString`).
 
-Training (`Booster(params, train_set)`, then `update`): the default path
-of the reference's `_init_train`, `_boost_from_average`, `update` /
-`_update_impl`, `__boost` and `_apply_tree_to_score`, for gbdt on
-numerical and categorical features, on the bin matrix or its EFB
-bundles (`Dataset.bundle_data`), with f32 histograms, or with quantized
-gradients
-(`use_quantized_grad`: the int8 lattice and its integer histograms),
-with every sampler of the reference (bagging, per-class bagging, GOSS,
-`feature_fraction`, `feature_fraction_bynode`, `extra_trees`), with the
-strict leaf-wise grower (`ops/grow.py`, the default
-`tree_grow_policy=leafwise`) or the wave grower (`ops/grow_wave.py`,
-`tree_grow_policy=wave`).  The bin matrix, scores, gradients and
+Training (`Booster(params, train_set)`, then `update`): the reference's
+`_init_train`, `_boost_from_average`, `update` / `_update_impl`,
+`__boost`, `_update_dart` and `_apply_tree_to_score`, for gbdt, goss,
+dart (`_update_dart`) and rf (unshrunk trees grown at the base score,
+averaged) on numerical and categorical features, on the bin matrix or
+its EFB bundles (`Dataset.bundle_data`), with f32 histograms, or with
+quantized gradients (`use_quantized_grad`: the int8 lattice and its
+integer histograms), with every sampler of the reference (bagging,
+per-class bagging, GOSS, `feature_fraction`, `feature_fraction_bynode`,
+`extra_trees`), the grower's constraints (monotone, basic or
+intermediate; interaction constraints; CEGB; forced splits; the
+bounded histogram pool), linear trees (`_fit_linear_tree`, host f64
+ridge fits) and custom objectives (`fobj`), with the strict leaf-wise
+grower (`ops/grow.py`, the default `tree_grow_policy=leafwise`) or the
+wave grower (`ops/grow_wave.py`, `tree_grow_policy=wave`; the
+intermediate method and the pool keep the strict grower, with the
+reference's warning).  The bin matrix, scores, gradients and
 histograms live on the training device: the card by default
 (`device_type="cuda"`: the K1 kernel makes every histogram, or on the
 wave's fused path K2 and K3 make the histograms and split candidates;
@@ -57,6 +62,7 @@ import copy
 import hashlib
 import io
 import json
+import time
 from collections import deque
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -71,7 +77,7 @@ from .objectives import (UNIT_HESSIAN_OBJECTIVES, Objective,
 from .ops.fused import (bagging_weights, feature_mask, goss_weights,
                         quantize_gradients)
 from .ops.grow import (QUANTIZED_IMPLS, DeviceTree, GrowerSpec, make_grower,
-                       split_go_left, to_device)
+                       split_go_left, to_device, to_host)
 from .ops.grow_wave import WAVE_WIDTH_DEFAULT, make_wave_grower
 from .ops.hist_kernel import MULTI_CHUNK
 from .ops.hist_kernel_q import MULTI_CHUNK_Q
@@ -91,6 +97,9 @@ DISTRIBUTED = "ROADMAP Queue 1 item 5f: distributed training"
 #: blocking device-to-host copies of a set's scores for evaluation
 #: (metrics and `feval`), one a set a call (`Booster._eval_score`)
 EVAL_COPIES = 0
+
+#: host seconds of the linear trees' leaf fits (`_fit_linear_tree`), summed
+LINEAR_FIT_S = 0.0
 
 #: Dataset parameters a training params dict hands to `construct()`
 _DATASET_PARAMS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
@@ -184,26 +193,8 @@ def refusals(cfg: Config) -> List[str]:
     """Why this slice cannot train `cfg`: each entry names a setting and
     the ROADMAP item that brings it.  Empty when the slice covers it."""
     out = []
-    boosting = str(cfg.boosting).lower()
-    if boosting in ("dart", "rf"):
-        out.append(f"boosting={boosting} ({BREADTH})")
-    elif boosting not in ("gbdt", "goss"):
+    if str(cfg.boosting).lower() not in ("gbdt", "goss", "dart", "rf"):
         out.append(f"unknown boosting type {cfg.boosting!r}")
-    if any(int(v) for v in (cfg.monotone_constraints or [])):
-        out.append(f"monotone_constraints ({BREADTH})")
-    if cfg.interaction_constraints not in (None, "", []):
-        out.append(f"interaction_constraints ({BREADTH})")
-    if cfg.cegb_tradeoff > 0.0 and (
-            cfg.cegb_penalty_split > 0.0
-            or list(cfg.cegb_penalty_feature_coupled or [])
-            or list(cfg.cegb_penalty_feature_lazy or [])):
-        out.append(f"CEGB penalties ({BREADTH})")
-    if cfg.forcedsplits_filename:
-        out.append(f"forced splits ({BREADTH})")
-    if cfg.histogram_pool_size is not None and cfg.histogram_pool_size > 0:
-        out.append(f"histogram_pool_size ({BREADTH})")
-    if cfg.linear_tree:
-        out.append(f"linear_tree ({BREADTH})")
     if cfg.external_memory or str(cfg.streaming_train).lower() == "on":
         out.append(f"external memory / streamed training ({EXTERNAL})")
     if str(cfg.tree_learner).lower() != "serial" or cfg.num_machines > 1:
@@ -233,20 +224,23 @@ def uses_goss(cfg: Config) -> bool:
         or str(cfg.data_sample_strategy).lower() == "goss"
 
 
-def quant_hist_reasons(cfg: Config) -> List[str]:
+def quant_hist_reasons(cfg: Config, custom: bool = False) -> List[str]:
     """Why the integer-lattice histograms (K4/K5, packed) cannot take
     `cfg` (empty: they can), the reference's `_quant_hist_reasons`
-    (`booster.py:926`): too many quantization bins, or GOSS, whose
-    rescaled weights (1 - a) / b break the lattice's integrality.  Its
-    third reason, a custom objective, is a refusal of this port
-    (`_init_train`).  Bagging weights are 0 or 1, which the lattice
-    takes."""
+    (`booster.py:926`): too many quantization bins, GOSS, whose
+    rescaled weights (1 - a) / b break the lattice's integrality, or a
+    custom objective (`custom`), whose negative hessians would borrow
+    into the packed field.  Bagging weights are 0 or 1, which the
+    lattice takes."""
     reasons = []
     if not 0 < cfg.num_grad_quant_bins <= PACKED_MAX_QUANT_BINS:
         reasons.append(f"num_grad_quant_bins={cfg.num_grad_quant_bins} "
                        f"outside (0, {PACKED_MAX_QUANT_BINS}]")
     if uses_goss(cfg):
         reasons.append("GOSS rescale weights break lattice integrality")
+    if custom:
+        reasons.append("custom objective (negative hessians would borrow "
+                       "into the packed grad field)")
     return reasons
 
 
@@ -260,7 +254,8 @@ def _hist_impl_fallback(requested: str, reasons: List[str]) -> None:
                 "on the f32 histograms)")
 
 
-def hist_impl_of(cfg: Config, device: torch.device) -> str:
+def hist_impl_of(cfg: Config, device: torch.device,
+                 custom: bool = False) -> str:
     """The grower's histogram path (`GrowerSpec.hist_impl`) for
     `cfg.hist_impl` on `device`, the reference's `_resolve_hist_impl`
     (`booster.py:975`) as it resolves on a TPU:
@@ -286,7 +281,7 @@ def hist_impl_of(cfg: Config, device: torch.device) -> str:
         raise LightGBMError(f"hist_impl={req} runs the CUDA kernels, which "
                             "need a CUDA device; use hist_impl=auto, "
                             "segment_sum or packed on the CPU")
-    quant_reasons = quant_hist_reasons(cfg)
+    quant_reasons = quant_hist_reasons(cfg, custom)
     impl = _HIST_IMPLS[req]
     if impl is not None:
         reasons = []
@@ -316,18 +311,37 @@ def packed_const_hess_level(cfg: Config, hist_impl: str, objective: str,
     return int(cfg.num_grad_quant_bins)
 
 
-def resolve_grow_policy(cfg: Config) -> str:
+def resolve_grow_policy(cfg: Config, monotone_intermediate: bool = False,
+                        pool_slots: int = 0) -> str:
     """`tree_grow_policy` resolved to "leafwise" or "wave" (the
-    reference's `_resolve_grow_policy`, `booster.py:824`).  Every
-    downgrade reason the reference lists is a refusal of this port
-    (`refusals`), so none is needed here; an unknown policy raises."""
+    reference's `_resolve_grow_policy`, `booster.py:824`).  The wave
+    takes every setting of the strict grower but two, which downgrade it
+    to the strict grower with the reference's priced warning: the
+    intermediate monotone method and the bounded histogram pool
+    (`:845-856`); the reference's other reasons (distributed learners, a
+    failing kernel probe) are refusals of this port or do not apply.  An
+    unknown policy raises."""
     pol = str(cfg.tree_grow_policy or "leafwise").lower()
     if pol in ("leafwise", "leaf", "strict"):
         return "leafwise"
-    if pol in ("wave", "batched"):
-        return "wave"
-    raise LightGBMError(f"Unknown tree_grow_policy {pol!r} (expected "
-                        "'leafwise' or 'wave')")
+    if pol not in ("wave", "batched"):
+        raise LightGBMError(f"Unknown tree_grow_policy {pol!r} (expected "
+                            "'leafwise' or 'wave')")
+    reasons = []
+    if monotone_intermediate:
+        reasons.append("monotone_constraints_method=intermediate")
+    if pool_slots:
+        reasons.append(
+            "histogram_pool_size (the bounded pool caps resident "
+            f"histograms at {pool_slots} of {cfg.num_leaves}; dropping the "
+            "cap restores the wave policy at the cost of the pool's "
+            "memory bound)")
+    if reasons:
+        log.warning("tree_grow_policy=wave is not supported with "
+                    + "; ".join(reasons) + " — using the strict leafwise "
+                    "policy")
+        return "leafwise"
+    return "wave"
 
 
 def fused_split_of(cfg: Config, policy: str, hist_impl: str,
@@ -354,6 +368,10 @@ def fused_split_of(cfg: Config, policy: str, hist_impl: str,
             return False
         reasons.append("tree_grow_policy != wave (the strict policy "
                        "re-scans cached histograms per split)")
+    if any(int(v) for v in (cfg.monotone_constraints or [])):
+        # the kernels' scan is the closed-form gain; bounds need the
+        # given-output gain (`booster.py:1068-1069`)
+        reasons.append("monotone_constraints")
     if bundled:
         reasons.append("EFB bundling")
     if cfg.path_smooth > 0.0:
@@ -424,6 +442,23 @@ class _DeviceData:
         self.weight = torch.from_numpy(w.astype(np.float32)).to(device) \
             if w is not None else None
         self.init_score = ds.get_init_score()
+        # the raw values, which a Dataset built for linear trees keeps
+        # (`Dataset.construct`): the leaves' fits and their scores read
+        # them on the host
+        self.raw_ref = ds.data
+        self._raw2d: Optional[np.ndarray] = None
+
+    def get_raw(self) -> np.ndarray:
+        """The set's raw matrix as f64 [N, F] (the reference's
+        `_DeviceData.get_raw`, `booster.py:183`)."""
+        if self._raw2d is None:
+            if self.raw_ref is None:
+                raise LightGBMError(
+                    "linear_tree needs raw feature values; construct the "
+                    "Dataset with linear_tree in params (or "
+                    "free_raw_data=False)")
+            self._raw2d = _to_2d_float(self.raw_ref)
+        return self._raw2d
 
 
 def _replay_splits(split_leaf, split_feature, threshold_bin, default_left,
@@ -548,9 +583,12 @@ class Booster:
     def _init_train(self, train_set: Dataset) -> None:
         """ref: the JAX package's `Booster._init_train` (`booster.py:301`),
         its default path."""
+        # a callable objective is the custom objective: `fobj` of every
+        # update, with objective "none" (the reference's `:304-308`)
+        self._fobj = None
         if callable(self.params.get("objective")):
-            raise LightGBMError(f"custom objectives (fobj) are not ported "
-                                f"yet ({BREADTH})")
+            self._fobj = self.params["objective"]
+            self.params["objective"] = "none"
         cfg = self.config = Config(self.params)
         _refuse(cfg)
         self.device = train_device(cfg.device_type)
@@ -559,19 +597,41 @@ class Booster:
         train_set.construct()
         self.train_set = train_set
         self._dd = _DeviceData(train_set, self.device, for_train=True)
-        obj: TrainObjective = create_objective(cfg)
+        obj: Optional[TrainObjective] = create_objective(cfg)
         self._train_obj = obj
-        self.objective_ = obj.link()
-        self.num_tree_per_iteration = obj.num_tree_per_iteration
         label = train_set.get_label()
-        if label is None:
-            raise LightGBMError("Label should not be None")
-        obj.init_meta(label.astype(np.float64), train_set.get_weight())
+        if obj is None:
+            self.objective_ = None
+            self.num_tree_per_iteration = max(cfg.num_class, 1)
+        else:
+            self.objective_ = obj.link()
+            self.num_tree_per_iteration = obj.num_tree_per_iteration
+            if label is None:
+                raise LightGBMError("Label should not be None")
+            obj.init_meta(label.astype(np.float64), train_set.get_weight())
         self.metrics_: List[Metric] = create_metrics(
             cfg, cfg.metric or cfg.default_metric())
         self._loaded_feature_names = train_set.get_feature_name()
         self._loaded_feature_infos = [m.feature_info_str()
                                       for m in train_set.bin_mappers]
+        # the boosting mode, fixed for the booster's life (the
+        # reference's `booster.py:413-433`): goss is gbdt with GOSS
+        # sampling; a random forest averages unshrunk trees grown at the
+        # base score and needs bagging; rf and dart start from 0
+        boosting = str(cfg.boosting).lower()
+        self._boost_mode = "gbdt" if boosting == "goss" else boosting
+        if self._boost_mode == "rf":
+            if not (cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
+                                              or cfg.feature_fraction < 1.0)):
+                raise LightGBMError(
+                    "Random forest mode requires bagging "
+                    "(bagging_freq > 0 and bagging_fraction < 1.0)")
+        if self._boost_mode in ("rf", "dart"):
+            cfg.boost_from_average = False
+        self._average_output = self._boost_mode == "rf"
+        #: the iterations the last DART update dropped
+        self.dart_dropped: List[int] = []
+        self._use_goss = uses_goss(cfg)
         self._build_grower()
         K = self.num_tree_per_iteration
         self._init_scores = [0.0] * K
@@ -593,12 +653,21 @@ class Booster:
         quantized path's constant-hessian level) and the grow function
         (`_init_train`, and `reset_parameter` after a change)."""
         cfg = self.config
-        self._grow_policy = resolve_grow_policy(cfg)
-        self._use_goss = uses_goss(cfg)
-        self.hist_impl = hist_impl_of(cfg, self.device)
-        wave = self._grow_policy == "wave"
+        self.hist_impl = hist_impl_of(cfg, self.device,
+                                      custom=self._train_obj is None)
         efb = self._dd.efb
         obj = self._train_obj
+        interm = self._monotone_intermediate()
+        pool_slots = self._hist_pool_slots()
+        if interm and pool_slots:
+            log.warning("monotone_constraints_method=intermediate needs "
+                        "per-leaf histograms to re-search moved leaves — "
+                        "ignoring histogram_pool_size")
+            pool_slots = 0
+        self._grow_policy = resolve_grow_policy(cfg, interm, pool_slots)
+        wave = self._grow_policy == "wave"
+        self._build_feat()
+        cegb = self._cegb_active()
         self._grower_spec = GrowerSpec(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
             max_bin=self._dd.max_bin, lambda_l1=cfg.lambda_l1,
@@ -609,7 +678,8 @@ class Booster:
             max_delta_step=cfg.max_delta_step, path_smooth=cfg.path_smooth,
             hist_impl=self.hist_impl,
             packed_const_hess_level=packed_const_hess_level(
-                cfg, self.hist_impl, obj.name, self._dd.weight is not None),
+                cfg, self.hist_impl, getattr(obj, "name", None),
+                self._dd.weight is not None),
             debug_checks=bool(cfg.tpu_debug_nans),
             wave_width=self._wave_width() if wave else 0,
             wave_gain_ratio=self._wave_gain_ratio() if wave else 0.0,
@@ -624,9 +694,148 @@ class Booster:
             max_cat_to_onehot=cfg.max_cat_to_onehot,
             has_cat=bool(self._dd.is_cat_np.any()),
             bundled=efb is not None,
-            bundle_max_bin=efb.max_bin if efb is not None else 0)
+            bundle_max_bin=efb.max_bin if efb is not None else 0,
+            hist_pool_slots=pool_slots,
+            n_ic_groups=0 if self._ic_groups is None
+            else self._ic_groups.shape[0],
+            forced_splits=self._parse_forced_splits(),
+            cegb_tradeoff=cfg.cegb_tradeoff if cegb else 0.0,
+            cegb_penalty_split=cfg.cegb_penalty_split,
+            cegb_coupled=bool(list(cfg.cegb_penalty_feature_coupled or [])),
+            cegb_lazy=bool(list(cfg.cegb_penalty_feature_lazy or [])),
+            monotone_intermediate=interm)
         self._grower = make_wave_grower(self._grower_spec) if wave \
             else make_grower(self._grower_spec)
+
+    # ---- the grower's constraints (the reference's `booster.py:586-692`,
+    # `:1108-1148`)
+    def _monotone_intermediate(self) -> bool:
+        """Whether the strict grower runs the intermediate monotone method
+        (ref: monotone_constraints.hpp `IntermediateLeafConstraints`):
+        `advanced` downgrades to it with a warning."""
+        cfg = self.config
+        if not any(int(v) for v in (cfg.monotone_constraints or [])):
+            return False
+        method = (cfg.monotone_constraints_method or "basic").lower()
+        if method == "basic":
+            return False
+        if method == "advanced":
+            log.warning(
+                "monotone_constraints_method=advanced is not implemented "
+                "— using intermediate (ref: monotone_constraints.hpp "
+                "AdvancedLeafConstraints is out of scope)")
+        elif method != "intermediate":
+            raise LightGBMError(
+                f"Unknown monotone_constraints_method {method}")
+        return True
+
+    def _cegb_active(self) -> bool:
+        """CEGB prices candidates when a penalty is set (ref:
+        cost_effective_gradient_boosting.hpp `IsEnable`)."""
+        cfg = self.config
+        return cfg.cegb_tradeoff > 0.0 and (
+            cfg.cegb_penalty_split > 0.0
+            or bool(list(cfg.cegb_penalty_feature_coupled or []))
+            or bool(list(cfg.cegb_penalty_feature_lazy or [])))
+
+    def _parse_ic_groups(self) -> Optional[np.ndarray]:
+        """`interaction_constraints` ("[0,1,2],[2,3]" or lists) as [K, F]
+        group masks."""
+        raw = self.config.interaction_constraints
+        if raw is None or raw == "" or raw == []:
+            return None
+        if isinstance(raw, str):
+            try:
+                groups = json.loads(raw)
+            except json.JSONDecodeError:
+                groups = json.loads(f"[{raw}]")
+        else:
+            groups = [list(g) for g in raw]
+        F = self._dd.num_feature
+        mask = np.zeros((len(groups), F), dtype=bool)
+        for k, g in enumerate(groups):
+            for j in g:
+                if not 0 <= int(j) < F:
+                    raise LightGBMError(
+                        f"interaction_constraints feature index {j} out of "
+                        f"range [0, {F})")
+                mask[k, int(j)] = True
+        return mask
+
+    def _parse_forced_splits(self) -> tuple:
+        """The forced-splits JSON (nested {feature, threshold, left,
+        right}; ref: serial_tree_learner.cpp `ForceSplits`) as BFS-order
+        (leaf slot, feature, threshold bin) tuples in the growers' child
+        numbering (the right child of step s is leaf s + 1)."""
+        fn = self.config.forcedsplits_filename
+        if not fn:
+            return ()
+        with open(fn) as f:
+            root = json.load(f)
+        if not root:
+            return ()
+        mappers = self.train_set.bin_mappers
+        out = []
+        queue = [(root, 0)]
+        while queue and len(out) < self.config.num_leaves - 1:
+            node, leaf = queue.pop(0)
+            j = int(node["feature"])
+            thr = float(node["threshold"])
+            out.append((leaf, j, int(mappers[j].value_to_bin(thr))))
+            if node.get("left"):
+                queue.append((node["left"], leaf))
+            if node.get("right"):
+                queue.append((node["right"], len(out)))
+        return tuple(out)
+
+    def _hist_pool_slots(self) -> int:
+        """The histogram pool's slots from `histogram_pool_size` MB of
+        [cols, bins, 3] f32 histograms (ref: config.h
+        histogram_pool_size), at least 2; 0 (one a leaf) when it holds
+        num_leaves or when unset."""
+        pool_mb = self.config.histogram_pool_size
+        if pool_mb is None or pool_mb <= 0:
+            return 0
+        efb = self._dd.efb
+        bins, cols = (efb.max_bin, efb.n_cols) if efb is not None \
+            else (self._dd.max_bin, self._dd.num_feature)
+        slots = max(2, int(pool_mb * 2 ** 20 // max(cols * bins * 3 * 4, 1)))
+        return slots if slots < self.config.num_leaves else 0
+
+    def _build_feat(self) -> None:
+        """The constraints' per-feature metadata the growers read beside
+        `_DeviceData.feat` (the reference's `_build_feat`): `mono` (shorter
+        vectors zero-extended), the interaction groups, the CEGB vectors
+        and the model's used features, `cegb_used`, which `_boost`
+        updates after each tree."""
+        cfg = self.config
+        dd = self._dd
+        F = dd.num_feature
+        extra: Dict[str, Any] = {}
+        mono_cfg = list(cfg.monotone_constraints or [])
+        if any(int(v) for v in mono_cfg):
+            mono = np.zeros(F, np.int32)
+            k = min(len(mono_cfg), F)
+            mono[:k] = np.asarray(mono_cfg[:k], np.int32)
+            extra.update(mono=torch.from_numpy(mono).to(self.device),
+                         mono_np=mono)
+        self._ic_groups = self._parse_ic_groups()
+        if self._ic_groups is not None:
+            extra.update(ic_groups=torch.from_numpy(self._ic_groups)
+                         .to(self.device), ic_groups_np=self._ic_groups)
+        if self._cegb_active():
+            def vec(v):
+                out = np.zeros(F, np.float32)
+                vals = list(v or [])
+                out[:min(len(vals), F)] = vals[:F]
+                return torch.from_numpy(out).to(self.device)
+            extra.update(
+                cegb_coupled=vec(cfg.cegb_penalty_feature_coupled),
+                cegb_lazy=vec(cfg.cegb_penalty_feature_lazy),
+                cegb_used=torch.zeros(F, dtype=torch.bool,
+                                      device=self.device))
+            self._cegb_used = np.zeros(F, bool)
+        self._feat_extra = extra
 
     # ---- the wave policy's knobs (the reference's `booster.py:703-774`)
     WAVE_GAIN_RATIO_DEFAULT = 0.0
@@ -659,18 +868,21 @@ class Booster:
 
     def _wave_overgrow(self) -> float:
         """Grow-then-prune factor (0 = off), for the wave policy only; off
-        with a warning under path smoothing, where a pruned parent's
-        restored output would ignore the smoothing chain."""
+        with a warning under monotone constraints or path smoothing, where
+        a pruned parent's restored output would ignore the clamp and
+        smoothing chain."""
         r = float(self.config.tpu_wave_overgrow)
         val = self.WAVE_OVERGROW_DEFAULT if r < 0.0 else r
         if val <= 1.0:
             return 0.0
-        if self.config.path_smooth > 0.0:
+        if any(int(v) for v in (self.config.monotone_constraints or [])) \
+                or self.config.path_smooth > 0.0:
             if not getattr(self, "_warned_overgrow", False):
                 self._warned_overgrow = True
-                log.warning("tpu_wave_overgrow is not supported with path "
-                            "smoothing (pruned parents restore unsmoothed "
-                            "outputs) — growing without overgrow")
+                log.warning("tpu_wave_overgrow is not supported with "
+                            "monotone constraints or path smoothing "
+                            "(pruned parents restore un-clamped outputs) "
+                            "— growing without overgrow")
             return 0.0
         return val
 
@@ -696,6 +908,9 @@ class Booster:
         self._require_train_data()
         if data.reference is None:
             data.reference = self.train_set
+        if self.config.linear_tree:
+            # linear leaves score the set's raw values
+            data.params = {**(data.params or {}), "linear_tree": True}
         dd = _DeviceData(data, self.device)
         self.valid_sets.append(data)
         self.name_valid_sets.append(name)
@@ -723,10 +938,15 @@ class Booster:
         place, by bin-level replay (the reference's
         `_apply_tree_to_score` and `_subtract_tree`, `booster.py:1774,
         2320`): the f32 cast of `leaf_value - bias` at each row's leaf; a
-        single-leaf tree adds its value only with `bias_included`.
-        Returns the contribution."""
+        single-leaf tree adds its value only with `bias_included`; a
+        linear tree the f32 cast of its host linear prediction on the
+        set's raw values, less `bias`.  Returns the contribution."""
         device = dd.bins_fm.device
-        if tree.num_leaves <= 1:
+        if tree.is_linear and tree.num_leaves > 1:
+            X = dd.get_raw()
+            c = tree.linear_predict(X, tree.predict_leaf_index(X)) - bias
+            contrib = to_device(c.astype(np.float32), device)
+        elif tree.num_leaves <= 1:
             const = float(tree.leaf_value[0]) - bias \
                 if bias_included and len(tree.leaf_value) else 0.0
             contrib = torch.full((dd.num_data,), const, dtype=torch.float32,
@@ -743,7 +963,8 @@ class Booster:
         the objective's initial score, added to every score once and
         folded into the first tree's leaves; none when the training set
         has an `init_score`."""
-        if self._boost_from_average_done or self._dd.init_score is not None:
+        if self._boost_from_average_done or self._train_obj is None \
+                or self._dd.init_score is not None:
             return
         self._boost_from_average_done = True
         if not self.config.boost_from_average:
@@ -771,17 +992,127 @@ class Booster:
                fobj=None) -> bool:
         """One boosting iteration (ref: `GBDT::TrainOneIter`; the JAX
         package's `update` / `_update_impl` / `__boost`).  Returns True
-        when no tree of the iteration could split."""
-        if fobj is not None:
-            raise LightGBMError(f"custom objectives (fobj) are not ported "
-                                f"yet ({BREADTH})")
+        when no tree of the iteration could split.
+
+        `fobj(preds, train_set) -> (grad, hess)` (or the booster's own
+        custom objective) takes the place of the objective: the train
+        scores come to the host as f64 (class-major for K > 1), and the
+        f32 cast of its gradients goes back, one host round trip counted
+        in `ops.grow.HOST_SYNCS`.  A random forest takes its gradients at
+        the base score; DART drops trees first (`_update_dart`)."""
         if train_set is not None and train_set is not self.train_set:
             self._init_train(train_set)
         self._require_train_data()
-        self._boost_from_average()
-        grad, hess = self._train_obj.grad_hess(
-            self._train_score, self._dd.label, self._dd.weight)
+        fobj = fobj or self._fobj
+        if fobj is not None and self.hist_impl in QUANTIZED_IMPLS:
+            # custom hessians may be negative, which corrupts the lattice
+            raise LightGBMError(
+                "update(fobj=...) cannot be combined with the packed "
+                "quantized histogram; construct the Booster with "
+                "objective='none' for custom objectives")
+        if self._boost_mode == "dart":
+            return self._update_dart(fobj)
+        if fobj is None:
+            if self._train_obj is None:
+                raise LightGBMError(
+                    "Custom objective function (fobj) is required when "
+                    "objective is none/custom")
+            self._boost_from_average()
+            score = self._train_score
+            if self._boost_mode == "rf":
+                score = torch.zeros_like(score)
+            grad, hess = self._train_obj.grad_hess(
+                score, self._dd.label, self._dd.weight)
+        else:
+            grad, hess = self._custom_gradients(fobj)
         return self._boost(grad, hess)
+
+    def _custom_gradients(self, fobj):
+        """(grad, hess) f32 on the training device from `fobj` at the
+        current train scores (the reference's `booster.py:1549-1560`)."""
+        K = self.num_tree_per_iteration
+        preds = to_host(self._train_score).astype(np.float64)
+        if K > 1:
+            preds = preds.reshape(-1, order="F")
+        g, h = fobj(preds, self.train_set)
+
+        def up(v):
+            v = np.asarray(v, dtype=np.float32).reshape(
+                (-1, K), order="F").squeeze()
+            return to_device(v.reshape((-1, K)) if K > 1 else v,
+                             self.device)
+        return up(g), up(h)
+
+    def _update_dart(self, fobj=None) -> bool:
+        """A DART iteration (ref: dart.hpp `DART::TrainOneIter`; the
+        reference's `_update_dart`, `booster.py:2227`): the dropped
+        iterations drawn from RandomState((drop_seed + it) mod 2^31)
+        (`skip_drop`, `drop_rate`, `max_drop`, at least one), their trees
+        subtracted from every score by bin-level replay, the iteration
+        trained, then `Normalize`: the new trees scaled by 1 / (k + 1)
+        (xgboost mode lr / (k + lr)) and their excess taken off the
+        scores, the dropped trees scaled by k / (k + 1) (k / (k + lr)) and
+        added back.  The dropped iterations of each call are kept in
+        `dart_dropped`."""
+        cfg = self.config
+        K = self.num_tree_per_iteration
+        it = self.cur_iter
+        if fobj is None and self._train_obj is None:
+            raise LightGBMError("Custom objective function (fobj) is "
+                                "required when objective is none/custom")
+        self._boost_from_average()
+        rng = np.random.RandomState((cfg.drop_seed + it) % (2 ** 31))
+        dropped: List[int] = []
+        if it > 0 and rng.rand() >= cfg.skip_drop:
+            sel = np.nonzero(rng.rand(it) < cfg.drop_rate)[0]
+            if cfg.max_drop > 0 and len(sel) > cfg.max_drop:
+                sel = rng.choice(sel, cfg.max_drop, replace=False)
+            if len(sel) == 0:
+                sel = np.array([rng.randint(it)])
+            dropped = sorted(int(d) for d in sel)
+        self.dart_dropped = dropped
+        sets = [(self._dd, self._train_score)] + list(
+            zip(self._valid_dd, self._valid_scores))
+        for d in dropped:
+            for k in range(K):
+                for dd, score in sets:
+                    self._apply_tree_to_score(score, self.trees[d * K + k],
+                                              dd, k, True, subtract=True)
+        if fobj is not None:
+            grad, hess = self._custom_gradients(fobj)
+        else:
+            grad, hess = self._train_obj.grad_hess(
+                self._train_score, self._dd.label, self._dd.weight)
+        finished = self._boost(grad, hess)
+        kdrop = len(dropped)
+        if kdrop > 0:
+            lr = cfg.learning_rate
+            if cfg.xgboost_dart_mode:
+                new_scale = lr / (kdrop + lr)
+                old_scale = kdrop / (kdrop + lr)
+            else:
+                new_scale = 1.0 / (kdrop + 1.0)
+                old_scale = kdrop / (kdrop + 1.0)
+            for tree in self.trees[-K:]:
+                tree.leaf_value = tree.leaf_value * new_scale
+                tree.internal_value = tree.internal_value * new_scale
+                tree.shrinkage *= new_scale
+            # the new trees entered the scores at full scale
+            for kind, vi, k, contrib in self._last_contribs:
+                score = self._train_score if kind == "train" \
+                    else self._valid_scores[vi]
+                self._add_tree(score, k, -(contrib * (1.0 - new_scale)))
+            self._last_contribs = []
+            for d in dropped:
+                for k in range(K):
+                    tree = self.trees[d * K + k]
+                    tree.leaf_value = tree.leaf_value * old_scale
+                    tree.internal_value = tree.internal_value * old_scale
+                    tree.shrinkage *= old_scale
+                    for dd, score in sets:
+                        self._apply_tree_to_score(score, tree, dd, k, True)
+            self._model_changed()
+        return finished
 
     def _quantize(self, grad: torch.Tensor, hess: torch.Tensor, it: int):
         """The reference's quantization step of `__boost`
@@ -845,11 +1176,12 @@ class Booster:
         tree's train and valid contributions are kept for
         `rollback_one_iter` until the next iteration."""
         cfg = self.config
-        lr = cfg.learning_rate
+        # random-forest trees are unshrunk (ref: rf.hpp)
+        lr = 1.0 if self._boost_mode == "rf" else cfg.learning_rate
         K = self.num_tree_per_iteration
         it = self.cur_iter
         dd = self._dd
-        feat = dd.feat
+        feat = {**dd.feat, **self._feat_extra}
         # GOSS ranks the exact gradients: the weights come before the
         # quantization, as in the reference
         sw = self._goss_weights(it, grad, hess) if self._use_goss \
@@ -872,21 +1204,41 @@ class Booster:
                 # `booster.py:1621-1626`)
                 feat_k = {**feat, "ff_key": fold_in(
                     fold_in(self._ff_key0, 2 ** 20 + it), k)}
+            if "cegb_used" in self._feat_extra:
+                feat_k = {**feat_k,
+                          "cegb_used": self._feat_extra["cegb_used"]}
             dev = self._grower(dd.bins_fm if dd.bundle_fm is None
                                else dd.bundle_fm, gk, hk, sw, feat_k, allowed)
             tree = Tree.from_device(dev, self.train_set.bin_mappers, lr)
+            if "cegb_used" in self._feat_extra and tree.num_leaves > 1:
+                # coupled penalties charge a feature once per model
+                feats = np.unique(tree.split_feature[:tree.num_internal()])
+                if not self._cegb_used[feats].all():
+                    self._cegb_used[feats] = True
+                    self._feat_extra["cegb_used"] = to_device(
+                        self._cegb_used, self.device)
             if tree.num_leaves > 1:
                 all_const = False
             # the train score reads the grower's final leaf_id; the
             # scores are updated in place (the reference's are immutable)
-            scaled = dev.values * lr
-            contrib = scaled[dev.leaf_id.long()]
+            linear = cfg.linear_tree and tree.num_leaves > 1
+            if linear:
+                contrib = to_device(self._fit_linear_tree(
+                    tree, dev, gk, hk, sw, lr).astype(np.float32),
+                    self.device)
+            else:
+                scaled = dev.values * lr
+                contrib = scaled[dev.leaf_id.long()]
             self._add_tree(self._train_score, k, contrib)
             self._last_contribs.append(("train", 0, k, contrib))
             for vi, (vdd, vscore) in enumerate(zip(self._valid_dd,
                                                    self._valid_scores)):
-                contrib = scaled[replay_leaf_ids(dev, vdd).long()]
-                self._add_tree(vscore, k, contrib)
+                if linear:
+                    contrib = self._apply_tree_to_score(vscore, tree, vdd, k,
+                                                        False)
+                else:
+                    contrib = scaled[replay_leaf_ids(dev, vdd).long()]
+                    self._add_tree(vscore, k, contrib)
                 self._last_contribs.append(("valid", vi, k, contrib))
             if it == 0 and abs(self._init_scores[k]) > 1e-35:
                 tree.add_bias(self._init_scores[k])
@@ -897,6 +1249,65 @@ class Booster:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
         return all_const
+
+    def _fit_linear_tree(self, tree: Tree, dev: DeviceTree, gk, hk, sw,
+                         lr: float) -> np.ndarray:
+        """Ridge-fit each leaf's linear model on the raw values of its
+        path's numerical features, hessian-weighted, and return each
+        train row's f64 contribution (the reference's `_fit_linear_tree`,
+        `booster.py:1725`; ref: linear_tree_learner.cpp
+        `LinearTreeLearner::CalculateLinear`): per leaf the normal
+        equations of [1, x] with `linear_lambda` on the coefficients, in
+        f64 numpy on the host; rows with a NaN in the leaf's features, or
+        of weight 0, stay out of the fit and keep the leaf's constant.
+        The leaf id, gradients and weights come to the host in one copy,
+        counted in `ops.grow.HOST_SYNCS`; the fit's host seconds add to
+        `LINEAR_FIT_S`."""
+        global LINEAR_FIT_S
+        t0 = time.perf_counter()
+        X = self._dd.get_raw()
+        n = len(X)
+        host = to_host(torch.cat([dev.leaf_id.to(torch.float32), gk, hk,
+                                  sw]))
+        leaf_id = host[:n].astype(np.int64)
+        g, h, w = (host[i * n:(i + 1) * n].astype(np.float64)
+                   for i in (1, 2, 3))
+        lam = self.config.linear_lambda
+        paths = tree.leaf_path_features()
+        tree.is_linear = True
+        tree.leaf_const = np.array(tree.leaf_value, np.float64)
+        for leaf in range(tree.num_leaves):
+            feats = paths[leaf]
+            tree.leaf_features[leaf] = []
+            tree.leaf_coeff[leaf] = []
+            if not feats:
+                continue
+            rows = np.nonzero(leaf_id == leaf)[0]
+            if not len(rows):
+                continue
+            Xl = X[np.ix_(rows, feats)]
+            fit = rows[~np.isnan(Xl).any(axis=1) & (w[rows] > 0)]
+            if len(fit) <= len(feats) + 1:
+                continue
+            A = np.concatenate([np.ones((len(fit), 1)),
+                                X[np.ix_(fit, feats)]], axis=1)
+            hh = (h[fit] * w[fit])[:, None]
+            rhs = -(A.T @ (g[fit] * w[fit]))
+            M = A.T @ (A * hh)
+            diag = np.arange(1, len(feats) + 1)
+            M[diag, diag] += lam
+            try:
+                beta = np.linalg.solve(M, rhs)
+            except np.linalg.LinAlgError:
+                continue
+            if not np.all(np.isfinite(beta)):
+                continue
+            tree.leaf_const[leaf] = beta[0] * lr
+            tree.leaf_features[leaf] = list(feats)
+            tree.leaf_coeff[leaf] = [float(b) for b in beta[1:] * lr]
+        out = tree.linear_predict(X, leaf_id)
+        LINEAR_FIT_S += time.perf_counter() - t0
+        return out
 
     @staticmethod
     def _add_tree(score: torch.Tensor, k: int,

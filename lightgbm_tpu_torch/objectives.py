@@ -321,15 +321,16 @@ _TRAIN_OBJECTIVES = {"regression": RegressionL2, "binary": BinaryLogloss,
                      "multiclass": MulticlassSoftmax}
 
 
-def create_objective(config) -> TrainObjective:
+def create_objective(config) -> Optional[TrainObjective]:
     """Training objective of a resolved `Config` (ref:
     `ObjectiveFunction::CreateObjectiveFunction`; the JAX package's
     `objectives.py:509`).  This slice trains `regression` (L2),
-    `binary` and `multiclass`; every other objective raises."""
+    `binary` and `multiclass`; "none" and "custom" are None (a custom
+    objective's gradients come from the caller's `fobj`); every other
+    objective raises."""
     name = config.objective
     if name in ("custom", "none", None):
-        raise LightGBMError("custom objectives (fobj) are not ported yet "
-                            "(ROADMAP Queue 1 item 5)")
+        return None
     if name not in _TRAIN_OBJECTIVES:
         raise LightGBMError(
             f"objective {name!r} is not ported yet: this slice trains "

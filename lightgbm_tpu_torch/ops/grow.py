@@ -30,7 +30,10 @@ compiles the whole best-first loop (`grow.py:887-1175`) into one XLA
     histograms are [G, HB] and stay so in the leaf cache (parent minus
     child is taken there); `make_bundled_expander` expands them to the
     features' [F, MB] grid for the search only, and decodes a split
-    feature's bins from its bundle column for the partition.
+    feature's bins from its bundle column for the partition;
+  * the constraints (`make_grower`'s docstring): monotone bounds,
+    interaction groups, CEGB prices, forced splits and the LRU pool,
+    without another host sync a split.
 
 Root sums, leaf sums, gains and outputs stay f32, as the reference
 computes them (it never enables x64).  The root sums and the split
@@ -138,6 +141,24 @@ class GrowerSpec(NamedTuple):
     #: `bundle_off` and `bundle_identity` [F] (`make_bundled_expander`)
     bundled: bool = False
     bundle_max_bin: int = 0
+    #: the grower's constraints (the reference's fields of the same names,
+    #: `lightgbm_tpu/ops/grow.py:72-97`, `:143-151`): the bounded LRU
+    #: histogram pool (slots; 0: one a leaf), the interaction-constraint
+    #: groups (their [K, F] masks in `feat["ic_groups"]`), the BFS-order
+    #: forced splits ((leaf, feature, threshold_bin) tuples), CEGB (0
+    #: tradeoff: off; the vectors in `feat["cegb_coupled"]`,
+    #: `feat["cegb_lazy"]` and `feat["cegb_used"]`) and the intermediate
+    #: monotone method (strict grower, no pool).  The monotone directions
+    #: ride in `feat["mono"]`; the wave grower reads no pool and no
+    #: intermediate method.
+    hist_pool_slots: int = 0
+    n_ic_groups: int = 0
+    forced_splits: tuple = ()
+    cegb_tradeoff: float = 0.0
+    cegb_penalty_split: float = 0.0
+    cegb_coupled: bool = False
+    cegb_lazy: bool = False
+    monotone_intermediate: bool = False
 
 
 #: the hist_impl values whose payload is a quantized gradient lattice
@@ -341,6 +362,107 @@ def search_kwargs(spec: GrowerSpec, feat: Dict) -> Dict:
                 max_cat_to_onehot=spec.max_cat_to_onehot, has_cat=True)
 
 
+def cegb_on(spec: GrowerSpec) -> bool:
+    """Whether CEGB prices candidates (the reference's `cegb_on`,
+    `ops/grow.py:378`)."""
+    return spec.cegb_tradeoff > 0.0 and (
+        spec.cegb_penalty_split > 0.0 or spec.cegb_coupled
+        or spec.cegb_lazy)
+
+
+def tracks_used(spec: GrowerSpec) -> bool:
+    """Whether a grower keeps each leaf's root-path features: interaction
+    constraints and CEGB's lazy costs read them (`ops/grow.py:867`)."""
+    return spec.n_ic_groups > 0 or (cegb_on(spec) and spec.cegb_lazy)
+
+
+def cegb_scale(spec: GrowerSpec) -> float:
+    """The factor the searches scale `make_cegb_penalty`'s penalty by:
+    `cegb_tradeoff`, or with split costs alone the f32 product tradeoff x
+    split, the penalty then being the counts.  XLA's CPU code folds the
+    two constant factors of tradeoff x (split x n) into one and contracts
+    gain - (tradeoff split) n into fma(-(tradeoff split), n, gain),
+    which `find_best_split`'s `penalty_scale` repeats."""
+    if not (spec.cegb_coupled or spec.cegb_lazy):
+        return float(np.float32(spec.cegb_tradeoff)
+                     * np.float32(spec.cegb_penalty_split))
+    return spec.cegb_tradeoff
+
+
+def make_cegb_penalty(spec: GrowerSpec, feat: Dict):
+    """The CEGB candidate penalty of a tree (the reference's
+    `make_cegb_penalty`, `ops/grow.py:368`; ref:
+    cost_effective_gradient_boosting.hpp `DetlaGain`): `penalty(n,
+    path_used) -> [B, F] f32` for the leaves' counts n [B] f32 and their
+    root paths' features path_used [B, F] bool (None without lazy
+    costs), or None when CEGB is off.  split x n + coupled x (1 - used) +
+    lazy x n x (1 - path_used), in f32 in the reference's order (n alone
+    with split costs alone, see `cegb_scale`), to be scaled by
+    `cegb_scale(spec)` where it
+    is subtracted from the gains (`find_best_split`'s `penalty_scale`:
+    XLA contracts the scaling into the subtraction); `feat["cegb_used"]`
+    (the model's used features) is frozen for the tree, so the price of
+    a candidate does not depend on the growth order."""
+    if not cegb_on(spec):
+        return None
+    f = feat["nb"].shape[0]
+    if not (spec.cegb_coupled or spec.cegb_lazy):
+        return lambda n, path_used: n[:, None].expand(-1, f)
+    coupled = None
+    if spec.cegb_coupled:
+        coupled = feat["cegb_coupled"] * (
+            1.0 - feat["cegb_used"].to(torch.float32))
+
+    def penalty(n: torch.Tensor, path_used) -> torch.Tensor:
+        p = (n * spec.cegb_penalty_split)[:, None].expand(-1, f)
+        if coupled is not None:
+            p = p + coupled[None]
+        if spec.cegb_lazy:
+            p = p + feat["cegb_lazy"][None] * n[:, None] * (
+                1.0 - path_used.to(torch.float32))
+        return p
+
+    return penalty
+
+
+def ic_allowed_from_used(groups: np.ndarray, used: np.ndarray) -> np.ndarray:
+    """[B, F] features allowed under interaction constraints for nodes
+    whose root paths used `used` [B, F] (the reference's
+    `ic_allowed_from_used`, `ops/grow.py:417`): the union of the groups
+    [K, F] that hold the whole used set."""
+    ok = ~np.any(used[:, None, :] & ~groups[None], axis=2)      # [B, K]
+    return np.any(groups[None] & ok[:, :, None], axis=1)
+
+
+def child_bounds_basic(mono_f: int, l_sm: torch.Tensor, r_sm: torch.Tensor,
+                       lb: torch.Tensor, ub: torch.Tensor):
+    """The basic monotone method at one split (the reference's
+    `child_bounds_basic`, `ops/grow.py:352`; ref: monotone_constraints.hpp
+    `BasicLeafConstraints`): both outputs clipped to the parent's bounds,
+    their f32 midpoint bounds the children on the feature's direction,
+    each child clipped to its own bounds.  Returns (l_fin, r_fin, l_lb,
+    l_ub, r_lb, r_ub)."""
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+    mid = 0.5 * (clip(l_sm, lb, ub) + clip(r_sm, lb, ub))
+    l_lb, l_ub, r_lb, r_ub = lb, ub, lb, ub
+    if mono_f == 1:
+        l_ub, r_lb = torch.minimum(ub, mid), torch.maximum(lb, mid)
+    elif mono_f == -1:
+        l_lb, r_ub = torch.maximum(lb, mid), torch.minimum(ub, mid)
+    return (clip(l_sm, l_lb, l_ub), clip(r_sm, r_lb, r_ub),
+            l_lb, l_ub, r_lb, r_ub)
+
+
+def forced_cand(feature: int, threshold_bin: int, f_count: int, mb: int,
+                device) -> torch.Tensor:
+    """[1, F, MB] candidate grid of one forced split: only its (feature,
+    bin) cell competes (the reference's `ops/grow.py:922-923`)."""
+    m = torch.zeros((1, f_count, mb), dtype=torch.bool, device=device)
+    m[0, feature, threshold_bin] = True
+    return m
+
+
 def node_arrays(n: int, mb: int) -> Dict[str, np.ndarray]:
     """The host split log of a grower: [n] per node, [n, MB] masks."""
     return dict(
@@ -364,28 +486,66 @@ def make_grower(spec: GrowerSpec) -> Callable:
     [N] f32 and allowed [F] bool lie on one device; `feat` holds the
     per-feature metadata as device tensors (`nb`, `missing`, `default`,
     [F] i32; `is_cat` [F] bool with categoricals; the bundle maps under
-    EFB) and host numpy copies (`nb_np`, `missing_np`, ...)."""
+    EFB; `mono` [F] i32 with monotone constraints; `ic_groups` [K, F]
+    bool with interaction constraints; the CEGB vectors) and host numpy
+    copies (`nb_np`, `missing_np`, `mono_np`, `ic_groups_np`, ...).
+
+    The constraints, as the reference's `ops/grow.py:714-1171` applies
+    them, all on the device between the host copies:
+      * monotone, basic: each split's children are bounded at the
+        midpoint of their outputs (`child_bounds_basic`) and searched
+        with their bounds;
+      * monotone, intermediate (`spec.monotone_intermediate`): the
+        children are clipped to the parent's bounds, then every leaf's
+        bounds are recomputed from the current outputs of the opposite
+        subtrees of its monotone ancestors (`anc_left`/`anc_right`
+        incidence over the splits), and the leaves whose bounds moved
+        are searched again with their own node ids' samples.  The
+        re-search and the children's search are one batched search over
+        every leaf of the tree, so a split still costs one host copy;
+      * interaction constraints: only features of some group may split,
+        a node only those of the groups holding its root path's features;
+      * CEGB: every candidate of a node is priced by `make_cegb_penalty`;
+      * forced splits: the BFS prefix is evaluated one step ahead, on
+        the target leaf's stored histogram with only the designated
+        (feature, bin) cell, bypassing sampling and penalties, and rides
+        the previous split's host copy; an infeasible one abandons the
+        rest of the prefix;
+      * the pool (`hist_pool_slots`): the histograms live in that many
+        LRU slots; a parent that was evicted is recomputed from its rows
+        (K1 or K4 at one slot on the card)."""
     L = spec.num_leaves
     MB = spec.max_bin
     HB = spec.bundle_max_bin if spec.bundled else MB
     PC = pack_cols(MB, spec.has_cat)
     l1, l2, mds = spec.lambda_l1, spec.lambda_l2, spec.max_delta_step
     ps = spec.path_smooth
+    interm = spec.monotone_intermediate
+    pooled = 0 < spec.hist_pool_slots < L
+    if interm and pooled:
+        raise LightGBMError("monotone intermediate requires the un-pooled "
+                            "histogram layout")
+    P = max(2, spec.hist_pool_slots) if pooled else L
+    forced = spec.forced_splits
+    track = tracks_used(spec)
 
     def out_of(g, h, c, parent_out):
         """A node's output: leaf_output, then path smoothing (the
-        monotone clamp of the reference is inert without constraints)."""
+        monotone clip comes after, `child_bounds_basic`)."""
         return smooth_output(leaf_output(g, h, l1, l2, mds), c, parent_out,
-                             ps)
+                             ps, xla_fused=True)
 
-    def search(hist, g, h, c, allowed, p_out, feat, cand, expand):
+    def search(hist, g, h, c, allowed, p_out, feat, cand, expand, lb=None,
+               ub=None, penalty=None):
         if expand is not None:
             hist = expand(hist, torch.stack([g, h, c], dim=-1))
         return find_best_split(
             hist, g, h, c, feat["nb"], feat["missing"], feat["default"],
             allowed, l1, l2, spec.min_data_in_leaf,
             spec.min_sum_hessian_in_leaf, spec.min_gain_to_split, mds, ps,
-            p_out, cand, **search_kwargs(spec, feat))
+            p_out, cand, mono=feat.get("mono"), out_lb=lb, out_ub=ub,
+            gain_penalty=penalty, xla_fused=True,
+            penalty_scale=cegb_scale(spec), **search_kwargs(spec, feat))
 
     def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              sample_weight: torch.Tensor, feat: Dict,
@@ -400,20 +560,62 @@ def make_grower(spec: GrowerSpec) -> Callable:
             if spec.bundled else (None, lambda f: None)
         # node ids: the root 0, the children of split k 2k + 1 and 2k + 2
         masks = make_node_samplers(spec, feat, f_count, 2 * L - 1, dev)
+        penalty_fn = make_cegb_penalty(spec, feat)
+        mono_np = feat.get("mono_np")
+        groups = feat["ic_groups_np"] if spec.n_ic_groups else None
+        if groups is not None:
+            # only features inside some group may ever split
+            allowed = allowed & feat["ic_groups"].any(dim=0)
         slots = torch.arange(L, dtype=torch.int32, device=dev)
         no_feature = torch.zeros_like(allowed)
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
-        # the leaf cache holds the histograms as built: [G, HB] under EFB
-        hist = torch.empty((L, bins_fm.shape[0], HB, 3), dtype=torch.float32,
+        # the histograms as built ([G, HB] under EFB), a slot a leaf or
+        # the pool's slots
+        hist = torch.empty((P, bins_fm.shape[0], HB, 3), dtype=torch.float32,
                            device=dev)
         hist[0] = hist_fn(leaf_id, slots[:1])[0]
+        owner = np.full(P, -1, np.int64)      # the leaf in each pool slot
+        touched = np.full(P, -1, np.int64)    # the step of its last use
+        owner[0] = touched[0] = 0
+
+        def leaf_hist(leaf: int):
+            """(histogram, slot or -1) of a leaf's rows: its slot, or a
+            pool miss recomputed from the rows (the reference's
+            `fetch_hist`)."""
+            if not pooled:
+                return hist[leaf], leaf
+            hit = np.nonzero(owner == leaf)[0]
+            if len(hit):
+                return hist[int(hit[0])], int(hit[0])
+            return hist_fn(leaf_id, slots[leaf:leaf + 1])[0], -1
+
+        def gate(nids: torch.Tensor, deep: np.ndarray, used) -> torch.Tensor:
+            """[B, F] features each node may split on: the tree's
+            `allowed`, the depth gate, the interaction groups of its
+            path, its bynode sample."""
+            keep = np.repeat(deep[:, None], f_count, axis=1)
+            if groups is not None:
+                keep &= ic_allowed_from_used(groups, used)
+            return masks.allowed(nids, allowed[None] & to_device(keep, dev))
 
         # ---- root: sums, output, split, all in one host copy ----
         root_g, root_h, root_c = tree_sum(payload.t())
         root_out = leaf_output(root_g, root_h, l1, l2, mds)
+        stat_dev = torch.zeros((L, 3), dtype=torch.float32, device=dev)
+        stat_dev[0] = torch.stack([root_g, root_h, root_c])
+        lb_dev = ub_dev = None
+        if mono_np is not None:
+            lb_dev = torch.full((L,), float("-inf"), device=dev)
+            ub_dev = torch.full((L,), float("inf"), device=dev)
+        used_np = np.zeros((L, f_count), bool) if track else None
+        pen = None if penalty_fn is None else penalty_fn(
+            root_c[None], torch.zeros((1, f_count), dtype=torch.bool,
+                                      device=dev))
         s0 = search(hist[:1], root_g[None], root_h[None], root_c[None],
                     masks.allowed(0, allowed), root_out[None], feat,
-                    masks.cand(0, MB), expand)
+                    masks.cand(0, MB), expand,
+                    None if lb_dev is None else lb_dev[:1],
+                    None if ub_dev is None else ub_dev[:1], pen)
         # device mirror of the per-leaf records the children read:
         # the cached split (pack_cols), its categorical mask, the output
         rec_dev = torch.zeros((L, PC), dtype=torch.float32, device=dev)
@@ -423,12 +625,45 @@ def make_grower(spec: GrowerSpec) -> Callable:
         if spec.has_cat:
             mask_dev = torch.zeros((L, MB), dtype=torch.bool, device=dev)
             mask_dev[0] = s0.cat_mask[0]
+        if interm:
+            # anc_left[leaf, s]: the leaf lies in the left subtree of
+            # split s (the reference's `ops/grow.py:877-885`)
+            anc_left = torch.zeros((L, max(L - 1, 1)), dtype=torch.bool,
+                                   device=dev)
+            anc_right = torch.zeros_like(anc_left)
+            signs = torch.zeros(max(L - 1, 1), dtype=torch.int32,
+                                device=dev)
+            leaf_nid = np.zeros(L, np.int64)
+        forced_rec = None
+
+        def eval_forced(idx: int) -> torch.Tensor:
+            """The packed record of forced split `idx` on its leaf now
+            (the reference's `eval_forced`, `ops/grow.py:919-932`)."""
+            nonlocal forced_rec
+            fl, ff, fb = forced[idx]
+            ph, _ = leaf_hist(fl)
+            a = allowed.clone()
+            a[ff] = True
+            st = stat_dev[fl:fl + 1]
+            fs = search(ph[None], st[:, 0], st[:, 1], st[:, 2], a,
+                        out_dev[fl:fl + 1], feat,
+                        forced_cand(ff, fb, f_count, MB, dev), expand,
+                        None if lb_dev is None else lb_dev[fl:fl + 1],
+                        None if ub_dev is None else ub_dev[fl:fl + 1])
+            forced_rec = (fs.pack()[0], fs.cat_mask[0]
+                          if spec.has_cat else None)
+            return forced_rec[0]
+
+        forced_n = len(forced)
+        tail = [eval_forced(0)] if forced_n else []
         host = to_host(torch.cat([torch.stack([root_g, root_h, root_c,
-                                               root_out]), rec_dev[0]]))
+                                               root_out]), rec_dev[0]]
+                                 + tail))
 
         rec = np.zeros((L, PC), np.float32)
         rec[:, 0] = NEG_INF
-        rec[0] = host[4:]
+        rec[0] = host[4:4 + PC]
+        frec = host[4 + PC:]
         leaf_g = np.zeros(L, np.float32)
         leaf_h = np.zeros(L, np.float32)
         leaf_c = np.zeros(L, np.float32)
@@ -440,18 +675,30 @@ def make_grower(spec: GrowerSpec) -> Callable:
         nb = feat["nb_np"]
 
         step, nl = 0, 1
-        while step < L - 1 and rec[:, 0].max() > 0.0:
+        while step < L - 1 and (rec[:, 0].max() > 0.0 or step < forced_n):
             best = int(np.argmax(rec[:, 0]))
-            gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = rec[best, :PACK_COLS]
+            row, row_dev = rec[best], rec_dev[best]
+            mrow_dev = mask_dev[best] if spec.has_cat else None
+            if step < forced_n:
+                if np.isfinite(frec[0]):
+                    best = forced[step][0]
+                    row, (row_dev, mrow_dev) = frec, forced_rec
+                else:
+                    # infeasible: abandon the rest of the forced prefix
+                    forced_n = step
+                    if not row[0] > 0.0:
+                        break
+            gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = row[:PACK_COLS]
             f, t, dl = int(f), int(t), bool(dl)
-            node_cat, node_mask = unpack_cat(rec[best, PACK_COLS:], MB) \
+            node_cat, node_mask = unpack_cat(row[PACK_COLS:], MB) \
                 if spec.has_cat else (False, None)
             new = nl
+            parent_hist, pslot = leaf_hist(best)
 
             # ---- partition: dense leaf_id update ----
             go_left = split_go_left(
                 bins_fm, f, t, dl, int(missing[f]), int(nb[f]), bundle_of(f),
-                mask_dev[best] if node_cat else None)
+                mrow_dev if node_cat else None)
             leaf_id = torch.where((leaf_id == best) & ~go_left,
                                   slots[new], leaf_id)
 
@@ -471,36 +718,111 @@ def make_grower(spec: GrowerSpec) -> Callable:
             left_smaller = lc <= rc
             small = best if left_smaller else new
             small_hist = hist_fn(leaf_id, slots[small:small + 1])[0]
-            large_hist = hist[best] - small_hist
-            hist[best] = small_hist if left_smaller else large_hist
-            hist[new] = large_hist if left_smaller else small_hist
+            large_hist = parent_hist - small_hist
+            lhist, rhist = (small_hist, large_hist) if left_smaller \
+                else (large_hist, small_hist)
+            if pooled:
+                # both children placed, evicting the least recently used
+                slot_l = pslot if pslot >= 0 else int(np.argmin(touched))
+                touched[slot_l] = step + 1
+                slot_r = int(np.argmin(touched))
+                touched[slot_r] = step + 1
+                hist[slot_l], hist[slot_r] = lhist, rhist
+                owner[slot_l], owner[slot_r] = best, new
+                kid_hist = torch.stack([lhist, rhist])
+            else:
+                hist[best], hist[new] = lhist, rhist
 
-            # ---- the children: outputs, then both searches at once ----
-            sums = rec_dev[best, 4:PACK_COLS].reshape(2, 3)  # left, right
-            p_out = out_dev[best]
-            child_out = out_of(sums[:, 0], sums[:, 1], sums[:, 2], p_out)
+            # ---- the children's outputs and bounds ----
+            sums = row_dev[4:PACK_COLS].reshape(2, 3)  # left, right
+            stat_dev[best], stat_dev[new] = sums[0], sums[1]
+            child_out = out_of(sums[:, 0], sums[:, 1], sums[:, 2],
+                               out_dev[best])
             depth = int(leaf_depth[best]) + 1
-            deep_ok = spec.max_depth <= 0 or depth < spec.max_depth
-            kids = slice(2 * step + 1, 2 * step + 3)
-            res = search(hist[[best, new]], sums[:, 0], sums[:, 1],
-                         sums[:, 2], masks.allowed(
-                             kids, allowed if deep_ok else no_feature),
-                         child_out, feat, masks.cand(kids, MB), expand)
-            packed = res.pack()
-            rec_dev[best], rec_dev[new] = packed[0], packed[1]
+            leaf_depth[best] = leaf_depth[new] = depth
+            if track:
+                used_np[new] = used_np[best]
+                used_np[new, f] = used_np[best, f] = True
+            mono_f = 0 if node_cat or mono_np is None else int(mono_np[f])
+            if interm:
+                lb_b, ub_b = lb_dev[best], ub_dev[best]
+                child_out = torch.minimum(torch.maximum(child_out, lb_b),
+                                          ub_b)
+            elif lb_dev is not None:
+                bounds = child_bounds_basic(mono_f, child_out[0],
+                                            child_out[1], lb_dev[best],
+                                            ub_dev[best])
+                child_out = torch.stack(bounds[:2])
+                b4 = torch.stack(bounds[2:])
+                lb_dev[best], ub_dev[best] = b4[0], b4[1]
+                lb_dev[new], ub_dev[new] = b4[2], b4[3]
             out_dev[best], out_dev[new] = child_out[0], child_out[1]
-            if spec.has_cat:
-                mask_dev[best], mask_dev[new] = res.cat_mask[0], \
-                    res.cat_mask[1]
-            host = to_host(torch.cat([packed.reshape(-1), child_out]))
+            if interm:
+                moved = update_bounds(anc_left, anc_right, signs, out_dev,
+                                      lb_dev, ub_dev, best, new, step,
+                                      mono_f)
+                leaf_nid[best], leaf_nid[new] = 2 * step + 1, 2 * step + 2
 
-            rec[best] = host[:PC]
-            rec[new] = host[PC:2 * PC]
-            leaf_out[best], leaf_out[new] = host[2 * PC:]
+            # ---- the searches: both children (intermediate: every leaf,
+            # the moved ones' records replaced), one host copy ----
+            if interm:
+                rows = slice(0, new + 1)
+                nid_t = to_device(leaf_nid[:new + 1], dev)
+                deep = (spec.max_depth <= 0) | \
+                    (leaf_depth[:new + 1] < spec.max_depth)
+                st = stat_dev[rows]
+                a = gate(nid_t, deep, used_np[rows] if track else None)
+                pen = None if penalty_fn is None else penalty_fn(
+                    st[:, 2], to_device(used_np[rows], dev) if track
+                    else None)
+                res = search(hist[rows], st[:, 0], st[:, 1], st[:, 2], a,
+                             out_dev[rows], feat, masks.cand(nid_t, MB),
+                             expand, lb_dev[rows], ub_dev[rows], pen)
+                moved[best] = moved[new] = True
+                rec_dev[rows] = torch.where(moved[:, None], res.pack(),
+                                            rec_dev[rows])
+                if spec.has_cat:
+                    mask_dev[rows] = torch.where(moved[:, None],
+                                                 res.cat_mask, mask_dev[rows])
+                packed = rec_dev[rows]
+            else:
+                deep_ok = spec.max_depth <= 0 or depth < spec.max_depth
+                kids = slice(2 * step + 1, 2 * step + 3)
+                if groups is None:
+                    a = masks.allowed(kids, allowed if deep_ok
+                                      else no_feature)
+                else:
+                    a = gate(torch.arange(2 * step + 1, 2 * step + 3,
+                                          device=dev),
+                             np.array([deep_ok, deep_ok]),
+                             used_np[[best, new]])
+                pen = None if penalty_fn is None else penalty_fn(
+                    sums[:, 2], to_device(used_np[[best, new]], dev)
+                    if track else None)
+                res = search(kid_hist if pooled else hist[[best, new]],
+                             sums[:, 0], sums[:, 1], sums[:, 2], a,
+                             child_out, feat, masks.cand(kids, MB), expand,
+                             None if lb_dev is None else lb_dev[[best, new]],
+                             None if ub_dev is None else ub_dev[[best, new]],
+                             pen)
+                packed = res.pack()
+                rec_dev[best], rec_dev[new] = packed[0], packed[1]
+                if spec.has_cat:
+                    mask_dev[best], mask_dev[new] = res.cat_mask[0], \
+                        res.cat_mask[1]
+            step, nl = step + 1, nl + 1
+            tail = [eval_forced(step)] if step < forced_n else []
+            host = to_host(torch.cat([packed.reshape(-1), child_out]
+                                     + tail))
+            k = packed.shape[0] * PC
+            if interm:
+                rec[:new + 1] = host[:k].reshape(-1, PC)
+            else:
+                rec[best], rec[new] = host[:PC], host[PC:k]
+            leaf_out[best], leaf_out[new] = host[k:k + 2]
+            frec = host[k + 2:]
             leaf_g[best], leaf_h[best], leaf_c[best] = lg, lh, lc
             leaf_g[new], leaf_h[new], leaf_c[new] = rg, rh, rc
-            leaf_depth[best] = leaf_depth[new] = depth
-            step, nl = step + 1, nl + 1
 
         # a single-leaf tree predicts 0 (ref: GBDT "no more leaves that
         # meet the split requirements"); slots >= nl stay zero
@@ -513,3 +835,36 @@ def make_grower(spec: GrowerSpec) -> Callable:
                           leaf_id=leaf_id, values=values_dev, **nodes)
 
     return grow
+
+
+def update_bounds(anc_left, anc_right, signs, out_dev, lb_dev, ub_dev,
+                  best: int, new: int, step: int,
+                  mono_f: int) -> torch.Tensor:
+    """The intermediate monotone method's bounds after split `step` (the
+    reference's `ops/grow.py:1004-1038`), in place on the device: the
+    ancestry of the two children, then for each of the leaves 0 .. new
+    the tightest bound that its monotone ancestors' opposite subtrees
+    give.  Returns the [new + 1] mask of the leaves whose bounds moved."""
+    anc_left[new] = anc_left[best]
+    anc_left[best, step] = True
+    anc_right[new] = anc_right[best]
+    anc_right[new, step] = True
+    signs[step] = mono_f
+    inf = float("inf")
+    ml, mr = anc_left[:new + 1], anc_right[:new + 1]       # [n, S]
+    outs = out_dev[:new + 1, None]
+    left_max = torch.where(ml, outs, -inf).amax(dim=0)
+    left_min = torch.where(ml, outs, inf).amin(dim=0)
+    right_max = torch.where(mr, outs, -inf).amax(dim=0)
+    right_min = torch.where(mr, outs, inf).amin(dim=0)
+    pos, neg = signs == 1, signs == -1
+    new_ub = torch.minimum(
+        torch.where(ml & pos, right_min, inf).amin(dim=1),
+        torch.where(mr & neg, left_min, inf).amin(dim=1))
+    new_lb = torch.maximum(
+        torch.where(mr & pos, left_max, -inf).amax(dim=1),
+        torch.where(ml & neg, right_max, -inf).amax(dim=1))
+    moved = (new_lb != lb_dev[:new + 1]) | (new_ub != ub_dev[:new + 1])
+    lb_dev[:new + 1] = new_lb
+    ub_dev[:new + 1] = new_ub
+    return moved

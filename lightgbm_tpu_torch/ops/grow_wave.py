@@ -58,8 +58,19 @@ records the pick loop reads live on the host:
     the wave's indices; bynode gates `decide_from_candidates` on the
     fused path (`:430`), extra_trees runs unfused (`:383-387`).
 
+The constraints (the reference's `:207-242`, `:369-395`, `:542-620`):
+monotone basic in the pick loop (`ops/grow.py child_bounds_basic`, on
+CPU tensors; the booster runs it unfused), each child's bounds uploaded
+with the wave's values; interaction constraints and CEGB from each
+leaf's root-path features on the host (`ic_allowed_from_used`,
+`make_cegb_penalty`, the model's `cegb_used` frozen within a tree);
+forced splits as a prefix of width-1 waves, each evaluated on its leaf's
+stored histogram after the previous wave's search and read with its
+host copy, the wave that commits the last one going on at full width.
+
 Grow-then-prune (`wave_overgrow > 1`) grows to LB > num_leaves leaves
-and prunes back on the host (`prune_wave_tail`).  Each call to the
+and prunes back on the host (`prune_wave_tail`; forced splits are never
+pruned).  Each call to the
 grower counts its waves in WAVES and the waves that built histograms in
 HIST_WAVES.
 """
@@ -74,10 +85,11 @@ import torch
 from ..utils.log import LightGBMError
 from .fused_kernel import (fused_hist_split, fused_hist_split_quantized,
                            split_scan)
-from .grow import (DeviceTree, GrowerSpec, make_bundled_expander,
-                   make_node_samplers, node_arrays, search_kwargs,
-                   split_go_left, to_device, to_host,
-                   tree_histograms)
+from .grow import (DeviceTree, GrowerSpec, cegb_scale, child_bounds_basic,
+                   forced_cand, ic_allowed_from_used, make_bundled_expander,
+                   make_cegb_penalty, make_node_samplers, node_arrays,
+                   search_kwargs, split_go_left, to_device, to_host,
+                   tracks_used, tree_histograms)
 from .reduce import tree_sum
 from .split import (NEG_INF, PACK_COLS, decide_from_candidates,
                     find_best_split, leaf_output, merge_split_results,
@@ -104,17 +116,19 @@ def wave_sizes(spec: GrowerSpec):
 
 def prune_wave_tail(nodes: Dict[str, np.ndarray], n: int,
                     leaves: Dict[str, np.ndarray], *, LB: int, L: int,
-                    clamp_output: Callable):
+                    clamp_output: Callable, forced_n: int = 0):
     """Prune an LB-leaf wave tree back to L leaves (the reference's
     `prune_wave_tail`, on host numpy): remove the lowest-gain split whose
     children are both leaves, restore the parent's leaf record from its
     node sums (output `clamp_output(g, h)`), until L leaves are left;
     then compact the split log to [L - 1], renumbering slots so that the
-    right child of split k is still leaf slot k + 1.  Returns (nodes,
+    right child of split k is still leaf slot k + 1.  The `forced_n`
+    forced splits of the prefix are never removed.  Returns (nodes,
     leaves, new_slot [LB] old slot -> final slot, n_splits)."""
     idx = np.arange(LB - 1)
     sl = nodes["split_leaf"].astype(np.int64)
     target = min(n, L - 1)
+    forced_floor = min(forced_n, target)
     alive = idx < n
     lv = {k: v.copy() for k, v in leaves.items()}
     n_alive = n
@@ -122,7 +136,8 @@ def prune_wave_tail(nodes: Dict[str, np.ndarray], n: int,
         later = alive[None, :] & (idx[None, :] > idx[:, None])
         hit = (sl[None, :] == sl[:, None]) \
             | (sl[None, :] == idx[:, None] + 1)
-        removable = alive & ~np.any(later & hit, axis=1)
+        removable = alive & ~np.any(later & hit, axis=1) \
+            & (idx >= forced_floor)
         cand = np.where(removable, nodes["split_gain"], np.float32(np.inf))
         r = int(np.argmin(cand))
         b = sl[r]
@@ -184,6 +199,8 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
     tail = min(spec.wave_strict_tail, LB - 1) \
         if spec.wave_strict_tail > 0 else 0
     ratio = np.float32(spec.wave_gain_ratio)
+    forced = spec.forced_splits
+    pen_scale = cegb_scale(spec)
 
     def out_of(g, h, c, parent_out):
         """Outputs of leaves from their f32 sums, on CPU tensors: the
@@ -191,7 +208,7 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         t = [torch.from_numpy(np.asarray(a, np.float32))
              for a in (g, h, c, parent_out)]
         return smooth_output(leaf_output(t[0], t[1], l1, l2, mds), t[2],
-                             t[3], ps).numpy()
+                             t[3], ps, xla_fused=True).numpy()
 
     def clamp_output(g, h):
         return leaf_output(torch.from_numpy(np.asarray(g, np.float32)),
@@ -199,35 +216,40 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                            l1, l2, mds).numpy()
 
     def search(hist, sums, allowed, p_out, feat, cand=None, expand=None,
-               numerical=True):
+               numerical=True, bounds=None, penalty=None):
         """The unfused search over [B] histograms (expanded from the
-        bundle columns under EFB); `numerical=False` is the fused path's
+        bundle columns under EFB), with the rows' output `bounds` (lb,
+        ub) and CEGB `penalty`; `numerical=False` is the fused path's
         categorical search."""
         if expand is not None:
             hist = expand(hist, sums)
+        lb, ub = bounds if bounds is not None else (None, None)
         return find_best_split(
             hist, sums[:, 0], sums[:, 1], sums[:, 2], feat["nb"],
             feat["missing"], feat["default"], allowed, l1, l2,
             spec.min_data_in_leaf, spec.min_sum_hessian_in_leaf,
             spec.min_gain_to_split, mds, ps, p_out, cand,
-            numerical=numerical, **search_kwargs(spec, feat))
+            numerical=numerical, mono=feat.get("mono"), out_lb=lb,
+            out_ub=ub, gain_penalty=penalty, xla_fused=True,
+            penalty_scale=pen_scale, **search_kwargs(spec, feat))
 
-    def fused_split(cand, hist, sums, allowed, p_out, feat):
+    def fused_split(cand, hist, sums, allowed, p_out, feat, penalty=None):
         """`split_of_fused` (the reference's `grow_wave.py:417-441`):
         the numerical features' decisions from the kernels' candidates;
         with categorical features, those over the numerical features
         only, merged with the categorical search on the carried
-        histograms."""
+        histograms.  Monotone constraints never take this path (the
+        booster turns fusion off), so the bounds are infinite."""
         if not spec.has_cat:
             return decide_from_candidates(
                 cand, sums[:, 0], sums[:, 1], sums[:, 2], feat["missing"],
-                feat["default"], allowed)
+                feat["default"], allowed, penalty, pen_scale, True)
         is_cat = feat["is_cat"][None, :]
         num = decide_from_candidates(
             cand, sums[:, 0], sums[:, 1], sums[:, 2], feat["missing"],
-            feat["default"], allowed & ~is_cat)
+            feat["default"], allowed & ~is_cat, penalty, pen_scale, True)
         cat = search(hist, sums, allowed & is_cat, p_out, feat,
-                     numerical=False)
+                     numerical=False, penalty=penalty)
         return merge_split_results(num, cat)
 
     def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
@@ -256,6 +278,13 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         # node ids as the strict grower's: the root 0, the children of
         # split k 2k + 1 (the left) and 2k + 2
         masks = make_node_samplers(spec, feat, f_count, 2 * LB - 1, dev)
+        penalty_fn = make_cegb_penalty(spec, feat)
+        mono_np = feat.get("mono_np")
+        groups = feat["ic_groups_np"] if spec.n_ic_groups else None
+        if groups is not None:
+            # only features inside some group may ever split
+            allowed = allowed & feat["ic_groups"].any(dim=0)
+        track = tracks_used(spec)
         slots = torch.arange(LB, dtype=torch.int32, device=dev)
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
         # the leaf cache holds the histograms as built: [G, HB] under EFB
@@ -266,41 +295,74 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         root_g, root_h, root_c = tree_sum(payload.t())
         root_out = leaf_output(root_g, root_h, l1, l2, mds)
         root_sums = torch.stack([root_g, root_h, root_c])[None]   # [1, 3]
+        root_pen = None if penalty_fn is None else penalty_fn(
+            root_c[None], torch.zeros((1, f_count), dtype=torch.bool,
+                                      device=dev))
+        inf1 = torch.full((1,), float("inf"), device=dev)
+        root_bounds = None if mono_np is None else (-inf1, inf1)
         if fused:
             h0, c0 = fused_fn(leaf_id, slots[:1], root_sums)
             s0 = fused_split(c0, h0, root_sums, masks.allowed(0, allowed)
-                             [None], root_out[None], feat)
+                             [None], root_out[None], feat, root_pen)
         else:
             h0 = hist_fn(leaf_id, slots[:1])
             s0 = search(h0, root_sums, masks.allowed(0, allowed),
-                        root_out[None], feat, masks.cand(0, MB), expand)
+                        root_out[None], feat, masks.cand(0, MB), expand,
+                        bounds=root_bounds, penalty=root_pen)
         hist[0] = h0[0]
         if spec.has_cat:
             # each leaf's categorical mask on the device, for the partition
             mask_dev = torch.zeros((LB, MB), dtype=torch.bool, device=dev)
             mask_dev[0] = s0.cat_mask[0]
+        forced_mask = None
+
+        def eval_forced(idx: int, leaf: torch.Tensor) -> torch.Tensor:
+            """The packed record of forced split `idx` on its leaf's
+            stored histogram (the reference's `grow_wave.py:643-654`): its
+            one (feature, bin) cell, sampling and penalties bypassed;
+            `leaf` [6] f32 holds the leaf's g, h, count, output and
+            bounds."""
+            nonlocal forced_mask
+            fl, ff, fb = forced[idx]
+            a = allowed.clone()
+            a[ff] = True
+            fs = search(hist[fl:fl + 1], leaf[None, :3], a, leaf[3:4], feat,
+                        forced_cand(ff, fb, f_count, MB, dev), expand,
+                        bounds=None if mono_np is None
+                        else (leaf[4:5], leaf[5:6]))
+            forced_mask = fs.cat_mask[0] if spec.has_cat else None
+            return fs.pack()[0]
+
+        forced_n = len(forced)
+        tail_dev = [eval_forced(0, torch.cat([root_sums[0], root_out[None],
+                                              -inf1, inf1]))] \
+            if forced_n else []
         host = to_host(torch.cat([root_sums[0], root_out[None],
-                                  s0.pack().reshape(-1)]))
+                                  s0.pack().reshape(-1)] + tail_dev))
 
         # per-leaf records: the cached best split (`pack_cols`: gain,
         # feature, threshold, default_left, left g/h/count, right g/h/
         # count, with categoricals is_cat and the mask words), the leaf's
-        # sums, output and depth
+        # sums, output, bounds, depth and root-path features
         rec = np.zeros((LB, PC), np.float32)
         rec[:, 0] = NEG_INF
-        rec[0] = host[4:]
+        rec[0] = host[4:4 + PC]
+        frec = host[4 + PC:]
         leaf_g = np.zeros(LB, np.float32)
         leaf_h = np.zeros(LB, np.float32)
         leaf_c = np.zeros(LB, np.float32)
         leaf_out = np.zeros(LB, np.float32)
+        leaf_lb = np.full(LB, -np.inf, np.float32)
+        leaf_ub = np.full(LB, np.inf, np.float32)
         leaf_depth = np.zeros(LB, np.int64)
+        used = np.zeros((LB, f_count), bool) if track else None
         leaf_g[0], leaf_h[0], leaf_c[0], leaf_out[0] = host[:4]
         nodes = node_arrays(LB - 1, MB)
         missing = feat["missing_np"]
         nb = feat["nb_np"]
 
         step, nl = 0, 1
-        while step < LB - 1 and rec[:, 0].max() > 0.0:
+        while step < LB - 1 and (rec[:, 0].max() > 0.0 or step < forced_n):
             WAVES += 1
             # ---- pick loop: best-first among the leaves ready at the
             # wave's start, up to the width cap ----
@@ -315,15 +377,30 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
             picks: List[tuple] = []
             while len(picks) < wcap and step < LB - 1:
                 ready_gain = np.where(ready, rec[:, 0], np.float32(NEG_INF))
-                if not ready_gain.max() > np.maximum(g_floor,
-                                                     np.float32(0.0)):
-                    break
-                best = int(np.argmax(ready_gain))
+                forced_ok = False
+                if step < forced_n:
+                    # a pending forced split is the wave's first pick
+                    # only (the reference's `:615-628`)
+                    if picks:
+                        break
+                    forced_ok = bool(np.isfinite(frec[0]))
+                    if not forced_ok:
+                        forced_n = step      # abandon the forced prefix
+                if forced_ok:
+                    best = forced[step][0]
+                    row = frec
+                    if spec.has_cat:
+                        mask_dev[best] = forced_mask
+                else:
+                    if not ready_gain.max() > np.maximum(g_floor,
+                                                         np.float32(0.0)):
+                        break
+                    best = int(np.argmax(ready_gain))
+                    row = rec[best]
                 new = step + 1                     # nl == step + 1
-                gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = \
-                    rec[best, :PACK_COLS]
+                gain_s, f, t, dl, lg, lh, lc, rg, rh, rc = row[:PACK_COLS]
                 f, t, dl = int(f), int(t), bool(dl)
-                node_cat, node_mask = unpack_cat(rec[best, PACK_COLS:], MB) \
+                node_cat, node_mask = unpack_cat(row[PACK_COLS:], MB) \
                     if spec.has_cat else (False, None)
                 if node_cat:
                     nodes["split_cat_mask"][step] = node_mask
@@ -337,9 +414,21 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                     nodes[key][step] = v
                 l_out, r_out = out_of([lg, rg], [lh, rh], [lc, rc],
                                       [leaf_out[best]] * 2)
+                if mono_np is not None:
+                    # the basic method's clip and midpoint bounds
+                    mono_f = 0 if node_cat else int(mono_np[f])
+                    b = child_bounds_basic(
+                        mono_f, *(torch.tensor(np.float32(v)) for v in (
+                            l_out, r_out, leaf_lb[best], leaf_ub[best])))
+                    l_out, r_out = b[0].numpy(), b[1].numpy()
+                    leaf_lb[best], leaf_ub[best] = b[2].numpy(), b[3].numpy()
+                    leaf_lb[new], leaf_ub[new] = b[4].numpy(), b[5].numpy()
                 small = best if lc <= rc else new
-                if not picks:
+                if not picks and not forced_ok:
                     g_floor = ratio * gain_s * fullness
+                if track:
+                    used[new] = used[best]
+                    used[new, f] = used[best, f] = True
                 ready[best] = False
                 rec[best, 0] = rec[new, 0] = NEG_INF
                 leaf_g[best], leaf_g[new] = lg, rg
@@ -349,6 +438,8 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                 leaf_depth[best] = leaf_depth[new] = leaf_depth[best] + 1
                 picks.append((best, new, small, f, t, dl, node_cat))
                 step, nl = step + 1, nl + 1
+            if not picks:
+                break              # an infeasible forced split, no gain
 
             # ---- partition ----
             for best, new, _, f, t, dl, node_cat in picks:
@@ -380,12 +471,18 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
             idx = to_device(np.array(p_left + p_small + p_large + route
                                    + child.tolist() + nids, np.int64), dev)
             stats = np.stack([leaf_g, leaf_h, leaf_c], axis=1)     # [LB, 3]
-            deep_ok = (spec.max_depth <= 0) | \
-                (leaf_depth[child] < spec.max_depth)
+            # each child's features: the depth gate and, with interaction
+            # constraints, its path's groups
+            keep = np.repeat(((spec.max_depth <= 0) | (
+                leaf_depth[child] < spec.max_depth))[:, None], f_count, 1)
+            if groups is not None:
+                keep &= ic_allowed_from_used(groups, used[child])
             vals = to_device(np.concatenate([
                 stats[p_small].ravel(), stats[p_large].ravel(),
-                stats[child].ravel(), leaf_out[child],
-                deep_ok.astype(np.float32)]).astype(np.float32), dev)
+                stats[child].ravel(), leaf_out[child], leaf_lb[child],
+                leaf_ub[child], keep.ravel(),
+                used[child].ravel() if track else []]).astype(np.float32),
+                dev)
             left_t, small_t, large_t = idx[:w], idx[w:2 * w], idx[2 * w:3 * w]
             route_t, child_t = idx[3 * w:5 * w], idx[5 * w:7 * w]
             nid_t = idx[7 * w:9 * w]
@@ -393,8 +490,14 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
             par_large = vals[3 * w:6 * w].view(w, 3)
             sums = vals[6 * w:12 * w].view(2 * w, 3)
             child_out = vals[12 * w:14 * w]
+            bounds = None if mono_np is None else (vals[14 * w:16 * w],
+                                                   vals[16 * w:18 * w])
+            o = 18 * w + 2 * w * f_count
             child_allowed = masks.allowed(nid_t, allowed[None, :] & (
-                vals[14 * w:16 * w] > 0)[:, None])
+                vals[18 * w:o].view(2 * w, f_count) > 0))
+            pen = None if penalty_fn is None else penalty_fn(
+                sums[:, 2], (vals[o:].view(2 * w, f_count) > 0)
+                if track else None)
 
             # ---- histograms: the smaller children in one pass, the
             # larger by subtraction (the parent's histogram is still in
@@ -418,19 +521,30 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                     0, route_t)
                 res = fused_split(cand, hist.index_select(0, child_t)
                                   if spec.has_cat else None, sums,
-                                  child_allowed, child_out, feat)
+                                  child_allowed, child_out, feat, pen)
             else:
                 res = search(hist.index_select(0, child_t), sums,
                              child_allowed, child_out, feat,
-                             masks.cand(nid_t, MB), expand)
+                             masks.cand(nid_t, MB), expand, bounds=bounds,
+                             penalty=pen)
             if spec.has_cat:
                 mask_dev.index_copy_(0, child_t, res.cat_mask)
-            rec[child] = to_host(res.pack()).reshape(2 * w, PC)
+            if step < forced_n:
+                fl = forced[step][0]
+                tail_dev = [eval_forced(step, to_device(np.array(
+                    [*stats[fl], leaf_out[fl], leaf_lb[fl], leaf_ub[fl]],
+                    np.float32), dev))]
+            else:
+                tail_dev = []
+            host = to_host(torch.cat([res.pack().reshape(-1)] + tail_dev))
+            rec[child] = host[:2 * w * PC].reshape(2 * w, PC)
+            frec = host[2 * w * PC:]
 
         leaves = dict(out=leaf_out, g=leaf_g, h=leaf_h, c=leaf_c)
         if LB > L:
             nodes, leaves, new_slot, step = prune_wave_tail(
-                nodes, step, leaves, LB=LB, L=L, clamp_output=clamp_output)
+                nodes, step, leaves, LB=LB, L=L, clamp_output=clamp_output,
+                forced_n=forced_n)
             leaf_id = to_device(new_slot.astype(np.int32), dev)[leaf_id.long()]
         # a single-leaf tree predicts 0 (ref: GBDT "no more leaves that
         # meet the split requirements"); slots past the tree stay zero

@@ -41,9 +41,15 @@ negated ratios with invalid bins at -inf, as in the reference: invalid
 bins tie at +-inf, and a descending sort would order those ties
 differently.  Their prefix sums add in `block_cumsum`'s order too.
 
-Monotone constraints and finite output bounds are not ported (the
-training slice refuses them), so the only constrained form left is path
-smoothing, which switches every candidate to the given-output gain.
+Constraints (`split.py:147-250`): a monotone direction `mono` [F] in
+{-1, 0, +1}, a leaf's output bounds [`out_lb`, `out_ub`] or path
+smoothing switch a candidate to the given-output gain: the children's
+outputs (smoothed, then clipped to the bounds) scored by
+`-(2 ThresholdL1(g) w + (h + l2) w^2)`, and a numerical candidate whose
+clipped outputs break its feature's direction is rejected.  With no
+constraint the closed form stays, so unconstrained searches are the
+same bits.  CEGB's `gain_penalty` ([F] or [B, F]) is subtracted from
+every candidate before the argmax (`:310-315`, `:374-375`, `:504`).
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ import numpy as np
 import torch
 
 from .reduce import block_cumsum
+from .xla_math import _fma as fma_f32
 
 NEG_INF = float("-inf")
 
@@ -150,13 +157,17 @@ def leaf_output(g: torch.Tensor, h: torch.Tensor, l1: float, l2: float,
 
 
 def smooth_output(out: torch.Tensor, cnt: torch.Tensor,
-                  parent_out: torch.Tensor,
-                  path_smooth: float) -> torch.Tensor:
+                  parent_out: torch.Tensor, path_smooth: float,
+                  xla_fused: bool = False) -> torch.Tensor:
     """Path smoothing: shrink a node's output toward its parent's (ref:
-    feature_histogram.hpp under USE_SMOOTHING)."""
+    feature_histogram.hpp under USE_SMOOTHING).  `xla_fused` adds as
+    the reference's growers do, where XLA's CPU code contracts the
+    first product and the sum into one fused multiply-add."""
     if path_smooth <= 0.0:
         return out
     frac = cnt / (cnt + path_smooth)
+    if xla_fused:
+        return fma_f32(out, frac, parent_out * (1.0 - frac))
     return out * frac + parent_out * (1.0 - frac)
 
 
@@ -192,8 +203,13 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                     is_cat: Optional[torch.Tensor] = None,
                     cat_smooth: float = 10.0, cat_l2: float = 10.0,
                     max_cat_threshold: int = 32, max_cat_to_onehot: int = 4,
-                    has_cat: bool = False, numerical: bool = True
-                    ) -> SplitResult:
+                    has_cat: bool = False, numerical: bool = True,
+                    mono: Optional[torch.Tensor] = None,
+                    out_lb: Optional[torch.Tensor] = None,
+                    out_ub: Optional[torch.Tensor] = None,
+                    gain_penalty: Optional[torch.Tensor] = None,
+                    xla_fused: bool = False,
+                    penalty_scale: Optional[float] = None) -> SplitResult:
     """Best split of each leaf.
 
     hist [F, MB, 3] f32 with 0-d parent sums, or [B, F, MB, 3] with [B]
@@ -217,7 +233,25 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     search, whose numerical candidates come from the kernels; it picks
     what the full search would among the categorical candidates, and a
     leaf with none has gain -inf (`merge_split_results` then keeps the
-    numerical result)."""
+    numerical result).
+
+    The constraints of the reference's `split.py:147-250`: `mono` [F]
+    int (the monotone direction of each feature; None: all 0), `out_lb`
+    and `out_ub` (each row's output bounds, 0-d or [B]; None: -inf and
+    +inf).  Finite bounds, a nonzero direction or path smoothing score a
+    candidate with the given-output gain of its clipped outputs; a
+    numerical candidate whose clipped outputs break its feature's
+    direction is rejected.  Categorical candidates are clipped but take
+    no direction.  `gain_penalty` [F] or [B, F] (CEGB) is subtracted
+    from every candidate of a feature; with `penalty_scale` it is
+    unscaled, and `penalty_scale * gain_penalty` is subtracted.
+
+    `xla_fused` adds as the reference's jitted growers do, where XLA's
+    CPU code contracts `2 t w + (h + l2) w w` into fma(2 t, w, (h + l2)
+    w w) and `gain - scale * penalty` into fma(-scale, penalty, gain)
+    (an f64 multiply-add rounded to f32, `ops/xla_math.py _fma`); without
+    it the adds are the reference's op-by-op ones.  The growers pass
+    it."""
     one = hist.dim() == 3
     if one:
         hist = hist[None]
@@ -225,6 +259,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
             p.reshape(1) for p in (parent_g, parent_h, parent_c))
         if parent_output is not None:
             parent_output = parent_output.reshape(1)
+        if gain_penalty is not None and gain_penalty.dim() == 1:
+            gain_penalty = gain_penalty[None]
     b, f, mb, _ = hist.shape
     dev = hist.device
     if allowed.dim() == 1:
@@ -237,19 +273,44 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     if path_smooth > 0.0:
         p_out = (torch.zeros_like(parent_g) if parent_output is None
                  else parent_output)[:, None, None]
+    lb = ub = bounded = None
+    if out_lb is not None or out_ub is not None:
+        inf = torch.full((b,), float("inf"), device=dev)
+        lb = (-inf if out_lb is None else out_lb.reshape(-1).expand(b)
+              )[:, None, None]
+        ub = (inf if out_ub is None else out_ub.reshape(-1).expand(b)
+              )[:, None, None]
+        bounded = torch.isfinite(lb) | torch.isfinite(ub)      # [B, 1, 1]
 
-    def gain_of(left, right, valid, l2_eff, shift):
+    def gain_of(left, right, valid, l2_eff, shift, mono_f=None):
         """Split gains with `l2_eff`, -inf outside `valid` or the size
-        gates."""
-        if path_smooth > 0.0:
+        gates; `mono_f` [F] is the numerical cases' direction."""
+        if path_smooth > 0.0 or bounded is not None or mono_f is not None:
             def given(side):
                 out = smooth_output(
                     leaf_output(side[..., 0], side[..., 1], l1, l2_eff,
                                 max_delta_step), side[..., 2], p_out,
                     path_smooth)
+                if lb is not None:
+                    out = torch.minimum(torch.maximum(out, lb), ub)
                 t = threshold_l1(side[..., 0], l1)
-                return -(2.0 * t * out + (side[..., 1] + l2_eff) * out * out)
-            g = (given(left) + given(right)) - shift
+                hw = (side[..., 1] + l2_eff) * out
+                if xla_fused:
+                    return -fma_f32(2.0 * t, out, hw * out), out
+                return -(2.0 * t * out + hw * out), out
+            gl, l_out = given(left)
+            gr, r_out = given(right)
+            g = (gl + gr) - shift
+            if mono_f is not None:
+                m = mono_f[:, None]
+                g = torch.where(((m > 0) & (l_out > r_out))
+                                | ((m < 0) & (l_out < r_out)), NEG_INF, g)
+            if path_smooth <= 0.0:
+                on = bounded if bounded is not None else False
+                if mono_f is not None:
+                    on = (mono_f != 0)[:, None] | on
+                g = torch.where(on, g, plain_split_gain(left, right, l1,
+                                                        l2_eff, shift))
         else:
             g = plain_split_gain(left, right, l1, l2_eff, shift)
         ok = valid & size_constraints_ok(left, right, min_data_in_leaf,
@@ -274,11 +335,16 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
         # case 0: missing right (the NaN bin is last; prefixes exclude it)
         left0 = cum
         gain0 = gain_of(left0, parent[:, None, None, :] - left0, valid_t,
-                        l2, shift)
+                        l2, shift, mono)
         # case 1: missing left
         left1 = cum + nanv[:, :, None, :]
         gain1 = gain_of(left1, parent[:, None, None, :] - left1,
-                        valid_t & has_nan[None, :, None], l2, shift)
+                        valid_t & has_nan[None, :, None], l2, shift, mono)
+        if gain_penalty is not None:
+            gain0 = _penalize(gain0, gain_penalty[:, :, None],
+                              penalty_scale, xla_fused)
+            gain1 = _penalize(gain1, gain_penalty[:, :, None],
+                              penalty_scale, xla_fused)
         if not has_cat:
             res = _decide_numerical(gain0, gain1, left0, left1, parent,
                                     feat_missing, feat_default)
@@ -290,6 +356,9 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                              cat_smooth, max_cat_threshold,
                              max_cat_to_onehot)
     cat_gains, cat_lefts = cat[0], cat[1]
+    if gain_penalty is not None:
+        cat_gains = _penalize(cat_gains, gain_penalty[None, :, :, None],
+                              penalty_scale, xla_fused)
     if cand_mask is not None:
         cat_gains = torch.where(cand_mask, cat_gains, NEG_INF)
     res = _decide(gains + list(cat_gains), lefts + list(cat_lefts),
@@ -298,6 +367,17 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     if one:
         res = SplitResult(*(x[0] for x in res))
     return res
+
+
+def _penalize(gain: torch.Tensor, penalty: torch.Tensor,
+              scale: Optional[float], xla_fused: bool) -> torch.Tensor:
+    """gain - penalty, or with `scale` gain - scale * penalty (contracted
+    into one fma under `xla_fused`, as XLA's CPU code does)."""
+    if scale is None:
+        return gain - penalty
+    if xla_fused:
+        return fma_f32(penalty, -float(np.float32(scale)), gain)
+    return gain - scale * penalty
 
 
 def _categorical_cases(h, parent, valid_bin, cat_ok, gain_of, l1, l2c,
@@ -482,7 +562,10 @@ def decide_from_candidates(cand: torch.Tensor, parent_g: torch.Tensor,
                            parent_h: torch.Tensor, parent_c: torch.Tensor,
                            feat_missing: torch.Tensor,
                            feat_default: torch.Tensor,
-                           allowed_num: torch.Tensor) -> SplitResult:
+                           allowed_num: torch.Tensor,
+                           gain_penalty: Optional[torch.Tensor] = None,
+                           penalty_scale: Optional[float] = None,
+                           xla_fused: bool = False) -> SplitResult:
     """SplitResult of each leaf from its fused candidates (the
     reference's `split.py:488 decide_from_candidates`, batched).
 
@@ -495,11 +578,17 @@ def decide_from_candidates(cand: torch.Tensor, parent_g: torch.Tensor,
     leaf with no valid split has gain -inf and feature -1; its
     threshold and sums come from the (case 0, feature 0) candidate,
     which is `find_best_split`'s bin-0 prefix only when feature 0 is not
-    gated."""
+    gated.  `gain_penalty` [F] or [B, F] (CEGB) is subtracted after the
+    gate, as in the reference (`penalty_scale` and `xla_fused` as in
+    `find_best_split`)."""
     b, _, f, _ = cand.shape
     if allowed_num.dim() == 1:
         allowed_num = allowed_num[None].expand(b, f)
     gains = torch.where(allowed_num[:, None, :], cand[..., 0], NEG_INF)
+    if gain_penalty is not None:
+        gains = _penalize(gains, (gain_penalty if gain_penalty.dim() == 2
+                                  else gain_penalty[None])[:, None, :],
+                          penalty_scale, xla_fused)
     flat = gains.reshape(b, -1)
     best = torch.argmax(flat, dim=1)
     best_gain = flat.gather(1, best[:, None])[:, 0]

@@ -7,8 +7,10 @@ contract onto `engine.train`, with the reference's label encoding,
 eval-set plumbing and `eval_metric` wrappers.  They train on the card
 unless `device_type="cpu"` is given.  Without scikit-learn installed
 the estimators keep working on plain base classes (the reference's
-`sklearn.py:20-31`).  `LGBMRanker` and custom objectives raise, naming
-ROADMAP item 5d.
+`sklearn.py:20-31`).  A callable `objective(y_true, y_pred[, weight[,
+group]])` trains as the booster's custom objective
+(`_ObjectiveFunctionWrapper`); the classifier then returns raw scores.
+`LGBMRanker` raises, naming ROADMAP item 5d.
 """
 from __future__ import annotations
 
@@ -36,6 +38,28 @@ except ImportError:
     _SKLEARN = False
 
 __all__ = ["LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker"]
+
+
+class _ObjectiveFunctionWrapper:
+    """An sklearn-style `func(y_true, y_pred[, weight[, group]])` as the
+    engine's `fobj(preds, dataset)` (ref: sklearn.py
+    `_ObjectiveFunctionWrapper`)."""
+
+    def __init__(self, func: Callable):
+        self.func = func
+
+    def __call__(self, preds, dataset: Dataset):
+        labels = dataset.get_label()
+        argc = self.func.__code__.co_argcount
+        if argc == 2:
+            return self.func(labels, preds)
+        if argc == 3:
+            return self.func(labels, preds, dataset.get_weight())
+        if argc == 4:
+            return self.func(labels, preds, dataset.get_weight(),
+                             dataset.get_group())
+        raise TypeError(f"Self-defined objective should have 2-4 arguments, "
+                        f"got {argc}")
 
 
 class _EvalFunctionWrapper:
@@ -119,10 +143,8 @@ class LGBMModel(BaseEstimator):
 
     def _process_params(self) -> Dict[str, Any]:
         """The estimator's parameters as `train` params (ref: sklearn.py
-        `_process_params`)."""
-        if callable(self._objective):
-            raise LightGBMError("custom objectives (fobj) are not ported "
-                                f"yet ({BREADTH})")
+        `_process_params`); a callable objective becomes "none" here and
+        the wrapped `fobj` at `fit`."""
         params = self.get_params()
         for key in ("objective", "importance_type", "class_weight",
                     "n_jobs", "n_estimators"):
@@ -135,7 +157,11 @@ class LGBMModel(BaseEstimator):
             params[key] = getattr(self, key)
         if self.random_state is not None:
             params["random_state"] = self.random_state
-        if self._objective is not None:
+        self._fobj = None
+        if callable(self._objective):
+            self._fobj = _ObjectiveFunctionWrapper(self._objective)
+            params["objective"] = "none"
+        elif self._objective is not None:
             params["objective"] = self._objective
         return params
 
@@ -195,6 +221,8 @@ class LGBMModel(BaseEstimator):
         if valid_sets:
             callbacks.append(callback_mod.record_evaluation(
                 self._evals_result))
+        if self._fobj is not None:
+            params["objective"] = self._fobj
         self._Booster = engine_train(
             params, train_set, num_boost_round=self.n_estimators,
             valid_sets=valid_sets or None, valid_names=valid_names or None,
@@ -337,7 +365,8 @@ class LGBMClassifier(ClassifierMixin, LGBMModel):
         result = self.predict_proba(X, raw_score, start_iteration,
                                     num_iteration, pred_leaf, pred_contrib,
                                     **kwargs)
-        if raw_score or pred_leaf or pred_contrib:
+        if callable(self._objective) or raw_score or pred_leaf \
+                or pred_contrib:
             return result
         return self._classes[np.argmax(result, axis=1)]
 
@@ -347,11 +376,12 @@ class LGBMClassifier(ClassifierMixin, LGBMModel):
                       pred_leaf: bool = False, pred_contrib: bool = False,
                       **kwargs):
         """Class probabilities: `Booster.predict`'s, stacked as [1 - p, p]
-        for binary."""
+        for binary; a custom objective's raw scores as they are."""
         result = LGBMModel.predict(self, X, raw_score, start_iteration,
                                    num_iteration, pred_leaf, pred_contrib,
                                    **kwargs)
-        if raw_score or pred_leaf or pred_contrib:
+        if callable(self._objective) or raw_score or pred_leaf \
+                or pred_contrib:
             return result
         if result.ndim == 1:
             return np.vstack([1.0 - result, result]).T

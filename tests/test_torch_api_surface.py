@@ -302,9 +302,18 @@ def test_estimator_refusals_and_unfitted():
         LGBMRegressor().n_iter_
     with pytest.raises(lt.LightGBMError, match="item 5d"):
         LGBMRanker(device_type="cpu").fit(X, y, group=[300, 300])
-    with pytest.raises(lt.LightGBMError, match="item 5d"):
-        LGBMRegressor(objective=lambda yt, yp: (yp, yp),
-                      device_type="cpu").fit(X, y)
+    # a custom objective trains as the reference's estimator does
+    def l2(y_true, y_pred):
+        return y_pred - y_true, np.ones_like(y_pred)
+
+    ours = LGBMRegressor(objective=l2, n_estimators=4, device_type="cpu",
+                         verbosity=-1).fit(X, y)
+    ref = ref_sklearn.LGBMRegressor(objective=l2, n_estimators=4,
+                                    device_type="cpu", verbosity=-1)
+    ref.fit(X, y)
+    assert ours.booster_.model_to_string() == \
+        ref.booster_.model_to_string()
+    assert np.array_equal(ours.predict(X), ref.predict(X))
     m = LGBMClassifier(n_estimators=2, device_type="cpu", verbosity=-1)
     m.fit(X, (y > 0).astype(int))
     leaves = m.predict(X, pred_leaf=True)

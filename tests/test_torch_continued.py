@@ -360,8 +360,17 @@ def test_reset_parameter_rebuilds_the_wave():
     fresh.update()
     assert bst.trees[-1].to_string(0) == fresh.trees[-1].to_string(0)
     assert bst.trees[-1].num_leaves <= 7
-    with pytest.raises(lt.LightGBMError, match="item 5d"):
-        bst.reset_parameter({"boosting": "dart"})
+    # the boosting mode is the booster's from its start: resetting it to
+    # dart keeps gbdt, as the reference's reset_parameter does
+    boosters = []
+    for m in (lgb, lt):
+        b = m.Booster(_pkg(m, params), m.Dataset(X, label=y))
+        b.update()
+        b.reset_parameter({"boosting": "dart", "drop_rate": 0.5})
+        b.update()
+        b.update()
+        boosters.append(b)
+    _same(*boosters)
 
 
 @pytest.mark.parametrize("family", ["binary", "regression", "multiclass"])
