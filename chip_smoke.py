@@ -8,6 +8,9 @@ and check them.
     python3 chip_smoke.py --phases train_categorical   # categorical, EFB
     python3 chip_smoke.py --phases train_api   # cv, init_model, sklearn
     python3 chip_smoke.py --phases train_breadth   # constraints, modes
+    python3 chip_smoke.py --phases train_objectives   # L1 ... xentropy
+    python3 chip_smoke.py --phases train_rank   # lambdarank, xendcg
+    python3 chip_smoke.py --phases train_sparse   # CSR, binary cache
     python3 chip_smoke.py --phases golden,main       # serving alone
     python3 chip_smoke.py --phases predict_api   # device_predict, options
     python3 chip_smoke.py --phases serve_plane   # rungs, registry, HTTP
@@ -285,6 +288,32 @@ Phases, each printing one JSON line:
           bitwise text round trip.  Per run ms a round beside the plain
           wave's, launches and syncs a tree, policy, hist_impl, the
           linear fit's host seconds.
+  train_objectives the regression family (L1, quantile 0.7, MAPE,
+          Huber, Fair, Poisson, gamma, Tweedie 1.5), the two
+          cross-entropies and one-vs-all (3 classes) on the train
+          phase's bins with a label a objective (not re-binned), the
+          bench's wave, 5 rounds, f32 (K2/K3) and quantized L1 and
+          Poisson (K5/K3), a line a run: two runs byte-identical, the
+          objective's metric on the held-out rows within 1e-3 relative
+          of hist_impl=segment_sum, the L1 family's renewed leaves
+          bitwise the CPU's plain percentile, served bitwise the host
+          walk; ms a round beside the plain wave's.
+  train_rank lambdarank and rank_xendcg on a synthetic set at
+          MSLR-WEB10K's width and scale (136 features, about 720,000
+          rows in 6,000 queries, median 110 documents, the longest 900;
+          1,000 held-out queries), the bench's wave with eval_at
+          1/3/5/10, 10 rounds: lambdarank twice, with segment_sum,
+          quantized, rank_xendcg (a threefry launch a bucket a round),
+          with positions.  Gates: byte-identical runs, held-out NDCG@10
+          within 1e-3 of segment_sum and above round 1's, the lambdas at
+          round 1 and 5 within rtol 1e-5 of the CPU's, the propensities
+          anchored and finite, every model served bitwise the walk; ms a
+          round, the lambdas' share of a round and their launches.
+  train_sparse a seeded CSR matrix of 200,000 x 1,000 at 0.5% density,
+          the bench's wave, 10 rounds: built without a dense bin matrix
+          and bundled by EFB, its model byte for byte the dense form's
+          and the binary cache's, served bitwise the walk; the binning
+          seconds of both forms.
   compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5,
           the link kernel and the quantize step of this checkout and of
           the checkout in DIR on the same inputs: K1 and K2 agree within
@@ -308,7 +337,9 @@ Phases, each printing one JSON line:
           run; histogram_q: its strict run; threefry: train_sampled's
           main run, with train_quant's quantizer launches beside;
           K2, K3, K1 and the link also show their train_api launches,
-          K1-K5 their train_breadth launches), parity, times, bound.
+          K1-K5 their train_breadth, train_objectives, train_rank and
+          train_sparse launches, threefry its train_rank launches),
+          parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line `{"ok": true, "device": {...}}`.  Any failure exits
@@ -4455,6 +4486,535 @@ def phase_train_breadth(data: TrainData, modules, device=None,
     return launches
 
 
+# ----------------------------------------------------- train_objectives
+#: the regression family, one-vs-all and the cross-entropies on the
+#: train phase's 2M x 28 bins at the bench's wave configuration, 5
+#: rounds each; the labels are new, the bins are not re-binned
+OBJ_ROUNDS = 5
+#: (name, params, quantized) of the train_objectives runs
+OBJ_RUNS = [("regression_l1", {}, False), ("quantile", {"alpha": 0.7}, False),
+            ("mape", {}, False), ("huber", {}, False), ("fair", {}, False),
+            ("poisson", {}, False), ("gamma", {}, False),
+            ("tweedie", {"tweedie_variance_power": 1.5}, False),
+            ("cross_entropy", {}, False), ("cross_entropy_lambda", {}, False),
+            ("multiclassova", {"num_class": 3}, False),
+            ("regression_l1", {}, True), ("poisson", {}, True)]
+#: the objectives whose leaves `ops/renew.py` refits
+RENEWED = ("regression_l1", "quantile", "mape")
+
+
+def objective_label(name: str, X, seed: int):
+    """A label for objective `name` from rows X: one fixed formula of
+    the first features plus seeded noise, positive for poisson, gamma
+    and tweedie, in [0, 1] for the cross-entropies, 3 classes for
+    one-vs-all."""
+    rng = np.random.RandomState(seed + 101)
+    X = np.asarray(X, np.float64)
+    base = (0.8 * X[:, 0] - 0.6 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3]
+            + 0.4 * np.sin(2 * X[:, 4]))
+    noise = rng.randn(len(X))
+    if name == "poisson":
+        return rng.poisson(np.exp(0.4 * base)).astype(np.float64)
+    if name == "gamma":
+        return np.exp(0.3 * base) * rng.gamma(2.0, 0.5, len(X)) + 0.01
+    if name == "tweedie":
+        return (rng.gamma(1.0, 1.0, len(X)) * (rng.rand(len(X)) < 0.7)
+                * np.exp(0.3 * base))
+    if name in ("cross_entropy", "cross_entropy_lambda"):
+        return 1.0 / (1.0 + np.exp(-(base + 0.5 * noise)))
+    if name == "multiclassova":
+        return np.digitize(base + 0.3 * noise,
+                           np.quantile(base, [0.4, 0.75])).astype(np.float64)
+    return 3.0 * base + noise
+
+
+def _objective_metric(name, params, raw, label):
+    """The objective's default metric of raw scores (the port's metrics,
+    host f64)."""
+    from lightgbm_tpu_torch.metrics import create_metrics
+    from lightgbm_tpu_torch.utils.config import Config
+    cfg = Config(dict(params))
+    (m,) = create_metrics(cfg, cfg.default_metric()[:1])
+    return m.name, float(m.eval(np.asarray(raw, np.float64),
+                                np.asarray(label, np.float64), None,
+                                None)[0][1])
+
+
+class _RenewRecorder:
+    """Wraps the booster's `renew_leaf_values`: every call's inputs and
+    output copied to the host, for the CPU's plain percentile."""
+
+    def __init__(self, limit=2):
+        self.calls, self.limit = [], limit
+
+    def __enter__(self):
+        import lightgbm_tpu_torch.booster as bm
+        self.bm, self.real = bm, bm.renew_leaf_values
+
+        def rec(*a, **kw):
+            out = self.real(*a, **kw)
+            if len(self.calls) < self.limit:
+                self.calls.append(([x.cpu() if hasattr(x, "cpu") else x
+                                    for x in a], dict(kw), out.cpu()))
+            return out
+        bm.renew_leaf_values = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.bm.renew_leaf_values = self.real
+
+
+def phase_train_objectives(data: TrainData, modules, device=None,
+                           timing=True, serve_rows: int = HOLD_ROWS):
+    """Every objective of `OBJ_RUNS` through `lightgbm_tpu_torch.train`
+    on the train phase's bins with that objective's label
+    (`objective_label`; the bins carried over with
+    `interop.dataset_from_numpy`, not re-binned), at WAVE_PARAMS for
+    OBJ_ROUNDS rounds, f32 (K2/K3) and quantized for regression_l1 and
+    poisson (K5/K3).  Gates, each with zero misses: two kernel-trained
+    runs byte-identical; the objective's own metric on the held-out rows
+    within 1e-3 relative of a `hist_impl=segment_sum` run on the card;
+    for L1, quantile and MAPE the renewed leaf values of the first two
+    trees bitwise the port's plain `leaf_percentile` on the CPU over the
+    card's leaf ids, residuals and weights; the model served by
+    ServingRuntime bitwise the host walk; the expected kernels every
+    round.  Printed a run: ms per round beside the plain bench wave
+    round of this call, launches a round.  Returns the phase's launches
+    of K1-K5."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.interop import dataset_from_numpy
+    from lightgbm_tpu_torch.ops.renew import renew_leaf_values
+    t_phase = time.perf_counter()
+    ds = data.dataset
+    mappers = [m.to_dict() for m in ds.bin_mappers]
+    hold_X = data.X_hold[:serve_rows]
+    phase_total = {k: 0 for k in ("k1", "k2", "k3", "k4", "k5")}
+
+    def with_device(p):
+        return dict(p, device_type=device) if device is not None else p
+
+    _zero_quant_counters(modules)
+    _, plain = _wave_run(with_device(dict(WAVE_PARAMS)), ds, modules,
+                         OBJ_ROUNDS, False, counters=_quant_counters)
+    plain_ms = float(np.mean(plain["round_s"][1:])) * 1e3
+    for name, extra, quant in OBJ_RUNS:
+        t_run = time.perf_counter()
+        run = name + ("_quant" if quant else "")
+        params = with_device(dict(WAVE_PARAMS, objective=name, **extra,
+                                  **(QUANT if quant else {})))
+        y = objective_label(name, data.X, 0)
+        y_hold = objective_label(name, hold_X, 1)
+        dset = dataset_from_numpy(ds.bin_data, mappers, label=y,
+                                  feature_names=ds.get_feature_name())
+        _zero_quant_counters(modules)
+        with _RenewRecorder() as renew:
+            bst, rec = _wave_run(params, dset, modules, OBJ_ROUNDS, False,
+                                 counters=_quant_counters)
+        total = _quant_counters(modules)
+        for k in phase_total:
+            phase_total[k] += total[k]
+        K = bst.num_tree_per_iteration
+        _check(len(bst.trees) == OBJ_ROUNDS * K,
+               f"train_objectives {run}: {len(bst.trees)} trees")
+        main = "k5" if quant else "k2"
+        # (cross_entropy_lambda's gradients stall after the first tree,
+        # as the reference's do: a root that cannot split launches its
+        # K2 or K5 alone)
+        for r, c in enumerate(rec["per_round"]):
+            _check(c[main] > 0 and c["k3"] == c["hist_waves"],
+                   f"train_objectives {run}: round {r + 1} launched {c}")
+        text = bst.model_to_string()
+        again = lt.train(params, dset, num_boost_round=OBJ_ROUNDS)
+        _check(again.model_to_string() == text,
+               f"train_objectives {run}: two kernel runs differ")
+        seg = lt.train(dict(params, hist_impl="segment_sum"), dset,
+                       num_boost_round=OBJ_ROUNDS)
+        raw = bst.predict(hold_X, raw_score=True)
+        _check(bool(np.all(np.isfinite(raw))),
+               f"train_objectives {run}: scores not finite")
+        metric, value = _objective_metric(name, params, raw, y_hold)
+        _, value_seg = _objective_metric(
+            name, params, seg.predict(hold_X, raw_score=True), y_hold)
+        rel = abs(value - value_seg) / max(abs(value_seg), 1e-12)
+        _check(rel <= 1e-3, f"train_objectives {run}: held-out {metric} "
+               f"{value} vs segment_sum {value_seg}")
+        renew_bitwise = None
+        if name in RENEWED:
+            _check(len(renew.calls) == 2,
+                   f"train_objectives {run}: {len(renew.calls)} renewals")
+            for args, kw, out in renew.calls:
+                want = renew_leaf_values(*args, **kw)
+                _check(_bits_equal(out.numpy(), want.numpy()),
+                       f"train_objectives {run}: renewed leaves differ "
+                       "from the CPU's plain percentile")
+            renew_bitwise = True
+        rt = lt.ServingRuntime(bst, device=device or "cuda")
+        served = rt.predict(hold_X, raw_score=True)
+        _check(_bits_equal(served, f32_threshold_walk(bst, hold_X)),
+               f"train_objectives {run}: served scores on the {rt.rung} "
+               "rung != the host walk")
+        _emit({"phase": "train_objectives", "run": run, "rounds": OBJ_ROUNDS,
+               "hist_impl": bst._grower_spec.hist_impl,
+               "fused": bst._grower_spec.fused,
+               "ms_per_round_2_on": float(np.mean(rec["round_s"][1:])) * 1e3,
+               "plain_wave_ms_per_round": plain_ms,
+               "launches_per_round": {k: total[k] / OBJ_ROUNDS for k in
+                                      ("k1", "k2", "k3", "k4", "k5")},
+               "metric": metric, "held_out": value,
+               "held_out_segment_sum": value_seg, "rel_gap": rel,
+               "renewed_leaves_bitwise_cpu": renew_bitwise,
+               "model_text_identical_twice": True, "served_bitwise": True,
+               "serve_rung": rt.rung, "run_s": time.perf_counter() - t_run})
+    launches = {"histogram": phase_total["k1"],
+                "fused_hist_split": phase_total["k2"],
+                "split_scan": phase_total["k3"],
+                "histogram_q": phase_total["k4"],
+                "fused_hist_split_q": phase_total["k5"]}
+    _emit({"phase": "train_objectives", "launches": launches,
+           "plain_wave_ms_per_round": plain_ms,
+           "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------- train_rank
+#: the query-grouped set at MSLR-WEB10K's published width and scale
+#: (Microsoft Learning to Rank datasets, Fold1's training split: 136
+#: features, about 720,000 rows in 6,000 queries): synthetic, from the
+#: seed; 1,000 more queries are held out
+RANK_FEATURES = 136
+RANK_QUERIES = 6000
+RANK_HOLD_QUERIES = 1000
+RANK_ROUNDS = 10
+RANK_PARAMS = dict(WAVE_PARAMS, objective="lambdarank", metric="ndcg",
+                   eval_at=[1, 3, 5, 10])
+
+
+class RankData:
+    """The synthetic MSLR-like set: long-tailed query sizes (median about
+    110 documents, the longest 900), graded labels 0-4 from a noisy
+    function of a few features (about half 0, a few percent 3 or 4), and
+    positions from a noisier "logged" ranking of each query."""
+
+    def __init__(self, seed: int, queries: int = RANK_QUERIES,
+                 hold: int = RANK_HOLD_QUERIES, f: int = RANK_FEATURES):
+        import lightgbm_tpu_torch as lt
+        rng = np.random.RandomState(seed + 7)
+        sizes = np.clip(np.round(np.exp(rng.normal(np.log(110.0), 0.55,
+                                                   queries + hold))),
+                        5, 900).astype(np.int64)
+        sizes[rng.randint(0, queries)] = 900
+        n = int(sizes.sum())
+        # two decimals, as fixed-precision LETOR features are written
+        # (a continuous column's 200,000 distinct sample values cost the
+        # host binning minutes: ROADMAP Queue 1 item 5i)
+        X = np.round(rng.randn(n, f), 2).astype(np.float32)
+        qid = np.repeat(np.arange(len(sizes)), sizes)
+        qshift = rng.randn(len(sizes))[qid]
+        rel = (1.0 * X[:, 0] + 0.6 * X[:, 1] - 0.4 * X[:, 2] * X[:, 3]
+               + 0.3 * qshift + 0.8 * rng.randn(n))
+        y = np.digitize(rel, np.quantile(rel, [0.5, 0.8, 0.95, 0.985]))
+        logged = rel + 1.5 * rng.randn(n)
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        pos = np.empty(n, np.int64)
+        for q in range(len(sizes)):
+            a, b = starts[q], starts[q + 1]
+            pos[a:b] = np.argsort(np.argsort(-logged[a:b]))
+        cut = int(starts[queries])
+        self.sizes, self.hold_sizes = sizes[:queries], sizes[queries:]
+        self.X, self.y, self.pos = X[:cut], y[:cut].astype(np.float64), \
+            pos[:cut]
+        self.X_hold, self.y_hold = X[cut:], y[cut:].astype(np.float64)
+        self.hold_qb = np.concatenate([[0], np.cumsum(self.hold_sizes)])
+        t0 = time.perf_counter()
+        self.dataset = lt.Dataset(self.X, label=self.y, group=self.sizes,
+                                  params=dict(RANK_PARAMS),
+                                  free_raw_data=False).construct()
+        self.binning_s = time.perf_counter() - t0
+
+
+def _ndcg_at(raw, data, k=10):
+    from lightgbm_tpu_torch.metrics import _ndcg_bucketed
+    lg = np.asarray([float((1 << i) - 1) for i in range(31)])
+    return _ndcg_bucketed(np.asarray(raw, np.float64), data.y_hold,
+                          data.hold_qb, (k,), lg)[0][1]
+
+
+def _lambda_grads(params, dataset, score, device):
+    """(grad, hess) of the booster's objective at `score` on `device`,
+    and the objective (`init_meta` on the set's labels and queries)."""
+    import torch
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.utils.config import Config
+    obj = create_objective(Config(dict(params)))
+    obj.init_meta(dataset.get_label().astype(np.float64), None,
+                  dataset._query_boundaries)
+    lab = torch.from_numpy(dataset.get_label().astype(np.float32)).to(device)
+    s = torch.from_numpy(np.asarray(score, np.float32)).to(device)
+    g, h = obj.grad_hess(s, lab, None)
+    return g.cpu().numpy(), h.cpu().numpy()
+
+
+def phase_train_rank(rd: RankData, modules, device=None, timing=True):
+    """lambdarank and rank_xendcg through `lightgbm_tpu_torch.train` on
+    the MSLR-like set (`RankData`) at RANK_PARAMS for RANK_ROUNDS rounds:
+    lambdarank f32 on the fused wave (K2/K3) twice, with
+    `hist_impl=segment_sum`, quantized (K5/K3), rank_xendcg (threefry
+    draws its gammas, one launch a bucket a round) and lambdarank with
+    positions.  Gates, each with zero misses: the two runs byte-identical;
+    held-out NDCG@10 within 1e-3 of the segment_sum run and higher after
+    round 10 than after round 1; the card's gradients and hessians at
+    round 1's all-equal scores and at round 5's within rtol 1e-5 of the
+    port's plain CPU computation (the largest gap and whether bitwise
+    printed); the propensities finite with t_plus[0] = t_minus[0] = 1;
+    every model served bitwise the host walk.  Printed: ms per round a
+    run, and with `timing` the lambdas' share of a round and their
+    launches (torch.profiler).  Returns the phase's launches of K1-K5 and
+    threefry."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    total = {k: 0 for k in ("k1", "k2", "k3", "k4", "k5", "threefry")}
+
+    def with_device(p):
+        return dict(p, device_type=device) if device is not None else p
+
+    def run(name, params, dataset=None):
+        _zero_quant_counters(modules)
+        bst, rec = _wave_run(with_device(params), dataset or rd.dataset,
+                             modules, RANK_ROUNDS, False,
+                             counters=_quant_counters)
+        got = _quant_counters(modules)
+        for k in total:
+            total[k] += got[k]
+        raw = bst.predict(rd.X_hold, raw_score=True)
+        _check(bool(np.all(np.isfinite(raw))),
+               f"train_rank {name}: scores not finite")
+        rt = lt.ServingRuntime(bst, device=device or "cuda")
+        _check(_bits_equal(rt.predict(rd.X_hold, raw_score=True),
+                           f32_threshold_walk(bst, rd.X_hold)),
+               f"train_rank {name}: served scores != the host walk")
+        report = {"phase": "train_rank", "run": name,
+                  "rounds": RANK_ROUNDS,
+                  "ms_per_round_2_on": float(np.mean(rec["round_s"][1:]))
+                  * 1e3,
+                  "launches_per_round": {k: got[k] / RANK_ROUNDS
+                                         for k in total},
+                  "ndcg10_held_out": _ndcg_at(raw, rd),
+                  "ndcg10_held_out_round_1": _ndcg_at(bst.predict(
+                      rd.X_hold, raw_score=True, num_iteration=1), rd),
+                  "served_bitwise": True}
+        return bst, rec, report
+
+    bst, rec, rep = run("lambdarank", dict(RANK_PARAMS))
+    for r, c in enumerate(rec["per_round"]):
+        _check(c["k2"] > 0 and c["k3"] > 0,
+               f"train_rank lambdarank: round {r + 1} launched {c}")
+    text = bst.model_to_string()
+    again = lt.train(with_device(dict(RANK_PARAMS)), rd.dataset,
+                     num_boost_round=RANK_ROUNDS)
+    _check(again.model_to_string() == text,
+           "train_rank lambdarank: two kernel runs differ")
+    seg = lt.train(with_device(dict(RANK_PARAMS, hist_impl="segment_sum")),
+                   rd.dataset, num_boost_round=RANK_ROUNDS)
+    nd_seg = _ndcg_at(seg.predict(rd.X_hold, raw_score=True), rd)
+    _check(abs(rep["ndcg10_held_out"] - nd_seg) <= 1e-3,
+           f"train_rank: NDCG@10 {rep['ndcg10_held_out']} vs segment_sum "
+           f"{nd_seg}")
+    _check(rep["ndcg10_held_out"] > rep["ndcg10_held_out_round_1"],
+           "train_rank: NDCG@10 did not rise from round 1 to round 10")
+    # the lambdas on the card against the CPU's, on the same scores
+    grads = {}
+    for at in (1, 5):
+        score = np.zeros(len(rd.y), np.float32) if at == 1 else \
+            bst.predict(rd.X, raw_score=True, num_iteration=at - 1)\
+            .astype(np.float32)
+        gd, hd = _lambda_grads(RANK_PARAMS, rd.dataset, score, dev)
+        gc, hc = _lambda_grads(RANK_PARAMS, rd.dataset, score, "cpu")
+        gap = max(float(np.max(np.abs(gd - gc) / np.maximum(
+            np.abs(gc), 1e-30) * (gd != gc))),
+            float(np.max(np.abs(hd - hc) / np.maximum(np.abs(hc), 1e-30)
+                         * (hd != hc))))
+        _check(np.allclose(gd, gc, rtol=1e-5, atol=0)
+               and np.allclose(hd, hc, rtol=1e-5, atol=0),
+               f"train_rank: round {at} lambdas on the card differ from "
+               f"the CPU's (largest relative gap {gap})")
+        grads[f"round_{at}"] = {"max_rel_gap": gap,
+                                "bitwise": _bits_equal(gd, gc)
+                                and _bits_equal(hd, hc)}
+    rep.update(model_text_identical_twice=True,
+               ndcg10_segment_sum=nd_seg, lambdas_vs_cpu=grads,
+               buckets=len(bst._train_obj._buckets))
+    if timing:
+        rep["profiled_lambdas"] = _profile_lambdas(
+            bst, rep["ms_per_round_2_on"])
+    _emit(rep)
+
+    _, _, rep = run("lambdarank_quant", dict(RANK_PARAMS, **QUANT))
+    _check(rep["launches_per_round"]["k5"] > 0,
+           "train_rank quantized: no K5 launch")
+    _emit(rep)
+
+    xbst, _, rep = run("rank_xendcg", dict(RANK_PARAMS,
+                                           objective="rank_xendcg"))
+    buckets = len(xbst._train_obj._buckets)
+    draws = rep["launches_per_round"]["threefry"]
+    if dev.type == "cuda":
+        _check(draws == buckets, f"train_rank rank_xendcg: {draws} "
+               f"threefry launches a round, {buckets} buckets")
+    rep["buckets"] = buckets
+    _emit(rep)
+
+    from lightgbm_tpu_torch.interop import dataset_from_numpy
+    pos_set = dataset_from_numpy(
+        rd.dataset.bin_data, [m.to_dict() for m in rd.dataset.bin_mappers],
+        label=rd.y, group=rd.sizes, position=rd.pos)
+    pbst, _, rep = run("lambdarank_positions", dict(RANK_PARAMS), pos_set)
+    t_plus, t_minus = (t.cpu().numpy() for t in pbst._obj_state)
+    _check(bool(np.isfinite(t_plus).all() and np.isfinite(t_minus).all())
+           and t_plus[0] == 1.0 and t_minus[0] == 1.0,
+           "train_rank positions: propensities not finite or not anchored")
+    rep.update(positions=int(len(t_plus)),
+               t_plus_first_last=[float(t_plus[1]), float(t_plus[-1])])
+    _emit(rep)
+    launches = {"histogram": total["k1"], "fused_hist_split": total["k2"],
+                "split_scan": total["k3"], "histogram_q": total["k4"],
+                "fused_hist_split_q": total["k5"],
+                "threefry": total["threefry"]}
+    _emit({"phase": "train_rank", "launches": launches,
+           "rows": len(rd.y), "queries": len(rd.sizes),
+           "median_query": float(np.median(rd.sizes)),
+           "longest_query": int(rd.sizes.max()),
+           "label_shares": np.bincount(rd.y.astype(int), minlength=5)
+           .astype(float).__truediv__(len(rd.y)).tolist(),
+           "binning_s": rd.binning_s,
+           "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def _profile_lambdas(bst, round_ms):
+    """The lambdas (`grad_hess` at the booster's last scores) timed on
+    the host clock, synchronised, as a share of the run's round
+    (`round_ms`), and the kernels they launch with their device time
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    obj = bst._train_obj
+    score = bst._train_score
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obj.grad_hess(score, bst._dd.label, None)
+    torch.cuda.synchronize()
+    lam_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        obj.grad_hess(score, bst._dd.label, None)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"lambdas_ms": lam_ms, "lambdas_launches": len(kernels),
+            "lambdas_device_ms": sum(e.time_range.elapsed_us()
+                                     for e in kernels) / 1e3,
+            "round_ms": round_ms,
+            "lambdas_share_of_round": lam_ms / round_ms}
+
+
+# --------------------------------------------------------- train_sparse
+#: a seeded CSR matrix of 200,000 x 1,000 at 0.5% density (count values
+#: in 20 blocks of 50 mutually exclusive columns: `make_sparse`)
+SPARSE_ROWS = 200_000
+SPARSE_COLS = 1_000
+SPARSE_DENSITY = 0.005
+SPARSE_ROUNDS = 10
+
+
+def make_sparse(seed: int, n=SPARSE_ROWS, f=SPARSE_COLS,
+                density=SPARSE_DENSITY, group=50):
+    """A CSR matrix of `n` x `f` with `density` stored values: count
+    features (1 to 4) in blocks of `group` mutually exclusive columns
+    (one-hot-like fields, as bag-of-words or one-hot categorical inputs
+    are), a row holding a value in a block with probability density *
+    group; and a binary label from a few columns of the first blocks."""
+    import scipy.sparse as sps
+    rng = np.random.RandomState(seed + 13)
+    blocks = f // group
+    hit = rng.rand(n, blocks) < density * group
+    rows, blk = np.nonzero(hit)
+    cols = blk * group + rng.randint(0, group, len(rows))
+    vals = rng.randint(1, 5, len(rows)).astype(np.float64)
+    m = sps.csr_matrix((vals, (rows, cols)), shape=(n, f))
+    head = np.asarray(m[:, [0, 1, group, group + 1, 2 * group]].toarray())
+    score = head @ np.array([1.0, -1.0, 0.8, 0.6, -0.7])
+    y = (score + 0.3 * rng.randn(n) > 0.0).astype(np.float64)
+    return m, y
+
+
+def phase_train_sparse(seed: int, modules, device=None):
+    """The CSR matrix of `make_sparse` through `lightgbm_tpu_torch.train`
+    at WAVE_PARAMS for SPARSE_ROUNDS rounds.  Gates: construction leaves
+    `bin_data` None and EFB bundles the columns; the model text byte for
+    byte the one trained from the same matrix given dense (`toarray()`)
+    and the one trained from the set after `save_binary` /
+    `load_binary`; the model served bitwise the host walk.  Printed:
+    binning seconds of the sparse and the dense form, the bundled
+    columns, ms per round, launches.  Returns the phase's launches of
+    K1-K5."""
+    import tempfile
+    import lightgbm_tpu_torch as lt
+    t_phase = time.perf_counter()
+    m, y = make_sparse(seed)
+    params = dict(WAVE_PARAMS)
+    if device is not None:
+        params["device_type"] = device
+    t0 = time.perf_counter()
+    ds = lt.Dataset(m, label=y, params=dict(params)).construct()
+    sparse_s = time.perf_counter() - t0
+    _check(ds.bin_data is None and ds.efb is not None,
+           "train_sparse: the sparse set has a dense bin matrix or no "
+           "bundles")
+    _zero_quant_counters(modules)
+    bst, rec = _wave_run(params, ds, modules, SPARSE_ROUNDS, False,
+                         counters=_quant_counters)
+    got = _quant_counters(modules)
+    for r, c in enumerate(rec["per_round"]):
+        _check(c["k2"] + c["k1"] > 0,
+               f"train_sparse: round {r + 1} launched {c}")
+    text = bst.model_to_string()
+    tmp = tempfile.mkdtemp(prefix="sparse_")
+    path = os.path.join(tmp, "sparse.bin")
+    ds.save_binary(path)
+    loaded = lt.Dataset.load_binary(path)
+    _check(lt.train(params, loaded, SPARSE_ROUNDS).model_to_string() == text,
+           "train_sparse: the binary cache's model differs")
+    dense = m.toarray()
+    t0 = time.perf_counter()
+    dd = lt.Dataset(dense, label=y, params=dict(params)).construct()
+    dense_s = time.perf_counter() - t0
+    _check(lt.train(params, dd, SPARSE_ROUNDS).model_to_string() == text,
+           "train_sparse: the dense form's model differs")
+    del dense, dd
+    X = m[:20_000].toarray()
+    rt = lt.ServingRuntime(bst, device=device or "cuda")
+    _check(_bits_equal(rt.predict(X, raw_score=True),
+                       f32_threshold_walk(bst, X)),
+           "train_sparse: served scores != the host walk")
+    launches = {"histogram": got["k1"], "fused_hist_split": got["k2"],
+                "split_scan": got["k3"], "histogram_q": got["k4"],
+                "fused_hist_split_q": got["k5"]}
+    _emit({"phase": "train_sparse", "rows": m.shape[0], "cols": m.shape[1],
+           "stored": int(m.nnz), "bundled_cols": int(ds.efb.n_cols),
+           "binning_sparse_s": sparse_s, "binning_dense_s": dense_s,
+           "hist_impl": bst._grower_spec.hist_impl,
+           "fused": bst._grower_spec.fused,
+           "ms_per_round_2_on": float(np.mean(rec["round_s"][1:])) * 1e3,
+           "launches_per_round": {k: got[k] / SPARSE_ROUNDS
+                                  for k in ("k1", "k2", "k3")},
+           "model_text_dense_identical": True,
+           "model_text_binary_identical": True, "served_bitwise": True,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 # ------------------------------------------------------- predict_api
 #: `device_predict`'s request sizes (100,000 rows: two chunks of 65,536)
 PREDICT_ROWS = (1, 256, 4096, 10_000, 100_000)
@@ -5620,6 +6180,12 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                      d(), _train_modules()),
                  "train_breadth": lambda d, s, b: phase_train_breadth(
                      d(), _train_modules()),
+                 "train_objectives": lambda d, s, b:
+                     phase_train_objectives(d(), _train_modules()),
+                 "train_rank": lambda d, s, b: phase_train_rank(
+                     RankData(s), _train_modules()),
+                 "train_sparse": lambda d, s, b: phase_train_sparse(
+                     s, _train_modules()),
                  "predict_api": lambda d, s, b: phase_predict_api(s),
                  "serve_plane": lambda d, s, b: phase_serve_plane(s),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
@@ -5762,6 +6328,16 @@ def main(argv=None) -> int:
         for k in kernels:
             if k["name"] in breadth:
                 k["train_breadth_launches"] = breadth[k["name"]]
+        modules = {"hist": hist_module, "hist_q": hist_q_module,
+                   "fused": fused_module}
+        for phase, got in (
+                ("train_objectives", phase_train_objectives(data, modules)),
+                ("train_rank", phase_train_rank(RankData(args.seed),
+                                                modules)),
+                ("train_sparse", phase_train_sparse(args.seed, modules))):
+            for k in kernels:
+                if k["name"] in got:
+                    k[f"{phase}_launches"] = got[k["name"]]
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
              "parity": ("within_tol" if k["name"] in WITHIN_TOL

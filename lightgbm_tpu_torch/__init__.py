@@ -11,7 +11,7 @@ functions, `convert.py`).  It imports torch and numpy, never
 jax and nothing of `lightgbm_tpu`, which stays the reference the port is
 tested against.
 """
-from .basic import Dataset
+from .basic import Dataset, Sequence
 from .booster import Booster
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
                        record_evaluation, reset_parameter)
@@ -25,7 +25,7 @@ from .utils.log import LightGBMError
 
 __version__ = "0.2.0"
 
-__all__ = ["Dataset", "Booster", "train", "cv", "CVBooster", "ServingRuntime",
+__all__ = ["Dataset", "Sequence", "Booster", "train", "cv", "CVBooster", "ServingRuntime",
            "LightGBMError", "EarlyStopException", "early_stopping",
            "log_evaluation", "record_evaluation", "reset_parameter",
            "LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker",

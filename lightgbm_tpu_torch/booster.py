@@ -69,7 +69,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .basic import Dataset
+from .basic import Dataset, _is_arrow, _is_sparse
+from .basic import _to_2d_float as _dataset_matrix
 from .contrib import predict_contrib
 from .metrics import Metric, create_metrics
 from .objectives import (UNIT_HESSIAN_OBJECTIVES, Objective,
@@ -79,6 +80,7 @@ from .ops.fused import (bagging_weights, feature_mask, goss_weights,
 from .ops.grow import (QUANTIZED_IMPLS, DeviceTree, GrowerSpec, make_grower,
                        split_go_left, to_device, to_host)
 from .ops.grow_wave import WAVE_WIDTH_DEFAULT, make_wave_grower
+from .ops.renew import renew_leaf_values
 from .ops.hist_kernel import MULTI_CHUNK
 from .ops.hist_kernel_q import MULTI_CHUNK_Q
 from .ops.histogram import PACKED_MAX_QUANT_BINS
@@ -90,7 +92,7 @@ from .utils.config import Config
 from .utils.log import LightGBMError
 
 #: ROADMAP items that the training slice's refusals name
-BREADTH = "ROADMAP Queue 1 item 5d: grower and boosting breadth"
+FILES = "ROADMAP Queue 1 item 5i: the native parser"
 EXTERNAL = "ROADMAP Queue 1 item 5e: external memory and streaming"
 DISTRIBUTED = "ROADMAP Queue 1 item 5f: distributed training"
 
@@ -110,7 +112,13 @@ _DATASET_PARAMS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
 
 
 def _to_2d_float(data) -> np.ndarray:
-    """Request matrix as C-contiguous 2-D f64 numpy (1-D = one row)."""
+    """Request matrix as C-contiguous 2-D f64 numpy (1-D = one row); a
+    sparse matrix, an Arrow table, a DataFrame or a `Sequence` through
+    the Dataset's conversion (`basic._to_2d_float`)."""
+    if _is_sparse(data) or _is_arrow(data) or hasattr(data, "dtypes") \
+            or not hasattr(data, "__array__") and not isinstance(
+                data, (list, tuple)):
+        data = _dataset_matrix(data)
     X = np.ascontiguousarray(np.asarray(data, dtype=np.float64))
     if X.ndim == 1:
         X = X.reshape(1, -1)
@@ -393,14 +401,20 @@ class _DeviceData:
     set that EFB bundles (`for_train`) also puts its [G, N] bundle
     matrix there (`bundle_fm`, what the growers read) and the bundle
     maps in `feat` (the reference's `_build_feat`, `:1122-1126`); a
-    validation set is only routed through trees on its own bins."""
+    validation set is only routed through trees on its own bins.  A
+    sparse training set that EFB bundles has no [N, F] bin matrix: its
+    `bins_fm` is written from the binned CSC on first use (DART's and
+    rollback's replays)."""
 
     def __init__(self, ds: Dataset, device: torch.device,
                  for_train: bool = False):
         ds.construct()
+        self._ds = ds
+        self.device = device
         self.num_data, self.num_feature = ds._num_data, ds._num_feature
-        self.bins_fm = torch.from_numpy(
+        self._bins_fm = None if ds.bin_data is None else torch.from_numpy(
             np.ascontiguousarray(ds.bin_data.T)).to(device)
+        self.query_boundaries = ds._query_boundaries
         mappers = ds.bin_mappers
         self.nb_np = np.array([m.num_bin for m in mappers], np.int32)
         self.missing_np = np.array([m.missing_type for m in mappers],
@@ -418,8 +432,10 @@ class _DeviceData:
         self.bundle_fm = None
         if self.efb is not None:
             if ds.bundle_data is None:
-                from .utils.efb import build_bundled
-                ds.bundle_data = build_bundled(ds.bin_data, self.efb)
+                from .utils.efb import build_bundled, build_bundled_sparse
+                ds.bundle_data = build_bundled(ds.bin_data, self.efb) \
+                    if ds.bin_data is not None else build_bundled_sparse(
+                        ds.sparse_binned, self.efb, ds.bin_mappers)
             self.bundle_fm = torch.from_numpy(
                 np.ascontiguousarray(ds.bundle_data.T)).to(device)
             efb = self.efb
@@ -448,6 +464,13 @@ class _DeviceData:
         self.raw_ref = ds.data
         self._raw2d: Optional[np.ndarray] = None
 
+    @property
+    def bins_fm(self) -> torch.Tensor:
+        if self._bins_fm is None:
+            self._bins_fm = torch.from_numpy(np.ascontiguousarray(
+                self._ds._dense_bin_matrix().T)).to(self.device)
+        return self._bins_fm
+
     def get_raw(self) -> np.ndarray:
         """The set's raw matrix as f64 [N, F] (the reference's
         `_DeviceData.get_raw`, `booster.py:183`)."""
@@ -468,7 +491,7 @@ def _replay_splits(split_leaf, split_feature, threshold_bin, default_left,
     i + 1 (tree.h `Tree::Split`).  `cat_masks` [S, MB] are the left bins
     of the categorical splits (rows of the others unused), uploaded once
     without a sync; None when no split is categorical."""
-    device = dd.bins_fm.device
+    device = dd.device
     lid = torch.zeros(dd.num_data, dtype=torch.int32, device=device)
     masks = to_device(cat_masks, device) if cat_masks is not None else None
     for i in range(len(split_leaf)):
@@ -608,7 +631,20 @@ class Booster:
             self.num_tree_per_iteration = obj.num_tree_per_iteration
             if label is None:
                 raise LightGBMError("Label should not be None")
-            obj.init_meta(label.astype(np.float64), train_set.get_weight())
+            obj.init_meta(label.astype(np.float64), train_set.get_weight(),
+                          train_set._query_boundaries)
+            if train_set.position is not None:
+                if hasattr(obj, "set_positions"):
+                    obj.set_positions(train_set.get_position())
+                else:
+                    log.warning(
+                        "Dataset positions are only consumed by the "
+                        "lambdarank objective — positions have NO effect "
+                        f"on objective={obj.name}")
+        #: the position-debiased lambdarank's propensities, updated by
+        #: every gradient call (the reference's `booster.py:549-560`)
+        self._obj_state = obj.init_state(self.device) \
+            if getattr(obj, "has_state", False) else None
         self.metrics_: List[Metric] = create_metrics(
             cfg, cfg.metric or cfg.default_metric())
         self._loaded_feature_names = train_set.get_feature_name()
@@ -646,6 +682,8 @@ class Booster:
         # quantizer's rounding; ff_key0 the trees' and nodes' features
         self._rng_key0 = prng_key(cfg.bagging_seed % (2 ** 31))
         self._ff_key0 = prng_key(cfg.feature_fraction_seed % (2 ** 31))
+        # rank_xendcg's gammas: fold_in(key, iteration)
+        self._grad_key0 = prng_key(cfg.objective_seed % (2 ** 31))
 
     def _build_grower(self) -> None:
         """The grower of `self.config`, built anew: the histogram path,
@@ -892,7 +930,7 @@ class Booster:
         `booster.py:1349`)."""
         K = self.num_tree_per_iteration
         shape = (dd.num_data,) if K == 1 else (dd.num_data, K)
-        device = dd.bins_fm.device
+        device = dd.device
         score = torch.zeros(shape, dtype=torch.float32, device=device)
         if dd.init_score is not None:
             s = np.asarray(dd.init_score, dtype=np.float32)
@@ -941,7 +979,7 @@ class Booster:
         single-leaf tree adds its value only with `bias_included`; a
         linear tree the f32 cast of its host linear prediction on the
         set's raw values, less `bias`.  Returns the contribution."""
-        device = dd.bins_fm.device
+        device = dd.device
         if tree.is_linear and tree.num_leaves > 1:
             X = dd.get_raw()
             c = tree.linear_predict(X, tree.predict_leaf_index(X)) - bias
@@ -1021,11 +1059,25 @@ class Booster:
             score = self._train_score
             if self._boost_mode == "rf":
                 score = torch.zeros_like(score)
-            grad, hess = self._train_obj.grad_hess(
-                score, self._dd.label, self._dd.weight)
+            grad, hess = self._gradients(score)
         else:
             grad, hess = self._custom_gradients(fobj)
         return self._boost(grad, hess)
+
+    def _gradients(self, score: torch.Tensor):
+        """The objective's (grad, hess) at `score`: rank_xendcg with the
+        iteration's key fold_in(key(objective_seed), it), the
+        position-debiased lambdarank with its propensities, which the
+        call replaces (the reference's `booster.py:536-560`)."""
+        obj, dd = self._train_obj, self._dd
+        if getattr(obj, "needs_rng", False):
+            return obj.grad_hess(score, dd.label, dd.weight,
+                                 key=fold_in(self._grad_key0, self.cur_iter))
+        if self._obj_state is not None:
+            g, h, self._obj_state = obj.grad_hess(
+                score, dd.label, dd.weight, state=self._obj_state)
+            return g, h
+        return obj.grad_hess(score, dd.label, dd.weight)
 
     def _custom_gradients(self, fobj):
         """(grad, hess) f32 on the training device from `fobj` at the
@@ -1081,8 +1133,7 @@ class Booster:
         if fobj is not None:
             grad, hess = self._custom_gradients(fobj)
         else:
-            grad, hess = self._train_obj.grad_hess(
-                self._train_score, self._dd.label, self._dd.weight)
+            grad, hess = self._gradients(self._train_score)
         finished = self._boost(grad, hess)
         kdrop = len(dropped)
         if kdrop > 0:
@@ -1227,7 +1278,12 @@ class Booster:
                     tree, dev, gk, hk, sw, lr).astype(np.float32),
                     self.device)
             else:
-                scaled = dev.values * lr
+                renew = getattr(self._train_obj, "renew_percentile", None)
+                if renew is not None and tree.num_leaves > 1:
+                    scaled = self._renew_tree_output(tree, dev, sw,
+                                                     float(renew), lr)
+                else:
+                    scaled = dev.values * lr
                 contrib = scaled[dev.leaf_id.long()]
             self._add_tree(self._train_score, k, contrib)
             self._last_contribs.append(("train", 0, k, contrib))
@@ -1249,6 +1305,30 @@ class Booster:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
         return all_const
+
+    def _renew_tree_output(self, tree: Tree, dev: DeviceTree, sw,
+                           alpha: float, lr: float) -> torch.Tensor:
+        """The L1 family's leaf refit (ref: regression_objective.hpp
+        `RenewTreeOutput`; the reference's `_renew_tree_output`,
+        `booster.py:1698`): each leaf's value becomes the alpha-percentile
+        of its in-bag rows' residuals `label - score` before this tree,
+        weighted by the row weights times the sample weights when the set
+        has weights (and always for MAPE, whose weights are 1 / max(1,
+        |label|)), on the training device (`ops/renew.py`); leaves with
+        no in-bag row keep the grower's value.  Returns the shrunken
+        [L] values and rewrites the host tree's leaves."""
+        dd = self._dd
+        weighted = dd.weight is not None or self._train_obj.name == "mape"
+        base_w = dd.weight if dd.weight is not None else self._ones
+        if self._train_obj.name == "mape":
+            base_w = base_w / torch.clamp(torch.abs(dd.label), min=1.0)
+        vals = renew_leaf_values(dev.values, dd.label - self._train_score,
+                                 base_w, sw, dev.leaf_id,
+                                 self.config.num_leaves, alpha, weighted)
+        scaled = vals * lr
+        tree.leaf_value = to_host(scaled).astype(np.float64)[
+            :tree.num_leaves]
+        return scaled
 
     def _fit_linear_tree(self, tree: Tree, dev: DeviceTree, gk, hk, sw,
                          lr: float) -> np.ndarray:
@@ -1446,7 +1526,8 @@ class Booster:
         w64 = weight.astype(np.float64) if weight is not None else None
         out = [(name, mname, val, m.higher_better)
                for m in self.metrics_
-               for mname, val in m.eval(s, label64, w64, None)]
+               for mname, val in m.eval(s, label64, w64,
+                                        ds._query_boundaries)]
         if feval is None:
             return out
         preds = s
@@ -1531,12 +1612,11 @@ class Booster:
         kernel), the leaf sums in f64 (`bincount`), the closed-form
         output times the learning rate blended as `decay_rate * old +
         (1 - decay_rate) * new`; leaves no row reaches keep their value.
-        `weight=` weights the rows; `group=` raises (item 5d)."""
+        `weight=` weights the rows; `group=` gives the query sizes a
+        ranking objective needs (rank_xendcg draws with fold_in(key,
+        it))."""
         if self.objective_ is None:
             raise LightGBMError("Cannot refit due to null objective function")
-        if kwargs.get("group") is not None:
-            raise LightGBMError("refit with query groups (ranking) is not "
-                                f"ported yet ({BREADTH})")
         cfg = self.config
         device = train_device(kwargs.get("device_type") or cfg.device_type)
         new_bst = Booster(model_str=self.model_to_string(num_iteration=-1),
@@ -1548,9 +1628,14 @@ class Booster:
         if len(y) != n:
             raise LightGBMError("Length of label is not same with #data")
         weight = kwargs.get("weight")
+        group = kwargs.get("group")
+        qb = None if group is None else np.concatenate(
+            [[0], np.cumsum(np.asarray(group, np.int64))])
         obj = create_objective(new_bst.config)
+        obj.eager = True        # the reference refits outside `jax.jit`
         obj.init_meta(y, np.asarray(weight, np.float64)
-                      if weight is not None else None)
+                      if weight is not None else None, qb)
+        key0 = prng_key(cfg.objective_seed % (2 ** 31))
         K = self.num_tree_per_iteration
         lr = 1.0 if self._average_output else cfg.learning_rate
 
@@ -1572,7 +1657,11 @@ class Booster:
             # an averaged (RF) model's gradients are taken at the constant
             # base score (ref: rf.hpp `RF::Boosting`)
             at = np.zeros_like(score) if self._average_output else score
-            g, h = obj.grad_hess(to_device(at, device), label_d, w_d)
+            if getattr(obj, "needs_rng", False):
+                g, h = obj.grad_hess(to_device(at, device), label_d, w_d,
+                                     key=fold_in(key0, it))
+            else:
+                g, h = obj.grad_hess(to_device(at, device), label_d, w_d)
             g = g.cpu().numpy().astype(np.float64)
             h = h.cpu().numpy().astype(np.float64)
             for k in range(K):
@@ -2020,11 +2109,12 @@ class Booster:
         Options are read from `kwargs`, then from the booster's params
         (strings such as "true" count, as params reloaded from model text
         are strings).  Converted outputs pass the f32 downcast of the raw
-        sum through the objective's link.  A file name as `data` raises
-        (file input is item 5d)."""
+        sum through the objective's link.  `data` may be a sparse matrix,
+        a DataFrame, an Arrow table or a `Sequence`; a file name raises
+        (file input is item 5i)."""
         if isinstance(data, str):
             raise LightGBMError(f"prediction from a data file is not ported "
-                                f"yet ({BREADTH})")
+                                f"yet ({FILES})")
         X = _to_2d_float(data)
         n = X.shape[0]
         K = self.num_tree_per_iteration

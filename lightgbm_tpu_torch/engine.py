@@ -221,9 +221,11 @@ def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict,
                   seed: int, stratified: bool, shuffle: bool):
     """(train_idx, test_idx) pairs (ref: engine.py `_make_n_folds`; the
     JAX package's `engine.py:360`): `folds` as a splitter or as index
-    pairs; else stratified by label (rows sorted by label, each class
-    shuffled by `RandomState(seed)`, dealt round-robin) or plain
-    (optionally shuffled, every nfold-th row)."""
+    pairs (a splitter gets each row's query as its group); else
+    stratified by label (rows sorted by label, each class shuffled by
+    `RandomState(seed)`, dealt round-robin), by whole queries when the
+    set has them (every nfold-th of the optionally shuffled queries), or
+    plain (optionally shuffled, every nfold-th row)."""
     full_data.construct()
     num_data = full_data.num_data()
     if folds is not None:
@@ -232,9 +234,14 @@ def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict,
                 "folds should be a generator or iterator of (train_idx, "
                 "test_idx) tuples or scikit-learn splitter object")
         if hasattr(folds, "split"):
+            group_info = full_data.get_group()
+            flattened_group = np.zeros(num_data, dtype=np.int64) \
+                if group_info is None else np.repeat(
+                    np.arange(len(group_info)),
+                    repeats=np.asarray(group_info, dtype=np.int64))
             folds = folds.split(X=np.empty(num_data),
                                 y=full_data.get_label(),
-                                groups=np.zeros(num_data, dtype=np.int64))
+                                groups=flattened_group)
         return folds
     if stratified:
         label = full_data.get_label()
@@ -248,6 +255,20 @@ def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict,
         fold_of[order] = np.arange(num_data) % nfold
         return [(np.nonzero(fold_of != k)[0], np.nonzero(fold_of == k)[0])
                 for k in range(nfold)]
+    group_sizes = full_data.get_group()
+    if group_sizes is not None:
+        # whole queries a fold, every nfold-th of the (shuffled) queries
+        gidx = np.arange(len(group_sizes))
+        if shuffle:
+            np.random.RandomState(seed).shuffle(gidx)
+        boundaries = np.concatenate([[0], np.cumsum(group_sizes)])
+        out = []
+        for k in range(nfold):
+            mask = np.zeros(num_data, dtype=bool)
+            for g in gidx[k::nfold]:
+                mask[boundaries[g]:boundaries[g + 1]] = True
+            out.append((np.nonzero(~mask)[0], np.nonzero(mask)[0]))
+        return out
     idx = np.arange(num_data)
     if shuffle:
         np.random.RandomState(seed).shuffle(idx)

@@ -15,7 +15,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .basic import Dataset
+from .basic import Dataset, _feature_names_from
 from .booster import Booster
 from .objectives import parse_objective
 from .tree import Tree
@@ -68,13 +68,17 @@ def dataset_from_numpy(bin_data: np.ndarray, bin_mappers: Sequence[Dict],
                        label: Optional[np.ndarray] = None,
                        weight: Optional[np.ndarray] = None,
                        feature_names: Optional[Sequence[str]] = None,
-                       params: Optional[Dict] = None) -> Dataset:
+                       params: Optional[Dict] = None,
+                       group: Optional[np.ndarray] = None,
+                       position: Optional[np.ndarray] = None) -> Dataset:
     """A constructed port `Dataset` from another package's binning.
 
     `bin_data` is the [N, F] uint8/uint16 bin matrix, `bin_mappers` the
     mappers as `BinMapper.to_dict()` dicts (the JAX package's
-    `[m.to_dict() for m in ds.bin_mappers]`).  No binning runs and no
-    bundle search: the dataset trains on exactly these bins."""
+    `[m.to_dict() for m in ds.bin_mappers]`); `group` the query sizes
+    (the JAX `ds.get_group()`) and `position` the per-row positions
+    (`ds.get_position()`).  No binning runs and no bundle search: the
+    dataset trains on exactly these bins."""
     bins = np.ascontiguousarray(bin_data)
     if bins.ndim != 2 or bins.dtype not in (np.uint8, np.uint16):
         raise ValueError("bin_data must be a 2-D uint8 or uint16 matrix")
@@ -82,7 +86,8 @@ def dataset_from_numpy(bin_data: np.ndarray, bin_mappers: Sequence[Dict],
     mappers = [BinMapper.from_dict(d) for d in bin_mappers]
     if len(mappers) != f:
         raise ValueError(f"{len(mappers)} bin mappers for {f} features")
-    ds = Dataset(None, label=label, weight=weight,
+    ds = Dataset(None, label=label, weight=weight, group=group,
+                 position=position,
                  feature_name=(list(feature_names) if feature_names
                                is not None else "auto"),
                  params=params)
@@ -90,7 +95,7 @@ def dataset_from_numpy(bin_data: np.ndarray, bin_mappers: Sequence[Dict],
     ds.bin_mappers = mappers
     ds.num_total_bin = sum(m.num_bin for m in mappers)
     ds._num_data, ds._num_feature = n, f
-    ds._feature_names = ds._names_for(f)
+    ds._feature_names = _feature_names_from(None, f, ds.feature_name)
     ds._set_fields()
     ds._handle_constructed = True
     return ds

@@ -6,19 +6,25 @@ The port's counterpart of `lightgbm_tpu/objectives.py`.  Two halves:
 * loading: `parse_objective` reads a model text's `objective=` line into
   an `Objective`, whose `convert_output` is the link (ref:
   objective_function.h `ConvertOutput`) for every objective;
-* training: `create_objective(config)` builds `RegressionL2`,
-  `BinaryLogloss` or `MulticlassSoftmax` with `init_meta`,
-  `boost_from_score` (host numpy, f64, as the reference) and
-  `grad_hess` (f32 torch, on whatever device the score lies, in the
-  reference's op order).  Any other objective raises with the reason.
+* training: `create_objective(config)` builds every objective of the
+  reference (the regression family, binary, multiclass and one-vs-all,
+  the two cross-entropies, and through `rank_objective.py` lambdarank
+  and rank_xendcg) with `init_meta` (the label checks), its
+  `boost_from_score` (host numpy, f64, as the reference), its
+  `renew_percentile` (L1, quantile, MAPE: the leaves are refitted by
+  `ops/renew.py`) and `grad_hess` (f32 torch, on whatever device the
+  score lies, in the reference's op order).  Where XLA's CPU code
+  contracts a product and a sum into a fused multiply-add inside the
+  reference's jitted gradients, the port repeats it with
+  `ops/xla_math.py _fma` (gamma, tweedie).
 
 `convert_output` takes the f32 raw scores (the round-to-nearest-even
 downcast of the exact f64 sums) and applies the link in f32.  Sigmoid,
 softmax and exp, in the links and in `grad_hess`, are XLA's CPU
 arithmetic bit for bit (`ops/xla_math.py`), so the same scores give the
-reference's bits on the CPU and on the card; `log1p` (in
-`cross_entropy_lambda`) may still differ from XLA's by about one ulp,
-and the tests state the bound.
+reference's bits on the CPU and on the card; so are the log1p and
+expm1 of `cross_entropy_lambda`'s training and the log of its link
+(`ops/xla_math.py`).
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .ops.xla_math import xla_exp_f32, xla_sigmoid, xla_softmax
+from .ops.xla_math import (_fma, fma_rn, xla_exp_f32, xla_expm1_f32,
+                           xla_log1p_f32, xla_sigmoid, xla_softmax)
 from .utils import log
 from .utils.log import LightGBMError
 
@@ -107,7 +114,7 @@ class Objective:
         if n == "cross_entropy":
             return xla_sigmoid(score)
         if n == "cross_entropy_lambda":
-            return torch.log1p(xla_exp_f32(score))
+            return xla_log1p_f32(xla_exp_f32(score))
         return score            # ranking objectives: identity
 
     def to_string(self) -> str:
@@ -178,12 +185,19 @@ class TrainObjective:
     name = "custom"
     num_tree_per_iteration = 1
     need_convert = False
+    is_ranking = False
+    #: the alpha of the L1 family's leaf refit (`ops/renew.py`), or None
+    renew_percentile: Optional[float] = None
+    #: the reference's op-by-op arithmetic (its `refit` calls
+    #: `grad_hess` outside `jax.jit`, where XLA contracts nothing and
+    #: reduces each sum alone) instead of its jitted training step's
+    eager = False
 
     def __init__(self, config):
         self.config = config
 
-    def init_meta(self, label: np.ndarray,
-                  weight: Optional[np.ndarray]) -> None:
+    def init_meta(self, label: np.ndarray, weight: Optional[np.ndarray],
+                  query_boundaries: Optional[np.ndarray] = None) -> None:
         self.num_data = len(label)
 
     def boost_from_score(self, label: np.ndarray,
@@ -203,13 +217,48 @@ class TrainObjective:
                                 for k in _DEFAULTS})
 
     def to_string(self) -> str:
-        return self.name
+        """The model text's `objective=` value (the reference's
+        `booster.py _objective_to_string`)."""
+        c = self.config
+        n = self.name
+        if n == "quantile":
+            return f"quantile alpha:{c.alpha:g}"
+        if n == "huber":
+            return f"huber alpha:{c.alpha:g}"
+        if n == "fair":
+            return f"fair fair_c:{c.fair_c:g}"
+        if n == "tweedie":
+            return (f"tweedie "
+                    f"tweedie_variance_power:{c.tweedie_variance_power:g}")
+        return n
+
+
+def _mul_add(a, b, c):
+    """a * b + c rounded twice, as two ops."""
+    return a * b + c
+
+
+def _div(num: float, den: torch.Tensor) -> torch.Tensor:
+    """IEEE f32 `num / den` for a Python number `num` (torch computes
+    a scalar over a tensor as the reciprocal times the scalar)."""
+    return torch.full_like(den, num) / den
 
 
 class RegressionL2(TrainObjective):
     """ref: regression_objective.hpp `RegressionL2loss` (the JAX
     package's `objectives.py:86`)."""
     name = "regression"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.sqrt = bool(config.reg_sqrt)
+
+    def transform_label(self, label: np.ndarray) -> np.ndarray:
+        """`reg_sqrt`'s label transform (the reference defines it and,
+        like it, training does not apply it; the link squares)."""
+        if self.sqrt:
+            return np.sign(label) * np.sqrt(np.abs(label))
+        return label
 
     def boost_from_score(self, label, weight):
         if not self.config.boost_from_average:
@@ -221,6 +270,172 @@ class RegressionL2(TrainObjective):
     def grad_hess(self, score, label, weight):
         grad = score - label
         hess = torch.ones_like(score)
+        return _apply_weight(grad, hess, weight)
+
+
+class RegressionL1(RegressionL2):
+    """ref: regression_objective.hpp `RegressionL1loss`: sign gradients,
+    the leaves refitted to their residuals' median."""
+    name = "regression_l1"
+    renew_percentile = 0.5
+
+    def boost_from_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        return _weighted_percentile(label, weight, 0.5)
+
+    def grad_hess(self, score, label, weight):
+        grad = torch.sign(score - label)
+        hess = torch.ones_like(score)
+        return _apply_weight(grad, hess, weight)
+
+
+class HuberLoss(RegressionL2):
+    """ref: regression_objective.hpp `RegressionHuberLoss`."""
+    name = "huber"
+
+    def grad_hess(self, score, label, weight):
+        a = self.config.alpha
+        grad = torch.clamp(score - label, -a, a)
+        hess = torch.ones_like(score)
+        return _apply_weight(grad, hess, weight)
+
+
+class FairLoss(RegressionL2):
+    """ref: regression_objective.hpp `RegressionFairLoss`."""
+    name = "fair"
+
+    def boost_from_score(self, label, weight):
+        return 0.0
+
+    def grad_hess(self, score, label, weight):
+        c = self.config.fair_c
+        d = score - label
+        den = torch.abs(d) + c
+        grad = c * d / den
+        hess = _div(c * c, den * den)
+        return _apply_weight(grad, hess, weight)
+
+
+class PoissonLoss(RegressionL2):
+    """ref: regression_objective.hpp `RegressionPoissonLoss` (log link)."""
+    name = "poisson"
+    need_convert = True
+
+    def init_meta(self, label, weight, query_boundaries=None):
+        super().init_meta(label, weight, query_boundaries)
+        if np.any(label < 0):
+            raise LightGBMError(
+                "[poisson]: at least one target label is negative")
+
+    def boost_from_score(self, label, weight):
+        avg = (np.average(label, weights=weight) if weight is not None
+               else np.mean(label))
+        return float(np.log(max(avg, 1e-9)))
+
+    def grad_hess(self, score, label, weight):
+        grad = xla_exp_f32(score) - label
+        hess = xla_exp_f32(score + self.config.poisson_max_delta_step)
+        return _apply_weight(grad, hess, weight)
+
+
+class QuantileLoss(RegressionL2):
+    """ref: regression_objective.hpp `RegressionQuantileloss`: ties get
+    the gradient 1 - alpha; the leaves are refitted to their residuals'
+    alpha-percentile."""
+    name = "quantile"
+
+    def boost_from_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        return _weighted_percentile(label, weight, self.config.alpha)
+
+    def grad_hess(self, score, label, weight):
+        a = self.config.alpha
+        d = score - label
+        grad = torch.where(d >= 0, torch.full_like(d, 1.0 - a),
+                           torch.full_like(d, -a))
+        hess = torch.ones_like(score)
+        return _apply_weight(grad, hess, weight)
+
+    @property
+    def renew_percentile(self):
+        return self.config.alpha
+
+
+class MAPELoss(RegressionL2):
+    """ref: regression_objective.hpp `RegressionMAPELOSS`: the label
+    weights 1 / max(1, |label|), the leaves refitted to the weighted
+    median."""
+    name = "mape"
+    renew_percentile = 0.5
+
+    def init_meta(self, label, weight, query_boundaries=None):
+        super().init_meta(label, weight, query_boundaries)
+        self.label_weight = (1.0 / np.maximum(1.0, np.abs(label))
+                             ).astype(np.float32)
+
+    def boost_from_score(self, label, weight):
+        if not self.config.boost_from_average:
+            return 0.0
+        lw = 1.0 / np.maximum(1.0, np.abs(label))
+        if weight is not None:
+            lw = lw * weight
+        return _weighted_percentile(label, lw, 0.5)
+
+    def grad_hess(self, score, label, weight):
+        lw = _div(1.0, torch.clamp(torch.abs(label), min=1.0))
+        grad = torch.sign(score - label) * lw
+        return _apply_weight(grad, lw, weight)
+
+
+class GammaLoss(PoissonLoss):
+    """ref: regression_objective.hpp `RegressionGammaLoss` (log link).
+    The reference's jitted gradients hold label and weight as constants:
+    unweighted, `label * exp(-s)` is one fusion's output shared by both
+    results, so `1 - label * exp(-s)` rounds twice; weighted, XLA's CPU
+    code contracts it into one fma and folds `label * weight` into a
+    constant that multiplies `exp(-s)`."""
+    name = "gamma"
+
+    def init_meta(self, label, weight, query_boundaries=None):
+        TrainObjective.init_meta(self, label, weight, query_boundaries)
+        if np.any(label <= 0):
+            raise LightGBMError(
+                "[gamma]: at least one target label is not positive")
+
+    def grad_hess(self, score, label, weight):
+        exp_ns = xla_exp_f32(-score)
+        if self.eager:
+            hess = label * exp_ns
+            return _apply_weight(1.0 - hess, hess, weight)
+        if weight is None:
+            hess = label * exp_ns
+            return 1.0 - hess, hess
+        return _fma(-label, exp_ns, 1.0) * weight, (label * weight) * exp_ns
+
+
+class TweedieLoss(PoissonLoss):
+    """ref: regression_objective.hpp `RegressionTweedieLoss`.  XLA's CPU
+    code contracts `-label * e1 + e2` and the hessian's sum into fmas."""
+    name = "tweedie"
+
+    def init_meta(self, label, weight, query_boundaries=None):
+        TrainObjective.init_meta(self, label, weight, query_boundaries)
+        if np.any(label < 0):
+            raise LightGBMError(
+                "[tweedie]: at least one target label is negative")
+
+    def grad_hess(self, score, label, weight):
+        rho = self.config.tweedie_variance_power
+        e1 = xla_exp_f32((1.0 - rho) * score)
+        e2 = xla_exp_f32((2.0 - rho) * score)
+        if self.eager:
+            grad = -label * e1 + e2
+            hess = -label * (1.0 - rho) * e1 + (2.0 - rho) * e2
+        else:
+            grad = _fma(-label, e1, e2)
+            hess = _fma(-label * (1.0 - rho), e1, (2.0 - rho) * e2)
         return _apply_weight(grad, hess, weight)
 
 
@@ -237,8 +452,8 @@ class BinaryLogloss(TrainObjective):
             raise LightGBMError(
                 "Sigmoid parameter should be greater than zero")
 
-    def init_meta(self, label, weight):
-        super().init_meta(label, weight)
+    def init_meta(self, label, weight, query_boundaries=None):
+        super().init_meta(label, weight, query_boundaries)
         uniq = np.unique(label)
         if not np.all(np.isin(uniq, [0, 1])):
             raise LightGBMError("Binary objective requires labels in "
@@ -294,8 +509,8 @@ class MulticlassSoftmax(TrainObjective):
         self.num_class = config.num_class
         self.num_tree_per_iteration = config.num_class
 
-    def init_meta(self, label, weight):
-        super().init_meta(label, weight)
+    def init_meta(self, label, weight, query_boundaries=None):
+        super().init_meta(label, weight, query_boundaries)
         ilab = label.astype(np.int64)
         if np.any(ilab < 0) or np.any(ilab >= self.num_class):
             raise LightGBMError(f"Label must be in [0, {self.num_class}) "
@@ -317,23 +532,177 @@ class MulticlassSoftmax(TrainObjective):
         return f"multiclass num_class:{self.num_class}"
 
 
-_TRAIN_OBJECTIVES = {"regression": RegressionL2, "binary": BinaryLogloss,
-                     "multiclass": MulticlassSoftmax}
+class MulticlassOVA(TrainObjective):
+    """ref: multiclass_objective.hpp `MulticlassOVA`: K independent
+    sigmoids (the JAX package's `objectives.py:357`)."""
+    name = "multiclassova"
+    need_convert = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.num_class = config.num_class
+        self.num_tree_per_iteration = config.num_class
+        self.sigmoid = config.sigmoid
+
+    def boost_from_score(self, label, weight):
+        return [0.0] * self.num_class
+
+    def grad_hess(self, score, label, weight):
+        sig = self.sigmoid
+        onehot = torch.nn.functional.one_hot(
+            label.to(torch.int64), self.num_class).to(score.dtype)
+        p = xla_sigmoid(sig * score)
+        grad = sig * (p - onehot)
+        hess = sig * sig * p * (1.0 - p)
+        return _apply_weight(grad, hess, weight)
+
+    def to_string(self) -> str:
+        return (f"multiclassova num_class:{self.num_class} "
+                f"sigmoid:{self.sigmoid:g}")
+
+
+class CrossEntropy(TrainObjective):
+    """ref: xentropy_objective.hpp `CrossEntropy` (labels in [0, 1])."""
+    name = "cross_entropy"
+    need_convert = True
+
+    def init_meta(self, label, weight, query_boundaries=None):
+        super().init_meta(label, weight, query_boundaries)
+        if np.any(label < 0) or np.any(label > 1):
+            raise LightGBMError("[cross_entropy]: labels must be in [0, 1]")
+
+    def boost_from_score(self, label, weight):
+        avg = (np.average(label, weights=weight) if weight is not None
+               else np.mean(label))
+        avg = min(max(avg, 1e-9), 1 - 1e-9)
+        return float(np.log(avg / (1.0 - avg)))
+
+    def grad_hess(self, score, label, weight):
+        p = xla_sigmoid(score)
+        grad = p - label
+        hess = p * (1.0 - p)
+        return _apply_weight(grad, hess, weight)
+
+
+#: the f32 floor of `cross_entropy_lambda`'s w h
+_EPS12 = float(np.float32(1e-12))
+
+
+class CrossEntropyLambda(TrainObjective):
+    """ref: xentropy_objective.hpp `CrossEntropyLambda`.  The reference
+    differentiates its point loss -(y log p - (1 - y)(-w h)), p = 1 -
+    exp(-max(w h, 1e-12)), h = log1p(exp(s)), twice with `jax.grad`;
+    here the two jaxprs are repeated op for op, with XLA's CPU exp,
+    log1p and expm1 (`ops/xla_math.py`) and the two fmas its code
+    contracts in the hessian."""
+    name = "cross_entropy_lambda"
+    need_convert = True
+
+    def init_meta(self, label, weight, query_boundaries=None):
+        super().init_meta(label, weight, query_boundaries)
+        if np.any(label < 0):
+            raise LightGBMError(
+                "[cross_entropy_lambda]: labels must be >= 0")
+
+    def boost_from_score(self, label, weight):
+        avg = (np.average(label, weights=weight) if weight is not None
+               else np.mean(label))
+        return float(np.log(np.expm1(max(avg, 1e-9)))) \
+            if avg > 1e-9 else -9.0
+
+    def grad_hess(self, score, label, weight):
+        # the jaxprs of jax.grad and jax.grad(jax.grad) of the point loss,
+        # op for op (c is the weight, b the label, a the score)
+        a, b = score, label
+        c = weight if weight is not None else torch.ones_like(score)
+        one = torch.ones_like(a)
+        zero = torch.zeros_like(a)
+        d = xla_exp_f32(a)
+        f = d + 1.0
+        h = c * xla_log1p_f32(d)
+        i = torch.clamp(h, min=_EPS12)
+        # the max's derivative: 1 where h is the max, halved at a tie
+        s_ = torch.where(h == i, one, zero) / torch.where(
+            i == _EPS12, 2.0 * one, one)
+        u = xla_expm1_f32(-i)
+        w = u + 1.0
+        x = -u
+        ba = 1.0 - b
+        bi = -b
+        bl = -(bi / x)
+        bq = c * (-ba + (-(bl * w)) * s_)
+        br = bq / f
+        grad = br * d
+        # XLA's CPU code contracts these two sums into fmas
+        fma = _mul_add if self.eager else fma_rn
+        by = fma(-(d * _div(1.0, f * f)), bq, br)
+        cc = -((c * (d / f)) * s_)
+        ck = fma(bl, cc, ((-(cc * w)) * _div(1.0, x * x)) * bi)
+        cp = (c * ((-(ck * w)) * s_)) / f
+        hess = (by + cp) * d
+        return grad, hess
+
+
+# ----------------------------------------------------------- utilities
+def _weighted_percentile(values: np.ndarray, weight: Optional[np.ndarray],
+                         alpha: float) -> float:
+    """The (weighted) alpha-percentile of `values`, the reference's
+    `objectives.py:464` (ref: regression_objective.hpp `PercentileFun`,
+    `WeightedPercentileFun`): unweighted, interpolated at alpha (n - 1);
+    weighted, the first sorted value whose cumulative weight less half
+    its own reaches alpha times the total."""
+    values = np.asarray(values, dtype=np.float64)
+    if len(values) == 0:
+        return 0.0
+    if weight is None:
+        order = np.argsort(values)
+        pos = alpha * (len(values) - 1)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, len(values) - 1)
+        frac = pos - lo
+        return float(values[order[lo]] * (1 - frac)
+                     + values[order[hi]] * frac)
+    order = np.argsort(values)
+    sv, sw = values[order], np.asarray(weight, dtype=np.float64)[order]
+    cum = np.cumsum(sw) - 0.5 * sw
+    t = alpha * sw.sum()
+    idx = np.searchsorted(cum, t)
+    idx = min(max(idx, 0), len(sv) - 1)
+    return float(sv[idx])
+
+
+_TRAIN_OBJECTIVES: Dict[str, type] = {
+    "regression": RegressionL2, "regression_l1": RegressionL1,
+    "huber": HuberLoss, "fair": FairLoss, "poisson": PoissonLoss,
+    "quantile": QuantileLoss, "mape": MAPELoss, "gamma": GammaLoss,
+    "tweedie": TweedieLoss, "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax, "multiclassova": MulticlassOVA,
+    "cross_entropy": CrossEntropy,
+    "cross_entropy_lambda": CrossEntropyLambda,
+}
+
+
+def register_objective(name: str, cls: type) -> None:
+    """Train objective `name` with `cls` (the reference's
+    `objectives.py:505`)."""
+    _TRAIN_OBJECTIVES[name] = cls
 
 
 def create_objective(config) -> Optional[TrainObjective]:
     """Training objective of a resolved `Config` (ref:
     `ObjectiveFunction::CreateObjectiveFunction`; the JAX package's
-    `objectives.py:509`).  This slice trains `regression` (L2),
-    `binary` and `multiclass`; "none" and "custom" are None (a custom
-    objective's gradients come from the caller's `fobj`); every other
-    objective raises."""
+    `objectives.py:509`); "none" and "custom" are None (a custom
+    objective's gradients come from the caller's `fobj`); the ranking
+    objectives come from `rank_objective.py`."""
     name = config.objective
     if name in ("custom", "none", None):
         return None
     if name not in _TRAIN_OBJECTIVES:
-        raise LightGBMError(
-            f"objective {name!r} is not ported yet: this slice trains "
-            "regression (L2), binary and multiclass (ROADMAP Queue 1 "
-            "item 5)")
+        from . import rank_objective
+        _TRAIN_OBJECTIVES.setdefault("lambdarank",
+                                     rank_objective.LambdarankNDCG)
+        _TRAIN_OBJECTIVES.setdefault("rank_xendcg",
+                                     rank_objective.RankXENDCG)
+    if name not in _TRAIN_OBJECTIVES:
+        raise LightGBMError(f"Unknown objective: {name}")
     return _TRAIN_OBJECTIVES[name](config)

@@ -10,7 +10,7 @@ the estimators keep working on plain base classes (the reference's
 `sklearn.py:20-31`).  A callable `objective(y_true, y_pred[, weight[,
 group]])` trains as the booster's custom objective
 (`_ObjectiveFunctionWrapper`); the classifier then returns raw scores.
-`LGBMRanker` raises, naming ROADMAP item 5d.
+`LGBMRanker` trains lambdarank with query groups.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import numpy as np
 
 from . import callback as callback_mod
 from .basic import Dataset
-from .booster import BREADTH, Booster, _to_2d_float
+from .booster import Booster, _to_2d_float
 from .engine import train as engine_train
 from .utils.log import LightGBMError
 
@@ -206,14 +206,12 @@ class LGBMModel(BaseEstimator):
                 if vx is X and vy is y:
                     valid_sets.append(train_set)
                 else:
-                    if eval_group and eval_group[i] is not None:
-                        raise LightGBMError("query groups (ranking) are not "
-                                            f"ported yet ({BREADTH})")
                     vw = eval_sample_weight[i] if eval_sample_weight else None
                     vi = eval_init_score[i] if eval_init_score else None
+                    vg = eval_group[i] if eval_group else None
                     valid_sets.append(train_set.create_valid(
                         vx, label=self._process_label(np.asarray(vy)),
-                        weight=vw, init_score=vi))
+                        weight=vw, group=vg, init_score=vi))
                 valid_names.append(eval_names[i] if eval_names and
                                    i < len(eval_names) else f"valid_{i}")
         self._evals_result = {}
@@ -399,12 +397,32 @@ class LGBMClassifier(ClassifierMixin, LGBMModel):
 
 
 class LGBMRanker(LGBMModel):
-    """ref: sklearn.py `LGBMRanker`: lambdarank needs query groups,
-    which are not ported yet (item 5d); fitting raises."""
+    """ref: sklearn.py `LGBMRanker`: lambdarank with query groups (the
+    JAX package's `sklearn.py:406`); `eval_at` sets the NDCG and MAP
+    cut-offs."""
 
     def _default_objective(self) -> str:
         return "lambdarank"
 
-    def fit(self, X, y, **kwargs):
-        raise LightGBMError(f"LGBMRanker (lambdarank with query groups) is "
-                            f"not ported yet ({BREADTH})")
+    def fit(self, X, y, sample_weight=None, init_score=None, group=None,
+            eval_set=None, eval_names=None, eval_sample_weight=None,
+            eval_init_score=None, eval_group=None, eval_metric=None,
+            eval_at=(1, 2, 3, 4, 5), feature_name="auto",
+            categorical_feature="auto", callbacks=None,
+            init_model=None) -> "LGBMRanker":
+        if group is None:
+            raise ValueError("Should set group for ranking task")
+        if eval_set is not None and eval_group is None:
+            raise ValueError("Eval_group cannot be None when eval_set is "
+                             "not None")
+        self._other_params["eval_at"] = list(eval_at)
+        self.set_params(eval_at=list(eval_at))
+        return super().fit(X, y, sample_weight=sample_weight,
+                           init_score=init_score, group=group,
+                           eval_set=eval_set, eval_names=eval_names,
+                           eval_sample_weight=eval_sample_weight,
+                           eval_init_score=eval_init_score,
+                           eval_group=eval_group, eval_metric=eval_metric,
+                           feature_name=feature_name,
+                           categorical_feature=categorical_feature,
+                           callbacks=callbacks, init_model=init_model)

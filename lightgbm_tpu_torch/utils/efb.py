@@ -10,8 +10,10 @@ most-used-first order (an unstable `np.argsort`, whose tie order is part
 of the reference's behaviour), the same budget and bin caps; and
 `build_bundled` (`utils/efb.py:217`, ref: FastFeatureBundling), the
 dense [N, G] matrix the growers train on (`ops/grow.py
-make_bundled_expander` reads it back per feature).  `build_bundled_sparse`
-waits for sparse input (ROADMAP Queue 1 item 5d).
+make_bundled_expander` reads it back per feature).  Sparse input never
+densifies: `find_bundles_sparse`, `build_bundled_sparse` and
+`materialize_dense_bins` (`utils/efb.py:89, 238, 268`) read a binned
+CSC matrix directly.
 """
 from __future__ import annotations
 
@@ -77,6 +79,50 @@ def find_bundles(bin_nf: np.ndarray, mappers, max_conflict_rate: float,
     return _greedy_bundle(lambda j: nz[:, j], nz.sum(axis=0), ns, f,
                           mappers, max_conflict_rate)
 
+
+
+def find_bundles_sparse(binned_csc, mappers, max_conflict_rate: float,
+                        seed: int = 0) -> Optional[BundleSpec]:
+    """`find_bundles` fed straight from a binned CSC matrix (scipy-style:
+    .indptr/.indices/.data) — never materializes an [N, F] dense matrix
+    (ref: LGBM_DatasetCreateFromCSR feeding Dataset::FindGroups; the
+    reference also works from per-feature nonzero iterators)."""
+    n, f = binned_csc.shape
+    if f < 2:
+        return None
+    indptr, indices, data = (binned_csc.indptr, binned_csc.indices,
+                             binned_csc.data)
+    if n > CONFLICT_SAMPLE_ROWS:
+        rng = np.random.RandomState(seed)
+        rows = np.sort(rng.choice(n, CONFLICT_SAMPLE_ROWS, replace=False))
+        in_sample = np.zeros(n, bool)
+        in_sample[rows] = True
+        remap = np.cumsum(in_sample) - 1        # orig row -> sample row
+        ns = len(rows)
+    else:
+        in_sample = None
+        remap = None
+        ns = n
+
+    def col_mask(j: int) -> np.ndarray:
+        r = indices[indptr[j]:indptr[j + 1]]
+        v = data[indptr[j]:indptr[j + 1]]
+        r = r[v != 0]                           # stored zero-bin ≡ implied
+        if in_sample is not None:
+            r = remap[r[in_sample[r]]]
+        m = np.zeros(ns, bool)
+        m[r] = True
+        return m
+
+    nz_cnt = np.empty(f, np.int64)
+    for j in range(f):
+        r = indices[indptr[j]:indptr[j + 1]]
+        v = data[indptr[j]:indptr[j + 1]]
+        r = r[v != 0]
+        nz_cnt[j] = np.count_nonzero(in_sample[r]) if in_sample is not None \
+            else len(r)
+    return _greedy_bundle(col_mask, nz_cnt, ns, f, mappers,
+                          max_conflict_rate)
 
 
 def _greedy_bundle(col_mask, nz_cnt: np.ndarray, ns: int, f: int,
@@ -181,4 +227,51 @@ def build_bundled(bin_nf: np.ndarray, spec: BundleSpec) -> np.ndarray:
             nzr = col != 0
             out[nzr, g] = (col[nzr] + spec.off_of_feature[j] - 1) \
                 .astype(dtype)
+    return out
+
+
+def build_bundled_sparse(binned_csc, spec: BundleSpec,
+                         mappers) -> np.ndarray:
+    """`build_bundled` fed straight from a binned CSC matrix — produces the
+    [N, G] bundled matrix without an [N, F] dense intermediate.
+
+    Rows absent from a column hold that feature's zero bin
+    (`value_to_bin(0.0)`); identity columns are pre-filled with it, bundle
+    members are by construction zero-defaulted.  Same last-writer-wins
+    conflict rule as the dense path (feature-index order)."""
+    n, f = binned_csc.shape
+    indptr, indices, data = (binned_csc.indptr, binned_csc.indices,
+                             binned_csc.data)
+    dtype = np.uint8 if spec.col_num_bin.max() <= 256 else np.uint16
+    out = np.zeros((n, spec.n_cols), dtype=dtype)
+    for j in range(f):
+        g = spec.col_of_feature[j]
+        rows = indices[indptr[j]:indptr[j + 1]]
+        bins = data[indptr[j]:indptr[j + 1]].astype(np.int64)
+        if spec.identity[j]:
+            zb = mappers[j].value_to_bin(0.0)
+            if zb:
+                out[:, g] = dtype(zb)
+            out[rows, g] = bins.astype(dtype)
+        else:
+            nzr = bins != 0
+            out[rows[nzr], g] = (bins[nzr] + spec.off_of_feature[j] - 1)\
+                .astype(dtype)
+    return out
+
+
+def materialize_dense_bins(binned_csc, mappers) -> np.ndarray:
+    """[N, F] dense bin matrix from a binned CSC — the no-EFB sparse path.
+    Still never touches float64: each column is filled with its zero bin
+    and overwritten at stored positions (uint8/16 throughout)."""
+    n, f = binned_csc.shape
+    indptr, indices, data = (binned_csc.indptr, binned_csc.indices,
+                             binned_csc.data)
+    max_nb = max((m.num_bin for m in mappers), default=1)
+    dtype = np.uint8 if max_nb <= 256 else np.uint16
+    out = np.empty((n, f), dtype=dtype)
+    for j in range(f):
+        out[:, j] = dtype(mappers[j].value_to_bin(0.0))
+        rows = indices[indptr[j]:indptr[j + 1]]
+        out[rows, j] = data[indptr[j]:indptr[j + 1]].astype(dtype)
     return out

@@ -393,8 +393,10 @@ def test_refit(family):
     again = loaded.refit(Xr, yr, decay_rate=0.7, device_type="cpu")
     ref = lgb.Booster(model_str=_text(aj)).refit(Xr, yr, decay_rate=0.7)
     assert _text(again) == _text(ref)
-    with pytest.raises(lt.LightGBMError, match="item 5d"):
-        ap.refit(Xr, yr, group=[700])
+    # query groups reach the objective (item 5d); a non-ranking one
+    # ignores them, as the reference's does
+    assert _text(ap.refit(Xr, yr, decay_rate=0.7, group=[700])) == \
+        _text(aj.refit(Xr, yr, decay_rate=0.7, group=[700]))
 
 
 def _feval_one(preds, ds):

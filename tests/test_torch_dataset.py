@@ -144,18 +144,14 @@ def test_weight_label_and_shape_checks():
 
 
 def test_inputs_of_later_slices_raise():
+    """A file path waits for the native parser (item 5i), the on-disk
+    datastore for item 5e; groups, sparse, pandas, Arrow and the binary
+    cache train since item 5d (tests/test_torch_inputs.py)."""
     X = np.zeros((10, 2))
-    with pytest.raises(lt.LightGBMError, match="file-path"):
+    with pytest.raises(lt.LightGBMError, match="file-path.*item 5i"):
         lt.Dataset("train.csv").construct()
     with pytest.raises(lt.LightGBMError, match="ROADMAP"):
         lt.Dataset(X, params={"external_memory": True}).construct()
-    with pytest.raises(lt.LightGBMError, match="save_binary"):
-        lt.Dataset(X).save_binary("x.bin")
-    with pytest.raises(lt.LightGBMError, match="ranking"):
-        lt.Dataset(X, group=[10])
-    import scipy.sparse
-    with pytest.raises(lt.LightGBMError, match="sparse"):
-        lt.Dataset(scipy.sparse.csr_matrix(X)).construct()
 
 
 def test_dataset_from_numpy_carries_jax_bins_over():
@@ -167,3 +163,28 @@ def test_dataset_from_numpy_carries_jax_bins_over():
     _assert_same_binning(dj, dp)
     assert dp.efb is None
     assert dp.get_feature_name() == dj.get_feature_name()
+
+
+def test_dataset_from_numpy_carries_queries_and_positions_over():
+    """`group=` and `position=` bring a constructed JAX Dataset's queries
+    and positions across with its bins; a lambdarank model trained on
+    the carried set is the one trained on the port's own binning."""
+    rng = np.random.RandomState(3)
+    sizes = [12] * 20
+    X = rng.randn(sum(sizes), 5)
+    y = np.clip(np.round(X[:, 0] + 1 + 0.5 * rng.randn(len(X))), 0, 3)
+    pos = np.tile(np.arange(12), 20)
+    dj = lgb.Dataset(X, label=y, group=sizes, position=pos).construct()
+    dp = dataset_from_numpy(np.asarray(dj.bin_data),
+                            [m.to_dict() for m in dj.bin_mappers],
+                            label=dj.get_label(), group=dj.get_group(),
+                            position=dj.get_position())
+    assert np.array_equal(dp.get_group(), dj.get_group())
+    assert np.array_equal(dp._query_boundaries, dj._query_boundaries)
+    assert np.array_equal(dp.get_position(), dj.get_position())
+    params = {"objective": "lambdarank", "num_leaves": 7, "verbosity": -1,
+              "device_type": "cpu"}
+    own = lt.train(params, lt.Dataset(X, label=y, group=sizes,
+                                      position=pos), 2)
+    carried = lt.train(params, dp, 2)
+    assert carried.model_to_string() == own.model_to_string()

@@ -33,7 +33,8 @@ MODULES = ("serving.runtime", "interop", "basic", "booster", "callback",
            "resilience.breaker", "resilience.faults", "resilience.supervise",
            "telemetry.metrics", "telemetry.sinks", "telemetry.spans",
            "telemetry.request_trace", "serving.batcher", "serving.client",
-           "serving.http", "serving.registry")
+           "serving.http", "serving.registry", "rank_objective",
+           "ops.renew")
 
 
 def test_every_module_is_listed():

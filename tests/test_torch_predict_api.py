@@ -215,7 +215,7 @@ def test_device_predict_params_and_refusals(models, monkeypatch):
     assert _bits(got, ref.predict(X, raw_score=True, device_predict=True))
     with pytest.raises(lt.LightGBMError, match="features"):
         ours.predict(X[:, :1], device_predict=True, **CPU)
-    with pytest.raises(lt.LightGBMError, match="item 5d"):
+    with pytest.raises(lt.LightGBMError, match="item 5i"):
         ours.predict("data.csv")
     # the card by default: without one it raises, it does not fall back
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

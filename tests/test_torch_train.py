@@ -226,7 +226,7 @@ REFUSED = [
     ({"monotone_constraints": [1, 0, 0, 0, 0, 0]}, None),
     ({"interaction_constraints": "[0,1],[2,3]"}, None),
     ({"cegb_penalty_split": 0.1}, None),
-    ({"objective": "quantile"}, "not ported yet"),
+    ({"objective": "quantile"}, None),
     ({"histogram_pool_size": 16}, None),
     ({"linear_tree": True}, None),
     ({"boosting": "dart"}, None),
@@ -243,8 +243,9 @@ REFUSED = [
     ({"hist_impl": "pallas_fused_q"}, "CUDA device"),
     ({"hist_impl": "pallas"}, "CUDA device"),
     ({"hist_impl": "bogus"}, "Unknown hist_impl"),
-    ({"objective": "huber"}, "not ported yet"),
-    ({"objective": "binary", "metric": "ndcg"}, "not ported yet"),
+    ({"objective": "huber"}, None),
+    ({"objective": "binary", "metric": "ndcg"}, None),
+    ({"objective": "bogus"}, "Unknown objective"),
     ({"device_type": "tpu"}, "'cuda'"),
 ]
 
@@ -257,7 +258,8 @@ def test_refused_settings_raise(extra, match):
     `None` match is a setting an earlier slice refused that the port now
     trains (quantized training; the constraints and boosting modes of
     item 5d's first half, whose forced-splits case needs a file and
-    trains in test_torch_forced_pool.py)."""
+    trains in test_torch_forced_pool.py; the objectives and metrics of
+    its second half)."""
     X = np.random.RandomState(0).randn(200, 6)
     y = (X[:, 0] > 0).astype(float)
     params = dict({"objective": "binary", "verbosity": -1,
