@@ -11,6 +11,7 @@ and check them.
     python3 chip_smoke.py --phases train_objectives   # L1 ... xentropy
     python3 chip_smoke.py --phases train_rank   # lambdarank, xendcg
     python3 chip_smoke.py --phases train_sparse   # CSR, binary cache
+    python3 chip_smoke.py --phases train_files   # files, external memory
     python3 chip_smoke.py --phases golden,main       # serving alone
     python3 chip_smoke.py --phases predict_api   # device_predict, options
     python3 chip_smoke.py --phases serve_plane   # rungs, registry, HTTP
@@ -314,6 +315,22 @@ Phases, each printing one JSON line:
           and bundled by EFB, its model byte for byte the dense form's
           and the binary cache's, served bitwise the walk; the binning
           seconds of both forms.
+  train_files the host library (`native/libnative.cpp`: compiler,
+          OpenMP, build seconds); the train phase's binning split into
+          the greedy bin search and the value-to-bin pass, the pass
+          through the library and its plain numpy version (the same
+          codes); the first FILE_ROWS rows written as CSV (a header),
+          TSV and LibSVM at 17 significant digits, each trained with the
+          bench's wave (CSV also two_round, and two_round into the shard
+          store), every model text the array's, the same K2/K3 launches
+          a round; predictions from the CSV bitwise the array's (host
+          walk, numpy walk, device_predict), the two walks timed (also
+          on the main phase's forest at 1, 256, 4096 rows); the
+          2M rows spilled to the shard store at the default budget and
+          at 31 shards, assembled on the card, the in-memory model (the
+          train phase's Dataset) and launches; spill, assembly (GB/s
+          beside the PCIe link), prefetch figures; a flipped shard byte
+          raises naming the file.
   compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5,
           the link kernel and the quantize step of this checkout and of
           the checkout in DIR on the same inputs: K1 and K2 agree within
@@ -337,8 +354,9 @@ Phases, each printing one JSON line:
           run; histogram_q: its strict run; threefry: train_sampled's
           main run, with train_quant's quantizer launches beside;
           K2, K3, K1 and the link also show their train_api launches,
-          K1-K5 their train_breadth, train_objectives, train_rank and
-          train_sparse launches, threefry its train_rank launches),
+          K1-K5 their train_breadth, train_objectives, train_rank,
+          train_sparse and train_files launches, threefry its train_rank
+          launches),
           parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
@@ -708,6 +726,7 @@ def phase_env():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
+    from lightgbm_tpu_torch import native
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -715,6 +734,8 @@ def phase_env():
                           "histogram_q", "fused_split", "links",
                           "threefry", "stacked", "bounded"},
            f"build_all built {sorted(built)}")
+    # the host library (g++), built before any binning or host walk
+    host_library = native.lib_info()
     _emit({"phase": "env", "torch": torch.__version__,
            "cuda": torch.version.cuda,
            "device": torch.cuda.get_device_name(0),
@@ -724,6 +745,7 @@ def phase_env():
            "entries": {n: [sym for sym, _ in _build._SIGNATURES[n]]
                        for n in built},
            "ptxas": {n: b.ptxas for n, b in built.items()},
+           "host_library": host_library,
            "empty_launch_ms": empty_launch_ms()})
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
 
@@ -1186,6 +1208,43 @@ def make_higgs_like(n: int, f: int, seed: int):
     return X, y
 
 
+class _CallTimer:
+    """Within it, the calls of `owner.name` are timed: their total
+    seconds, count, and the first start and last end (perf_counter)."""
+
+    def __init__(self, owner, name, sync=False):
+        self.owner, self.name, self.sync = owner, name, sync
+        self.s, self.calls, self.first, self.last = 0.0, 0, None, None
+
+    def __enter__(self):
+        self.raw = self.owner.__dict__[self.name] \
+            if isinstance(self.owner, type) else getattr(self.owner,
+                                                         self.name)
+        static = isinstance(self.raw, staticmethod)
+        fn = self.raw.__func__ if static else self.raw
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if self.sync:
+                import torch
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.s += t1 - t0
+            self.calls += 1
+            self.first = t0 if self.first is None else self.first
+            self.last = t1
+            return out
+
+        setattr(self.owner, self.name, staticmethod(timed) if static
+                else timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.raw)
+        return False
+
+
 class TrainData:
     """The train phase's data, binned once on the host and shared with
     the histogram phase (its bins are K1's inputs at the root shape)."""
@@ -1193,16 +1252,21 @@ class TrainData:
     def __init__(self, seed: int, n_train: int = TRAIN_ROWS,
                  n_hold: int = HOLD_ROWS, f: int = TRAIN_FEATURES):
         import lightgbm_tpu_torch as lt
+        from lightgbm_tpu_torch.basic import Dataset
         X, y = make_higgs_like(n_train + n_hold, f, seed)
         self.X, self.y = X[:n_train], y[:n_train]
         self.X_hold, self.y_hold = X[n_train:], y[n_train:]
         t0 = time.perf_counter()
         # the raw rows stay with the dataset (they are held here anyway):
-        # continued training predicts the init model on them
-        self.dataset = lt.Dataset(self.X, label=self.y,
-                                  params=dict(TRAIN_PARAMS),
-                                  free_raw_data=False).construct()
+        # continued training predicts the init model on them.  The greedy
+        # bin search and the value-to-bin pass are timed apart
+        with _CallTimer(Dataset, "_fit_bin_mappers") as search, \
+                _CallTimer(Dataset, "_apply_bins") as pass_:
+            self.dataset = lt.Dataset(self.X, label=self.y,
+                                      params=dict(TRAIN_PARAMS),
+                                      free_raw_data=False).construct()
         self.binning_s = time.perf_counter() - t0
+        self.search_s, self.pass_s = search.s, pass_.s
 
 
 def _hist_inputs(bins_np, y, leaf_frac, slots, seed, device):
@@ -5015,6 +5079,331 @@ def phase_train_sparse(seed: int, modules, device=None):
     return launches
 
 
+# ------------------------------------------------------- train_files
+#: the file set: the first FILE_ROWS rows of the train phase's 2M x 28
+#: (a cut for the script's run time: each of the phase's six
+#: constructions runs the greedy bin search over every row, since
+#: two_round equals the whole-file route only with
+#: bin_construct_sample_cnt >= the file's rows); the bench's wave
+FILE_ROWS = 50_000
+FILE_ROUNDS = 10
+FILE_PARAMS = dict(WAVE_PARAMS, bin_construct_sample_cnt=FILE_ROWS)
+#: external memory on the 2M rows: the bench's wave on the bench's
+#: binning (the train phase's Dataset is the in-memory baseline); the
+#: second run in 31 shards
+EXT_PARAMS = dict(WAVE_PARAMS)
+EXT_SHARD_ROWS = 65536
+EXT_PREFETCH = 2
+#: rows of the served sizes at which the host walks are timed
+HOST_WALK_ROWS = (1, 256, 4096)
+
+
+def write_data_file(path, X, y, fmt):
+    """X [n, F] and the label y as "csv" (a header line), "tsv" or
+    "libsvm" (every column, 1-based), each value with 17 significant
+    digits, so that it parses back to the same double."""
+    n, f = X.shape
+    if fmt == "libsvm":
+        line = "%.17g " + " ".join(f"{j + 1}:%.17g" for j in range(f))
+    else:
+        line = ("," if fmt == "csv" else "\t").join(["%.17g"] * (f + 1))
+    line += "\n"
+    data = np.column_stack([y, X.astype(np.float64)])
+    with open(path, "w") as fh:
+        if fmt == "csv":
+            fh.write("label," + ",".join(f"f{j}" for j in range(f)) + "\n")
+        for lo in range(0, n, 8192):
+            fh.write("".join(line % tuple(r)
+                             for r in data[lo:lo + 8192].tolist()))
+    return path
+
+
+def _file_run(path, params, modules, rounds):
+    """A file's Dataset constructed (its parse, the greedy bin search,
+    and the two_round passes timed apart) and trained; (booster,
+    per-round counts, timings).  Gates that the route asked for ran:
+    two_round never reads the file whole (`data` stays the path), and
+    into the store it holds no bin matrix and training assembles the
+    store once."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.basic import Dataset
+    from lightgbm_tpu_torch.datastore import assemble
+    ds = lt.Dataset(path, params=dict(params))
+    t0 = time.perf_counter()
+    with _CallTimer(native, "parse_dense") as dense, \
+            _CallTimer(native, "parse_libsvm") as svm, \
+            _CallTimer(Dataset, "_fit_one_mapper") as search:
+        ds.construct()
+    t1 = time.perf_counter()
+    times = {"construct_s": t1 - t0, "search_s": search.s,
+             "parse_s": dense.s + svm.s}
+    two_round = bool(params.get("two_round"))
+    store = bool(params.get("external_memory"))
+    if two_round:
+        _check(ds.data == path and dense.calls == 0,
+               f"train_files: {path} two_round read the file whole")
+        times.update(pass1_s=search.first - t0, pass2_s=t1 - search.last)
+    if store:
+        _check(ds.datastore is not None and ds.bin_data is None,
+               f"train_files: {path} was not spilled to the store")
+    _zero_wave_counters(modules)
+    with _CallTimer(assemble, "assemble_feature_major", sync=True) as asm:
+        bst, rec = _wave_run(params, ds, modules, rounds, False)
+    _check(asm.calls == (1 if store else 0),
+           f"train_files: {path}: {asm.calls} assemblies")
+    if store:
+        times.update(assemble_s=asm.s, shards=ds.datastore.n_shards)
+    times["ms_per_round_2_on"] = float(np.mean(rec["round_s"][1:])) * 1e3
+    return bst, rec, times
+
+
+def _spilled_run(X, y, params, modules, rounds, datastore_dir):
+    """The 2M rows spilled (`external_memory`) and trained: (booster,
+    per-round counts, the spill's and the assembly's figures)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.basic import Dataset
+    from lightgbm_tpu_torch.datastore import assemble
+    from lightgbm_tpu_torch.telemetry import REGISTRY
+    params = dict(params, external_memory=True, datastore_dir=datastore_dir)
+    ds = lt.Dataset(X, label=y, params=params)
+    t0 = time.perf_counter()
+    with _CallTimer(Dataset, "_spill_to_datastore") as spill:
+        ds.construct()
+    construct_s = time.perf_counter() - t0
+    store = ds.datastore
+    _zero_wave_counters(modules)
+    with _CallTimer(assemble, "assemble_feature_major", sync=True) as asm:
+        bst, rec = _wave_run(params, ds, modules, rounds, False)
+    _check(asm.calls == 1, f"train_files: {asm.calls} assemblies")
+    stats = bst._dd.pf_stats
+    nbytes = store.total_bytes("bins")
+    return ds, bst, rec, {
+        "shards": store.n_shards, "shard_rows": store.shard_rows,
+        "spill_bytes": store.total_bytes(), "bins_bytes": nbytes,
+        "construct_s": construct_s, "spill_s": spill.s,
+        "assemble_s": asm.s, "assemble_gb_per_s": nbytes / asm.s / 1e9,
+        "prefetch_hits": stats.hits, "prefetch_stalls": stats.stalls,
+        "peak_resident_mb": REGISTRY.gauge(
+            "datastore.peak_resident_mb").value,
+        "ms_per_round_2_on": float(np.mean(rec["round_s"][1:])) * 1e3,
+        "round_1_ms": float(rec["round_s"][0]) * 1e3}
+
+
+def _k23(rec):
+    return [(c["k2"], c["k3"]) for c in rec["per_round"]]
+
+
+def _host_walks(bst, X):
+    """`bst`'s raw scores of X through the library's host walk and tree
+    by tree in numpy, each timed; gate: bitwise equal.  (library, numpy,
+    seconds of each)"""
+    from lightgbm_tpu_torch import native
+    X = np.asarray(X, dtype=np.float64)
+    t0 = time.perf_counter()
+    lib = bst.predict(X, raw_score=True)
+    t1 = time.perf_counter()
+    walk = sum(t.predict(X) for t in bst.trees)
+    t2 = time.perf_counter()
+    _check(_bits_equal(lib, walk), "train_files: the library's host walk "
+           "!= the numpy walk")
+    return lib, walk, {"rows": len(X), "trees": len(bst.trees),
+                       "openmp": native.lib_info()["openmp"],
+                       "cpus": os.cpu_count(),
+                       "library_s": t1 - t0, "numpy_s": t2 - t1}
+
+
+def phase_train_files(data: TrainData, modules, device=None,
+                      rows: int = FILE_ROWS, rounds: int = FILE_ROUNDS,
+                      seed: int = 0):
+    """File input and external memory (ROADMAP Queue 1 item 5i and 5e's
+    first half) on the card.  The host library: its compiler, OpenMP
+    and build seconds.  The train phase's binning split into the greedy
+    bin search and the value-to-bin pass, the pass timed through the
+    library and through its plain numpy version (gate: the same codes).
+    The first `rows` rows written as CSV with a header, TSV and LibSVM,
+    each trained with the bench's wave for `rounds` rounds (CSV also
+    two_round, and two_round straight into the shard store); gate: every
+    model text the array's byte for byte (less the parameter lines where
+    the ingest's own parameters differ), the same K2 and K3 launches a
+    round; two_round read the file in chunks only, and into the store
+    held no bin matrix and assembled once.  Predictions from the CSV:
+    the host walk bitwise the array's and the numpy walk,
+    `device_predict` bitwise the array's; the library's walk and the
+    numpy walk timed here and at the served sizes on the main phase's
+    forest (from `seed`).  The 2M rows (EXT_PARAMS)
+    spilled at the default budget and at 31 shards, trained: gate the
+    in-memory model (the train phase's Dataset), the same K2 and K3
+    launches a round; spill, assembly, prefetch figures.  A flipped byte in a
+    shard: training raises naming the file.  Returns the phase's
+    launches of K1-K5."""
+    import shutil
+    import tempfile
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.datastore import ShardStore
+    t_phase = time.perf_counter()
+    report = {"phase": "train_files", "library": native.lib_info(),
+              "binning": {"rows": len(data.X), "binning_s": data.binning_s,
+                          "search_s": data.search_s,
+                          "pass_s": data.pass_s}}
+    tmp = tempfile.mkdtemp(prefix="train_files_")
+    counts = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0}
+
+    def add(total):
+        for k in counts:
+            counts[k] += total.get(k, 0)
+
+    try:
+        # ---- the value-to-bin pass of the 2M x 28: through the library
+        # in the train phase's binning (`pass_s`), and through numpy
+        mappers = data.dataset.bin_mappers
+        raw = data.X.astype(np.float64)
+        t0 = time.perf_counter()
+        plain = np.empty_like(data.dataset.bin_data)
+        for j, m in enumerate(mappers):
+            nn = m.num_bin - (m.missing_type == 2)
+            plain[:, j] = native.values_to_bins_plain(
+                raw[:, j], m.bin_upper_bound[:nn], m.missing_type,
+                m.num_bin - 1)
+        plain_s = time.perf_counter() - t0
+        del raw
+        _check(np.array_equal(plain, data.dataset.bin_data),
+               "train_files: the library's codes differ from numpy's")
+        report["binning"].update(pass_numpy_s=plain_s, codes_equal=True)
+
+        # ---- the file set: the array's model, then each file's
+        X, y = data.X[:rows], data.y[:rows]
+        params = dict(FILE_PARAMS)
+        if device is not None:
+            params["device_type"] = device
+        _zero_wave_counters(modules)
+        arr_ds = lt.Dataset(X, label=y, params=dict(params))
+        bst, rec = _wave_run(params, arr_ds, modules, rounds, False)
+        add(_wave_counters(modules))
+        text, k23 = bst.model_to_string(), _k23(rec)
+        _check(arr_ds.efb is None, "train_files: the file set bundles")
+        files = {}
+        runs = {}
+        for fmt in ("csv", "tsv", "libsvm"):
+            path = os.path.join(tmp, f"train.{fmt}")
+            t0 = time.perf_counter()
+            write_data_file(path, X, y, fmt)
+            size = os.path.getsize(path)
+            files[fmt] = {"bytes": size,
+                          "write_s": time.perf_counter() - t0}
+            variants = [(fmt, {})]
+            if fmt == "csv":
+                variants += [("csv_two_round", {"two_round": True}),
+                             ("csv_two_round_store",
+                              {"two_round": True, "external_memory": True,
+                               "datastore_dir": tmp})]
+            for name, extra in variants:
+                fb, frec, times = _file_run(path, dict(params, **extra),
+                                            modules, rounds)
+                add(_wave_counters(modules))
+                same = fb.model_to_string() == text if not extra else \
+                    _without_params(fb.model_to_string()) \
+                    == _without_params(text)
+                _check(same, f"train_files: {name}'s model differs from "
+                       "the array's")
+                _check(_k23(frec) == k23, f"train_files: {name}'s K2/K3 "
+                       f"launches {_k23(frec)} != the array's {k23}")
+                if times["parse_s"]:
+                    times["parse_mb_per_s"] = size / times["parse_s"] / 1e6
+                runs[name] = dict(times, model_text_identical=True)
+            if fmt == "csv":
+                # predictions from the file, its label column dropped
+                host = fb.predict(path, raw_score=True)
+                host_arr, walk, pred = _host_walks(fb, X)
+                _check(_bits_equal(host, host_arr)
+                       and _bits_equal(host, walk),
+                       "train_files: predict(csv) != the array's or the "
+                       "numpy walk")
+                dev = fb.predict(path, device_predict=True)
+                _check(_bits_equal(dev, fb.predict(X, device_predict=True)),
+                       "train_files: device_predict(csv) != the array's")
+            os.unlink(path)
+        # ---- the host walk at the served sizes: the main phase's
+        # forest, the library's walk against numpy's
+        from lightgbm_tpu_torch import Booster
+        forest = Booster(model_str=synthetic_forest_text(seed))
+        Xs = request_rows(np.random.RandomState(seed + 2),
+                          HOST_WALK_ROWS[-1])
+        forest.predict(Xs[:1], raw_score=True)
+        report["host_walk_main_model"] = {
+            str(n): _host_walks(forest, Xs[:n])[2] for n in HOST_WALK_ROWS}
+        del forest
+        report["file_set"] = {"rows": rows, "features": X.shape[1],
+                              "rounds": rounds, "files": files,
+                              "array_k2_k3_per_round": k23,
+                              "runs": runs, "predict_bitwise": True,
+                              "host_walk": pred}
+
+        # ---- external memory: the 2M rows, in memory (the train
+        # phase's Dataset, binned as the bench bins) and spilled
+        wparams = dict(EXT_PARAMS)
+        if device is not None:
+            wparams["device_type"] = device
+        _zero_wave_counters(modules)
+        mem, mrec = _wave_run(wparams, data.dataset, modules, rounds, False)
+        add(_wave_counters(modules))
+        mtext, mk23 = mem.model_to_string(), _k23(mrec)
+        ext = {"in_memory_ms_per_round_2_on":
+               float(np.mean(mrec["round_s"][1:])) * 1e3,
+               "in_memory_round_1_ms": float(mrec["round_s"][0]) * 1e3}
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+             "pcie.link.width.current", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        ext["pcie_link_gen_width"] = smi.stdout.strip()
+        spilled = None
+        for name, extra in (("default_budget", {}),
+                            ("shards_65536", {
+                                "datastore_shard_rows": EXT_SHARD_ROWS,
+                                "datastore_prefetch": EXT_PREFETCH})):
+            spilled, sb, srec, figs = _spilled_run(
+                data.X, data.y, dict(wparams, **extra), modules, rounds,
+                os.path.join(tmp, name))
+            add(_wave_counters(modules))
+            _check(_without_params(sb.model_to_string())
+                   == _without_params(mtext),
+                   f"train_files: the {name} spilled model differs")
+            _check(_k23(srec) == mk23, f"train_files: {name}'s K2/K3 "
+                   f"launches {_k23(srec)} != in memory {mk23}")
+            ext[name] = dict(figs, model_text_identical=True)
+        _check(ext["shards_65536"]["shards"] == -(-len(data.X)
+                                                   // EXT_SHARD_ROWS),
+               "train_files: the 65536-row store's shard count")
+
+        # ---- tamper: a flipped byte, the store read anew
+        store = spilled.datastore
+        shard = os.path.join(store.dirpath, "shard-00003.bins")
+        with open(shard, "r+b") as fh:
+            fh.seek(1000)
+            b = fh.read(1)
+            fh.seek(1000)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        spilled.datastore = ShardStore.open(store.dirpath)
+        try:
+            lt.train(dict(wparams, external_memory=True), spilled, 1)
+            _check(False, "train_files: a flipped shard byte trained")
+        except lt.LightGBMError as e:
+            _check(shard in str(e) and "checksum" in str(e),
+                   f"train_files: the tamper raised {e}")
+        ext["tamper_raises_naming_the_file"] = True
+        report["external_memory"] = ext
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"histogram": counts["k1"], "fused_hist_split": counts["k2"],
+                "split_scan": counts["k3"], "histogram_q": counts["k4"],
+                "fused_hist_split_q": counts["k5"]}
+    report["launches"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    _emit(report)
+    return launches
+
+
 # ------------------------------------------------------- predict_api
 #: `device_predict`'s request sizes (100,000 rows: two chunks of 65,536)
 PREDICT_ROWS = (1, 256, 4096, 10_000, 100_000)
@@ -6186,6 +6575,8 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                      RankData(s), _train_modules()),
                  "train_sparse": lambda d, s, b: phase_train_sparse(
                      s, _train_modules()),
+                 "train_files": lambda d, s, b: phase_train_files(
+                     d(), _train_modules(), seed=s),
                  "predict_api": lambda d, s, b: phase_predict_api(s),
                  "serve_plane": lambda d, s, b: phase_serve_plane(s),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
@@ -6334,7 +6725,9 @@ def main(argv=None) -> int:
                 ("train_objectives", phase_train_objectives(data, modules)),
                 ("train_rank", phase_train_rank(RankData(args.seed),
                                                 modules)),
-                ("train_sparse", phase_train_sparse(args.seed, modules))):
+                ("train_sparse", phase_train_sparse(args.seed, modules)),
+                ("train_files", phase_train_files(data, modules,
+                                                  seed=args.seed))):
             for k in kernels:
                 if k["name"] in got:
                     k[f"{phase}_launches"] = got[k["name"]]

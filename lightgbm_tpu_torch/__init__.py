@@ -1,8 +1,9 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-It trains LightGBM models on an NVIDIA GPU (`train`, `cv`, `Dataset`,
-the scikit-learn estimators: both growers on hand-written CUDA
-histogram and split kernels) and serves them
+It trains LightGBM models on an NVIDIA GPU (`train`, `cv`, `Dataset`
+from arrays or from CSV, TSV and LibSVM files, in memory or spilled to
+an on-disk shard store, the scikit-learn estimators: both growers on
+hand-written CUDA histogram and split kernels) and serves them
 (`Booster` loads model text, `ServingRuntime` answers requests through
 hand-written CUDA kernels, `csrc/`; `Booster.predict(...,
 device_predict=True)` runs the batch program on the card), with the

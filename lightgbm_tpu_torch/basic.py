@@ -4,11 +4,12 @@ weights, query groups and positions.
 The port's counterpart of `lightgbm_tpu/basic.py` `Dataset` (ref:
 python-package/lightgbm/basic.py `Dataset`; src/io/dataset_loader.cpp
 `DatasetLoader::ConstructFromSampleData`; src/io/metadata.cpp
-`Metadata`).  Binning is the reference's own, on numpy
-(`utils/binning.py`): bin mappers are fitted on a row sample of
+`Metadata`).  Binning is the reference's own (`utils/binning.py`): bin
+mappers are fitted in numpy on a row sample of
 `bin_construct_sample_cnt` rows drawn by `np.random.RandomState(
-data_random_seed)`, then every row is binned into one `[N, F]` uint8
-matrix (uint16 past 256 bins).  With `enable_bundle` on, construction
+data_random_seed)`, then every row is binned, through the host
+library's search (`native/`), into one `[N, F]` uint8 matrix (uint16
+past 256 bins).  With `enable_bundle` on, construction
 runs the reference's EFB search (`utils/efb.py`), and a training set
 that bundles also holds its [N, G] bundle matrix (`bundle_data`).  A
 validation set (`create_valid`, or `reference=`) shares its reference's
@@ -21,9 +22,17 @@ RecordBatch (nulls as NaN, the names from `column_names`), a `Sequence`
 which never densifies: mappers from each column's stored values plus
 its implied zeros, a binned CSC, the EFB search and the bundle matrix
 from it (`bin_data` stays None when EFB bundles).  pandas and pyarrow
-are recognised by duck typing, never imported.  A file path waits for
-the native parser (ROADMAP Queue 1 item 5i), the on-disk datastore for
-item 5e.
+are recognised by duck typing, never imported.  A file path (CSV, TSV,
+space-separated or LibSVM, read by the port's host library through
+`cli.py`) is read whole, or with `two_round` in two passes over its
+chunks: the mappers from a reservoir sample, then each chunk binned
+straight into the bin matrix, so the raw matrix is never held whole.
+
+With `external_memory`, the constructed bins (and the bundle matrix, the
+labels and weights) are spilled to a checksummed shard store on disk
+(`datastore/`) and the host copies are freed; the booster assembles the
+device matrix from it.  The two_round route with `external_memory` bins
+each chunk straight into the store.
 
 `group` (sizes, or per-row query ids) gives the query boundaries the
 ranking objectives and metrics read; `position` the per-row result-list
@@ -48,10 +57,6 @@ from .utils.config import Config
 from .utils.log import LightGBMError
 
 __all__ = ["Dataset", "Sequence"]
-
-_FILES = "ROADMAP Queue 1 item 5i: the native parser"
-_EXTERNAL = "ROADMAP Queue 1 item 5e: external memory and streaming"
-
 
 class Sequence:
     """A random-access row source (ref: basic.py `Sequence`): subclass
@@ -103,8 +108,8 @@ def _to_2d_float(data: Any) -> np.ndarray:
     densifying), Arrow columns with nulls as NaN, a DataFrame with NaN
     for its missing values."""
     if isinstance(data, str):
-        raise LightGBMError("file-path data is not ported yet; load the "
-                            f"file into a numpy array ({_FILES})")
+        raise LightGBMError(
+            "file-path data must be resolved by Dataset.construct")
     if isinstance(data, Sequence) or (
             isinstance(data, list) and data
             and isinstance(data[0], Sequence)):
@@ -190,6 +195,9 @@ class Dataset:
         self.num_total_bin = 0
         self.efb = None
         self.bundle_data: Optional[np.ndarray] = None   # [N, G] when bundled
+        #: the shard store of a spilled set (`external_memory`): the
+        #: canonical bins once `bin_data` and `bundle_data` are freed
+        self.datastore = None
         self._feature_names: Optional[List[str]] = None
         self._num_data: Optional[int] = None
         self._num_feature: Optional[int] = None
@@ -259,14 +267,26 @@ class Dataset:
             raise LightGBMError("Cannot construct Dataset: no raw data "
                                 "(was it freed by free_raw_data?)")
         cfg = Config(self.params)
-        if cfg.external_memory:
-            raise LightGBMError("external_memory (the on-disk datastore) "
-                                f"is not ported yet ({_EXTERNAL})")
         if isinstance(self.data, str):
-            raise LightGBMError("file-path data is not ported yet; load the "
-                                f"file into a numpy array ({_FILES})")
+            # a data file (the reference's `basic.py:253-269`): its label,
+            # weight and group columns feed the fields not given
+            if (cfg.two_round and self.reference is None
+                    and not cfg.linear_tree
+                    and self._construct_from_file_streaming(cfg)):
+                return self
+            from .cli import load_data_file_full
+            X, y, extras = load_data_file_full(self.data, cfg)
+            self.data = X
+            if self.label is None and y is not None:
+                self.label = y
+            if self.weight is None and "weight" in extras:
+                self.weight = extras["weight"]
+            if self.group is None and "group" in extras:
+                self.group = extras["group"]
         if _is_sparse(self.data):
             self._construct_sparse(cfg)
+            self._set_fields()
+            self._handle_constructed = True
         else:
             raw = _to_2d_float(self.data)
             n, f = raw.shape
@@ -277,24 +297,269 @@ class Dataset:
                 self._feature_names, f)
             self._share_or_fit(f, lambda: self._fit_bin_mappers(raw, cfg))
             self.bin_data = self._apply_bins(raw, self.bin_mappers)
-            self.num_total_bin = sum(m.num_bin for m in self.bin_mappers)
-            if self.reference is not None:
-                self.efb = self.reference.efb
-            elif cfg.enable_bundle:
-                from .utils.efb import find_bundles
-                self.efb = find_bundles(self.bin_data, self.bin_mappers,
-                                        cfg.max_conflict_rate,
-                                        cfg.data_random_seed)
-            if self.efb is not None and self.reference is None:
-                from .utils.efb import build_bundled
-                self.bundle_data = build_bundled(self.bin_data, self.efb)
-        self._set_fields()
-        self._handle_constructed = True
+            self._finish_dense_construct(cfg)
         # linear trees fit and score their leaves on the raw values
         # (the reference's `basic.py:305`)
         if self.free_raw_data and not cfg.linear_tree:
             self.data = None
         return self
+
+    def _finish_dense_construct(self, cfg: Config) -> None:
+        """The construction's tail once `bin_data` and the mappers exist:
+        the EFB search (a validation set takes its reference's bundles),
+        a training set's bundle matrix, the fields, and with
+        `external_memory` the spill, after EFB so that the store holds
+        both matrices (the reference's `basic.py:307`)."""
+        self.num_total_bin = sum(m.num_bin for m in self.bin_mappers)
+        if self.reference is not None:
+            self.efb = self.reference.efb
+        elif cfg.enable_bundle:
+            from .utils.efb import find_bundles
+            self.efb = find_bundles(self.bin_data, self.bin_mappers,
+                                    cfg.max_conflict_rate,
+                                    cfg.data_random_seed)
+        if self.efb is not None and self.reference is None:
+            from .utils.efb import build_bundled
+            self.bundle_data = build_bundled(self.bin_data, self.efb)
+        self._set_fields()
+        self._handle_constructed = True
+        # validation sets stay in memory: they are only routed, never
+        # histogrammed
+        if cfg.external_memory and self.reference is None and \
+                self.bin_data is not None:
+            self._spill_to_datastore(cfg)
+
+    # ---- external memory (the reference's `basic.py:341-401`)
+    def _new_datastore_dir(self, cfg: Config) -> str:
+        """A fresh directory for the shards: a new subdirectory of
+        `datastore_dir` when given (its owner removes it), else a
+        temporary directory removed when the interpreter exits."""
+        import os
+        import tempfile
+        if cfg.datastore_dir:
+            os.makedirs(cfg.datastore_dir, exist_ok=True)
+            return tempfile.mkdtemp(prefix="dstore-", dir=cfg.datastore_dir)
+        import atexit
+        import shutil
+        d = tempfile.mkdtemp(prefix="lgbt-dstore-")
+        atexit.register(shutil.rmtree, d, ignore_errors=True)
+        return d
+
+    @staticmethod
+    def _datastore_shard_rows(cfg: Config, n: int, row_bytes: int) -> int:
+        from .datastore import auto_shard_rows
+        if int(cfg.datastore_shard_rows) > 0:
+            return int(cfg.datastore_shard_rows)
+        return auto_shard_rows(n, row_bytes, cfg.datastore_budget_mb,
+                               cfg.datastore_prefetch)
+
+    def _record_spill_telemetry(self) -> None:
+        from . import telemetry
+        telemetry.REGISTRY.gauge("datastore.spill_bytes").set(
+            self.datastore.total_bytes())
+        telemetry.REGISTRY.gauge("datastore.shards").set(
+            self.datastore.n_shards)
+
+    def _spill_to_datastore(self, cfg: Config) -> None:
+        """The bins (and the bundle matrix, labels and weights) into a
+        shard store; the host matrices are freed and the store is the
+        set's bins from here on."""
+        from .datastore import ShardWriter
+        bins = self.bin_data
+        n, f = bins.shape
+        bundle = self.bundle_data
+        g = bundle.shape[1] if bundle is not None else 0
+        lab, wt = self._label_arr, self._weight_arr
+        row_bytes = (f + g) * bins.dtype.itemsize + \
+            4 * ((lab is not None) + (wt is not None))
+        shard_rows = self._datastore_shard_rows(cfg, n, row_bytes)
+        w = ShardWriter(self._new_datastore_dir(cfg), n_features=f,
+                        dtype=bins.dtype, shard_rows=shard_rows,
+                        bundle_cols=g, has_label=lab is not None,
+                        has_weight=wt is not None,
+                        meta={"num_total_bin": int(self.num_total_bin)})
+        for lo in range(0, n, shard_rows):
+            hi = min(lo + shard_rows, n)
+            w.append(bins[lo:hi],
+                     bundle=bundle[lo:hi] if bundle is not None else None,
+                     label=lab[lo:hi] if lab is not None else None,
+                     weight=wt[lo:hi] if wt is not None else None)
+        self.datastore = w.finalize()
+        self._record_spill_telemetry()
+        log.info(f"external memory: spilled {n} rows x {f} features to "
+                 f"{self.datastore.n_shards} shards "
+                 f"({self.datastore.total_bytes() >> 20} MB) in "
+                 f"{self.datastore.dirpath}")
+        self.bin_data = None
+        self.bundle_data = None
+
+    # ---- two_round ingest (the reference's `basic.py:439-645`)
+    def _construct_from_file_streaming(self, cfg: Config) -> bool:
+        """two_round ingest of a dense text file: pass 1 reads the file in
+        chunks, counting rows, keeping the label (weight, group) columns
+        and a reservoir sample of rows for the mappers; pass 2 reads it
+        again and bins each chunk into the bin matrix (or, with
+        `external_memory`, into the shard store).  The raw matrix is never
+        held whole.  Above `bin_construct_sample_cnt` rows the reservoir
+        holds another sample than the whole-file route draws, so the bins
+        may differ from it; below, both see every row.
+
+        False, and the caller reads the file whole, for a LibSVM file
+        (the dense reader would take `idx:val` for numbers) and when a
+        pass fails to parse (the whole-file route has laxer readers)."""
+        from .cli import _sniff_format
+        if _sniff_format(self.data)[0] == "libsvm":
+            return False
+        try:
+            return self._stream_two_passes(cfg)
+        except ValueError as e:
+            log.warning(f"two_round streaming ingest failed ({e}); "
+                        "falling back to whole-file loading")
+            self.bin_data = None
+            self.bin_mappers = None
+            return False
+
+    def _stream_two_passes(self, cfg: Config) -> bool:
+        from .cli import column_roles, group_ids_to_sizes
+        from .native import StreamReader
+        chunk_rows = 16384
+        try:
+            r1 = StreamReader(self.data, chunk_rows=chunk_rows)
+        except ValueError:
+            return False
+        # the reader skips a header that does not parse; a declared one
+        # that does (numeric column names) is dropped here, as the
+        # whole-file route drops it
+        skip_first = bool(cfg.header) and not r1.had_header
+
+        def chunks(reader):
+            first = True
+            for chunk in reader:
+                if first and skip_first:
+                    chunk = chunk[1:]
+                first = False
+                if len(chunk):
+                    yield chunk
+
+        label_col, weight_col, group_col, drop = column_roles(cfg)
+        s_cap = max(int(cfg.bin_construct_sample_cnt), 1)
+        rng = np.random.RandomState(cfg.data_random_seed)
+        labels, weights, group_ids = [], [], []
+        reservoir = np.empty((s_cap, r1.n_cols), dtype=np.float64)
+        filled = seen = 0
+        for chunk in chunks(r1):
+            labels.append(chunk[:, label_col].astype(np.float32))
+            if weight_col is not None:
+                weights.append(chunk[:, weight_col].astype(np.float32))
+            if group_col is not None:
+                group_ids.append(chunk[:, group_col].copy())
+            c = len(chunk)
+            take = min(s_cap - filled, c)
+            if take > 0:
+                reservoir[filled:filled + take] = chunk[:take]
+                filled += take
+            if take < c:
+                # algorithm R, vectorised: row i replaces slot j ~ U[0, i]
+                gidx = np.arange(seen + take, seen + c, dtype=np.int64)
+                js = (rng.random_sample(len(gidx)) * (gidx + 1)).astype(
+                    np.int64)
+                repl = js < s_cap
+                reservoir[js[repl]] = chunk[take:][repl]
+            seen += c
+        if seen == 0:
+            raise LightGBMError(f"no data rows in {self.data}")
+        n = seen
+        r1.close()
+        sample_x = np.delete(reservoir[:filled], drop, axis=1)
+        del reservoir
+        f = sample_x.shape[1]
+        self._num_data, self._num_feature = n, f
+        self._feature_names = _feature_names_from(None, f, self.feature_name)
+        self._categorical_indices = self._resolve_categoricals(
+            self._feature_names, f)
+        self.bin_mappers = [self._fit_one_mapper(j, sample_x[:, j], filled,
+                                                 cfg) for j in range(f)]
+        _log_trivial(self.bin_mappers)
+        del sample_x
+        max_nb = max((m.num_bin for m in self.bin_mappers), default=1)
+        dtype = np.uint8 if max_nb <= 256 else np.uint16
+        if self.label is None:
+            self.label = np.concatenate(labels)
+        if self.weight is None and weights:
+            self.weight = np.concatenate(weights)
+        if self.group is None and group_ids:
+            self.group = group_ids_to_sizes(np.concatenate(group_ids))
+
+        def binned_chunks():
+            """Pass 2: each chunk's features binned, in file order."""
+            pos = 0
+            for chunk in chunks(StreamReader(self.data,
+                                             chunk_rows=chunk_rows)):
+                xc = np.delete(chunk, drop, axis=1)
+                if pos + len(xc) > n:
+                    raise LightGBMError(
+                        f"file changed between streaming passes (> {n} "
+                        "rows)")
+                block = np.empty((len(xc), f), dtype=dtype)
+                for j, m in enumerate(self.bin_mappers):
+                    block[:, j] = m.values_to_bins(xc[:, j]).astype(dtype)
+                yield pos, block
+                pos += len(xc)
+            if pos != n:
+                raise LightGBMError(f"file changed between streaming "
+                                    f"passes ({pos} vs {n} rows)")
+
+        if cfg.external_memory:
+            self._stream_pass2_datastore(cfg, binned_chunks(), n, f, dtype)
+            log.info(f"two_round streaming ingest: {n} rows x {f} features "
+                     f"spilled to {self.datastore.n_shards} shards without "
+                     "materializing the bin matrix")
+            self._finish_datastore_construct(cfg)
+            return True
+        self.bin_data = np.empty((n, f), dtype=dtype)
+        for pos, block in binned_chunks():
+            self.bin_data[pos:pos + len(block)] = block
+        log.info(f"two_round streaming ingest: {n} rows x {f} features "
+                 "binned without materializing the raw matrix")
+        self._finish_dense_construct(cfg)
+        # `data` stays the path: the raw values were never held
+        return True
+
+    def _stream_pass2_datastore(self, cfg: Config, blocks, n: int, f: int,
+                                dtype) -> None:
+        """two_round's pass 2 into a shard store: each binned chunk
+        appended with its labels' and weights' slices (collected in pass
+        1), so that the store holds the whole set."""
+        from .datastore import ShardWriter
+        lab = _to_1d(self.label, np.float32) \
+            if self.label is not None else None
+        wt = _to_1d(self.weight, np.float32) \
+            if self.weight is not None else None
+        row_bytes = f * np.dtype(dtype).itemsize + \
+            4 * ((lab is not None) + (wt is not None))
+        w = ShardWriter(self._new_datastore_dir(cfg), n_features=f,
+                        dtype=dtype,
+                        shard_rows=self._datastore_shard_rows(cfg, n,
+                                                              row_bytes),
+                        has_label=lab is not None, has_weight=wt is not None)
+        for pos, block in blocks:
+            rows = slice(pos, pos + len(block))
+            w.append(block, label=lab[rows] if lab is not None else None,
+                     weight=wt[rows] if wt is not None else None)
+        self.datastore = w.finalize()
+        self._record_spill_telemetry()
+
+    def _finish_datastore_construct(self, cfg: Config) -> None:
+        """The construction's tail for the two_round route into the store:
+        no bin matrix exists, so the EFB search is skipped."""
+        self.num_total_bin = sum(m.num_bin for m in self.bin_mappers)
+        if cfg.enable_bundle:
+            log.info("EFB disabled for streamed external-memory ingest "
+                     "(bundling needs the dense bin matrix, which this "
+                     "path never materializes)")
+        self.efb = None
+        self._set_fields()
+        self._handle_constructed = True
 
     def _share_or_fit(self, f: int, fit) -> None:
         """The reference's mappers (checking the feature count), or
@@ -363,6 +628,10 @@ class Dataset:
         [N, F] bins are written from it directly."""
         from .utils.efb import (build_bundled_sparse, find_bundles_sparse,
                                 materialize_dense_bins)
+        if cfg.external_memory:
+            log.warning("external_memory is not supported for sparse "
+                        "input (the EFB-bundled sparse form is already "
+                        "compact); training in-memory")
         n, f = (int(v) for v in self.data.shape)
         self._num_data, self._num_feature = n, f
         self._feature_names = _feature_names_from(self.data, f,
@@ -428,6 +697,10 @@ class Dataset:
         path bundled without them."""
         if self.bin_data is not None:
             return self.bin_data
+        if self.datastore is not None:
+            # the whole matrix on the host, for the paths that need it at
+            # once (DART's and rollback's replays, `add_features_from`)
+            return self.datastore.read_all_rows("bins")
         if self.sparse_binned is None:
             raise LightGBMError("Dataset has no binned data (not "
                                 "constructed?)")
@@ -446,6 +719,21 @@ class Dataset:
         self.bin_mappers = ref.bin_mappers
         if ref.bin_data is not None:
             self.bin_data = ref.bin_data[idx]
+        elif ref.datastore is not None:
+            # a spilled parent: the rows gathered from the shards that
+            # hold them; the bytes never read are counted
+            self.bin_data, saved, skipped = \
+                ref.datastore.gather_rows(idx, "bins")
+            if "bundle" in ref.datastore.payloads:
+                self.bundle_data = \
+                    ref.datastore.gather_rows(idx, "bundle")[0]
+            from . import telemetry
+            telemetry.REGISTRY.counter("datastore.h2d_bytes_saved").inc(
+                int(saved))
+            if skipped:
+                log.info(f"datastore subset: skipped {skipped}/"
+                         f"{ref.datastore.n_shards} shards "
+                         f"({saved >> 10} KB never read)")
         else:
             self.sparse_binned = ref.sparse_binned.tocsr()[idx].tocsc()
         self.efb = ref.efb
@@ -681,6 +969,12 @@ class Dataset:
         mappers, EFB spec and names as JSON; label, weight, query
         boundaries, positions and categorical indices as arrays)."""
         self.construct()
+        if self.bin_data is None and self.datastore is not None:
+            raise LightGBMError(
+                "save_binary is not supported for external-memory "
+                "(spilled) Datasets — the datastore directory at "
+                f"'{self.datastore.dirpath}' already is the reloadable "
+                "on-disk form (pass datastore_dir to keep it)")
         if self.bin_data is not None:
             payload = {"bin_data": self.bin_data}
         else:

@@ -10,7 +10,9 @@ Training (`Booster(params, train_set)`, then `update`): the reference's
 `__boost`, `_update_dart` and `_apply_tree_to_score`, for gbdt, goss,
 dart (`_update_dart`) and rf (unshrunk trees grown at the base score,
 averaged) on numerical and categorical features, on the bin matrix or
-its EFB bundles (`Dataset.bundle_data`), with f32 histograms, or with
+its EFB bundles (`Dataset.bundle_data`), assembled on the device from
+a spilled set's shard store (`external_memory`, `datastore/`) or
+uploaded from the host, with f32 histograms, or with
 quantized gradients (`use_quantized_grad`: the int8 lattice and its
 integer histograms), with every sampler of the reference (bagging,
 per-class bagging, GOSS, `feature_fraction`, `feature_fraction_bynode`,
@@ -46,8 +48,9 @@ iteration's cached contributions subtracted, deeper ones replayed),
 copy of a set's scores a call, counted in `EVAL_COPIES`), and the
 model's IO, analysis and pickling.
 
-Loading: model text in and out, the host f64 tree walk (`tree.py`, the
-same per-tree, boosting-order sum as the JAX package's host path), and
+Loading: model text in and out, the host f64 walk (the host library's
+`predict_rows`, `native/`, or `tree.py` for linear trees: the same
+per-tree, boosting-order sum as the JAX package's host path), and
 the stacked traversal planes plus the f64 leaf-value table
 (`export_predict_arrays`) that `ServingRuntime` compiles.  `predict`
 also gives leaf indices, TreeSHAP contributions (`contrib.py`) and
@@ -92,8 +95,8 @@ from .utils.config import Config
 from .utils.log import LightGBMError
 
 #: ROADMAP items that the training slice's refusals name
-FILES = "ROADMAP Queue 1 item 5i: the native parser"
-EXTERNAL = "ROADMAP Queue 1 item 5e: external memory and streaming"
+EXTERNAL = ("ROADMAP Queue 1 item 5e, second half: the shard-streamed "
+            "grower")
 DISTRIBUTED = "ROADMAP Queue 1 item 5f: distributed training"
 
 #: blocking device-to-host copies of a set's scores for evaluation
@@ -108,7 +111,13 @@ _DATASET_PARAMS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
                    "use_missing", "zero_as_missing", "data_random_seed",
                    "max_bin_by_feature", "feature_pre_filter",
                    "enable_bundle", "max_conflict_rate", "linear_tree",
-                   "external_memory")
+                   # a data file's columns and ingest, and the spill: they
+                   # act in construct()
+                   "label_column", "header", "weight_column",
+                   "group_column", "ignore_column", "two_round",
+                   "external_memory", "datastore_dir",
+                   "datastore_shard_rows", "datastore_budget_mb",
+                   "datastore_prefetch")
 
 
 def _to_2d_float(data) -> np.ndarray:
@@ -203,8 +212,8 @@ def refusals(cfg: Config) -> List[str]:
     out = []
     if str(cfg.boosting).lower() not in ("gbdt", "goss", "dart", "rf"):
         out.append(f"unknown boosting type {cfg.boosting!r}")
-    if cfg.external_memory or str(cfg.streaming_train).lower() == "on":
-        out.append(f"external memory / streamed training ({EXTERNAL})")
+    if str(cfg.streaming_train).lower() == "on":
+        out.append(f"streaming_train=on ({EXTERNAL})")
     if str(cfg.tree_learner).lower() != "serial" or cfg.num_machines > 1:
         out.append(f"tree_learner={cfg.tree_learner}, num_machines="
                    f"{cfg.num_machines} ({DISTRIBUTED})")
@@ -404,7 +413,9 @@ class _DeviceData:
     validation set is only routed through trees on its own bins.  A
     sparse training set that EFB bundles has no [N, F] bin matrix: its
     `bins_fm` is written from the binned CSC on first use (DART's and
-    rollback's replays)."""
+    rollback's replays).  A spilled set (`Dataset.datastore`) assembles
+    `bins_fm`, and `bundle_fm` when it bundles, from its shard store on
+    first use (`datastore/assemble.py`), the reference's `:63-160`."""
 
     def __init__(self, ds: Dataset, device: torch.device,
                  for_train: bool = False):
@@ -412,6 +423,13 @@ class _DeviceData:
         self._ds = ds
         self.device = device
         self.num_data, self.num_feature = ds._num_data, ds._num_feature
+        #: the shard store of a spilled set, None in memory
+        self.store = ds.datastore
+        #: the prefetch accounting of every assembly of this set
+        self.pf_stats = None
+        if self.store is not None:
+            from .datastore import PrefetchRunStats
+            self.pf_stats = PrefetchRunStats()
         self._bins_fm = None if ds.bin_data is None else torch.from_numpy(
             np.ascontiguousarray(ds.bin_data.T)).to(device)
         self.query_boundaries = ds._query_boundaries
@@ -429,15 +447,19 @@ class _DeviceData:
             is_cat=torch.from_numpy(self.is_cat_np).to(device),
             nb_np=self.nb_np, missing_np=self.missing_np)
         self.efb = ds.efb if for_train else None
-        self.bundle_fm = None
+        self._bundle_fm = None
         if self.efb is not None:
-            if ds.bundle_data is None:
-                from .utils.efb import build_bundled, build_bundled_sparse
-                ds.bundle_data = build_bundled(ds.bin_data, self.efb) \
-                    if ds.bin_data is not None else build_bundled_sparse(
-                        ds.sparse_binned, self.efb, ds.bin_mappers)
-            self.bundle_fm = torch.from_numpy(
-                np.ascontiguousarray(ds.bundle_data.T)).to(device)
+            if self.store is None or "bundle" not in self.store.payloads:
+                if ds.bundle_data is None:
+                    from .utils.efb import build_bundled, \
+                        build_bundled_sparse
+                    ds.bundle_data = build_bundled_sparse(
+                        ds.sparse_binned, self.efb, ds.bin_mappers) \
+                        if ds.bin_data is None and \
+                        ds.sparse_binned is not None else build_bundled(
+                            ds._dense_bin_matrix(), self.efb)
+                self._bundle_fm = torch.from_numpy(
+                    np.ascontiguousarray(ds.bundle_data.T)).to(device)
             efb = self.efb
             self.feat.update(
                 bundle_col=torch.from_numpy(
@@ -464,12 +486,36 @@ class _DeviceData:
         self.raw_ref = ds.data
         self._raw2d: Optional[np.ndarray] = None
 
+    def _assemble(self, payload: str) -> torch.Tensor:
+        from .datastore.assemble import assemble_feature_major
+        return assemble_feature_major(
+            self.store, self.device, payload=payload,
+            prefetch_depth=Config(self._ds.params or {}).datastore_prefetch,
+            run_stats=self.pf_stats)
+
     @property
     def bins_fm(self) -> torch.Tensor:
         if self._bins_fm is None:
-            self._bins_fm = torch.from_numpy(np.ascontiguousarray(
-                self._ds._dense_bin_matrix().T)).to(self.device)
+            self._bins_fm = self._assemble("bins") if self.store is not None \
+                else torch.from_numpy(np.ascontiguousarray(
+                    self._ds._dense_bin_matrix().T)).to(self.device)
         return self._bins_fm
+
+    @property
+    def bundle_fm(self) -> Optional[torch.Tensor]:
+        """The [G, N] bundle matrix a bundled training set's growers read
+        (None unbundled)."""
+        if self._bundle_fm is None and self.efb is not None:
+            self._bundle_fm = self._assemble("bundle")
+        return self._bundle_fm
+
+    @property
+    def pending(self) -> bool:
+        """A spilled set whose training matrix is not assembled yet."""
+        if self.store is None:
+            return False
+        return (self._bundle_fm if self.efb is not None
+                else self._bins_fm) is None
 
     def get_raw(self) -> np.ndarray:
         """The set's raw matrix as f64 [N, F] (the reference's
@@ -744,6 +790,54 @@ class Booster:
             monotone_intermediate=interm)
         self._grower = make_wave_grower(self._grower_spec) if wave \
             else make_grower(self._grower_spec)
+        self._check_streaming()
+
+    def _check_streaming(self) -> None:
+        """The reference's choice between assembling a spilled set's
+        matrix and streaming its shards (`_setup_streaming`,
+        `booster.py:1264`), for a set not assembled yet: "off" assembles;
+        "auto" assembles when the bins take at most
+        `datastore_budget_mb`, and above it when the reference would
+        downgrade (EFB, forced splits, the intermediate monotone method,
+        the histogram pool, DART, linear trees: its warning); where the
+        reference streams, the port raises, since its streamed grower is
+        item 5e's second half.  "on" is refused before (`refusals`)."""
+        cfg = self.config
+        mode = str(cfg.streaming_train or "auto").lower()
+        if mode not in ("auto", "on", "off"):
+            raise LightGBMError(f"Unknown streaming_train {mode!r} "
+                                "(expected 'auto', 'on' or 'off')")
+        store = self._dd.store
+        if mode != "auto" or not self._dd.pending:
+            return
+        budget = float(cfg.datastore_budget_mb) * 2 ** 20
+        if store.total_bytes("bins") <= budget:
+            return
+        spec = self._grower_spec
+        reasons = [why for why, on in (
+            ("EFB bundling (bundle expansion needs the assembled bundle "
+             "columns)", spec.bundled),
+            ("forced splits", bool(spec.forced_splits)),
+            ("monotone_constraints_method=intermediate",
+             spec.monotone_intermediate),
+            ("bounded histogram pool", spec.hist_pool_slots > 0),
+            ("boosting=dart (drop replay traverses the resident train "
+             "bins)", self._boost_mode == "dart"),
+            ("linear_tree (leaf fits read the raw matrix)",
+             bool(cfg.linear_tree))) if on]
+        if reasons:
+            log.warning(
+                "the assembled bin matrix exceeds datastore_budget_mb"
+                f"={cfg.datastore_budget_mb} but streamed training is not "
+                "supported with " + "; ".join(reasons) + " — assembling "
+                "anyway (device memory is the ceiling)")
+            return
+        raise LightGBMError(
+            f"the spilled bins ({store.total_bytes('bins')} B) exceed "
+            f"datastore_budget_mb={cfg.datastore_budget_mb}, where "
+            f"streaming_train=auto streams the shards ({EXTERNAL}); set "
+            "streaming_train=off to assemble them on the device, or raise "
+            "datastore_budget_mb")
 
     # ---- the grower's constraints (the reference's `booster.py:586-692`,
     # `:1108-1148`)
@@ -2104,17 +2198,26 @@ class Booster:
           card (`_predict_device`), or on the CPU with
           `device_type="cpu"`.
         - Otherwise the host walk: f64, summed tree by tree in boosting
-          order (ref: `GBDT::PredictRaw`).
+          order (ref: `GBDT::PredictRaw`), through the host library's
+          `predict_rows` over the flattened trees (`num_threads` OpenMP
+          threads), or tree by tree in numpy for linear trees and for rows
+          narrower than the trees' features (which raise there).
 
         Options are read from `kwargs`, then from the booster's params
         (strings such as "true" count, as params reloaded from model text
         are strings).  Converted outputs pass the f32 downcast of the raw
         sum through the objective's link.  `data` may be a sparse matrix,
-        a DataFrame, an Arrow table or a `Sequence`; a file name raises
-        (file input is item 5i)."""
+        a DataFrame, an Arrow table or a `Sequence`, or the path of a data
+        file in the training files' formats, read with the booster's
+        params (its label column present and dropped; `data_has_header`
+        declares a header line, as the `header` param does)."""
         if isinstance(data, str):
-            raise LightGBMError(f"prediction from a data file is not ported "
-                                f"yet ({FILES})")
+            from .cli import load_data_file
+            params = {k: v for k, v in self.params.items()
+                      if not callable(v)}
+            if data_has_header:
+                params["header"] = True
+            data, _ = load_data_file(data, Config(params))
         X = _to_2d_float(data)
         n = X.shape[0]
         K = self.num_tree_per_iteration
@@ -2160,8 +2263,14 @@ class Booster:
                     active &= ~decided
                     all_active = bool(active.all())
         else:
-            for i, t in enumerate(trees):
-                raw[:, i % K] += t.predict(X)
+            flat = self._flatten_for_native(trees)
+            if flat is not None and X.shape[1] >= flat["min_features"]:
+                from .native import predict_rows
+                raw = predict_rows(flat, X, K,
+                                   int(self.config.num_threads or 0))
+            else:
+                for i, t in enumerate(trees):
+                    raw[:, i % K] += t.predict(X)
         if self._average_output and len(trees) >= K:
             raw /= max(len(trees) // K, 1)
         if K == 1:
@@ -2170,6 +2279,49 @@ class Booster:
             return raw
         return self.objective_.convert_output(
             torch.from_numpy(raw).to(torch.float32)).numpy()
+
+    def _flatten_for_native(self, trees: List[Tree]) -> Optional[Dict]:
+        """The trees' node and leaf arrays concatenated, with per-tree
+        offsets, for the host library's walk (the reference's
+        `booster.py:2686`), cached for the tree slice until the model
+        changes; None without trees or with linear ones."""
+        if not trees or any(t.is_linear for t in trees):
+            return None
+        key = (self._model_version, len(trees), id(trees[0]), id(trees[-1]))
+        cached = getattr(self, "_native_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        offs = {k: [0] for k in ("node", "leaf", "cb", "bits")}
+        cols = {k: [] for k in ("feat", "thr", "dtype", "left", "right",
+                                "thr_bin", "leaf_value", "cat_bounds",
+                                "cat_bits")}
+        for t in trees:
+            ni = max(t.num_leaves - 1, 0)
+            for k, a in (("feat", t.split_feature), ("thr", t.threshold),
+                         ("dtype", t.decision_type), ("left", t.left_child),
+                         ("right", t.right_child),
+                         ("thr_bin", t.threshold_bin)):
+                cols[k].append(a[:ni])
+            cols["leaf_value"].append(t.leaf_value[:t.num_leaves])
+            cols["cat_bounds"].append(t.cat_boundaries)
+            cols["cat_bits"].append(t.cat_threshold)
+            for k, n in (("node", ni), ("leaf", t.num_leaves),
+                         ("cb", len(t.cat_boundaries)),
+                         ("bits", len(t.cat_threshold))):
+                offs[k].append(offs[k][-1] + n)
+        dt = dict(feat=np.int32, thr=np.float64, dtype=np.int32,
+                  left=np.int32, right=np.int32, thr_bin=np.int32,
+                  leaf_value=np.float64, cat_bounds=np.int64,
+                  cat_bits=np.uint32)
+        flat = {k: np.ascontiguousarray(np.concatenate(v), dt[k])
+                for k, v in cols.items()}
+        for k, v in offs.items():
+            flat[f"{k}_off"] = np.asarray(v, np.int64)
+        flat["n_trees"] = len(trees)
+        flat["min_features"] = int(flat["feat"].max()) + 1 \
+            if len(flat["feat"]) else 0
+        self._native_cache = (key, flat)
+        return flat
 
     def _predict_contrib(self, X: np.ndarray, trees: List[Tree]) -> np.ndarray:
         """TreeSHAP feature contributions (ref: PredictContrib -> tree.cpp

@@ -7,8 +7,10 @@ TPU-native re-design of the reference's bin mapper
 
 Binning is a one-time host-side preprocessing pass, so it stays in numpy — the
 output is a compact uint8/uint16 bin matrix that is copied onto the device.
-This is the JAX package's module minus its native C search loop: the numpy
-search below computes the same bins.  The boundary-finding algorithm is reproduced faithfully because bin
+Numerical values map to bins through the port's host library
+(`native/`, `values_to_bins`), as the JAX package's module maps them
+through its own; the numpy search below serves the features the library
+does not take (fewer than two numerical bins).  The boundary-finding algorithm is reproduced faithfully because bin
 boundaries directly determine accuracy parity and the real-valued thresholds
 written into the model text format.
 """
@@ -336,6 +338,15 @@ class BinMapper:
                 out = np.where(hit, sb[pos_c], 0).astype(np.int32)
             return out
         n_numeric = self.num_bin - (1 if self.missing_type == MISSING_TYPE_NAN else 0)
+        # the host library's binary search (the JAX package's
+        # `utils/binning.py:338-346`, under the same condition): NaN to
+        # the NaN bin or searched as 0.0, ±0 and ±1e-35 searched against
+        # the zero bin's bounds
+        if n_numeric >= 2 and len(self.bin_upper_bound) >= n_numeric:
+            from ..native import values_to_bins as native_values_to_bins
+            return native_values_to_bins(
+                values, self.bin_upper_bound[:n_numeric], self.missing_type,
+                self.num_bin - 1).astype(np.int32)
         nan_mask = np.isnan(values)
         vals = np.where(nan_mask, 0.0, values)
         idx = np.searchsorted(self.bin_upper_bound[:n_numeric - 1], vals, side="left")

@@ -143,15 +143,28 @@ def test_weight_label_and_shape_checks():
         lt.Dataset(X).create_valid(X[:, :2]).construct()
 
 
-def test_inputs_of_later_slices_raise():
-    """A file path waits for the native parser (item 5i), the on-disk
-    datastore for item 5e; groups, sparse, pandas, Arrow and the binary
-    cache train since item 5d (tests/test_torch_inputs.py)."""
-    X = np.zeros((10, 2))
-    with pytest.raises(lt.LightGBMError, match="file-path.*item 5i"):
-        lt.Dataset("train.csv").construct()
-    with pytest.raises(lt.LightGBMError, match="ROADMAP"):
-        lt.Dataset(X, params={"external_memory": True}).construct()
+def test_inputs_of_later_slices_raise(tmp_path):
+    """A file path constructs since item 5i and external memory spills
+    since item 5e's first half (tests/test_torch_file_input.py,
+    tests/test_torch_datastore.py); groups, sparse, pandas, Arrow and
+    the binary cache train since item 5d (tests/test_torch_inputs.py).
+    What still waits is the streamed grower (item 5e's second half):
+    training a spilled set whose bins exceed `datastore_budget_mb` under
+    `streaming_train=auto` raises, and leaves the store unassembled."""
+    X = np.random.RandomState(0).randn(300, 2)
+    y = (X[:, 0] > 0).astype(float)
+    path = str(tmp_path / "train.csv")
+    np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.17g")
+    dp = lt.Dataset(path).construct()
+    assert np.array_equal(dp.bin_data,
+                          np.asarray(lgb.Dataset(path).construct().bin_data))
+    spilled = lt.Dataset(X, label=y, params={"external_memory": True,
+                                             "datastore_budget_mb": 1e-4})
+    assert spilled.construct().bin_data is None
+    with pytest.raises(lt.LightGBMError, match="item 5e, second half"):
+        lt.train({"objective": "binary", "verbosity": -1,
+                  "device_type": "cpu", "external_memory": True,
+                  "datastore_budget_mb": 1e-4}, spilled, 1)
 
 
 def test_dataset_from_numpy_carries_jax_bins_over():

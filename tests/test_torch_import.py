@@ -34,7 +34,8 @@ MODULES = ("serving.runtime", "interop", "basic", "booster", "callback",
            "telemetry.metrics", "telemetry.sinks", "telemetry.spans",
            "telemetry.request_trace", "serving.batcher", "serving.client",
            "serving.http", "serving.registry", "rank_objective",
-           "ops.renew")
+           "ops.renew", "cli", "datastore.format", "datastore.store",
+           "datastore.prefetch", "datastore.assemble")
 
 
 def test_every_module_is_listed():

@@ -204,7 +204,7 @@ def test_device_predict_chunks_and_padding(models, name, monkeypatch):
         whole[:0].shape
 
 
-def test_device_predict_params_and_refusals(models, monkeypatch):
+def test_device_predict_params_and_refusals(models, monkeypatch, tmp_path):
     ref, ours, X = models["binary"]
     # the option from params, as a string (text reloaded)
     ours.params["device_predict"] = "true"
@@ -215,8 +215,14 @@ def test_device_predict_params_and_refusals(models, monkeypatch):
     assert _bits(got, ref.predict(X, raw_score=True, device_predict=True))
     with pytest.raises(lt.LightGBMError, match="features"):
         ours.predict(X[:, :1], device_predict=True, **CPU)
-    with pytest.raises(lt.LightGBMError, match="item 5i"):
-        ours.predict("data.csv")
+    # a data file (its label column dropped) since item 5i: the array's
+    # scores and the reference's
+    path = str(tmp_path / "data.csv")
+    np.savetxt(path, np.column_stack([np.zeros(len(X)), X]), delimiter=",",
+               fmt="%.17g")
+    got = ours.predict(path, device_predict=True, **CPU)
+    assert _bits(got, ours.predict(X, device_predict=True, **CPU))
+    assert _bits(got, ref.predict(path, device_predict=True))
     # the card by default: without one it raises, it does not fall back
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(lt.LightGBMError, match="no CUDA device"):
