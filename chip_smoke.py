@@ -12,6 +12,7 @@ and check them.
     python3 chip_smoke.py --phases train_rank   # lambdarank, xendcg
     python3 chip_smoke.py --phases train_sparse   # CSR, binary cache
     python3 chip_smoke.py --phases train_files   # files, external memory
+    python3 chip_smoke.py --phases train_stream   # streamed, the ledger
     python3 chip_smoke.py --phases golden,main       # serving alone
     python3 chip_smoke.py --phases predict_api   # device_predict, options
     python3 chip_smoke.py --phases serve_plane   # rungs, registry, HTTP
@@ -331,6 +332,25 @@ Phases, each printing one JSON line:
           train phase's Dataset) and launches; spill, assembly (GB/s
           beside the PCIe link), prefetch figures; a flipped shard byte
           raises naming the file.
+  train_stream the shard-streamed grower and the memory ledger.  The
+          carry entries (`lgbt_histogram_carry`, K1's first stage a
+          shard at a time; `lgbt_histogram_carry_q`, K4's) on 200,000
+          of the bench's rows in 7 uneven shards at S = 1, 3, 8: the
+          f32 carry bitwise its order-exact model and K1 over all rows,
+          the int32 carry bitwise K4 over all rows, each within its
+          tolerance of its plain carry; a shard's fold timed beside its
+          bound, the plain carry and `index_add_`.  The 2M rows spilled
+          in 31 shards and trained streamed (the bench's wave under
+          "auto" over a 16 MB budget, 5 rounds; leafwise strict, 2; the
+          quantized wave, 3), each model byte for byte the in-memory
+          one trained here; K3's candidates on K2's and K5's histograms
+          bitwise theirs; staging within the budget and the peak
+          allocation below the in-memory run's by half the bins; round
+          ms, sweeps a tree, launches a round, the pass stages, the
+          store's read rate, prefetch figures; the ledger's reconcile
+          against `torch.cuda.memory_stats` and its owners.  serve_plane
+          also reads `GET /debug/memory`: 200, the model's planes within
+          the allocator's bytes.
   compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5,
           the link kernel and the quantize step of this checkout and of
           the checkout in DIR on the same inputs: K1 and K2 agree within
@@ -356,7 +376,8 @@ Phases, each printing one JSON line:
           K2, K3, K1 and the link also show their train_api launches,
           K1-K5 their train_breadth, train_objectives, train_rank,
           train_sparse and train_files launches, threefry its train_rank
-          launches),
+          launches; the two carry entries: train_stream's streamed
+          runs),
           parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
@@ -396,7 +417,7 @@ F64_ADDS_PER_S = 132 * 64 * 1.98e9
 F32_OPS_PER_S = 67e12
 #: kernels held to their plain versions within a tolerance (the rest
 #: bitwise): float sums in another order than the plain version's
-WITHIN_TOL = ("histogram", "fused_hist_split")
+WITHIN_TOL = ("histogram", "fused_hist_split", "histogram_carry")
 #: wide synthetic models of the golden phase, (name, features): 64
 #: features put a 256-row block's rows above the 48 KB of shared memory
 #: a launch gets by default (the kernel opts in to more), 300 features
@@ -5404,6 +5425,375 @@ def phase_train_files(data: TrainData, modules, device=None,
     return launches
 
 
+# ------------------------------------------------------- train_stream
+#: the carry kernels' check: the first rows of the bench's bins, cut
+#: into 7 uneven shards (batches and pieces straddle the cuts), and the
+#: slot counts (the wave's 8 live smaller children at most)
+STREAM_CARRY_ROWS = 200_000
+STREAM_CUTS = (17_000, 45_000, 46_000, 90_000, 131_072, 170_001)
+STREAM_SLOTS = (1, 3, 8)
+#: streamed training: the bench's 2M rows in 31 shards of 65,536 rows;
+#: the budget the 56,000,000 B of bins exceed
+STREAM_SHARD_ROWS = 65536
+STREAM_BUDGET_MB = 16
+#: (name, params, streaming_train, rounds): the bench's wave under
+#: "auto" over the budget, leafwise strict and the quantized wave "on"
+STREAM_RUNS = (("wave", WAVE_PARAMS, "auto", 5),
+               ("strict", dict(TRAIN_PARAMS, num_leaves=31), "on", 2),
+               ("quant_wave", QUANT_PARAMS, "on", 3))
+#: the pass stages of `streaming/engine.py`, in its histograms' names
+STREAM_STAGES = ("prefetch_wait", "h2d", "device_fold", "host_harvest")
+
+
+def _carry_bytes(f, n, rows_in, s, mb, row_bytes):
+    """Bytes one shard's fold must move: every leaf id of its n rows,
+    the u8 bins of its `rows_in` rows in the slots and their payload of
+    `row_bytes` (f32: 12 B, the int8 lattice: 3 B), the carried [S, F,
+    MB, 3] cells (4 B each) read and written."""
+    return n * 4 + rows_in * (f + row_bytes) + 2 * s * f * mb * 12
+
+
+def _carry_case(data, seed, dev, timing, quantized):
+    """One carry entry at S = 1, 3 and 8 slots of a depth-3 partition of
+    the first STREAM_CARRY_ROWS rows of the bench's bins, in the shards
+    of STREAM_CUTS: gates the f32 carry bitwise `histogram_carry_ordered`
+    and `histogram_multi` (K1) over all rows, and within K1's tolerance
+    (1e-4 * sum|x| + 1e-6 a cell) of its plain carry on the card; the
+    int32 carry bitwise K4 over all rows and its plain carry; two folds
+    bitwise.  A shard's fold (a whole pass of the 7, divided by 7),
+    timed beside its bound, the plain carry and one `index_add_` a shard
+    (the library's call); each case's report."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_kernel as hk
+    from lightgbm_tpu_torch.ops import hist_kernel_q as hkq
+    from lightgbm_tpu_torch.ops import histogram as ph
+    n = min(STREAM_CARRY_ROWS, len(data.y))
+    cuts = [c for c in STREAM_CUTS if c < n]
+    edges = [0] + cuts + [n]
+    shards = list(zip(edges[:-1], edges[1:]))
+    bnp = np.ascontiguousarray(data.dataset.bin_data[:n].T)
+    f, mb = bnp.shape[0], 255
+    lid_np = _partition(bnp, 3)
+    q = _quant_inputs(bnp, data.y[:n], lid_np, [0], seed, dev)
+    bins, pay, lid, pw3 = q["bins"], q["pay"], q["lid"], q["pw3"]
+    cases = {}
+    for s in STREAM_SLOTS:
+        sl = torch.arange(s, dtype=torch.int32, device=dev)
+        lengths = torch.tensor([int((lid_np == k).sum()) for k in range(s)],
+                               dtype=torch.int32, device=dev)
+        blocks = [(bins[:, a:b].contiguous(), pay[a:b], lid[a:b],
+                   pw3[:, a:b].contiguous()) for a, b in shards]
+
+        def fold(pre=None):
+            if quantized:
+                c = hkq.histogram_carry_q_init(f, sl, mb)
+                for bb, _, ll, pp in blocks:
+                    hkq.histogram_carry_q_update(c, bb, pp, ll)
+                return hkq.histogram_carry_q_finalize(c, q["sg"], q["sh"])
+            c = pre.pop() if pre else hk.histogram_carry_init(
+                n, f, sl, mb, lengths)
+            for bb, pl, ll, _ in blocks:
+                hk.histogram_carry_update(c, bb, pl, ll)
+            return hk.histogram_carry_finalize(c)
+
+        def plain():
+            if quantized:
+                acc = torch.zeros((s, f, mb, 3), dtype=torch.int64,
+                                  device=dev)
+                for bb, _, ll, pp in blocks:
+                    hkq.carry_q_plain_update(acc, bb, pp, ll, sl, mb)
+                return hkq.dequantize(acc, q["sg"], q["sh"])
+            acc = ph.hist_stream_init(f, s, mb, device=dev)
+            for bb, pl, ll, _ in blocks:
+                ph.hist_stream_update(acc, bb, pl, ll, sl, mb)
+            return ph.hist_stream_finalize(acc, s, mb)
+
+        got = fold()
+        _check(_bits_equal(got.cpu(), fold().cpu()),
+               f"train_stream: two folds differ at S = {s}")
+        p = plain()
+        if quantized:
+            want = hkq.histogram_multi_quantized(bins, pw3, lid, sl, mb,
+                                                 q["sg"], q["sh"])
+            _check(_bits_equal(got.cpu(), want.cpu()),
+                   f"train_stream: the int32 carry != K4 over all rows at "
+                   f"S = {s}")
+            _check(_bits_equal(got.cpu(), p.cpu()), "train_stream: the "
+                   f"int32 carry != its plain carry at S = {s}")
+        else:
+            want = hk.histogram_multi(bins, pay, lid, sl, mb)
+            if dev.type == "cuda":      # the kernel's order (the CPU
+                ordered = hk.histogram_carry_ordered(     # runs the plain
+                    bins.cpu(), pay.cpu(), lid.cpu(), sl.cpu(), mb, cuts)
+                _check(_bits_equal(got.cpu(), ordered),   # carry)
+                       f"train_stream: the f32 carry != its ordered model "
+                       f"at S = {s}")
+            _check(_bits_equal(got.cpu(), want.cpu()), "train_stream: the "
+                   f"f32 carry != K1 over all rows at S = {s}")
+            absx = ph.hist_stream_finalize(ph.hist_stream_update(
+                ph.hist_stream_init(f, s, mb, device=dev), bins, pay.abs(),
+                lid, sl, mb), s, mb)
+            _check(bool(((got - p).abs() <= 1e-4 * absx + 1e-6).all()),
+                   f"train_stream: the f32 carry outside K1's tolerance of "
+                   f"its plain carry at S = {s}")
+        case = {"slots": s, "rows": n, "shards": len(shards),
+                "bitwise_model_and_over_all_rows": True,
+                "max_abs_err": _max_abs_err(got.cpu(), p.cpu())}
+        if timing:
+            rows_in = [int((lid_np[a:b] < s).sum()) for a, b in shards]
+            nbytes = sum(_carry_bytes(f, b - a, r, s, mb,
+                                      3 if quantized else 12)
+                         for (a, b), r in zip(shards, rows_in)) / len(shards)
+            pre = None if quantized else [
+                hk.histogram_carry_init(n, f, sl, mb, lengths)
+                for _ in range(14)]
+            ms = _cuda_ms(lambda: fold(pre), iters=10) / len(shards)
+            flat = [(bb.to(torch.int64) + torch.arange(
+                f, device=dev)[:, None] * mb).reshape(-1)
+                for bb, _, _, _ in blocks]
+            vals = [(pp.t().to(torch.int64) if quantized else pl).repeat(
+                f, 1) for _, pl, _, pp in blocks]
+            acc = torch.zeros((f * mb, 3), device=dev,
+                              dtype=vals[0].dtype)
+
+            def library():
+                for fl, vv in zip(flat, vals):
+                    acc.index_add_(0, fl, vv)
+
+            bound, by = _bound(nbytes, 0, 1)
+            case.update(
+                ms=ms, plain_ms=_cuda_ms(plain, iters=3) / len(shards),
+                library_ms=_cuda_ms(library, iters=5) / len(shards),
+                bound_ms=bound, bound_by=by, bytes_per_shard=nbytes)
+        cases[f"s{s}"] = case
+    return cases
+
+
+def _cand_gate(fused_module, quantized):
+    """A wrapper over K2 (`quantized`: K5) as the wave grower calls it
+    that holds K3's candidates on the kernel's histogram, with the
+    parent sums it was given, bitwise the kernel's own; and the count
+    of calls it checked."""
+    real = getattr(fused_module, "fused_hist_split_quantized" if quantized
+                   else "fused_hist_split")
+    seen = [0]
+
+    def call(*a, **kw):
+        hist, cand = real(*a, **kw)
+        k3 = fused_module.split_scan(hist, a[4], a[5], a[6], **kw)
+        _check(_bits_equal(k3.cpu(), cand.cpu()), "train_stream: K3's "
+               "candidates on "
+               f"{'K5' if quantized else 'K2'}'s histogram differ from "
+               "its own")
+        seen[0] += 1
+        return hist, cand
+
+    return call, seen
+
+
+def _stage_sums():
+    from lightgbm_tpu_torch.telemetry import REGISTRY
+    return {k: (REGISTRY.histogram(f"stream.pass.{k}").sum,
+                REGISTRY.histogram(f"stream.pass.{k}").count)
+            for k in STREAM_STAGES + ("wall",)}
+
+
+def _rounds_ms(params, ds, rounds, sync):
+    """A training run with its rounds' host milliseconds."""
+    import lightgbm_tpu_torch as lt
+    marks = []
+
+    def mark(env):
+        sync()
+        marks.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, num_boost_round=rounds, callbacks=[mark])
+    return bst, np.diff([t0] + marks) * 1e3
+
+
+def phase_train_stream(data: TrainData, modules, device=None,
+                       timing: bool = True):
+    """The shard-streamed grower and the memory ledger (ROADMAP Queue 1
+    item 5e's second half and item 5g's ledger) on the card.  The carry
+    entries against their models (`_carry_case`).  Then the bench's 2M
+    rows spilled in 31 shards of 65,536 rows and trained three ways
+    (STREAM_RUNS), each against the in-memory model trained here on the
+    train phase's Dataset: gates the model text byte for byte (less the
+    parameter lines), the streamed grower engaged and the bins never
+    assembled, the staging within STREAM_BUDGET_MB, the streamed run's
+    peak allocation below the in-memory run's by half the bins' bytes at
+    least; in memory, K3's candidates on K2's (K5's) histograms bitwise
+    the kernel's own (the streamed smaller children's come from K3).
+    Reports round ms both ways, sweeps of the store a tree, the carry's
+    and K3's launches a round, the four pass stages, the store's read
+    rate, the prefetch hits and stalls.  After the wave run the ledger's
+    reconcile against `torch.cuda.memory_stats` and its owners.  Returns
+    the kernels-line entries of the two carry entries, their launches
+    the streamed runs'."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import grow_wave
+    from lightgbm_tpu_torch.ops import hist_kernel as hk
+    from lightgbm_tpu_torch.ops import hist_kernel_q as hkq
+    from lightgbm_tpu_torch.streaming import engine
+    from lightgbm_tpu_torch.telemetry import MEMLEDGER, REGISTRY
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    report = {"phase": "train_stream"}
+    t0 = time.perf_counter()
+    carry = _carry_case(data, 0, dev, timing and cuda, False)
+    carry_q = _carry_case(data, 0, dev, timing and cuda, True)
+    report["carry"], report["carry_q"] = carry, carry_q
+    report["carry_check_s"] = time.perf_counter() - t0
+
+    tmp = tempfile.mkdtemp(prefix="train_stream_")
+    fused = modules["fused"]
+    try:
+        sparams = dict(TRAIN_PARAMS, external_memory=True,
+                       datastore_shard_rows=STREAM_SHARD_ROWS,
+                       datastore_dir=tmp)
+        t0 = time.perf_counter()
+        sds = lt.Dataset(data.X, label=data.y, params=sparams).construct()
+        store = sds.datastore
+        bins_bytes = store.total_bytes("bins")
+        report["store"] = {"shards": store.n_shards,
+                           "shard_rows": store.shard_rows,
+                           "bins_bytes": bins_bytes,
+                           "construct_s": time.perf_counter() - t0}
+        _check(store.n_shards == -(-len(data.y) // STREAM_SHARD_ROWS)
+               and bins_bytes > STREAM_BUDGET_MB * 2 ** 20,
+               f"train_stream: the store {report['store']}")
+        launches = {"histogram_carry": 0, "histogram_carry_q": 0}
+        runs = {}
+        for name, params, mode, rounds in STREAM_RUNS:
+            params = dict(params)
+            if device is not None:
+                params["device_type"] = device
+            quant = bool(params.get("use_quantized_grad"))
+            # ---- in memory, K3 held to K2's (K5's) candidates
+            attr = "fused_hist_split_quantized" if quant \
+                else "fused_hist_split"
+            gate, checked = _cand_gate(fused, quant)
+            real = getattr(grow_wave, attr)
+            setattr(grow_wave, attr, gate)
+            gc.collect()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            try:
+                mem, mem_ms = _rounds_ms(params, data.dataset, rounds, sync)
+            finally:
+                setattr(grow_wave, attr, real)
+            mem_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            mem_text = _without_params(mem.model_to_string())
+            wave = params.get("tree_grow_policy") == "wave"
+            _check(checked[0] > 0 or not wave, f"train_stream: {name}: no "
+                   "K2/K5 launch was checked against K3")
+            del mem
+            gc.collect()
+            # ---- streamed
+            hk.HIST_CARRY_LAUNCHES = hkq.HIST_CARRY_Q_LAUNCHES = 0
+            k3_0 = fused.SCAN_LAUNCHES
+            sweeps0 = dict(engine.SWEEPS)
+            stages0 = _stage_sums()
+            REGISTRY.gauge("stream.peak_staging_mb").set(0.0)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            st, st_ms = _rounds_ms(dict(
+                params, external_memory=True, streaming_train=mode,
+                datastore_budget_mb=STREAM_BUDGET_MB), sds, rounds, sync)
+            st_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            carry_l = hk.HIST_CARRY_LAUNCHES
+            carry_q_l = hkq.HIST_CARRY_Q_LAUNCHES
+            k3 = fused.SCAN_LAUNCHES - k3_0
+            eng = st._streaming
+            _check(eng is not None and st._dd._bins_fm is None
+                   and sds.bin_data is None,
+                   f"train_stream: {name} did not stream")
+            _check(_without_params(st.model_to_string()) == mem_text,
+                   f"train_stream: {name}'s streamed model differs from "
+                   "the in-memory one")
+            staging = REGISTRY.gauge("stream.peak_staging_mb").value
+            _check(0 < staging <= STREAM_BUDGET_MB,
+                   f"train_stream: {name}: staging {staging} MB")
+            _check(not cuda or st_peak <= mem_peak - bins_bytes // 2,
+                   f"train_stream: {name}: peak {st_peak} B streamed vs "
+                   f"{mem_peak} B in memory")
+            _check(not cuda or (carry_q_l if quant else carry_l) > 0,
+                   f"train_stream: {name} launched no carry kernel")
+            trees = len(st.trees)
+            sweeps = {k: engine.SWEEPS[k] - sweeps0[k]
+                      for k in engine.SWEEPS}
+            stages1 = _stage_sums()
+            stage_s = {k: stages1[k][0] - stages0[k][0]
+                       for k in STREAM_STAGES + ("wall",)}
+            passes = stages1["wall"][1] - stages0["wall"][1]
+            launches["histogram_carry"] += carry_l
+            launches["histogram_carry_q"] += carry_q_l
+            runs[name] = {
+                "rounds": rounds, "streaming_train": mode,
+                "model_text_identical": True,
+                "in_memory_round_ms": mem_ms.tolist(),
+                "streamed_round_ms": st_ms.tolist(),
+                "sweeps_per_tree": sum(sweeps.values()) / trees,
+                "sweeps_by_phase": sweeps,
+                "carry_launches_per_round":
+                    (carry_q_l if quant else carry_l) / rounds,
+                "k3_launches_per_round": k3 / rounds,
+                "k2_k5_checked_against_k3": checked[0],
+                "pass_stage_s": stage_s, "passes": passes,
+                "store_gb_per_s": passes * bins_bytes / stage_s["wall"]
+                / 1e9 if stage_s["wall"] else None,
+                "prefetch_hits": eng.stats.hits,
+                "prefetch_stalls": eng.stats.stalls,
+                "peak_staging_mb": staging,
+                "peak_device_mb": REGISTRY.gauge(
+                    "stream.peak_device_mb").value,
+                "in_memory_peak_allocated": mem_peak,
+                "streamed_peak_allocated": st_peak}
+            if name == "wave":
+                rec = MEMLEDGER.reconcile()
+                owners = MEMLEDGER.snapshot()["devices"].get(
+                    f"dev{dev.index or 0}" if cuda else "host", {}).get(
+                    "owners", {})
+                seen = {k.split("{")[0] for k, v in owners.items()
+                        if v["peak_bytes"] > 0}
+                _check(not cuda or rec["source"] == "memory_stats",
+                       f"train_stream: reconcile {rec['source']}")
+                _check({"train.scores", "train.hist_carry"} <= seen,
+                       f"train_stream: the ledger's owners {sorted(seen)}")
+                runs[name]["ledger"] = {"reconcile": rec,
+                                        "owners": owners}
+            del st
+            gc.collect()
+        report["runs"] = runs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["launches"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    _emit(report)
+    entries = []
+    for name, src, line, cases in (
+            ("histogram_carry", "histogram.cu", 85, carry),
+            ("histogram_carry_q", "histogram_q.cu", 171, carry_q)):
+        top = cases[f"s{STREAM_SLOTS[-1]}"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"lightgbm_tpu_torch/csrc/{src}",
+            "replaces": f"lightgbm_tpu/ops/pallas_hist.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            **{k: top.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+            "cases": cases})
+    return entries
+
+
 # ------------------------------------------------------- predict_api
 #: `device_predict`'s request sizes (100,000 rows: two chunks of 65,536)
 PREDICT_ROWS = (1, 256, 4096, 10_000, 100_000)
@@ -6424,6 +6814,20 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
            f"serve_plane: /healthz {hz}")
     _check("lgbm_tpu_serve_rows" in metrics,
            "serve_plane: /metrics lacks the serving counters")
+    # the memory ledger: the model's planes attributed, within what the
+    # allocator holds
+    with urllib.request.urlopen(base + "/debug/memory", timeout=60) as r:
+        mem_status, memory = r.status, json.loads(r.read())
+    dkey = f"dev{dev.index or 0}" if dev.type == "cuda" else "host"
+    planes = {k: v["bytes"] for k, v in memory["devices"].get(
+        dkey, {}).get("owners", {}).items()
+        if k.startswith("serve.default.planes")}
+    alloc = memory["reconcile"]["devices"].get(dkey, {}).get(
+        "allocator_bytes")
+    _check(mem_status == 200 and sum(planes.values()) > 0
+           and (dev.type != "cuda" or sum(planes.values()) <= alloc),
+           f"serve_plane: /debug/memory {mem_status}, planes {planes}, "
+           f"allocator {alloc}")
     report["http"] = {
         "requests": len(plan), "threads": http_threads, "load_s": load_s,
         **runs.pop("clients_in_process"), **runs,
@@ -6431,7 +6835,10 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
         "handler_json_s_total": float(np.sum(json_ms)) / 1e3,
         "direct_p50_ms": float(np.percentile(direct_ms, 50)),
         "direct_p99_ms": float(np.percentile(direct_ms, 99)),
-        "healthz": hz, "metrics_lines": len(metrics.splitlines())}
+        "healthz": hz, "metrics_lines": len(metrics.splitlines()),
+        "debug_memory": {"status": mem_status, "planes": planes,
+                         "allocator_bytes": alloc,
+                         "source": memory["reconcile"]["source"]}}
 
     # ---- 6. faults, armed after the load
     X5 = pool[:5]
@@ -6577,6 +6984,8 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                      s, _train_modules()),
                  "train_files": lambda d, s, b: phase_train_files(
                      d(), _train_modules(), seed=s),
+                 "train_stream": lambda d, s, b: phase_train_stream(
+                     d(), _train_modules()),
                  "predict_api": lambda d, s, b: phase_predict_api(s),
                  "serve_plane": lambda d, s, b: phase_serve_plane(s),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
@@ -6731,6 +7140,7 @@ def main(argv=None) -> int:
             for k in kernels:
                 if k["name"] in got:
                     k[f"{phase}_launches"] = got[k["name"]]
+        kernels += phase_train_stream(data, modules)
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
              "parity": ("within_tol" if k["name"] in WITHIN_TOL

@@ -72,6 +72,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import telemetry
 from .basic import Dataset, _is_arrow, _is_sparse
 from .basic import _to_2d_float as _dataset_matrix
 from .contrib import predict_contrib
@@ -95,8 +96,6 @@ from .utils.config import Config
 from .utils.log import LightGBMError
 
 #: ROADMAP items that the training slice's refusals name
-EXTERNAL = ("ROADMAP Queue 1 item 5e, second half: the shard-streamed "
-            "grower")
 DISTRIBUTED = "ROADMAP Queue 1 item 5f: distributed training"
 
 #: blocking device-to-host copies of a set's scores for evaluation
@@ -212,8 +211,6 @@ def refusals(cfg: Config) -> List[str]:
     out = []
     if str(cfg.boosting).lower() not in ("gbdt", "goss", "dart", "rf"):
         out.append(f"unknown boosting type {cfg.boosting!r}")
-    if str(cfg.streaming_train).lower() == "on":
-        out.append(f"streaming_train=on ({EXTERNAL})")
     if str(cfg.tree_learner).lower() != "serial" or cfg.num_machines > 1:
         out.append(f"tree_learner={cfg.tree_learner}, num_machines="
                    f"{cfg.num_machines} ({DISTRIBUTED})")
@@ -661,8 +658,16 @@ class Booster:
         cfg = self.config = Config(self.params)
         _refuse(cfg)
         self.device = train_device(cfg.device_type)
+        # armed before the device data, so its uploads are attributed
+        # from the first byte (the reference's `booster.py:324`)
+        telemetry.MEMLEDGER.configure(
+            enabled=bool(cfg.memory_ledger),
+            reconcile_ms=float(cfg.memory_reconcile_ms))
         train_set.params = {**(train_set.params or {}), **{
             k: v for k, v in self.params.items() if k in _DATASET_PARAMS}}
+        if str(cfg.streaming_train or "auto").lower() == "on":
+            # the shard store is what streams: "on" implies the spill
+            train_set.params["external_memory"] = True
         train_set.construct()
         self.train_set = train_set
         self._dd = _DeviceData(train_set, self.device, for_train=True)
@@ -790,54 +795,80 @@ class Booster:
             monotone_intermediate=interm)
         self._grower = make_wave_grower(self._grower_spec) if wave \
             else make_grower(self._grower_spec)
-        self._check_streaming()
+        self._setup_streaming()
 
-    def _check_streaming(self) -> None:
-        """The reference's choice between assembling a spilled set's
-        matrix and streaming its shards (`_setup_streaming`,
-        `booster.py:1264`), for a set not assembled yet: "off" assembles;
-        "auto" assembles when the bins take at most
-        `datastore_budget_mb`, and above it when the reference would
-        downgrade (EFB, forced splits, the intermediate monotone method,
-        the histogram pool, DART, linear trees: its warning); where the
-        reference streams, the port raises, since its streamed grower is
-        item 5e's second half.  "on" is refused before (`refusals`)."""
+    def _setup_streaming(self) -> bool:
+        """The reference's `_setup_streaming` (`booster.py:1264`): install
+        the shard-streamed grower (`streaming/engine.py`) in place of the
+        one just built, for a spilled set not assembled yet.  "off"
+        assembles; "auto" streams when the spilled bins exceed
+        `datastore_budget_mb`; "on" streams.  Where the grower cannot
+        stream (EFB, forced splits, the intermediate monotone method, the
+        histogram pool, DART, linear trees) both warn as the reference
+        does and assemble.  Returns whether it streams."""
         cfg = self.config
         mode = str(cfg.streaming_train or "auto").lower()
         if mode not in ("auto", "on", "off"):
             raise LightGBMError(f"Unknown streaming_train {mode!r} "
                                 "(expected 'auto', 'on' or 'off')")
-        store = self._dd.store
-        if mode != "auto" or not self._dd.pending:
-            return
-        budget = float(cfg.datastore_budget_mb) * 2 ** 20
-        if store.total_bytes("bins") <= budget:
-            return
-        spec = self._grower_spec
-        reasons = [why for why, on in (
-            ("EFB bundling (bundle expansion needs the assembled bundle "
-             "columns)", spec.bundled),
-            ("forced splits", bool(spec.forced_splits)),
-            ("monotone_constraints_method=intermediate",
-             spec.monotone_intermediate),
-            ("bounded histogram pool", spec.hist_pool_slots > 0),
-            ("boosting=dart (drop replay traverses the resident train "
-             "bins)", self._boost_mode == "dart"),
-            ("linear_tree (leaf fits read the raw matrix)",
-             bool(cfg.linear_tree))) if on]
-        if reasons:
-            log.warning(
-                "the assembled bin matrix exceeds datastore_budget_mb"
-                f"={cfg.datastore_budget_mb} but streamed training is not "
-                "supported with " + "; ".join(reasons) + " — assembling "
-                "anyway (device memory is the ceiling)")
-            return
-        raise LightGBMError(
-            f"the spilled bins ({store.total_bytes('bins')} B) exceed "
-            f"datastore_budget_mb={cfg.datastore_budget_mb}, where "
-            f"streaming_train=auto streams the shards ({EXTERNAL}); set "
-            "streaming_train=off to assemble them on the device, or raise "
-            "datastore_budget_mb")
+        self._streaming = None
+        if mode == "off":
+            return False
+        from .streaming import streaming_downgrade_reasons, streaming_spec
+        store = self._dd.store if self._dd.pending else None
+        spec = streaming_spec(self._grower_spec, self._grow_policy)
+        reasons = streaming_downgrade_reasons(spec, store)
+        if self._boost_mode == "dart":
+            reasons.append("boosting=dart (drop replay traverses the "
+                           "resident train bins)")
+        if cfg.linear_tree:
+            reasons.append("linear_tree (leaf fits read the raw matrix)")
+        if mode == "auto":
+            if store is None or \
+                    store.total_bytes("bins") <= \
+                    float(cfg.datastore_budget_mb) * 2 ** 20:
+                return False
+            if reasons:
+                telemetry.REGISTRY.counter("fallback.events").inc()
+                telemetry.event("fallback.stream_downgrade", reasons=reasons)
+                log.warning(
+                    "the assembled bin matrix exceeds datastore_budget_mb"
+                    f"={cfg.datastore_budget_mb} but streamed training is "
+                    "not supported with " + "; ".join(reasons) + " — "
+                    "assembling anyway (device memory is the ceiling)")
+                return False
+        elif reasons:
+            telemetry.REGISTRY.counter("fallback.events").inc()
+            telemetry.event("fallback.stream_downgrade", reasons=reasons)
+            log.warning("streaming_train=on is not supported with "
+                        + "; ".join(reasons) + " — using in-memory "
+                        "training (device memory is the ceiling, not "
+                        "datastore_budget_mb)")
+            return False
+        depth = int(cfg.streaming_prefetch_depth or cfg.datastore_prefetch)
+        key = (spec, depth)
+        if getattr(self, "_stream_cache_key", None) != key:
+            from .streaming import StreamingWaveGrower
+            self._stream_engine = StreamingWaveGrower(
+                spec, store, prefetch_depth=depth,
+                run_stats=self._dd.pf_stats,
+                budget_mb=float(cfg.datastore_budget_mb))
+            self._stream_cache_key = key
+            log.info(f"streaming_train: shard-streamed training engaged "
+                     f"({store.n_shards} shards x ~{store.shard_rows} rows; "
+                     "the bins never go to the device whole)")
+        self._streaming = self._stream_engine
+        self._grower = self._stream_engine
+        return True
+
+    def _train_bins(self) -> Optional[torch.Tensor]:
+        """The matrix the grower reads: the bundle matrix under EFB, else
+        the bins (a spilled set assembles them on first use); None while
+        streaming, whose grower reads the shard store."""
+        if self._streaming is not None:
+            return None
+        dd = self._dd
+        return dd.bins_fm if dd.bundle_fm is None else dd.bundle_fm
 
     # ---- the grower's constraints (the reference's `booster.py:586-692`,
     # `:1108-1148`)
@@ -1143,7 +1174,9 @@ class Booster:
                 "quantized histogram; construct the Booster with "
                 "objective='none' for custom objectives")
         if self._boost_mode == "dart":
-            return self._update_dart(fobj)
+            out = self._update_dart(fobj)
+            self._ledger_round()
+            return out
         if fobj is None:
             if self._train_obj is None:
                 raise LightGBMError(
@@ -1156,7 +1189,33 @@ class Booster:
             grad, hess = self._gradients(score)
         else:
             grad, hess = self._custom_gradients(fobj)
-        return self._boost(grad, hess)
+        out = self._boost(grad, hess)
+        self._ledger_round()
+        return out
+
+    def _ledger_round(self) -> None:
+        """The round's memory-ledger sweep (the reference's
+        `_ledger_round`, `booster.py:1463`): the rebound training state
+        attributed anew (`assign` replaces last round's handles), the
+        leak sentinel fed.  Metadata only, never a device sync; nothing
+        with the ledger off."""
+        led = telemetry.MEMLEDGER
+        if not led.enabled:
+            return
+        dd = self._dd
+        bins = [dd._bins_fm, dd._bundle_fm, dd.label, dd.weight,
+                dd.allowed] + [v for v in dd.feat.values()
+                               if isinstance(v, torch.Tensor)] \
+            + [v for v in self._feat_extra.values()
+               if isinstance(v, torch.Tensor)]
+        scores = [self._train_score, self._ones] \
+            + list(self._valid_scores) \
+            + [c[-1] for c in self._last_contribs]
+        if isinstance(self._obj_state, torch.Tensor):
+            scores.append(self._obj_state)
+        led.assign("train.bins", bins)
+        led.assign("train.scores", scores)
+        led.on_round()
 
     def _gradients(self, score: torch.Tensor):
         """The objective's (grad, hess) at `score`: rank_xendcg with the
@@ -1352,8 +1411,8 @@ class Booster:
             if "cegb_used" in self._feat_extra:
                 feat_k = {**feat_k,
                           "cegb_used": self._feat_extra["cegb_used"]}
-            dev = self._grower(dd.bins_fm if dd.bundle_fm is None
-                               else dd.bundle_fm, gk, hk, sw, feat_k, allowed)
+            dev = self._grower(self._train_bins(), gk, hk, sw, feat_k,
+                               allowed)
             tree = Tree.from_device(dev, self.train_set.bin_mappers, lr)
             if "cegb_used" in self._feat_extra and tree.num_leaves > 1:
                 # coupled penalties charge a feature once per model

@@ -72,10 +72,20 @@ _SIGNATURES = {
                 _I, _I, _I, _I, _I, _P, _P])],
     "histogram": [("lgbt_histogram",
                    [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                    _P, _P, _P])],
+                    _P, _P, _P]),
+                  ("lgbt_histogram_carry",
+                   [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                    _P, _P, _P, _P, _P, _P, _P, _P]),
+                  ("lgbt_histogram_carry_finalize",
+                   [_P, _I, _I, _I, _I, _P, _P, _P, _P])],
     "histogram_q": [("lgbt_histogram_q",
                      [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                      _P, _P, _P, _P])],
+                      _P, _P, _P, _P]),
+                    ("lgbt_histogram_carry_q",
+                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _P]),
+                    ("lgbt_histogram_carry_q_finalize",
+                     [_P, ctypes.c_longlong, _P, _P, _P])],
     "fused_split": [("lgbt_fused_hist_split",
                      [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P]),

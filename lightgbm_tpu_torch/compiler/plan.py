@@ -29,8 +29,9 @@ tree index) and `gather_idx` — for each ORIGINAL tree index, the row in
 the kernel's stacked slot output — so the runtime gathers slots back to
 boosting order before the exact adder ever sees them.
 
-numpy-only: a copy of the JAX package's planner, minus its telemetry
-hook, so the port imports nothing of that package.
+numpy-only: a copy of the JAX package's planner, so the port imports
+nothing of that package; its telemetry hook attributes the packed host
+planes in the memory ledger (`compile.plan`).
 """
 from __future__ import annotations
 
@@ -134,8 +135,7 @@ def build_plan(export: Dict, tile_vmem_kb: float = 512.0,
                name: str = "default") -> CompiledPlan:
     """Plan + quantize an `export_predict_arrays` dict into a
     `CompiledPlan` (raises `PlanNotCompilable` for models outside the
-    packed format).  `name` labels the plan for callers' logs; the
-    port has no telemetry plane yet."""
+    packed format).  `name` labels the plan's ledger entry."""
     from .quantize import pack_bucket
 
     trees = export.get("trees") or []
@@ -229,7 +229,18 @@ def build_plan(export: Dict, tile_vmem_kb: float = 512.0,
         plan.planes.append(planes)
         plan.tile_stats.extend(stats)
 
+    _plan_telemetry(plan, name)
     return plan
+
+
+def _plan_telemetry(plan: CompiledPlan, name: str) -> None:
+    """The packed host planes attributed in the memory ledger under
+    `compile.plan{model=}` (the reference's `_plan_telemetry`); the
+    runtime registers their device copies under serve.<name>.planes."""
+    from ..telemetry import MEMLEDGER
+    MEMLEDGER.assign("compile.plan",
+                     [a for p in plan.planes for a in p.values()
+                      if hasattr(a, "nbytes")], model=name)
 
 
 def plan_summary(plan: CompiledPlan) -> Dict:

@@ -85,3 +85,84 @@ extern "C" int lgbt_histogram_q(const void* bins, int bin_bytes,
                                    slot_start_of(rowbuf, N, S), scales, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---- The carry: K4's first stage over one shard of rows at a time ----
+//
+// The shard-streamed grower folds shard after shard into int32 cells
+// carried on the device: each shard runs K4's first stage over its own
+// rows (row lists, lattice words, int32 partials, with the shard's own
+// launch plan) and adds its pieces' sums to the carried cells; the carry
+// is dequantized once, after the last shard.  Integer sums do not depend
+// on the order or the cut into shards and pieces, so the finalized carry
+// is lgbt_histogram_q's over all N rows bit for bit (int32 stays exact
+// while the carried sums do, the wrapper's MAX_ROWS_Q over all N).
+
+namespace {
+
+// carry[i] += cell i's sum over the shard's pieces of its slot.
+__global__ void __launch_bounds__(kReduceThreads)
+carry_q_add_kernel(const int* __restrict__ work, int chunks,
+                   long long total, long long per_slot,
+                   const int* __restrict__ slots,
+                   const int* __restrict__ slot_start,
+                   int* __restrict__ carry) {
+  const long long i = static_cast<long long>(blockIdx.x) * kReduceThreads +
+                      threadIdx.x;
+  if (i >= total) return;
+  const int s = static_cast<int>(i / per_slot);
+  const int pieces = slot_rows(slots, slot_start, s, chunks).pieces;
+  carry[i] += sum_q_chunks(work, pieces, total, i);
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+carry_q_dequant_kernel(const int* __restrict__ carry, long long total,
+                       const float* __restrict__ scales,
+                       float* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * kReduceThreads +
+                      threadIdx.x;
+  if (i >= total) return;
+  out[i] = dequant_cell(carry[i], static_cast<int>(i % 3), scales);
+}
+
+}  // namespace
+
+// One shard's fold: bins [F, n], pw3 [3, n] int8 and leaf_id [n] i32 are
+// the shard's rows; slots [S] i32; Fg and chunks the shard's launch plan
+// (`launch_plan_q(n, F, S, MB)`); rowbuf, ticket and work as
+// lgbt_histogram_q's over n rows; carry [S, F, MB, 3] int32, added to.
+extern "C" int lgbt_histogram_carry_q(const void* bins, int bin_bytes,
+                                      const int8_t* pw3, const int* leaf_id,
+                                      const int* slots, int n, int F, int S,
+                                      int MB, int Fg, int chunks,
+                                      int* rowbuf, int* ticket, int* work,
+                                      int* carry, cudaStream_t stream) {
+  if (!q_args_ok(n, F, S, MB, bin_bytes, Fg, chunks))
+    return cudaErrorInvalidValue;
+  cudaError_t e = launch_q_first_stage(bins, bin_bytes, pw3, leaf_id, slots,
+                                       n, F, S, MB, Fg, chunks, rowbuf,
+                                       ticket, work, stream);
+  if (e != cudaSuccess) return e;
+  const long long per_slot = static_cast<long long>(F) * MB * 3;
+  const long long total = S * per_slot;
+  const long long blocks = (total + kReduceThreads - 1) / kReduceThreads;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  carry_q_add_kernel<<<static_cast<unsigned>(blocks), kReduceThreads, 0,
+                       stream>>>(work, chunks, total, per_slot, slots,
+                                 slot_start_of(rowbuf, n, S), carry);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The carried histogram: out [S, F, MB, 3] f32, each int32 cell of carry
+// dequantized as K4 does (dequant_cell: round to f32, times s_g or s_h).
+extern "C" int lgbt_histogram_carry_q_finalize(const int* carry,
+                                               long long total,
+                                               const float* scales,
+                                               float* out,
+                                               cudaStream_t stream) {
+  if (total <= 0) return cudaErrorInvalidValue;
+  const long long blocks = (total + kReduceThreads - 1) / kReduceThreads;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  carry_q_dequant_kernel<<<static_cast<unsigned>(blocks), kReduceThreads, 0,
+                           stream>>>(carry, total, scales, out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -9,7 +9,7 @@ on a thread; `assemble_feature_major` (assemble.py) copies the shards
 into the [F|G, N] matrix on the training device.  The on-disk format is
 the JAX package's, byte for byte, so either package reads the other's
 store.  The shard-streamed grower, which trains without assembling,
-waits for ROADMAP Queue 1 item 5e's second half.
+reads the store through the same prefetcher (`streaming/engine.py`).
 """
 from .format import (FORMAT_NAME, FORMAT_VERSION, MANIFEST_NAME, PAYLOADS,
                      read_manifest)

@@ -175,10 +175,75 @@ def prune_wave_tail(nodes: Dict[str, np.ndarray], n: int,
     return out_nodes, out_leaves, new_slot, target
 
 
-def make_wave_grower(spec: GrowerSpec) -> Callable:
+class MemoryRows:
+    """The rows of one tree in device memory: the [F, N] (bundled: [G,
+    N]) bin matrix, read by the wave grower's two bin passes,
+    `partition` and `hist`.  The shard-streamed grower gives the same
+    two from the shard store (`streaming/engine.py StreamedRows`)."""
+
+    def __init__(self, spec: GrowerSpec, bins_fm: torch.Tensor,
+                 payload: torch.Tensor, feat: Dict, scan_kw: Dict):
+        self.spec, self.bins_fm, self.payload = spec, bins_fm, payload
+        self.feat, self.scan_kw = feat, scan_kw
+        self.hist_fn, self.pw3 = tree_histograms(spec, bins_fm, payload,
+                                                 feat)
+        self.bundle_of = make_bundled_expander(spec, feat)[1] \
+            if spec.bundled else (lambda f: None)
+
+    def hist_cache(self, leaves: int, hb: int) -> torch.Tensor:
+        """The tree's per-leaf histograms as built, [leaves, F|G, hb,
+        3]."""
+        return torch.empty((leaves, self.bins_fm.shape[0], hb, 3),
+                           dtype=torch.float32, device=self.payload.device)
+
+    def hist(self, leaf_id: torch.Tensor, slots: torch.Tensor,
+             parent: torch.Tensor):
+        """(hist [S, F, MB, 3], candidates or None) of the leaves
+        `slots`: fused, K2's (K5's over the lattice) with `parent` [S, 3]
+        their sums; unfused, the spec's histogram function's."""
+        spec, feat = self.spec, self.feat
+        if not spec.fused:
+            return self.hist_fn(leaf_id, slots), None
+        if self.pw3 is None:
+            return fused_hist_split(self.bins_fm, self.payload, leaf_id,
+                                    slots, feat["nb"], feat["missing"],
+                                    parent, spec.max_bin, **self.scan_kw)
+        return fused_hist_split_quantized(
+            self.bins_fm, self.pw3, leaf_id, slots, feat["nb"],
+            feat["missing"], parent, spec.max_bin, feat["qscales"][0],
+            feat["qscales"][1], **self.scan_kw)
+
+    def partition(self, leaf_id: torch.Tensor, picks: List[tuple],
+                  mask_dev, slots: torch.Tensor) -> torch.Tensor:
+        """`leaf_id` after the wave's picks: each pick's rows that go
+        right move to its new leaf (one `torch.where` a pick)."""
+        return partition_rows(self.bins_fm, leaf_id, picks, mask_dev, slots,
+                              self.feat, self.bundle_of)
+
+
+def partition_rows(bins_fm, leaf_id, picks, mask_dev, slots, feat,
+                   bundle_of=lambda f: None):
+    """The rows of `bins_fm` [F|G, n] with leaf ids `leaf_id` [n] after
+    the picks (best, new, small, f, t, dl, is_cat): the picks are
+    distinct leaves that existed at the wave's start, so their order
+    cannot change a row's leaf."""
+    missing, nb = feat["missing_np"], feat["nb_np"]
+    for best, new, _, f, t, dl, node_cat in picks:
+        go_left = split_go_left(
+            bins_fm, f, t, dl, int(missing[f]), int(nb[f]), bundle_of(f),
+            mask_dev[best] if node_cat else None)
+        leaf_id = torch.where((leaf_id == best) & ~go_left, slots[new],
+                              leaf_id)
+    return leaf_id
+
+
+def make_wave_grower(spec: GrowerSpec, rows: Callable = None) -> Callable:
     """The wave grow function of a spec, with the strict grower's
     contract (`ops/grow.py make_grower`): `grow(bins_fm, grad, hess,
-    sample_weight, feat, allowed) -> DeviceTree`."""
+    sample_weight, feat, allowed) -> DeviceTree`.  `rows(payload, feat,
+    scan_kw)`, when given, makes each tree's row source in place of
+    `MemoryRows` over `bins_fm` (the shard-streamed grower's, which
+    takes `bins_fm=None`)."""
     L = spec.num_leaves
     MB = spec.max_bin
     LB, W = wave_sizes(spec)
@@ -256,25 +321,15 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
              sample_weight: torch.Tensor, feat: Dict,
              allowed: torch.Tensor) -> DeviceTree:
         global WAVES, HIST_WAVES
-        dev = bins_fm.device
-        n = bins_fm.shape[1]
+        dev = grad.device
+        n = grad.shape[0]
         f_count = int(feat["nb"].shape[0])
         payload = torch.stack([grad * sample_weight, hess * sample_weight,
                                sample_weight], dim=1).contiguous()
-        hist_fn, pw3 = tree_histograms(spec, bins_fm, payload, feat)
-        expand, bundle_of = make_bundled_expander(spec, feat) \
-            if spec.bundled else (None, lambda f: None)
-
-        def fused_fn(lid, sl, parent):
-            """(hist, cand) of the slots `sl`: K2, or K5 over the
-            lattice."""
-            if pw3 is None:
-                return fused_hist_split(bins_fm, payload, lid, sl,
-                                        feat["nb"], feat["missing"], parent,
-                                        MB, **scan_kw)
-            return fused_hist_split_quantized(
-                bins_fm, pw3, lid, sl, feat["nb"], feat["missing"], parent,
-                MB, feat["qscales"][0], feat["qscales"][1], **scan_kw)
+        src = MemoryRows(spec, bins_fm, payload, feat, scan_kw) \
+            if rows is None else rows(payload, feat, scan_kw)
+        expand = make_bundled_expander(spec, feat)[0] if spec.bundled \
+            else None
         # node ids as the strict grower's: the root 0, the children of
         # split k 2k + 1 (the left) and 2k + 2
         masks = make_node_samplers(spec, feat, f_count, 2 * LB - 1, dev)
@@ -288,8 +343,7 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         slots = torch.arange(LB, dtype=torch.int32, device=dev)
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
         # the leaf cache holds the histograms as built: [G, HB] under EFB
-        hist = torch.empty((LB, bins_fm.shape[0], HB, 3),
-                           dtype=torch.float32, device=dev)
+        hist = src.hist_cache(LB, HB)
 
         # ---- root: sums, output, histogram and split, one host copy ----
         root_g, root_h, root_c = tree_sum(payload.t())
@@ -300,12 +354,11 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                                       device=dev))
         inf1 = torch.full((1,), float("inf"), device=dev)
         root_bounds = None if mono_np is None else (-inf1, inf1)
+        h0, c0 = src.hist(leaf_id, slots[:1], root_sums)
         if fused:
-            h0, c0 = fused_fn(leaf_id, slots[:1], root_sums)
             s0 = fused_split(c0, h0, root_sums, masks.allowed(0, allowed)
                              [None], root_out[None], feat, root_pen)
         else:
-            h0 = hist_fn(leaf_id, slots[:1])
             s0 = search(h0, root_sums, masks.allowed(0, allowed),
                         root_out[None], feat, masks.cand(0, MB), expand,
                         bounds=root_bounds, penalty=root_pen)
@@ -358,8 +411,6 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
         used = np.zeros((LB, f_count), bool) if track else None
         leaf_g[0], leaf_h[0], leaf_c[0], leaf_out[0] = host[:4]
         nodes = node_arrays(LB - 1, MB)
-        missing = feat["missing_np"]
-        nb = feat["nb_np"]
 
         step, nl = 0, 1
         while step < LB - 1 and (rec[:, 0].max() > 0.0 or step < forced_n):
@@ -442,12 +493,8 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
                 break              # an infeasible forced split, no gain
 
             # ---- partition ----
-            for best, new, _, f, t, dl, node_cat in picks:
-                go_left = split_go_left(
-                    bins_fm, f, t, dl, int(missing[f]), int(nb[f]),
-                    bundle_of(f), mask_dev[best] if node_cat else None)
-                leaf_id = torch.where((leaf_id == best) & ~go_left,
-                                      slots[new], leaf_id)
+            leaf_id = src.partition(leaf_id, picks, mask_dev if spec.has_cat
+                                    else None, slots)
             if step >= LB - 1:
                 break              # tree full: the children never split
             HIST_WAVES += 1
@@ -503,12 +550,8 @@ def make_wave_grower(spec: GrowerSpec) -> Callable:
             # larger by subtraction (the parent's histogram is still in
             # the left child's slot) ----
             parents = hist.index_select(0, left_t)
-            small_slots = small_t.to(torch.int32)
-            if fused:
-                small_h, cand_small = fused_fn(leaf_id, small_slots,
-                                               par_small)
-            else:
-                small_h = hist_fn(leaf_id, small_slots)
+            small_h, cand_small = src.hist(leaf_id, small_t.to(torch.int32),
+                                           par_small)
             large_h = parents - small_h
             hist.index_copy_(0, small_t, small_h)
             hist.index_copy_(0, large_t, large_h)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -352,3 +352,277 @@ def histogram_multi(bins_fm: torch.Tensor, payload: torch.Tensor,
                             f"{rc}")
     HIST_LAUNCHES += 1
     return out
+
+
+# ---- the carry: K1's first stage over one shard at a time -------------
+#
+# The shard-streamed grower folds the rows of one shard after the other
+# into a histogram carried on the device (`streaming/engine.py`).  Its
+# contract: once the last shard has been folded, the finalized carry is
+# `histogram_multi` over all N rows bit for bit, the order of adds of
+# `hist_common.cuh` under `launch_plan(N, F, S, MB)`.  That order hangs on
+# each slot's whole list: its L rows are cut into pieces of `piece_bounds`
+# and each piece into batches of 32 counted from the piece's first row.
+# So the carry is given every slot's L before the first shard, and holds
+# what crosses a shard boundary: the pieces' partials [chunks, S, F, MB,
+# 3], each slot's running rank (its rows folded so far), and the rows of
+# each slot's open batch (at most 31: their bins [S, F, 32] and payload
+# [S, 32, 3], in two buffers that alternate between shards).
+
+#: carry-kernel launches made by `histogram_carry_update` and
+#: `histogram_carry_finalize` (one a group of up to 14 slots)
+HIST_CARRY_LAUNCHES = 0
+
+#: rows of a batch, and of the open batch a slot carries at most
+_BATCH = 32
+
+
+class HistCarry:
+    """One carried histogram of `slots` over N rows.  CPU: the plain f32
+    carry of `ops/histogram.py` (`acc`).  CUDA: per group of up to 14
+    slots (`MULTI_CHUNK`, as `fused_hist_split` launches them) the
+    kernel's state, `groups`."""
+
+    __slots__ = ("slots", "max_bin", "n_features", "acc", "first", "groups")
+
+    def __init__(self, slots, max_bin, n_features, acc=None, first=None,
+                 groups=None):
+        self.slots = slots
+        self.max_bin = max_bin
+        self.n_features = n_features
+        self.acc = acc
+        self.first = first
+        self.groups = groups
+
+    def tensors(self):
+        """The device tensors the carry holds (the memory ledger's
+        `train.hist_carry`)."""
+        if self.acc is not None:
+            return [self.acc]
+        return [t for g in self.groups for t in
+                (g["work"], g["rank"], g["pend_bin"], g["pend_pay"])]
+
+
+def histogram_carry_init(n_rows: int, f: int, slots: torch.Tensor,
+                         max_bin: int,
+                         lengths: Optional[torch.Tensor] = None
+                         ) -> HistCarry:
+    """A zero carry of the leaves `slots` [S] i32 over `n_rows` rows of
+    `f` features.  On a CUDA device `lengths` [S] i32 holds each slot's
+    rows among all N (the carry needs them before the first shard); the
+    pieces are `launch_plan(n_rows, f, s, max_bin)`'s, for each group of
+    up to 14 slots as K1 and K2 take them."""
+    dev = slots.device
+    s = slots.shape[0]
+    if slots.dim() != 1 or slots.dtype != torch.int32 or s == 0:
+        raise LightGBMError("slots must be [S] int32 with S >= 1")
+    if dev.type == "cpu":
+        from .histogram import hist_stream_init
+        sl = slots.tolist()
+        return HistCarry(slots, max_bin, f,
+                         acc=hist_stream_init(f, s, max_bin),
+                         first=torch.tensor([sl.index(v) for v in sl]))
+    if dev.type != "cuda":
+        raise LightGBMError(f"no histogram carry kernel for {dev}")
+    if lengths is None or lengths.shape != (s,) or \
+            lengths.dtype != torch.int32 or lengths.device != dev:
+        raise LightGBMError(f"lengths must be [{s}] int32 on {dev}")
+    groups = []
+    for c0 in range(0, s, MULTI_CHUNK):
+        sg = slots[c0:c0 + MULTI_CHUNK].contiguous()
+        k = sg.shape[0]
+        plan = launch_plan(max(n_rows, 1), f, k, max_bin)
+        groups.append(dict(
+            slots=sg, lengths=lengths[c0:c0 + MULTI_CHUNK].contiguous(),
+            plan=plan, parity=0,
+            work=torch.zeros((plan.chunks, k, f, max_bin, 3),
+                             dtype=torch.float32, device=dev),
+            rank=torch.zeros(k, dtype=torch.int32, device=dev),
+            pend_bin=torch.zeros((2, k, f, _BATCH), dtype=torch.int32,
+                                 device=dev),
+            pend_pay=torch.zeros((2, k, _BATCH, 3), dtype=torch.float32,
+                                 device=dev)))
+    return HistCarry(slots, max_bin, f, groups=groups)
+
+
+def histogram_carry_update(carry: HistCarry, bins_fm: torch.Tensor,
+                           payload: torch.Tensor,
+                           leaf_id: torch.Tensor) -> HistCarry:
+    """Fold one shard's rows, the next in row order (bins [F, n] u8/u16,
+    payload [n, 3] f32, leaf ids [n] i32), into the carry.  CUDA tensors
+    launch `csrc/histogram.cu lgbt_histogram_carry` a group; CPU tensors
+    run `ops/histogram.py hist_stream_update`."""
+    global HIST_CARRY_LAUNCHES
+    mb = carry.max_bin
+    if carry.acc is not None:
+        from .histogram import hist_stream_update
+        _check(bins_fm, payload, leaf_id, carry.slots[:1], mb)
+        hist_stream_update(carry.acc, bins_fm, payload, leaf_id,
+                           carry.slots, mb)
+        return carry
+    dev = bins_fm.device
+    if dev.type != "cuda":
+        raise LightGBMError(f"no histogram carry kernel for {dev}")
+    f, n = bins_fm.shape
+    if f != carry.n_features:
+        raise LightGBMError(f"the carry holds {carry.n_features} features, "
+                            f"the shard {f}")
+    for t in (bins_fm, payload, leaf_id):
+        if not t.is_contiguous():
+            raise LightGBMError("histogram inputs must be contiguous")
+    if n == 0:
+        return carry
+    from ..compiler import _build
+    lib = _build.load("histogram")
+    for g in carry.groups:
+        sg = g["slots"]
+        _check(bins_fm, payload, leaf_id, sg, mb)
+        k, plan, p = sg.shape[0], g["plan"], g["parity"]
+        rowbuf = torch.empty(row_scratch_ints(n, k), dtype=torch.int32,
+                             device=dev)
+        rc = _build.on_stream(dev, lambda stream: lib.lgbt_histogram_carry(
+            bins_fm.data_ptr(), bins_fm.element_size(), payload.data_ptr(),
+            leaf_id.data_ptr(), sg.data_ptr(), n, f, k, mb,
+            plan.feature_group, plan.chunks, rowbuf.data_ptr(),
+            ticket(dev, stream), g["rank"].data_ptr(),
+            g["lengths"].data_ptr(), g["pend_bin"][p].data_ptr(),
+            g["pend_pay"][p].data_ptr(), g["pend_bin"][1 - p].data_ptr(),
+            g["pend_pay"][1 - p].data_ptr(), g["work"].data_ptr(),
+            ctypes.c_void_p(stream)))
+        if rc != 0:
+            raise LightGBMError(f"histogram carry kernel launch failed: "
+                                f"CUDA error {rc}")
+        g["parity"] = 1 - p
+        HIST_CARRY_LAUNCHES += 1
+    return carry
+
+
+def histogram_carry_finalize(carry: HistCarry) -> torch.Tensor:
+    """[S, F, MB, 3] f32 histograms of the carry's slots from the rows
+    folded so far: each cell's pieces summed in index order
+    (`lgbt_histogram_carry_finalize`, K1's `sum_chunks`) on a CUDA
+    device; `hist_stream_finalize` on the CPU, a repeated slot taking its
+    first occurrence's rows as in K1."""
+    global HIST_CARRY_LAUNCHES
+    mb, f = carry.max_bin, carry.n_features
+    if carry.acc is not None:
+        from .histogram import hist_stream_finalize
+        out = hist_stream_finalize(carry.acc, carry.slots.shape[0], mb)
+        return out[carry.first]
+    from ..compiler import _build
+    lib = _build.load("histogram")
+    outs = []
+    for g in carry.groups:
+        k = g["slots"].shape[0]
+        dev = g["work"].device
+        out = torch.empty((k, f, mb, 3), dtype=torch.float32, device=dev)
+        rc = _build.on_stream(dev, lambda stream:
+                              lib.lgbt_histogram_carry_finalize(
+                                  g["work"].data_ptr(), g["plan"].chunks, k,
+                                  f, mb, g["slots"].data_ptr(),
+                                  g["lengths"].data_ptr(), out.data_ptr(),
+                                  ctypes.c_void_p(stream)))
+        if rc != 0:
+            raise LightGBMError(f"histogram carry finalize failed: CUDA "
+                                f"error {rc}")
+        HIST_CARRY_LAUNCHES += 1
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _batch_sums_ordered(work_cell, bins, pay, max_bin):
+    """Add full batches of 32 rows (bins [n] of one feature, payload [n,
+    3], n a multiple of 32 or the piece's last rows) to a piece's cells
+    [MB, 3] as K1 does: a batch's rows of one bin summed in lane order
+    from +0.0, then the batch sums added to the cell in batch order."""
+    pos = np.arange(bins.size)
+    batch, lane = pos // _BATCH, pos % _BATCH
+    ok = bins < max_bin
+    keys, first, gid = np.unique(batch[ok] * max_bin + bins[ok],
+                                 return_index=True, return_inverse=True)
+    gsum = np.zeros((keys.size, 3), np.float32)
+    ln, pv = lane[ok], pay[ok]
+    for l_ in range(_BATCH):
+        sel = ln == l_
+        gsum[gid[sel]] += pv[sel]
+    np.add.at(work_cell, keys % max_bin, gsum)
+
+
+def histogram_carry_ordered(bins_fm: torch.Tensor, payload: torch.Tensor,
+                            leaf_id: torch.Tensor, slots: torch.Tensor,
+                            max_bin: int, cuts) -> torch.Tensor:
+    """The carry kernel's sums on the CPU: the rows of `bins_fm` [F, N],
+    `payload` and `leaf_id` cut into shards at `cuts` (ascending row
+    indices) and folded one shard after the other by the kernel's state
+    machine (`csrc/histogram.cu carry_partial_kernel`): each piece's
+    blocks see only the shard's rows, the open batch's rows carried over,
+    the batches' sums added as `_batch_sums_ordered`; then the pieces
+    summed in index order.  Slots go in groups of 14 with
+    `launch_plan(N, F, s, MB)`'s chunks.  Equal to
+    `histogram_multi_ordered` over all N rows bit for bit: for tests and
+    chip_smoke.py."""
+    _check(bins_fm, payload, leaf_id, slots[:MULTI_CHUNK], max_bin)
+    f, n = bins_fm.shape
+    bins = bins_fm.cpu().numpy().astype(np.int64)
+    pay = payload.cpu().numpy()
+    lid = leaf_id.cpu().numpy()
+    edges = [0] + [int(c) for c in cuts if 0 < int(c) < n] + [n]
+    outs = []
+    sl_all = slots.tolist()
+    for c0 in range(0, len(sl_all), MULTI_CHUNK):
+        sl = sl_all[c0:c0 + MULTI_CHUNK]
+        s = len(sl)
+        chunks = launch_plan(max(n, 1), f, s, max_bin).chunks
+        length = [int((lid == v).sum()) for v in sl]
+        work = np.zeros((chunks, s, f, max_bin, 3), np.float32)
+        rank = [0] * s
+        pend = [(np.zeros((f, 0), np.int64), np.zeros((0, 3), np.float32))
+                for _ in range(s)]
+        for a, b in zip(edges[:-1], edges[1:]):
+            sb, sp, sid = bins[:, a:b], pay[a:b], lid[a:b]
+            first = np.full(b - a, -1, np.int64)
+            for k in range(s - 1, -1, -1):
+                first[sid == sl[k]] = k
+            new_pend = []
+            for i in range(s):
+                rows = np.flatnonzero(first == sl.index(sl[i]))
+                r0, r1, L = rank[i], rank[i] + rows.size, length[i]
+                bounds = piece_bounds(L, chunks)
+                out_pend = (np.zeros((f, 0), np.int64),
+                            np.zeros((0, 3), np.float32))
+                for c in range(bounds.size - 1):
+                    b0, b1 = int(bounds[c]), int(bounds[c + 1])
+                    if b0 <= r0 < b1:
+                        va = r0 - (r0 - b0) % _BATCH
+                    elif b0 > r0:
+                        va = b0
+                    else:
+                        continue             # the piece ended before
+                    vb = min(b1, r1)
+                    if vb <= va:
+                        continue
+                    kp = r0 - va if va < r0 else 0
+                    take = rows[max(va, r0) - r0:vb - r0]
+                    vbins = np.concatenate([pend[i][0][:, :kp], sb[:, take]],
+                                           axis=1)
+                    vpay = np.concatenate([pend[i][1][:kp], sp[take]])
+                    m = vb - va
+                    open_last = vb == r1 and vb < b1 and (vb - b0) % _BATCH
+                    full = m - m % _BATCH if open_last else m
+                    if open_last:
+                        out_pend = (vbins[:, full:], vpay[full:])
+                    for fi in range(f):
+                        _batch_sums_ordered(work[c, i, fi], vbins[fi, :full],
+                                            vpay[:full], max_bin)
+                new_pend.append(out_pend)
+                rank[i] = r1
+            pend = new_pend
+        out = np.zeros((s, f, max_bin, 3), np.float32)
+        for i in range(s):
+            pieces = piece_bounds(length[i], chunks).size - 1
+            acc = work[0, i].copy()
+            for c in range(1, pieces):
+                acc += work[c, i]
+            out[i] = acc
+        outs.append(out)
+    return torch.from_numpy(np.concatenate(outs))

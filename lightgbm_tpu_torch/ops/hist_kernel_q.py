@@ -273,3 +273,134 @@ def histogram_multi_quantized(bins_fm: torch.Tensor, pw3: torch.Tensor,
                     max_bin, scales)
             for c0 in range(0, slots.shape[0], MULTI_CHUNK_Q)]
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+# ---- the carry: K4's first stage over one shard at a time -------------
+#
+# The shard-streamed grower folds shard after shard into int32 cells
+# carried on the device and dequantizes them once, after the last shard.
+# Integer sums do not depend on order, so the finalized carry is
+# `histogram_multi_quantized` over all N rows bit for bit.
+
+#: carry-kernel launches made by `histogram_carry_q_update` (one a group
+#: of up to 42 slots) and `histogram_carry_q_finalize`
+HIST_CARRY_Q_LAUNCHES = 0
+
+
+class QHistCarry:
+    """The int32 sums [S, F, MB, 3] of `slots` over the rows folded so
+    far (int64 on the CPU, the plain version's)."""
+
+    __slots__ = ("slots", "max_bin", "acc")
+
+    def __init__(self, slots, max_bin, acc):
+        self.slots = slots
+        self.max_bin = max_bin
+        self.acc = acc
+
+    def tensors(self):
+        return [self.acc]
+
+
+def histogram_carry_q_init(f: int, slots: torch.Tensor,
+                           max_bin: int) -> QHistCarry:
+    """A zero carry of the leaves `slots` [S] i32 over `f` features, on
+    the slots' device."""
+    dev = slots.device
+    if slots.dim() != 1 or slots.dtype != torch.int32 or \
+            slots.shape[0] == 0:
+        raise LightGBMError("slots must be [S] int32 with S >= 1")
+    if dev.type not in ("cpu", "cuda"):
+        raise LightGBMError(f"no quantized histogram carry kernel for {dev}")
+    dtype = torch.int64 if dev.type == "cpu" else torch.int32
+    return QHistCarry(slots, max_bin, torch.zeros(
+        (slots.shape[0], f, max_bin, 3), dtype=dtype, device=dev))
+
+
+def histogram_carry_q_update(carry: QHistCarry, bins_fm: torch.Tensor,
+                             pw3: torch.Tensor,
+                             leaf_id: torch.Tensor) -> QHistCarry:
+    """Fold one shard's rows (bins [F, n] u8/u16, lattice pw3 [3, n]
+    int8, leaf ids [n] i32) into the carry.  CUDA tensors launch
+    `csrc/histogram_q.cu lgbt_histogram_carry_q` a group of up to 42
+    slots; CPU tensors add each slot's rows with an int64 `index_add_`
+    (`histogram_multi_quantized_plain`'s sums)."""
+    global HIST_CARRY_Q_LAUNCHES
+    mb = carry.max_bin
+    sl = carry.slots
+    _check_q(bins_fm, pw3, leaf_id, sl, mb)
+    f, n = bins_fm.shape
+    if carry.acc.shape[1] != f:
+        raise LightGBMError(f"the carry holds {carry.acc.shape[1]} "
+                            f"features, the shard {f}")
+    dev = bins_fm.device
+    if dev.type == "cpu":
+        carry_q_plain_update(carry.acc, bins_fm, pw3, leaf_id, sl, mb)
+        return carry
+    if dev.type != "cuda":
+        raise LightGBMError(f"no quantized histogram carry kernel for {dev}")
+    for t in (bins_fm, pw3, leaf_id):
+        if not t.is_contiguous():
+            raise LightGBMError("histogram inputs must be contiguous")
+    if n == 0:
+        return carry
+    from ..compiler import _build
+    lib = _build.load("histogram_q")
+    for c0 in range(0, sl.shape[0], MULTI_CHUNK_Q):
+        sg = sl[c0:c0 + MULTI_CHUNK_Q]
+        k = sg.shape[0]
+        plan = launch_plan_q(n, f, k, mb)
+        scratch, rowbuf, work = q_first_stage_scratch(n, k, f, mb,
+                                                      plan.chunks, dev)
+        dst = carry.acc[c0:c0 + k]
+        rc = _build.on_stream(dev, lambda stream: lib.lgbt_histogram_carry_q(
+            bins_fm.data_ptr(), bins_fm.element_size(), pw3.data_ptr(),
+            leaf_id.data_ptr(), sg.data_ptr(), n, f, k, mb,
+            plan.feature_group, plan.chunks, rowbuf, ticket(dev, stream),
+            work, dst.data_ptr(), ctypes.c_void_p(stream)))
+        if rc != 0:
+            raise LightGBMError(f"quantized histogram carry kernel launch "
+                                f"failed: CUDA error {rc}")
+        HIST_CARRY_Q_LAUNCHES += 1
+    return carry
+
+
+def carry_q_plain_update(acc: torch.Tensor, bins_fm: torch.Tensor,
+                         pw3: torch.Tensor, leaf_id: torch.Tensor,
+                         slots: torch.Tensor, max_bin: int) -> None:
+    """The int32 carry's plain version: each slot's rows of the shard
+    `index_add_`ed into the integer sums `acc` [S, F, MB, 3] (int64 on
+    the CPU), any device."""
+    f = bins_fm.shape[0]
+    vals = pw3.t().to(torch.int64)
+    bins = bins_fm.to(torch.int64)
+    offs = torch.arange(f, dtype=torch.int64,
+                        device=bins.device)[:, None] * max_bin
+    flat = acc.view(slots.shape[0], f * max_bin, 3)
+    for i, slot in enumerate(slots.tolist()):
+        rows = torch.nonzero(leaf_id == slot).squeeze(1)
+        flat[i].index_add_(0, (bins[:, rows] + offs).reshape(-1),
+                           vals[rows].repeat(f, 1).to(acc.dtype))
+
+
+def histogram_carry_q_finalize(carry: QHistCarry, s_g, s_h) -> torch.Tensor:
+    """[S, F, MB, 3] f32: the carried sums dequantized once (K4's
+    `dequant_cell` on a CUDA device, `dequantize` on the CPU)."""
+    global HIST_CARRY_Q_LAUNCHES
+    acc = carry.acc
+    dev = acc.device
+    sc = _scales(s_g, s_h, dev)
+    if dev.type == "cpu":
+        return dequantize(acc, sc[0], sc[1])
+    from ..compiler import _build
+    lib = _build.load("histogram_q")
+    out = torch.empty(acc.shape, dtype=torch.float32, device=dev)
+    rc = _build.on_stream(dev, lambda stream:
+                          lib.lgbt_histogram_carry_q_finalize(
+                              acc.data_ptr(), acc.numel(), sc.data_ptr(),
+                              out.data_ptr(), ctypes.c_void_p(stream)))
+    if rc != 0:
+        raise LightGBMError(f"quantized histogram carry finalize failed: "
+                            f"CUDA error {rc}")
+    HIST_CARRY_Q_LAUNCHES += 1
+    return out

@@ -56,9 +56,8 @@ from .batcher import ServingOverloadError
 from .client import ServingClient
 from .runtime import ServingDeviceError, ServingUnavailableError
 
-#: the ROADMAP item the JAX package's other debug endpoints wait for
-_WAITS = ("the fleet snapshot and the memory ledger wait for ROADMAP "
-          "Queue 1 item 5g")
+#: the ROADMAP item the JAX package's fleet endpoint waits for
+_WAITS = "the fleet snapshot waits for ROADMAP Queue 1 item 5g"
 
 
 class ServingHTTPHandler(BaseHTTPRequestHandler):
@@ -166,7 +165,11 @@ class ServingHTTPHandler(BaseHTTPRequestHandler):
                 return
             self._send_json(
                 200, telemetry.SERVE_RECORDER.snapshot(limit=limit))
-        elif url.path in ("/debug/fleet", "/debug/memory"):
+        elif url.path == "/debug/memory":
+            # the attributed owners and the allocator's reconcile, run on
+            # this debug request, not on a serving thread
+            self._send_json(200, telemetry.MEMLEDGER.debug_snapshot())
+        elif url.path == "/debug/fleet":
             self._send_json(404, {"error": f"{url.path}: {_WAITS}"})
         else:
             self._send_json(404, {"error": f"unknown path {self.path}"})

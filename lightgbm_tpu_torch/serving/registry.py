@@ -130,6 +130,8 @@ class ServingModel:
     def close(self) -> None:
         self.batcher.close()
         self.join_refresh(timeout=30.0)
+        if self.runtime is not None:
+            self.runtime.ledger_release()
 
 
 class ModelRegistry:
@@ -244,6 +246,11 @@ class ModelRegistry:
                                     freed_bytes=freed)
                     used -= freed
         self._update_vram_gauge()
+        # the declared ceiling against what the admit measured: a
+        # violation here means the demotions did not free what they said
+        telemetry.MEMLEDGER.audit(
+            "serve_vram_budget_mb", budget, used + need, model=name,
+            site="registry.admit", need_bytes=need, used_bytes=used)
         if used + need > budget:
             raise LightGBMError(
                 f"serving model {name!r} needs {need} device bytes but "

@@ -298,6 +298,7 @@ class ServingRuntime:
         self._reprobe_threads: Dict[str, threading.Thread] = {}
         self._refresh_lock = make_lock("serving.runtime._refresh_lock")
         self._state: Optional[_ServeState] = None
+        self._ledger_handles: List = []
         self.refresh()
 
     # ------------------------------------------------------------ export
@@ -319,6 +320,7 @@ class ServingRuntime:
                     raise LightGBMError(f"{st.rung} parity probe failed at "
                                         f"refresh: {detail}")
             self._state = st
+            self._ledger_register(st)
             for br in self._breakers.values():
                 br.reset()
         telemetry.REGISTRY.counter("serve.rung_selected", rung=st.rung,
@@ -338,10 +340,20 @@ class ServingRuntime:
         else:
             if self._compiled_mode != "off":
                 try:
-                    plan = build_plan(ex, tile_vmem_kb=self._tile_vmem_kb)
+                    plan = build_plan(ex, tile_vmem_kb=self._tile_vmem_kb,
+                                      name=self.name)
                 except PlanNotCompilable as e:
                     telemetry.event("serve.compiled_refused",
                                     model=self.name, detail=str(e)[:200])
+                if plan is not None and plan.tile_stats:
+                    # the packer's promise that every tile fits
+                    # serve_tile_vmem_kb, held to what it packed
+                    telemetry.MEMLEDGER.audit(
+                        "serve_tile_vmem_kb", self._tile_vmem_kb * 1024,
+                        max(int(s.get("bytes", 0))
+                            for s in plan.tile_stats),
+                        model=self.name, site="serve.compiled_enable",
+                        tiles=len(plan.tile_stats))
             if plan is not None:
                 st.exact, st.cause = "compiled", "plan"
             elif self._device_sum_mode != "off":
@@ -401,7 +413,8 @@ class ServingRuntime:
         else:
             try:
                 if plan is None:
-                    plan = build_plan(ex, tile_vmem_kb=self._tile_vmem_kb)
+                    plan = build_plan(ex, tile_vmem_kb=self._tile_vmem_kb,
+                                      name=self.name)
                 return pack_bounded(ex["trees"], plan, ex["leaf_values"],
                                     ex["num_class"],
                                     bits=self._quant_bits), plan
@@ -518,8 +531,45 @@ class ServingRuntime:
             self._booster._export_cache = None
             self._booster._device_predict_cache = None
             self._state = new
+            self._ledger_register(new)
         telemetry.REGISTRY.counter("serve.demotions").inc()
         return freed
+
+    # ------------------------------------------------------------ ledger
+    def _ledger_register(self, st: _ServeState) -> None:
+        """The published state's device tensors attributed in the memory
+        ledger under `serve.<name>.planes{rung=}` (the reference's
+        `_ledger_register`): the stacked traversal planes and f64 values,
+        the compiled plan's planes and records, the bounded tier's
+        planes.  `assign` drops the previous state's handles first; a
+        demoted state assigns nothing, which is the release."""
+        led = telemetry.MEMLEDGER
+        if not led.enabled:
+            return
+        owner = f"serve.{self.name}.planes"
+        groups = {"stacked": [], "compiled": [], "bounded": []}
+        d = st.dev
+        if d is not None and not st.demoted:
+            groups["stacked"] = list((d.stacked or {}).values()) \
+                + [d.value_f64]
+            groups["compiled"] = [d.gidx] + [
+                a for b in (d.planes or ()) for a in b] + (
+                [d.records.nodes, d.records.meta, d.records.catw]
+                if d.records is not None else [])
+            groups["bounded"] = [d.qval, d.tile, d.scales] + list(
+                d.groups or ())
+        self._ledger_handles = [
+            h for rung, arrays in groups.items()
+            for h in led.assign(owner, [a for a in arrays if a is not None],
+                                rung=rung)]
+
+    def ledger_release(self) -> None:
+        """Stop attributing this runtime's planes (an unloaded model),
+        handle by handle: a runtime that replaced it under the same name
+        keeps its own."""
+        for h in self._ledger_handles:
+            telemetry.MEMLEDGER.release(h)
+        self._ledger_handles = []
 
     def _tensors(self, st: _ServeState) -> _Tensors:
         """The state's tensors on the device (uploaded for this call when
@@ -768,6 +818,11 @@ class ServingRuntime:
             else self._booster.objective_.convert_output
 
         def device():
+            with telemetry.MEMLEDGER.oom_guard(f"serve.dispatch.{rung}",
+                                               model=self.name):
+                return dispatch()
+
+        def dispatch():
             FAULTS.inject(f"serve.dispatch.{rung}")
             t = time.perf_counter()
             dev = self._tensors(st)
@@ -841,7 +896,12 @@ class ServingRuntime:
         buf = np.zeros((b, Xc.shape[1]), np.float32)
         with np.errstate(over="ignore"):
             buf[:Xc.shape[0]] = Xc
-        return torch.from_numpy(buf).to(self.device)
+        out = torch.from_numpy(buf).to(self.device)
+        if out.device.type != "cpu":
+            # freed with the request (weakref); host rows are not device
+            # memory
+            telemetry.MEMLEDGER.register(f"serve.{self.name}.staging", out)
+        return out
 
     def _convert(self, raw: np.ndarray) -> np.ndarray:
         """The objective's link over host f64 raw scores, on the device,

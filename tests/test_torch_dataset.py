@@ -148,9 +148,10 @@ def test_inputs_of_later_slices_raise(tmp_path):
     since item 5e's first half (tests/test_torch_file_input.py,
     tests/test_torch_datastore.py); groups, sparse, pandas, Arrow and
     the binary cache train since item 5d (tests/test_torch_inputs.py).
-    What still waits is the streamed grower (item 5e's second half):
-    training a spilled set whose bins exceed `datastore_budget_mb` under
-    `streaming_train=auto` raises, and leaves the store unassembled."""
+    Since item 5e's second half a spilled set whose bins exceed
+    `datastore_budget_mb` trains under `streaming_train=auto` on the
+    shard-streamed grower (tests/test_torch_streaming.py), and its store
+    stays unassembled."""
     X = np.random.RandomState(0).randn(300, 2)
     y = (X[:, 0] > 0).astype(float)
     path = str(tmp_path / "train.csv")
@@ -161,10 +162,11 @@ def test_inputs_of_later_slices_raise(tmp_path):
     spilled = lt.Dataset(X, label=y, params={"external_memory": True,
                                              "datastore_budget_mb": 1e-4})
     assert spilled.construct().bin_data is None
-    with pytest.raises(lt.LightGBMError, match="item 5e, second half"):
-        lt.train({"objective": "binary", "verbosity": -1,
-                  "device_type": "cpu", "external_memory": True,
-                  "datastore_budget_mb": 1e-4}, spilled, 1)
+    bst = lt.train({"objective": "binary", "verbosity": -1,
+                    "device_type": "cpu", "external_memory": True,
+                    "datastore_budget_mb": 1e-4}, spilled, 1)
+    assert bst._streaming is not None and bst.num_trees() == 1
+    assert spilled.bin_data is None and bst._dd._bins_fm is None
 
 
 def test_dataset_from_numpy_carries_jax_bins_over():

@@ -5,9 +5,9 @@ naming the file, `save_binary` is refused, a subset reads only its
 shards, `append_rows` grows a store, `auto_shard_rows` is the
 reference's, the assembly stays in its budget, a bundled set spills and
 assembles its bundle payload, the two_round route from a file bins
-straight into the store, and the port refuses, naming ROADMAP item 5e's
-second half, where the reference would train on its shard-streamed
-grower.  Spilled models of the golden families: test_torch_datastore.py."""
+straight into the store, and the port streams where the reference
+streams (the shard-streamed grower: tests/test_torch_streaming.py).
+Spilled models of the golden families: test_torch_datastore.py."""
 import glob
 import json
 import os
@@ -211,18 +211,20 @@ def _over_budget():
 
 
 def test_streaming_choice_refuses_where_the_reference_streams():
-    """streaming_train=on, and auto over the budget, raise naming item
-    5e's second half, and never assemble instead; off over the budget
-    assembles (the reference's model), and auto where the reference
-    downgrades (DART) assembles with its warning."""
+    """streaming_train=on, and auto over the budget, stream where the
+    reference streams, its streamed model byte for byte, and never
+    assemble; off over the budget assembles (the reference's model), and
+    auto where the reference downgrades (DART) assembles with its
+    warning."""
     X, y, params = _over_budget()
-    with pytest.raises(lt.LightGBMError, match="item 5e, second half"):
-        lt.train(dict(params, streaming_train="on"), lt.Dataset(X, label=y),
-                 1)
-    ds = lt.Dataset(X, label=y)
-    with pytest.raises(lt.LightGBMError, match="item 5e, second half"):
-        lt.train(params, ds, 1)
-    assert ds.bin_data is None
+    for extra in ({"streaming_train": "on"}, {}):
+        ds = lt.Dataset(X, label=y)
+        bst = lt.train(dict(params, **extra), ds, 2)
+        assert bst._streaming is not None
+        assert ds.bin_data is None and bst._dd._bins_fm is None
+        assert _strip(bst.model_to_string()) == _strip(lgb.train(
+            dict(params, **extra), lgb.Dataset(X, label=y),
+            2).model_to_string())
     off = dict(params, streaming_train="off")
     assert lt.train(off, lt.Dataset(X, label=y), 3).model_to_string() == \
         lgb.train(off, lgb.Dataset(X, label=y), 3).model_to_string()

@@ -35,7 +35,8 @@ MODULES = ("serving.runtime", "interop", "basic", "booster", "callback",
            "telemetry.request_trace", "serving.batcher", "serving.client",
            "serving.http", "serving.registry", "rank_objective",
            "ops.renew", "cli", "datastore.format", "datastore.store",
-           "datastore.prefetch", "datastore.assemble")
+           "datastore.prefetch", "datastore.assemble", "streaming.engine",
+           "telemetry.memledger")
 
 
 def test_every_module_is_listed():

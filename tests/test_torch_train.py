@@ -234,9 +234,9 @@ REFUSED = [
      None),
     ({"use_quantized_grad": True}, None),
     ({"tree_grow_policy": "bogus"}, "Unknown tree_grow_policy"),
-    ({"streaming_train": "on"}, "item 5e"),
+    ({"streaming_train": "on"}, None),
     ({"external_memory": True}, None),
-    ({"datastore_budget_mb": 0.001, "external_memory": True}, "item 5e"),
+    ({"datastore_budget_mb": 0.001, "external_memory": True}, None),
     ({"tree_learner": "data"}, "item 5f"),
     ({"num_machines": 2}, "item 5f"),
     ({"hist_impl": "packed"}, None),
@@ -262,9 +262,9 @@ def test_refused_settings_raise(extra, match):
     item 5d's first half, whose forced-splits case needs a file and
     trains in test_torch_forced_pool.py; the objectives and metrics of
     its second half; external memory, whose spilled bins assemble on the
-    device, since item 5e's first half).  Streamed training, which
+    device, since item 5e's first half; streamed training, which
     `streaming_train=on` asks for and `auto` takes for spilled bins over
-    `datastore_budget_mb`, waits for item 5e's second half."""
+    `datastore_budget_mb`, since its second half)."""
     X = np.random.RandomState(0).randn(200, 6)
     y = (X[:, 0] > 0).astype(float)
     params = dict({"objective": "binary", "verbosity": -1,
