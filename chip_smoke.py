@@ -13,6 +13,7 @@ and check them.
     python3 chip_smoke.py --phases train_sparse   # CSR, binary cache
     python3 chip_smoke.py --phases train_files   # files, external memory
     python3 chip_smoke.py --phases train_stream   # streamed, the ledger
+    python3 chip_smoke.py --phases train_dist,serve_sharded   # 2 ranks
     python3 chip_smoke.py --phases golden,main       # serving alone
     python3 chip_smoke.py --phases predict_api   # device_predict, options
     python3 chip_smoke.py --phases serve_plane   # rungs, registry, HTTP
@@ -351,6 +352,23 @@ Phases, each printing one JSON line:
           against `torch.cuda.memory_stats` and its owners.  serve_plane
           also reads `GET /debug/memory`: 200, the model's planes within
           the allocator's bytes.
+  train_dist distributed training on two gloo ranks, processes of this
+          script (`--dist-worker`) that share the one GPU (compute mode
+          Default, read first), each holding half of the 2M rows from
+          one `save_binary` file: `tree_learner=data` on the bench's
+          wave (5 rounds; the ring of f32 carries, K3 on the finalized
+          histograms), the quantized wave (3; the int32 carries summed)
+          and strict at 31 leaves (2), the feature learner (2; K1 on a
+          rank's block under the whole matrix's plan) and voting
+          (top_k 10, 2): data and feature models byte for byte the
+          serial card models trained first, voting's held-out AUC within
+          1e-3; carry launches on each rank; round ms beside the serial
+          rounds, hops a tree, bytes a hop, the D2H / gloo / H2D
+          seconds, each rank's peak allocation.
+  serve_sharded main's model on two replicas of the GPU
+          (`devices=[cuda:0, cuda:0]`): bitwise the one-device runtime at
+          1, 256, 4096 rows and ragged tails; `serve_shard_devices=2`
+          raises at load on a one-GPU card; p50 in turns.
   compare (with --phases and --baseline DIR only) K1, K2, K3, K4, K5,
           the link kernel and the quantize step of this checkout and of
           the checkout in DIR on the same inputs: K1 and K2 agree within
@@ -377,7 +395,9 @@ Phases, each printing one JSON line:
           K1-K5 their train_breadth, train_objectives, train_rank,
           train_sparse and train_files launches, threefry its train_rank
           launches; the two carry entries: train_stream's streamed
-          runs),
+          runs; K1, the carries, K3 and the link also their two ranks'
+          train_dist launches, the fused serving kernel its
+          serve_sharded launches),
           parity, times, bound.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
@@ -5794,6 +5814,350 @@ def phase_train_stream(data: TrainData, modules, device=None,
     return entries
 
 
+# ------------------------------------------------------------ train_dist
+#: ranks of the distributed phase: gloo processes sharing the one card
+DIST_WORLD = 2
+#: the voting runs' local top_k: 2 top_k = 20 of the 28 features elected
+DIST_TOP_K = 10
+#: the serial card models the distributed runs are held to: (params,
+#: rounds)
+DIST_SERIAL = {"wave": (WAVE_PARAMS, 5), "quant_wave": (QUANT_PARAMS, 3),
+               "strict": (dict(TRAIN_PARAMS, num_leaves=31), 2)}
+#: (name, learner, serial run, gate): the two ranks' runs, at the serial
+#: run's params and rounds; "bitwise" holds the model text to the serial
+#: card model's byte for byte (less the parameter lines), "auc" the
+#: held-out AUC within DIST_AUC_TOL of it
+DIST_RUNS = (("data_wave", "data", "wave", "bitwise"),
+             ("data_quant_wave", "data", "quant_wave", "bitwise"),
+             ("data_strict", "data", "strict", "bitwise"),
+             ("feature", "feature", "strict", "bitwise"),
+             ("voting", "voting", "strict", "auc"))
+DIST_AUC_TOL = 1e-3
+#: seconds the ranks may take together
+DIST_TIMEOUT_S = 900
+
+
+def _dist_counters():
+    from lightgbm_tpu_torch.ops import fused_kernel, hist_kernel, \
+        hist_kernel_q, xla_math
+    return {"histogram": hist_kernel.HIST_LAUNCHES,
+            "histogram_carry": hist_kernel.HIST_CARRY_LAUNCHES,
+            "histogram_q": hist_kernel_q.HIST_Q_LAUNCHES,
+            "histogram_carry_q": hist_kernel_q.HIST_CARRY_Q_LAUNCHES,
+            "fused_hist_split": fused_kernel.FUSED_LAUNCHES,
+            "fused_hist_split_q": fused_kernel.FUSED_Q_LAUNCHES,
+            "split_scan": fused_kernel.SCAN_LAUNCHES,
+            "xla_link": xla_math.LINK_LAUNCHES}
+
+
+def _zero_dist_counters():
+    from lightgbm_tpu_torch.ops import fused_kernel, hist_kernel, \
+        hist_kernel_q, xla_math
+    hist_kernel.HIST_LAUNCHES = hist_kernel.HIST_CARRY_LAUNCHES = 0
+    hist_kernel_q.HIST_Q_LAUNCHES = hist_kernel_q.HIST_CARRY_Q_LAUNCHES = 0
+    fused_kernel.FUSED_LAUNCHES = fused_kernel.FUSED_Q_LAUNCHES = 0
+    fused_kernel.SCAN_LAUNCHES = 0
+    xla_math.LINK_LAUNCHES = 0
+
+
+def _dist_params(learner, serial, device=None):
+    params, rounds = DIST_SERIAL[serial]
+    p = dict(params, tree_learner=learner, memory_ledger=True)
+    if device is not None:
+        p["device_type"] = device
+    if learner == "voting":
+        p["top_k"] = DIST_TOP_K
+    return p, rounds
+
+
+def dist_worker(rank: int, world: int, store: str, job_path: str) -> int:
+    """One rank of the train_dist phase (`--dist-worker`): joins the gloo
+    group through the file store, loads the job's `save_binary` file, and
+    trains each run on the card (the device every rank shares), its
+    launches counted from 0 just before and read just after; writes each
+    model text and one JSON report beside the job."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import mesh
+    from lightgbm_tpu_torch.telemetry import MEMLEDGER
+    with open(job_path) as f:
+        job = json.load(f)
+    cuda = job["device"] is None
+    if not cuda:
+        torch.set_num_threads(1)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mesh.init(f"file://{store}", world, rank, backend="gloo",
+              timeout_ms=job["timeout_ms"])
+    t0 = time.perf_counter()
+    ds = lt.Dataset.load_binary(job["data"])
+    report = {"rank": rank, "load_s": time.perf_counter() - t0, "runs": {}}
+    for name, learner, serial, _ in DIST_RUNS:
+        params, rounds = _dist_params(learner, serial, job["device"])
+        _zero_dist_counters()
+        mesh.reset_stats()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bst, ms = _rounds_ms(params, ds, rounds, sync)
+        wall = time.perf_counter() - t0
+        launches = _dist_counters()
+        stats = {k: dict(v) for k, v in mesh.STATS.items()}
+        with open(os.path.join(job["out"], f"{name}.r{rank}.txt"),
+                  "w") as f:
+            f.write(bst.model_to_string())
+        report["runs"][name] = {
+            "round_ms": ms.tolist(), "wall_s": wall, "launches": launches,
+            "collectives": stats, "trees": len(bst.trees),
+            "peak_allocated": torch.cuda.max_memory_allocated()
+            if cuda else None,
+            "ledger_peak_bytes": MEMLEDGER.snapshot()["devices"].get(
+                f"dev{torch.cuda.current_device()}" if cuda else "host",
+                {}).get("peak_bytes")}
+        del bst
+    with open(os.path.join(job["out"], f"report.r{rank}.json"), "w") as f:
+        json.dump(report, f)
+    mesh.shutdown()
+    return 0
+
+
+def _compute_mode() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+
+
+def _stage_totals(stats):
+    """The seconds of the D2H copies, the collectives and the H2D copies
+    summed over a rank's collectives, and their calls and bytes."""
+    return {k: sum(v[k] for v in stats.values())
+            for k in ("d2h_s", "comm_s", "h2d_s", "calls", "bytes")}
+
+
+def phase_train_dist(data: TrainData, device=None):
+    """Distributed training (ROADMAP Queue 1 item 5f) on the card: two
+    gloo ranks, processes of this script (`--dist-worker`), both on the
+    one GPU, each holding half of the train phase's 2M rows.  The parent
+    writes the Dataset with `save_binary`, which every rank loads, trains
+    the serial card models (DIST_SERIAL), then runs the ranks (DIST_RUNS):
+    the bench's wave with `tree_learner=data` (the ring of f32 carries,
+    K3 over the finalized histograms), the quantized wave (the int32
+    carries summed), strict at 31 leaves, the feature learner (K1 on a
+    rank's block under the whole matrix's plan) and voting (top_k 10).
+    Gates: every run's two ranks agree; data and feature model texts the
+    serial card model's byte for byte (less the parameter lines); voting's
+    held-out AUC within 1e-3 of the serial strict model's; the carry
+    kernels launched on each rank.  Reports round ms beside the serial
+    rounds, hops a tree and bytes a hop, the D2H / gloo / H2D seconds,
+    each rank's peak allocation (torch's and the memory ledger's).
+    Returns the ranks' launches summed, by kernel."""
+    import shutil
+    import tempfile
+    import torch
+    import lightgbm_tpu_torch as lt
+    t_phase = time.perf_counter()
+    cuda = device is None
+    report = {"phase": "train_dist", "world": DIST_WORLD,
+              "compute_mode": _compute_mode() if cuda else None}
+    _check(not cuda or report["compute_mode"] == "Default",
+           f"train_dist: compute mode {report['compute_mode']!r}: two "
+           "processes share the GPU only in Default mode")
+    tmp = tempfile.mkdtemp(prefix="train_dist_", dir=ROOT)
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "train.bin")
+        data.dataset.save_binary(path)
+        report["save_binary_s"] = time.perf_counter() - t0
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        serial = {}
+        for key, (params, rounds) in DIST_SERIAL.items():
+            params = dict(params)
+            if not cuda:
+                params["device_type"] = device
+            bst, ms = _rounds_ms(params, data.dataset, rounds, sync)
+            serial[key] = {"text": _without_params(bst.model_to_string()),
+                           "round_ms": ms.tolist(),
+                           "auc": _auc(bst.predict(data.X_hold),
+                                       data.y_hold)}
+            del bst
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"data": path, "out": tmp, "device": device,
+                       "timeout_ms": DIST_TIMEOUT_S * 1000.0 / 3}, f)
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+                for r in range(DIST_WORLD)]
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             str(r), str(DIST_WORLD), store, job], stdout=logs[r],
+            stderr=subprocess.STDOUT, cwd=ROOT) for r in range(DIST_WORLD)]
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+        for lf in logs:
+            lf.close()
+        report["ranks_s"] = time.perf_counter() - t0
+        rcs = [p.poll() for p in procs]
+        if rcs != [0] * DIST_WORLD:
+            tails = []
+            for r in range(DIST_WORLD):
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    tails.append(f"rank {r}: " + f.read()[-2000:])
+            raise Failure(f"train_dist: ranks exited {rcs}\n"
+                          + "\n".join(tails))
+        reps = []
+        for r in range(DIST_WORLD):
+            with open(os.path.join(tmp, f"report.r{r}.json")) as f:
+                reps.append(json.load(f))
+        launches = {}
+        runs = {}
+        for name, learner, skey, gate in DIST_RUNS:
+            texts = []
+            for r in range(DIST_WORLD):
+                with open(os.path.join(tmp, f"{name}.r{r}.txt")) as f:
+                    texts.append(f.read())
+            _check(all(t == texts[0] for t in texts),
+                   f"train_dist: {name}: the ranks' models differ")
+            ser = serial[skey]
+            run = {"learner": learner, "serial": skey, "gate": gate}
+            if gate == "bitwise":
+                _check(_without_params(texts[0]) == ser["text"],
+                       f"train_dist: {name}'s model differs from the "
+                       f"serial card model ({skey})")
+                run["model_text_identical"] = True
+            else:
+                auc = _auc(lt.Booster(model_str=texts[0]).predict(
+                    data.X_hold), data.y_hold)
+                run["auc"], run["serial_auc"] = auc, ser["auc"]
+                _check(abs(auc - ser["auc"]) <= DIST_AUC_TOL,
+                       f"train_dist: {name}: AUC {auc} vs serial "
+                       f"{ser['auc']}")
+            per_rank = []
+            for rep in reps:
+                rr = rep["runs"][name]
+                st = rr["collectives"]
+                hops = st.get("ring_fold", {"calls": 0, "bytes": 0})
+                carry = rr["launches"]["histogram_carry_q"
+                                       if skey == "quant_wave"
+                                       else "histogram_carry"]
+                if learner == "data" and cuda:
+                    _check(carry > 0, f"train_dist: {name}: rank "
+                           f"{rep['rank']} launched no carry kernel")
+                per_rank.append({
+                    "round_ms": rr["round_ms"], "launches": rr["launches"],
+                    "hops_per_tree": hops["calls"] / rr["trees"],
+                    "bytes_per_hop": hops["bytes"] / hops["calls"]
+                    if hops["calls"] else 0,
+                    "stages": _stage_totals(st), "collectives": st,
+                    "wall_s": rr["wall_s"],
+                    "peak_allocated": rr["peak_allocated"],
+                    "ledger_peak_bytes": rr["ledger_peak_bytes"]})
+                for k, v in rr["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            run["serial_round_ms"] = ser["round_ms"]
+            run["ranks"] = per_rank
+            runs[name] = run
+        report["runs"] = runs
+        report["load_s"] = [rep["load_s"] for rep in reps]
+        report["launches"] = launches
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    _emit(report)
+    return launches
+
+
+# ---------------------------------------------------------- serve_sharded
+#: request sizes of the sharded serving phase, and the ragged tails
+SHARD_ROWS = (1, 256, 4096)
+SHARD_RAGGED = (257, 1000, 4097, 9001)
+
+
+def phase_serve_sharded(seed, device=None, timing=True):
+    """The sharded serving runtime (ROADMAP Queue 1 item 5f) on the card:
+    main's 500-tree model on two replicas of the one GPU
+    (`devices=[cuda:0, cuda:0]`), its answers bitwise the one-device
+    runtime's at 1, 256 and 4096 rows and on ragged tails, raw and
+    converted; `ModelRegistry(serve_shard_devices=2)` raises "exceeds
+    visible devices" at load where fewer GPUs are visible.  Reports p50
+    at each size, sharded and one-device, in turns; the routed rows.
+    Returns the fused serving kernel's launches of the sharded runs."""
+    import torch
+    from lightgbm_tpu_torch import Booster, ServingRuntime, LightGBMError
+    from lightgbm_tpu_torch.compiler import kernel
+    from lightgbm_tpu_torch.serving import (ModelRegistry,
+                                            ShardedServingRuntime)
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda", 0)
+    bst = Booster(model_str=synthetic_forest_text(seed))
+    rng = np.random.RandomState(seed + 7)
+    reqs = {n: request_rows(rng, n) for n in SHARD_ROWS + SHARD_RAGGED}
+    one = ServingRuntime(bst, device=dev)
+    kernel.SERVE_LAUNCHES = 0
+    sh = ShardedServingRuntime(bst, devices=[dev, dev], name="sharded")
+    answers = {n: (sh.predict(X, raw_score=True), sh.predict(X))
+               for n, X in reqs.items()}
+    launches = kernel.SERVE_LAUNCHES
+    _check(launches > 0, "serve_sharded: no fused serving launch")
+    for n, X in reqs.items():
+        _check(_bits_equal(answers[n][0], one.predict(X, raw_score=True))
+               and _bits_equal(answers[n][1], one.predict(X)),
+               f"serve_sharded: {n} rows differ from the one-device "
+               "runtime")
+    p50 = {}
+    if timing:
+        for n in SHARD_ROWS:
+            tt = {"sharded": [], "one": []}
+            for _ in range(30):
+                for key, rt in (("sharded", sh), ("one", one)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    rt.predict(reqs[n])
+                    torch.cuda.synchronize()
+                    tt[key].append(time.perf_counter() - t)
+            p50[str(n)] = {k: float(np.median(v)) * 1e3
+                           for k, v in tt.items()}
+    report = {"phase": "serve_sharded", "replicas": sh.num_replicas,
+              "devices": [str(d) for d in sh.devices],
+              "bitwise_one_device": sorted(reqs), "p50_ms": p50,
+              "routed_rows": sh.routed_rows(),
+              "device_bytes": sh.device_bytes(),
+              "one_device_bytes": one.device_bytes(), "launches": launches}
+    visible = torch.cuda.device_count()
+    reg = ModelRegistry({"serve_shard_devices": 2, "serve_warmup": False})
+    try:
+        if visible < 2:
+            try:
+                reg.load("m", bst)
+                raised = ""
+            except LightGBMError as e:
+                raised = str(e)
+            _check("exceeds visible devices" in raised,
+                   f"serve_sharded: serve_shard_devices=2 on {visible} "
+                   f"GPU(s) did not raise at load: {raised!r}")
+            report["overflow_raised"] = raised
+        else:
+            entry = reg.load("m", bst)
+            _check(_bits_equal(reg.predict(reqs[256], model="m"),
+                               one.predict(reqs[256])),
+                   "serve_sharded: the registry's sharded runtime differs")
+            report["registry_replicas"] = entry.runtime.num_replicas
+    finally:
+        reg.close()
+    report["phase_s"] = time.perf_counter() - t_phase
+    _emit(report)
+    return launches
+
+
 # ------------------------------------------------------- predict_api
 #: `device_predict`'s request sizes (100,000 rows: two chunks of 65,536)
 PREDICT_ROWS = (1, 256, 4096, 10_000, 100_000)
@@ -6986,6 +7350,8 @@ KERNEL_PHASES = {"golden": lambda d, s, b: phase_golden(s),
                      d(), _train_modules(), seed=s),
                  "train_stream": lambda d, s, b: phase_train_stream(
                      d(), _train_modules()),
+                 "train_dist": lambda d, s, b: phase_train_dist(d()),
+                 "serve_sharded": lambda d, s, b: phase_serve_sharded(s),
                  "predict_api": lambda d, s, b: phase_predict_api(s),
                  "serve_plane": lambda d, s, b: phase_serve_plane(s),
                  "compare": lambda d, s, b: (phase_compare(d(), s, b),
@@ -7043,11 +7409,19 @@ def main(argv=None) -> int:
                     help="comma-separated kernel phases to run alone "
                     f"({','.join(KERNEL_PHASES)}): their lines only, no "
                     "kernels line and no final line")
+    ap.add_argument("--dist-worker", nargs=4, default=None,
+                    metavar=("RANK", "WORLD", "STORE", "JOB"),
+                    help="run one rank of the train_dist phase (the phase "
+                    "starts these itself)")
     ap.add_argument("--baseline", default=None,
                     help="another checkout whose K1, K2, K4, K5 and "
                     "serving kernels the compare phases time beside this "
                     "one's")
     args = ap.parse_args(argv)
+    if args.dist_worker:
+        sys.path.insert(0, ROOT)
+        r, w, store, job = args.dist_worker
+        return dist_worker(int(r), int(w), store, job)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7141,6 +7515,13 @@ def main(argv=None) -> int:
                 if k["name"] in got:
                     k[f"{phase}_launches"] = got[k["name"]]
         kernels += phase_train_stream(data, modules)
+        dist = phase_train_dist(data)
+        sharded = phase_serve_sharded(args.seed)
+        for k in kernels:
+            if k["name"] in dist:
+                k["train_dist_launches"] = dist[k["name"]]
+            if k["name"] == "serve_forest":
+                k["serve_sharded_launches"] = sharded
         _emit({"phase": "kernels", "kernels": [
             {"name": k["name"], "launches": k["launches"],
              "parity": ("within_tol" if k["name"] in WITHIN_TOL

@@ -92,11 +92,12 @@ from .ops.threefry import fold_in, prng_key
 from .tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree
 from .utils import log
 from .utils.binning import BIN_TYPE_CATEGORICAL
+from .mesh.topology import (get_mesh, get_mesh_2level, parse_mesh_shape,
+                            world_size)
+from .parallel.learner import (make_distributed_grower, place_training_data,
+                               resolve_tree_learner)
 from .utils.config import Config
 from .utils.log import LightGBMError
-
-#: ROADMAP items that the training slice's refusals name
-DISTRIBUTED = "ROADMAP Queue 1 item 5f: distributed training"
 
 #: blocking device-to-host copies of a set's scores for evaluation
 #: (metrics and `feval`), one a set a call (`Booster._eval_score`)
@@ -211,9 +212,6 @@ def refusals(cfg: Config) -> List[str]:
     out = []
     if str(cfg.boosting).lower() not in ("gbdt", "goss", "dart", "rf"):
         out.append(f"unknown boosting type {cfg.boosting!r}")
-    if str(cfg.tree_learner).lower() != "serial" or cfg.num_machines > 1:
-        out.append(f"tree_learner={cfg.tree_learner}, num_machines="
-                   f"{cfg.num_machines} ({DISTRIBUTED})")
     return out
 
 
@@ -325,16 +323,44 @@ def packed_const_hess_level(cfg: Config, hist_impl: str, objective: str,
     return int(cfg.num_grad_quant_bins)
 
 
+def learner_topology(cfg: Config, bundled: bool = False):
+    """(kind, shards, world, dcn, two_level): the learner and the mesh
+    shape of `cfg` over this process group, the reference's
+    `_learner_topology` (`booster.py:776`).  Shards: `mesh_shape` when
+    set, else `num_machines` (> 1) or the group's world size, at most the
+    world size; a 2-level ("dcn", "ici") mesh for `tpu_dcn_slices` > 1
+    that divides them with >= 2 ranks a slice.  `kind` carries the EFB
+    and 2-level downgrades but not the one-rank serial fallback; quiet."""
+    name = cfg.tree_learner or "serial"
+    kind = resolve_tree_learner(name, bundled=bundled, quiet=True)
+    if kind == "serial":
+        return "serial", 1, 1, 1, False
+    world = world_size()
+    dims = parse_mesh_shape(cfg.mesh_shape) if cfg.mesh_shape else None
+    if dims is not None:
+        shards = int(np.prod(dims))
+        dcn = dims[0] if len(dims) == 2 else 1
+        two = len(dims) == 2
+    else:
+        shards = cfg.num_machines if (cfg.num_machines or 0) > 1 else world
+        shards = min(shards, world)
+        dcn = max(int(cfg.tpu_dcn_slices or 1), 1)
+        two = dcn > 1 and shards % dcn == 0 and shards // dcn > 1
+    kind = resolve_tree_learner(name, bundled=bundled, two_level=two,
+                                quiet=True)
+    return kind, shards, world, dcn, two
+
+
 def resolve_grow_policy(cfg: Config, monotone_intermediate: bool = False,
-                        pool_slots: int = 0) -> str:
+                        pool_slots: int = 0, learner: str = "serial") -> str:
     """`tree_grow_policy` resolved to "leafwise" or "wave" (the
     reference's `_resolve_grow_policy`, `booster.py:824`).  The wave
-    takes every setting of the strict grower but two, which downgrade it
-    to the strict grower with the reference's priced warning: the
-    intermediate monotone method and the bounded histogram pool
-    (`:845-856`); the reference's other reasons (distributed learners, a
-    failing kernel probe) are refusals of this port or do not apply.  An
-    unknown policy raises."""
+    takes every setting of the strict grower but three, which downgrade
+    it to the strict grower with the reference's priced warning: the
+    intermediate monotone method, the bounded histogram pool
+    (`:845-856`) and a distributed `learner` other than data (`:857-862`;
+    the one-rank fallback is serial); the reference's failing kernel
+    probe does not apply.  An unknown policy raises."""
     pol = str(cfg.tree_grow_policy or "leafwise").lower()
     if pol in ("leafwise", "leaf", "strict"):
         return "leafwise"
@@ -350,6 +376,9 @@ def resolve_grow_policy(cfg: Config, monotone_intermediate: bool = False,
             f"histograms at {pool_slots} of {cfg.num_leaves}; dropping the "
             "cap restores the wave policy at the cost of the pool's "
             "memory bound)")
+    if learner not in ("serial", "data"):
+        reasons.append(f"tree_learner={learner} (wave supports serial and "
+                       "data-parallel)")
     if reasons:
         log.warning("tree_grow_policy=wave is not supported with "
                     + "; ".join(reasons) + " — using the strict leafwise "
@@ -415,7 +444,7 @@ class _DeviceData:
     first use (`datastore/assemble.py`), the reference's `:63-160`."""
 
     def __init__(self, ds: Dataset, device: torch.device,
-                 for_train: bool = False):
+                 for_train: bool = False, defer_bins: bool = False):
         ds.construct()
         self._ds = ds
         self.device = device
@@ -427,8 +456,11 @@ class _DeviceData:
         if self.store is not None:
             from .datastore import PrefetchRunStats
             self.pf_stats = PrefetchRunStats()
-        self._bins_fm = None if ds.bin_data is None else torch.from_numpy(
-            np.ascontiguousarray(ds.bin_data.T)).to(device)
+        # a distributed learner places its own rows (`defer_bins`): the
+        # whole matrix goes to the device only if a path asks for it
+        self._bins_fm = None if ds.bin_data is None or defer_bins \
+            else torch.from_numpy(np.ascontiguousarray(ds.bin_data.T)).to(
+                device)
         self.query_boundaries = ds._query_boundaries
         mappers = ds.bin_mappers
         self.nb_np = np.array([m.num_bin for m in mappers], np.int32)
@@ -455,8 +487,9 @@ class _DeviceData:
                         if ds.bin_data is None and \
                         ds.sparse_binned is not None else build_bundled(
                             ds._dense_bin_matrix(), self.efb)
-                self._bundle_fm = torch.from_numpy(
-                    np.ascontiguousarray(ds.bundle_data.T)).to(device)
+                if not defer_bins:
+                    self._bundle_fm = torch.from_numpy(np.ascontiguousarray(
+                        ds.bundle_data.T)).to(device)
             efb = self.efb
             self.feat.update(
                 bundle_col=torch.from_numpy(
@@ -503,7 +536,10 @@ class _DeviceData:
         """The [G, N] bundle matrix a bundled training set's growers read
         (None unbundled)."""
         if self._bundle_fm is None and self.efb is not None:
-            self._bundle_fm = self._assemble("bundle")
+            self._bundle_fm = self._assemble("bundle") \
+                if self.store is not None and "bundle" in self.store.payloads \
+                else torch.from_numpy(np.ascontiguousarray(
+                    self._ds.bundle_data.T)).to(self.device)
         return self._bundle_fm
 
     @property
@@ -670,7 +706,10 @@ class Booster:
             train_set.params["external_memory"] = True
         train_set.construct()
         self.train_set = train_set
-        self._dd = _DeviceData(train_set, self.device, for_train=True)
+        self._dd = _DeviceData(
+            train_set, self.device, for_train=True,
+            defer_bins=world_size() > 1 and str(
+                cfg.tree_learner or "serial").lower() != "serial")
         obj: Optional[TrainObjective] = create_objective(cfg)
         self._train_obj = obj
         label = train_set.get_label()
@@ -753,7 +792,9 @@ class Booster:
                         "per-leaf histograms to re-search moved leaves — "
                         "ignoring histogram_pool_size")
             pool_slots = 0
-        self._grow_policy = resolve_grow_policy(cfg, interm, pool_slots)
+        kind, shards = learner_topology(cfg, efb is not None)[:2]
+        self._grow_policy = resolve_grow_policy(
+            cfg, interm, pool_slots, kind if shards > 1 else "serial")
         wave = self._grow_policy == "wave"
         self._build_feat()
         cegb = self._cegb_active()
@@ -795,7 +836,93 @@ class Booster:
             monotone_intermediate=interm)
         self._grower = make_wave_grower(self._grower_spec) if wave \
             else make_grower(self._grower_spec)
-        self._setup_streaming()
+        if self._setup_tree_learner():
+            self._streaming = None
+        else:
+            self._setup_streaming()
+
+    def _setup_tree_learner(self) -> bool:
+        """The reference's `_setup_tree_learner` (`booster.py:1150`):
+        `tree_learner` data, feature or voting over a process group of
+        more than one rank replaces the grower just built by this rank's
+        part of the distributed one (`parallel/learner.py`) and places
+        this rank's rows (every row for the feature learner; a spilled
+        set's from the shards that hold them).  One rank, or a rank
+        outside a mesh of `num_machines` ranks, trains with the serial
+        learner.  Returns whether the learner is distributed."""
+        cfg = self.config
+        dd = self._dd
+        bundled = dd.efb is not None
+        kind, shards, world, dcn, two = learner_topology(cfg, bundled)
+        self._dist_bins = None
+        if kind == "serial":
+            return False
+        wave = self._grow_policy == "wave"
+        key = (self._grower_spec, kind, shards, dcn if two else 1, wave,
+               bool(cfg.deterministic_reduce), int(cfg.top_k))
+        if getattr(self, "_learner_cache_key", None) == key:
+            if self._dist_grower is None:
+                return False
+            self._grower, self._dist_bins = self._dist_grower
+            return True
+        # the configuration's warnings, once
+        resolve_tree_learner(cfg.tree_learner, bundled=bundled,
+                             two_level=two)
+        if (cfg.num_machines or 0) > world:
+            log.warning(f"num_machines={cfg.num_machines} exceeds the "
+                        f"ranks of the process group ({world}); using "
+                        f"{world}")
+        if dcn > 1 and not two:
+            log.warning(f"cannot build a 2-level mesh from {shards} rank(s) "
+                        f"with tpu_dcn_slices={dcn} (need an even division "
+                        "with >= 2 ranks per slice); using a flat mesh")
+        self._learner_cache_key = key
+        self._dist_grower = None
+        if shards <= 1:
+            log.warning(f"tree_learner={kind} requested but only one rank "
+                        "is in the process group; using the serial learner")
+            return False
+        if str(cfg.streaming_train or "auto").lower() == "on":
+            telemetry.REGISTRY.counter("fallback.events").inc()
+            telemetry.event("fallback.stream_downgrade",
+                            reasons=[f"tree_learner={kind}"])
+            log.warning("streaming_train=on is not supported with "
+                        f"tree_learner={kind} (shard-streamed training is "
+                        "serial-only; distributed learners read their rows "
+                        "once at placement instead) — training on the "
+                        "placed device matrix")
+        mesh_key = (shards, dcn if two else 1)
+        if getattr(self, "_mesh_key", None) != mesh_key:
+            # every rank of the group builds the same groups, in order
+            self._mesh = get_mesh_2level(dcn, shards // dcn) if two \
+                else get_mesh(shards)
+            self._mesh_key = mesh_key
+        if not self._mesh.member:
+            log.info(f"tree_learner={kind}: this rank is outside the "
+                     f"{shards}-rank mesh; training with the serial learner")
+            return False
+        grow = make_distributed_grower(
+            self._grower_spec, self._mesh, kind, dd.num_feature,
+            dd.num_data, wave=wave,
+            det_reduce=bool(cfg.deterministic_reduce), top_k=cfg.top_k)
+        payload = "bundle" if bundled else "bins"
+        if kind == "feature":
+            bins = dd.bundle_fm if bundled else dd.bins_fm
+        elif dd.store is not None and dd.pending:
+            bins = place_training_data(
+                None, grow.sharding, self.device, store=dd.store,
+                payload=payload, prefetch_depth=cfg.datastore_prefetch,
+                run_stats=dd.pf_stats)
+        else:
+            ds = self.train_set
+            bins = place_training_data(
+                ds.bundle_data if bundled else ds._dense_bin_matrix(),
+                grow.sharding, self.device)
+        self._dist_grower = (grow, bins)
+        self._grower, self._dist_bins = grow, bins
+        log.info(f"tree_learner={kind}: training sharded over {shards} "
+                 "rank(s)")
+        return True
 
     def _setup_streaming(self) -> bool:
         """The reference's `_setup_streaming` (`booster.py:1264`): install
@@ -867,6 +994,8 @@ class Booster:
         streaming, whose grower reads the shard store."""
         if self._streaming is not None:
             return None
+        if getattr(self, "_dist_bins", None) is not None:
+            return self._dist_bins
         dd = self._dd
         return dd.bins_fm if dd.bundle_fm is None else dd.bundle_fm
 
@@ -1203,7 +1332,8 @@ class Booster:
         if not led.enabled:
             return
         dd = self._dd
-        bins = [dd._bins_fm, dd._bundle_fm, dd.label, dd.weight,
+        bins = [dd._bins_fm, dd._bundle_fm, getattr(self, "_dist_bins", None),
+                dd.label, dd.weight,
                 dd.allowed] + [v for v in dd.feat.values()
                                if isinstance(v, torch.Tensor)] \
             + [v for v in self._feat_extra.values()
@@ -2071,6 +2201,23 @@ class Booster:
         self.valid_sets = []
         self.name_valid_sets = []
         self._last_contribs = []
+        self._dist_bins = None
+        self._dist_grower = None
+        return self
+
+    def free_network(self) -> "Booster":
+        """No-op (ref: basic.py `Booster.free_network`, the socket mesh's
+        teardown): the process group belongs to the caller, who leaves it
+        with `lightgbm_tpu_torch.mesh.shutdown()`."""
+        return self
+
+    def set_network(self, *args, **kwargs) -> "Booster":
+        """Accepted for API parity, with a warning (ref: basic.py
+        `Booster.set_network`): the ranks join a process group with
+        `lightgbm_tpu_torch.mesh.init()` before `train`."""
+        log.warning("set_network is inert in the PyTorch port — call "
+                    "lightgbm_tpu_torch.mesh.init() on every rank, then "
+                    "train with tree_learner=data, feature or voting")
         return self
 
     def set_attr(self, **kwargs) -> "Booster":

@@ -226,17 +226,19 @@ def split_go_left(bins_fm: torch.Tensor, f: int, t: int, dl: bool,
 
 
 def tree_histograms(spec: GrowerSpec, bins_fm: torch.Tensor,
-                    payload: torch.Tensor, feat: Dict):
+                    payload: torch.Tensor, feat: Dict,
+                    plan_features: int = 0):
     """One tree's histogram function `hist(leaf_id, slots) -> [S, F,
     MB, 3]` ([S, G, HB, 3] over bundle columns) for `spec.hist_impl`,
     and the int8 lattice it reads ("kernel_q", else None).  The lattice
     is made once per tree (the reference's `ops/grow.py:583-589`), with
-    the scales of `feat["qscales"]`."""
+    the scales of `feat["qscales"]`.  `plan_features`: K1's pieces as
+    for that many features (`histogram_multi`)."""
     MB = spec.bundle_max_bin if spec.bundled else spec.max_bin
     impl = spec.hist_impl
     if impl == "kernel":
         return (lambda lid, sl: histogram_multi(bins_fm, payload, lid, sl,
-                                                MB)), None
+                                                MB, plan_features)), None
     if impl == "plain":
         return (lambda lid, sl: histogram_multi_plain(bins_fm, payload, lid,
                                                       sl, MB)), None
@@ -478,9 +480,17 @@ def node_arrays(n: int, mb: int) -> Dict[str, np.ndarray]:
         internal_cnt=np.zeros(n, np.float32))
 
 
-def make_grower(spec: GrowerSpec) -> Callable:
+def make_grower(spec: GrowerSpec, dist=None) -> Callable:
     """The grow function of a spec: `grow(bins_fm, grad, hess,
     sample_weight, feat, allowed) -> DeviceTree`.
+
+    `dist`, a `parallel/learner.py Sharding`, makes it one rank's part
+    of a distributed learner: `bins_fm` holds this rank's rows (the
+    feature learner's: every row), grad, hess and sample_weight are
+    replicated, the histograms are reduced as the mode says, the block
+    modes search this rank's features and merge the ranks' splits, the
+    voting learner elects the features it sums, and the returned
+    `leaf_id` covers every row.
 
     bins_fm [F, N] (bundled: [G, N]) u8/u16, grad/hess/sample_weight
     [N] f32 and allowed [F] bool lie on one device; `feat` holds the
@@ -537,15 +547,27 @@ def make_grower(spec: GrowerSpec) -> Callable:
 
     def search(hist, g, h, c, allowed, p_out, feat, cand, expand, lb=None,
                ub=None, penalty=None):
+        if dist is not None and dist.mode == "voting":
+            hist, allowed = dist.vote(hist, allowed, cand, feat, spec,
+                                      search_kwargs(spec, feat))
         if expand is not None:
             hist = expand(hist, torch.stack([g, h, c], dim=-1))
-        return find_best_split(
+        block = dist is not None and dist.block
+        if block:
+            if dist.empty_block:
+                return dist.merge(None, hist.shape[0], MB, PC, hist.device)
+            feat = dist.block_feat(feat)
+            allowed, cand = dist.cut(allowed), dist.cut(cand, -2)
+            penalty = dist.cut(penalty)
+        res = find_best_split(
             hist, g, h, c, feat["nb"], feat["missing"], feat["default"],
             allowed, l1, l2, spec.min_data_in_leaf,
             spec.min_sum_hessian_in_leaf, spec.min_gain_to_split, mds, ps,
             p_out, cand, mono=feat.get("mono"), out_lb=lb, out_ub=ub,
             gain_penalty=penalty, xla_fused=True,
             penalty_scale=cegb_scale(spec), **search_kwargs(spec, feat))
+        return dist.merge(res, hist.shape[0], MB, PC, hist.device) \
+            if block else res
 
     def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              sample_weight: torch.Tensor, feat: Dict,
@@ -555,7 +577,9 @@ def make_grower(spec: GrowerSpec) -> Callable:
         f_count = int(feat["nb"].shape[0])
         payload = torch.stack([grad * sample_weight, hess * sample_weight,
                                sample_weight], dim=1).contiguous()
-        hist_fn, _ = tree_histograms(spec, bins_fm, payload, feat)
+        hist_fn = tree_histograms(spec, bins_fm, payload, feat)[0] \
+            if dist is None else dist.histograms(
+                spec, bins_fm, dist.rows(payload).contiguous(), feat)[0]
         expand, bundle_of = make_bundled_expander(spec, feat) \
             if spec.bundled else (None, lambda f: None)
         # node ids: the root 0, the children of split k 2k + 1 and 2k + 2
@@ -571,8 +595,9 @@ def make_grower(spec: GrowerSpec) -> Callable:
         leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
         # the histograms as built ([G, HB] under EFB), a slot a leaf or
         # the pool's slots
-        hist = torch.empty((P, bins_fm.shape[0], HB, 3), dtype=torch.float32,
-                           device=dev)
+        cols = bins_fm.shape[0] if dist is None \
+            else dist.hist_cols(bins_fm.shape[0])
+        hist = torch.empty((P, cols, HB, 3), dtype=torch.float32, device=dev)
         hist[0] = hist_fn(leaf_id, slots[:1])[0]
         owner = np.full(P, -1, np.int64)      # the leaf in each pool slot
         touched = np.full(P, -1, np.int64)    # the step of its last use
@@ -599,7 +624,8 @@ def make_grower(spec: GrowerSpec) -> Callable:
             return masks.allowed(nids, allowed[None] & to_device(keep, dev))
 
         # ---- root: sums, output, split, all in one host copy ----
-        root_g, root_h, root_c = tree_sum(payload.t())
+        root_g, root_h, root_c = tree_sum(payload.t()) if dist is None \
+            else dist.root_sums(payload)
         root_out = leaf_output(root_g, root_h, l1, l2, mds)
         stat_dev = torch.zeros((L, 3), dtype=torch.float32, device=dev)
         stat_dev[0] = torch.stack([root_g, root_h, root_c])
@@ -830,6 +856,8 @@ def make_grower(spec: GrowerSpec) -> Callable:
         values = np.where(active & (nl > 1), leaf_out, np.float32(0.0))
         values_dev = torch.where(
             (torch.arange(L, device=dev) < nl) & (nl > 1), out_dev, 0.0)
+        if dist is not None:
+            leaf_id = dist.finish(leaf_id)
         return DeviceTree(n_splits=step, leaf_value=values,
                           leaf_g=leaf_g, leaf_h=leaf_h, leaf_cnt=leaf_c,
                           leaf_id=leaf_id, values=values_dev, **nodes)

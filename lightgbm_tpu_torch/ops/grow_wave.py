@@ -185,6 +185,7 @@ class MemoryRows:
                  payload: torch.Tensor, feat: Dict, scan_kw: Dict):
         self.spec, self.bins_fm, self.payload = spec, bins_fm, payload
         self.feat, self.scan_kw = feat, scan_kw
+        self.n_rows = payload.shape[0]
         self.hist_fn, self.pw3 = tree_histograms(spec, bins_fm, payload,
                                                  feat)
         self.bundle_of = make_bundled_expander(spec, feat)[1] \
@@ -221,6 +222,42 @@ class MemoryRows:
                               self.feat, self.bundle_of)
 
 
+class ShardedRows(MemoryRows):
+    """One rank's rows of a distributed tree (`parallel/learner.py
+    Sharding`): its block of the bin matrix on its device and its rows of
+    the payload; `hist` reduces the histograms over the ranks (the ring
+    of carries, or the summed histograms, cut to the rank's feature block
+    under data_rs) and, with the fused spec, scans them with K3 for the
+    candidates, which are K2's bit for bit (the reference runs its base
+    histogram family under a mesh, `grow_wave.py:169-175`); `partition`
+    is `MemoryRows`'s over the rank's rows."""
+
+    def __init__(self, spec: GrowerSpec, dist, bins_fm: torch.Tensor,
+                 payload: torch.Tensor, feat: Dict, scan_kw: Dict):
+        self.spec, self.dist, self.bins_fm = spec, dist, bins_fm
+        self.payload = dist.rows(payload).contiguous()
+        self.n_rows = self.payload.shape[0]
+        self.feat, self.scan_kw = feat, scan_kw
+        self.bfeat = dist.block_feat(feat)
+        self.hist_fn, self.pw3 = dist.histograms(spec, bins_fm,
+                                                 self.payload, feat)
+        self.bundle_of = make_bundled_expander(spec, feat)[1] \
+            if spec.bundled else (lambda f: None)
+
+    def hist_cache(self, leaves: int, hb: int) -> torch.Tensor:
+        return torch.empty((leaves, self.dist.hist_cols(
+            self.bins_fm.shape[0]), hb, 3), dtype=torch.float32,
+            device=self.payload.device)
+
+    def hist(self, leaf_id: torch.Tensor, slots: torch.Tensor,
+             parent: torch.Tensor):
+        h = self.hist_fn(leaf_id, slots)
+        if not self.spec.fused or self.dist.empty_block:
+            return h, None
+        return h, split_scan(h, self.bfeat["nb"], self.bfeat["missing"],
+                             parent, **self.scan_kw)
+
+
 def partition_rows(bins_fm, leaf_id, picks, mask_dev, slots, feat,
                    bundle_of=lambda f: None):
     """The rows of `bins_fm` [F|G, n] with leaf ids `leaf_id` [n] after
@@ -237,13 +274,18 @@ def partition_rows(bins_fm, leaf_id, picks, mask_dev, slots, feat,
     return leaf_id
 
 
-def make_wave_grower(spec: GrowerSpec, rows: Callable = None) -> Callable:
+def make_wave_grower(spec: GrowerSpec, rows: Callable = None,
+                     dist=None) -> Callable:
     """The wave grow function of a spec, with the strict grower's
     contract (`ops/grow.py make_grower`): `grow(bins_fm, grad, hess,
     sample_weight, feat, allowed) -> DeviceTree`.  `rows(payload, feat,
     scan_kw)`, when given, makes each tree's row source in place of
     `MemoryRows` over `bins_fm` (the shard-streamed grower's, which
-    takes `bins_fm=None`)."""
+    takes `bins_fm=None`).  `dist`, a `parallel/learner.py Sharding` in
+    mode data or data_rs, makes it one rank's part of the data-parallel
+    learner (the reference's `:244-340`): the row source is this rank's
+    `ShardedRows`, the data_rs searches cover the rank's feature block
+    and merge the ranks' splits, and `leaf_id` covers every row."""
     L = spec.num_leaves
     MB = spec.max_bin
     LB, W = wave_sizes(spec)
@@ -280,8 +322,10 @@ def make_wave_grower(spec: GrowerSpec, rows: Callable = None) -> Callable:
                            torch.from_numpy(np.asarray(h, np.float32)),
                            l1, l2, mds).numpy()
 
-    def search(hist, sums, allowed, p_out, feat, cand=None, expand=None,
-               numerical=True, bounds=None, penalty=None):
+    block = dist is not None and dist.block
+
+    def search_one(hist, sums, allowed, p_out, feat, cand=None,
+                   expand=None, numerical=True, bounds=None, penalty=None):
         """The unfused search over [B] histograms (expanded from the
         bundle columns under EFB), with the rows' output `bounds` (lb,
         ub) and CEGB `penalty`; `numerical=False` is the fused path's
@@ -298,7 +342,22 @@ def make_wave_grower(spec: GrowerSpec, rows: Callable = None) -> Callable:
             out_ub=ub, gain_penalty=penalty, xla_fused=True,
             penalty_scale=pen_scale, **search_kwargs(spec, feat))
 
-    def fused_split(cand, hist, sums, allowed, p_out, feat, penalty=None):
+    def search(hist, sums, allowed, p_out, feat, cand=None, expand=None,
+               bounds=None, penalty=None):
+        """`search_one`; under data_rs over this rank's feature block
+        (its masks, candidate grid and penalty cut to it), the ranks'
+        splits merged."""
+        if not block:
+            return search_one(hist, sums, allowed, p_out, feat, cand, expand,
+                              bounds=bounds, penalty=penalty)
+        if dist.empty_block:
+            return dist.merge(None, sums.shape[0], MB, PC, sums.device)
+        res = search_one(hist, sums, dist.cut(allowed), p_out,
+                         dist.block_feat(feat), dist.cut(cand, -2), expand,
+                         bounds=bounds, penalty=dist.cut(penalty))
+        return dist.merge(res, sums.shape[0], MB, PC, sums.device)
+
+    def fused_one(cand, hist, sums, allowed, p_out, feat, penalty=None):
         """`split_of_fused` (the reference's `grow_wave.py:417-441`):
         the numerical features' decisions from the kernels' candidates;
         with categorical features, those over the numerical features
@@ -313,21 +372,36 @@ def make_wave_grower(spec: GrowerSpec, rows: Callable = None) -> Callable:
         num = decide_from_candidates(
             cand, sums[:, 0], sums[:, 1], sums[:, 2], feat["missing"],
             feat["default"], allowed & ~is_cat, penalty, pen_scale, True)
-        cat = search(hist, sums, allowed & is_cat, p_out, feat,
-                     numerical=False, penalty=penalty)
+        cat = search_one(hist, sums, allowed & is_cat, p_out, feat,
+                         numerical=False, penalty=penalty)
         return merge_split_results(num, cat)
+
+    def fused_split(cand, hist, sums, allowed, p_out, feat, penalty=None):
+        """`fused_one`; under data_rs on this rank's block (the
+        candidates already are), the ranks' splits merged."""
+        if not block:
+            return fused_one(cand, hist, sums, allowed, p_out, feat, penalty)
+        if dist.empty_block:
+            return dist.merge(None, sums.shape[0], MB, PC, sums.device)
+        res = fused_one(cand, hist, sums, dist.cut(allowed), p_out,
+                        dist.block_feat(feat), dist.cut(penalty))
+        return dist.merge(res, sums.shape[0], MB, PC, sums.device)
 
     def grow(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              sample_weight: torch.Tensor, feat: Dict,
              allowed: torch.Tensor) -> DeviceTree:
         global WAVES, HIST_WAVES
         dev = grad.device
-        n = grad.shape[0]
         f_count = int(feat["nb"].shape[0])
         payload = torch.stack([grad * sample_weight, hess * sample_weight,
                                sample_weight], dim=1).contiguous()
-        src = MemoryRows(spec, bins_fm, payload, feat, scan_kw) \
-            if rows is None else rows(payload, feat, scan_kw)
+        if dist is not None:
+            src = ShardedRows(spec, dist, bins_fm, payload, feat, scan_kw)
+        elif rows is not None:
+            src = rows(payload, feat, scan_kw)
+        else:
+            src = MemoryRows(spec, bins_fm, payload, feat, scan_kw)
+        n = src.n_rows
         expand = make_bundled_expander(spec, feat)[0] if spec.bundled \
             else None
         # node ids as the strict grower's: the root 0, the children of
@@ -346,7 +420,8 @@ def make_wave_grower(spec: GrowerSpec, rows: Callable = None) -> Callable:
         hist = src.hist_cache(LB, HB)
 
         # ---- root: sums, output, histogram and split, one host copy ----
-        root_g, root_h, root_c = tree_sum(payload.t())
+        root_g, root_h, root_c = tree_sum(payload.t()) if dist is None \
+            else dist.root_sums(payload)
         root_out = leaf_output(root_g, root_h, l1, l2, mds)
         root_sums = torch.stack([root_g, root_h, root_c])[None]   # [1, 3]
         root_pen = None if penalty_fn is None else penalty_fn(
@@ -558,10 +633,12 @@ def make_wave_grower(spec: GrowerSpec, rows: Callable = None) -> Callable:
 
             # ---- find: every new child's best split, one host copy ----
             if fused:
-                cand_large = split_scan(large_h, feat["nb"], feat["missing"],
-                                        par_large, **scan_kw)
-                cand = torch.cat([cand_small, cand_large]).index_select(
-                    0, route_t)
+                sfeat = src.bfeat if block else feat
+                cand_large = None if block and dist.empty_block else \
+                    split_scan(large_h, sfeat["nb"], sfeat["missing"],
+                               par_large, **scan_kw)
+                cand = None if cand_large is None else torch.cat(
+                    [cand_small, cand_large]).index_select(0, route_t)
                 res = fused_split(cand, hist.index_select(0, child_t)
                                   if spec.has_cat else None, sums,
                                   child_allowed, child_out, feat, pen)
@@ -589,6 +666,8 @@ def make_wave_grower(spec: GrowerSpec, rows: Callable = None) -> Callable:
                 nodes, step, leaves, LB=LB, L=L, clamp_output=clamp_output,
                 forced_n=forced_n)
             leaf_id = to_device(new_slot.astype(np.int32), dev)[leaf_id.long()]
+        if dist is not None:
+            leaf_id = dist.finish(leaf_id)
         # a single-leaf tree predicts 0 (ref: GBDT "no more leaves that
         # meet the split requirements"); slots past the tree stay zero
         nl = step + 1

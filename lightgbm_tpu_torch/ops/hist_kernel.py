@@ -315,11 +315,14 @@ def histogram_multi_ordered(bins_fm: torch.Tensor, payload: torch.Tensor,
 
 def histogram_multi(bins_fm: torch.Tensor, payload: torch.Tensor,
                     leaf_id: torch.Tensor, slots: torch.Tensor,
-                    max_bin: int) -> torch.Tensor:
+                    max_bin: int, plan_features: int = 0) -> torch.Tensor:
     """[S, F, MB, 3] f32 histograms of the leaves `slots` [S] (1 to 14),
     over bins `bins_fm` [F, N] u8/u16, payload [N, 3] f32 and row leaf
     ids `leaf_id` [N] i32.  CUDA tensors launch `csrc/histogram.cu`;
-    CPU tensors run `histogram_multi_plain`."""
+    CPU tensors run `histogram_multi_plain`.  `plan_features` > 0 takes
+    the pieces of the plan for that many features (a block of a wider
+    matrix: each feature's cells then add in the wider launch's order,
+    bit for bit)."""
     global HIST_LAUNCHES
     if bins_fm.device.type == "cpu":
         return histogram_multi_plain(bins_fm, payload, leaf_id, slots,
@@ -333,6 +336,9 @@ def histogram_multi(bins_fm: torch.Tensor, payload: torch.Tensor,
     f, n = bins_fm.shape
     s = slots.shape[0]
     plan = launch_plan(max(n, 1), f, s, max_bin)
+    if plan_features > 0:
+        plan = plan._replace(chunks=launch_plan(max(n, 1), plan_features, s,
+                                                max_bin).chunks)
     out = torch.empty((s, f, max_bin, 3), dtype=torch.float32,
                       device=bins_fm.device)
     if n == 0 or f == 0:

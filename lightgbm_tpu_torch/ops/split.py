@@ -209,7 +209,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                     out_ub: Optional[torch.Tensor] = None,
                     gain_penalty: Optional[torch.Tensor] = None,
                     xla_fused: bool = False,
-                    penalty_scale: Optional[float] = None) -> SplitResult:
+                    penalty_scale: Optional[float] = None,
+                    feature_gains: bool = False) -> SplitResult:
     """Best split of each leaf.
 
     hist [F, MB, 3] f32 with 0-d parent sums, or [B, F, MB, 3] with [B]
@@ -251,7 +252,11 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     w w) and `gain - scale * penalty` into fma(-scale, penalty, gain)
     (an f64 multiply-add rounded to f32, `ops/xla_math.py _fma`); without
     it the adds are the reference's op-by-op ones.  The growers pass
-    it."""
+    it.
+
+    `feature_gains` returns each feature's best gain [B, F] (or [F])
+    over its cases and bins instead of a decision: the voting learner's
+    local vote (the reference's `want_feature_gains`)."""
     one = hist.dim() == 3
     if one:
         hist = hist[None]
@@ -345,6 +350,9 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                               penalty_scale, xla_fused)
             gain1 = _penalize(gain1, gain_penalty[:, :, None],
                               penalty_scale, xla_fused)
+        if feature_gains and not has_cat:
+            fg = torch.maximum(gain0.amax(dim=-1), gain1.amax(dim=-1))
+            return fg[0] if one else fg
         if not has_cat:
             res = _decide_numerical(gain0, gain1, left0, left1, parent,
                                     feat_missing, feat_default)
@@ -361,6 +369,9 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                               penalty_scale, xla_fused)
     if cand_mask is not None:
         cat_gains = torch.where(cand_mask, cat_gains, NEG_INF)
+    if feature_gains:
+        fg = torch.stack(gains + list(cat_gains)).amax(dim=(0, 3))
+        return fg[0] if one else fg
     res = _decide(gains + list(cat_gains), lefts + list(cat_lefts),
                   0 if numerical else 2, parent, feat_missing, feat_default,
                   cat[2:])

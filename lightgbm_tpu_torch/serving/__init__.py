@@ -8,12 +8,11 @@
                 deadline-based load shedding, worker restart.
   registry.py — `ModelRegistry`: multi-model, warm-up-on-load, atomic
                 hot-swap, device-memory budget with LRU demotion.
+  sharded.py  — `ShardedServingRuntime`: a runtime replica a device,
+                requests striped by least outstanding work.
   client.py / http.py — the in-process `ServingClient` and the stdlib
                 HTTP endpoint (`make_server`): /predict, /healthz,
                 /metrics, /debug/requests.
-
-The sharded runtime (`ShardedServingRuntime`) waits for ROADMAP Queue 1
-item 5f.
 """
 from .batcher import MicroBatcher, ServingClosedError, ServingOverloadError
 from .client import ServingClient
@@ -21,10 +20,12 @@ from .http import make_server
 from .registry import ModelRegistry, ServingModel
 from .runtime import (DEFAULT_MAX_BATCH_ROWS, ServingDeviceError,
                       ServingRuntime, ServingUnavailableError, bucket_rows)
+from .sharded import ShardedServingRuntime, resolve_shard_devices
 
 __all__ = [
     "DEFAULT_MAX_BATCH_ROWS", "MicroBatcher", "ModelRegistry",
     "ServingClient", "ServingClosedError", "ServingDeviceError",
     "ServingModel", "ServingOverloadError", "ServingRuntime",
-    "ServingUnavailableError", "bucket_rows", "make_server",
+    "ServingUnavailableError", "ShardedServingRuntime", "bucket_rows",
+    "make_server", "resolve_shard_devices",
 ]

@@ -24,9 +24,11 @@ notices it starts a BACKGROUND re-export (the stale export keeps serving
 until the refreshed one swaps in), so the request thread never pays it.
 
 The runtimes serve on `device_type` ("cuda" by default; "cpu" runs the
-plain versions).  `serve_shard_devices` above 1 (the JAX package's
-`ShardedServingRuntime`) waits for ROADMAP Queue 1 item 5f; the memory
-ledger's audit and the lineage ledger's records wait for item 5g.
+plain versions).  `serve_shard_devices` other than 1 loads a
+`ShardedServingRuntime` (a replica a device, 0: every visible device;
+more than are visible raises at `load`), and the budget, a device's,
+scales with its replicas.  The lineage ledger's records wait for item
+5g.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from ..utils.locks import make_lock
 from ..utils.log import LightGBMError
 from .batcher import MicroBatcher, ServingClosedError
 from .runtime import ServingRuntime
+from .sharded import ShardedServingRuntime
 
 #: bound on back-to-back hot-swap retries in `predict` — each retry
 #: requires ANOTHER swap to have landed mid-dispatch, so a healthy
@@ -153,11 +156,6 @@ class ModelRegistry:
     def __init__(self, params: Optional[dict] = None):
         self._config = Config(dict(params or {}))
         cfg = self._config
-        if int(cfg.serve_shard_devices) != 1:
-            raise LightGBMError(
-                f"serve_shard_devices={cfg.serve_shard_devices}: the "
-                "sharded serving runtime waits for ROADMAP Queue 1 item 5f "
-                "(distributed); the port serves a model on one device")
         self._lock = make_lock("serving.registry._lock")
         # serializes the budget decision (_admit) WITH the swap it
         # admits: a demotion decided from a pre-swap LRU snapshot could
@@ -178,29 +176,42 @@ class ModelRegistry:
 
     # -------------------------------------------------------------- load
     def load(self, name: str, model: Union[str, object], *,
-             warmup: Optional[bool] = None) -> ServingModel:
+             warmup: Optional[bool] = None,
+             shard_devices: Optional[int] = None) -> ServingModel:
         """Register `model` (a Booster or a model-file path) under
         `name`, warmed up, replacing any previous holder atomically.
         Raises `LightGBMError` without touching the registry when the
         runtime cannot be built (a probe that disagrees, a kernel that
-        fails) or would not fit `serve_vram_budget_mb` even after LRU
-        demotion of the other entries."""
+        fails, more shard devices than are visible) or would not fit
+        `serve_vram_budget_mb` even after LRU demotion of the other
+        entries.
+
+        `shard_devices` (default `serve_shard_devices`) other than 1
+        builds a `ShardedServingRuntime`: a replica on each of that many
+        devices (0: every visible one), the traffic striped over them."""
         from ..booster import Booster
         booster = model if isinstance(model, Booster) \
             else Booster(model_file=str(model))
         cfg = self._config
+        if shard_devices is None:
+            shard_devices = int(cfg.serve_shard_devices)
         with _swap_window(), telemetry.span("serve.load", model=name):
-            runtime = ServingRuntime(
-                booster, max_batch_rows=cfg.serve_max_batch_rows,
-                name=name, device_sum=cfg.serve_device_sum,
-                compiled=cfg.serve_compiled,
-                precision=cfg.serve_precision,
-                quant_bits=cfg.serve_quant_bits,
-                tile_vmem_kb=cfg.serve_tile_vmem_kb,
-                device=cfg.device_type,
-                dispatch_timeout_ms=cfg.serve_dispatch_timeout_ms,
-                breaker_backoff_s=cfg.serve_breaker_backoff_s,
-                breaker_backoff_max_s=cfg.serve_breaker_backoff_max_s)
+            kw = dict(max_batch_rows=cfg.serve_max_batch_rows, name=name,
+                      device_sum=cfg.serve_device_sum,
+                      compiled=cfg.serve_compiled,
+                      precision=cfg.serve_precision,
+                      quant_bits=cfg.serve_quant_bits,
+                      tile_vmem_kb=cfg.serve_tile_vmem_kb,
+                      dispatch_timeout_ms=cfg.serve_dispatch_timeout_ms,
+                      breaker_backoff_s=cfg.serve_breaker_backoff_s,
+                      breaker_backoff_max_s=cfg.serve_breaker_backoff_max_s)
+            if shard_devices != 1:
+                runtime = ShardedServingRuntime(
+                    booster, shard_devices=shard_devices,
+                    device_type=cfg.device_type, **kw)
+            else:
+                runtime = ServingRuntime(booster, device=cfg.device_type,
+                                         **kw)
             # the swap lock spans admit -> swap: the LRU demotion
             # decision and the swap it admits are one atomic step
             with self._swap_lock:
@@ -232,6 +243,9 @@ class ModelRegistry:
         budget = int(self._config.serve_vram_budget_mb * (1 << 20))
         if budget <= 0:
             return
+        # the budget is a device's: a sharded runtime's copies spread over
+        # its replicas' devices, so the ceiling scales with them
+        budget *= getattr(runtime, "num_replicas", 1)
         need = runtime.device_bytes()
         with self._lock:
             others = [e for n, e in self._models.items() if n != name]

@@ -51,7 +51,8 @@ doubles the backoff, a content mismatch makes it permanent until
 answer when a kernel fails (ROADMAP Queue 3 (s)).
 
 Registering the runtime's tensors in a memory ledger waits for ROADMAP
-Queue 1 item 5g, and the sharded runtime for item 5f.
+Queue 1 item 5g; the sharded runtime (`serving/sharded.py`) is a
+runtime like this one a device.
 
 Rows are independent in every rung, so a padded batch's real rows are
 bitwise the unpadded batch's.  Features are cast to f32 on the way in

@@ -134,6 +134,7 @@ class StreamedRows:
                  feat: Dict, scan_kw: Dict):
         self.eng, self.payload, self.feat = eng, payload, feat
         self.scan_kw = scan_kw
+        self.n_rows = payload.shape[0]
         spec = eng.spec
         self.qs = feat.get("qscales")
         self.pw3 = quantized_lattice_rows(

@@ -36,7 +36,9 @@ MODULES = ("serving.runtime", "interop", "basic", "booster", "callback",
            "serving.http", "serving.registry", "rank_objective",
            "ops.renew", "cli", "datastore.format", "datastore.store",
            "datastore.prefetch", "datastore.assemble", "streaming.engine",
-           "telemetry.memledger")
+           "telemetry.memledger", "mesh.topology", "mesh.placement",
+           "mesh.collectives", "parallel.learner", "parallel.data_parallel",
+           "parallel.mesh", "serving.sharded")
 
 
 def test_every_module_is_listed():

@@ -368,8 +368,16 @@ def test_registry_samplers_see_requests_and_never_fail_them():
 
 
 def test_registry_refuses_sharded_serving():
-    with pytest.raises(lt.LightGBMError, match="5f"):
-        ModelRegistry(dict(CPU, serve_shard_devices=2))
+    """More shard devices than are visible (one on the CPU) raise at
+    `load`, and the registry stays empty."""
+    reg = ModelRegistry(dict(CPU, serve_shard_devices=2))
+    try:
+        with pytest.raises(lt.LightGBMError,
+                           match="exceeds visible devices"):
+            reg.load("m", PATH["binary"])
+        assert reg.names() == []
+    finally:
+        reg.close()
 
 
 # -------------------------------------------------------------- HTTP

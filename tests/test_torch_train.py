@@ -237,8 +237,8 @@ REFUSED = [
     ({"streaming_train": "on"}, None),
     ({"external_memory": True}, None),
     ({"datastore_budget_mb": 0.001, "external_memory": True}, None),
-    ({"tree_learner": "data"}, "item 5f"),
-    ({"num_machines": 2}, "item 5f"),
+    ({"tree_learner": "data"}, None),
+    ({"num_machines": 2}, None),
     ({"hist_impl": "packed"}, None),
     ({"hist_impl": "pallas_q"}, "CUDA device"),
     ({"hist_impl": "pallas_fused"}, "CUDA device"),
@@ -264,7 +264,9 @@ def test_refused_settings_raise(extra, match):
     its second half; external memory, whose spilled bins assemble on the
     device, since item 5e's first half; streamed training, which
     `streaming_train=on` asks for and `auto` takes for spilled bins over
-    `datastore_budget_mb`, since its second half)."""
+    `datastore_budget_mb`, since its second half; the distributed
+    learners of item 5f, which one process trains with the serial
+    learner)."""
     X = np.random.RandomState(0).randn(200, 6)
     y = (X[:, 0] > 0).astype(float)
     params = dict({"objective": "binary", "verbosity": -1,
