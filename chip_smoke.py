@@ -334,13 +334,20 @@ Phases, each printing one JSON line:
           beside the PCIe link), prefetch figures; a flipped shard byte
           raises naming the file.
   train_stream the shard-streamed grower and the memory ledger.  The
-          carry entries (`lgbt_histogram_carry`, K1's first stage a
-          shard at a time; `lgbt_histogram_carry_q`, K4's) on 200,000
-          of the bench's rows in 7 uneven shards at S = 1, 3, 8: the
-          f32 carry bitwise its order-exact model and K1 over all rows,
-          the int32 carry bitwise K4 over all rows, each within its
-          tolerance of its plain carry; a shard's fold timed beside its
-          bound, the plain carry and `index_add_`.  The 2M rows spilled
+          carry entries (`lgbt_histogram_carry`, K1's order a shard at a
+          time in two launches, a running prefix and one open piece
+          carried; `lgbt_histogram_carry_q`, one launch a shard into
+          int32 cells) on 200,000 of the bench's rows in 7 uneven
+          shards at S = 1, 3, 8: the f32 carry bitwise its order-exact
+          model and K1 over all rows, the int32 carry bitwise K4 over
+          all rows, each within its tolerance of its plain carry; a
+          shard's fold timed (device time behind a spin kernel, fresh
+          carries made outside the timed passes, and the host's pace)
+          beside its bound, the plain carry and `index_add_` (device
+          time), the profiler's kernels a shard; the same at the paths'
+          shapes, the 2M rows in shards of 65,536 at S = 1 and 8 and a
+          1M-row fold at S = 8, each pass bitwise K1 (K4).  The 2M rows
+          spilled
           in 31 shards and trained streamed (the bench's wave under
           "auto" over a 16 MB budget, 5 rounds; leafwise strict, 2; the
           quantized wave, 3), each model byte for byte the in-memory
@@ -362,8 +369,9 @@ Phases, each printing one JSON line:
           rank's block under the whole matrix's plan) and voting
           (top_k 10, 2): data and feature models byte for byte the
           serial card models trained first, voting's held-out AUC within
-          1e-3; carry launches on each rank; round ms beside the serial
-          rounds, hops a tree, bytes a hop, the D2H / gloo / H2D
+          1e-3; carry launches on each rank; a hop of the f32 carry at
+          most 1,500,000 B; round ms beside the serial rounds, hops a
+          tree, bytes a hop, the D2H / gloo / H2D
           seconds, each rank's peak allocation.
   serve_sharded main's model on two replicas of the GPU
           (`devices=[cuda:0, cuda:0]`): bitwise the one-device runtime at
@@ -374,7 +382,10 @@ Phases, each printing one JSON line:
           the checkout in DIR on the same inputs: K1 and K2 agree within
           twice their tolerance, K3 (S = 1, 8, 14, 42, u16), K4, K5, the
           link and the quantize step bitwise; each timed in turns (this,
-          DIR, DIR, this), the link also with L2 flushed; then
+          DIR, DIR, this), the link also with L2 flushed; both carries
+          (200,000 rows in 7 shards at S = 1 and 8, the 2M rows in
+          shards of 65,536 at S = 8) bitwise DIR's, a shard timed in
+          turns, each design's kernels by the profiler; then
           compare_serving.
   compare_serving (with --phases and --baseline DIR only) the main
           phase's model at 1, 256 and 4096 rows: the standalone K6 and
@@ -3728,7 +3739,8 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
     (exp and sigmoid), bitwise (their contract); each timed in turns
     (this, baseline, baseline, this), at the host's pace (`ms`) and as
     device time, its launches queued behind a spin kernel (`device_ms`),
-    the link also with L2 flushed before each launch."""
+    the link also with L2 flushed before each launch; both carries
+    (`_compare_carries`)."""
     import torch
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import fused_kernel as fk
@@ -3841,6 +3853,8 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
             lambda: fk.fused_hist_split_quantized(*args, **kw),
             lambda: base_fk.fused_hist_split_quantized(*args, **kw)),
             rows_in_slots=rows_in)
+    report["carries"] = _compare_carries(data, seed, dev, base_hk, base_hq,
+                                         timing)
     # the link kernel: exp on a stride through the 2^32 bit patterns,
     # sigmoid on OBJECTIVE_ROWS scores; bitwise, timed in turns with L2
     # warm and flushed
@@ -3894,6 +3908,63 @@ def phase_compare(data: TrainData, seed: int, baseline: str, device=None,
                               "baseline_ms": (q[1] + q[2]) / 2}
     _emit(report)
     return report
+
+
+def _compare_carries(data, seed, dev, base_hk, base_hq, timing=True):
+    """Both carries of this checkout against the baseline's port modules
+    (`base_hk`, `base_hq`): the first STREAM_CARRY_ROWS rows in the
+    shards of STREAM_CUTS at S = 1 and 8, and the 2M rows in shards of
+    65,536 at S = 8 (each slot's L over its rows); the finalized
+    histograms bitwise (both are K1's, or K4's, over all rows); a
+    shard's fold timed in turns (this, baseline, baseline, this) as
+    device time and at the host's pace, the carries made outside the
+    timed passes; and each design's kernels of one pass by the profiler
+    (the baseline's stages: row count, row list, partial, advance or
+    add)."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_kernel as hk
+    from lightgbm_tpu_torch.ops import hist_kernel_q as hkq
+    n_all = len(data.y)
+    bnp = np.ascontiguousarray(data.dataset.bin_data.T)
+    f, mb = bnp.shape[0], 255
+    lid3 = _partition(bnp, 3)
+    q = _quant_inputs(bnp, data.y, lid3, [0], seed, dev)
+    bins, pay, pw3, lid = q["bins"], q["pay"], q["pw3"], q["lid"]
+    stream = [0] + list(STREAM_CUTS) + [STREAM_CARRY_ROWS]
+    out = {}
+    for name, edges, s in (
+            ("stream_200k_s1", stream, 1), ("stream_200k_s8", stream, 8),
+            ("shard_65536_s8", list(range(0, n_all, 65536)) + [n_all], 8)):
+        n = edges[-1]
+        sl = torch.arange(s, dtype=torch.int32, device=dev)
+        lengths = torch.tensor([int((lid3[:n] == k).sum()) for k in range(s)],
+                               dtype=torch.int32, device=dev)
+        blocks = [(bins[:, a:b].contiguous(), pay[a:b], lid[a:b],
+                   pw3[:, a:b].contiguous())
+                  for a, b in zip(edges[:-1], edges[1:])]
+        for quantized in (False, True):
+            key = f"{'int32' if quantized else 'f32'}_{name}"
+            this = _carry_fns(hk, hkq, blocks, f, n, sl, mb, lengths, q,
+                              quantized)
+            base = _carry_fns(base_hk, base_hq, blocks, f, n, sl, mb,
+                              lengths, q, quantized)
+            got = [fin(run(make())).cpu() for make, run, fin in (this, base)]
+            _check(_bits_equal(got[0], got[1]), f"compare {key}: the "
+                   "carries of this checkout and the baseline differ")
+            rep = {"shards": len(blocks)}
+            if timing:
+                for k, queued in (("device_ms", True), ("host_ms", False)):
+                    t = [_fresh_ms(run, make, _fresh_iters(len(blocks)),
+                                   queued=queued) / len(blocks)
+                         for make, run, _ in (this, base, base, this)]
+                    rep[k] = (t[0] + t[3]) / 2
+                    rep["baseline_" + k] = (t[1] + t[2]) / 2
+                for side, (make, run, _) in (("kernels", this),
+                                             ("baseline_kernels", base)):
+                    c = make()
+                    rep[side] = _profile_kernels(lambda: run(c))
+            out[key] = rep
+    return out
 
 
 # ----------------------------------------------------------- train_api
@@ -5452,6 +5523,13 @@ def phase_train_files(data: TrainData, modules, device=None,
 STREAM_CARRY_ROWS = 200_000
 STREAM_CUTS = (17_000, 45_000, 46_000, 90_000, 131_072, 170_001)
 STREAM_SLOTS = (1, 3, 8)
+#: the carries at the shapes their paths run, on the bench's 2M rows:
+#: (name, slots, rows a shard) -- the streamed grower's shards of 65,536
+#: rows at S = 1 (the root: every row) and S = 8 (a depth-3 partition),
+#: and the data learner's ring of two ranks, a fold of 1M rows at S = 8
+CARRY_FOLD_ROWS = 1_000_000
+CARRY_SHAPES = (("shard_65536_s1", 1, 65536), ("shard_65536_s8", 8, 65536),
+                ("fold_1m_s8", 8, CARRY_FOLD_ROWS))
 #: streamed training: the bench's 2M rows in 31 shards of 65,536 rows;
 #: the budget the 56,000,000 B of bins exceed
 STREAM_SHARD_ROWS = 65536
@@ -5473,6 +5551,156 @@ def _carry_bytes(f, n, rows_in, s, mb, row_bytes):
     return n * 4 + rows_in * (f + row_bytes) + 2 * s * f * mb * 12
 
 
+def _fresh_ms(run, make, iters=10, queued=True):
+    """Mean ms of run(state) over `iters` states, each made by make()
+    before the events record (a carry's init is outside the timed
+    runs); with `queued`, the runs wait behind a spin kernel as
+    `_cuda_ms`'s do, so the events read device time."""
+    import torch
+    run(make())
+    torch.cuda.synchronize()
+    cycles = 2_000_000
+    while True:
+        states = [make() for _ in range(iters)]
+        torch.cuda.synchronize()
+        if queued:
+            torch.cuda._sleep(cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for st in states:
+            run(st)
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if not queued or ahead:
+            return start.elapsed_time(end) / iters
+        _check(cycles < 1 << 34, "timing: the runs could not be queued "
+               "ahead of the card")
+        cycles *= 4
+
+
+def _fresh_iters(shards):
+    """Passes `_fresh_ms` times for a carry of `shards` shards: at most
+    about 120 shards' launches queued behind the spin kernel (the card's
+    queue holds about a thousand launches, and an older carry makes four
+    a shard)."""
+    return max(2, min(10, 120 // shards))
+
+
+def _profile_kernels(fn):
+    """One fn() under torch.profiler: {kernel: [device ms, launches
+    seen]}, a kernel named without its namespace, template and
+    arguments, and under "launch_calls" the runtime's kernel-launch
+    calls.  The tracer may miss some kernels' device records (seen on
+    the H100 host), so the launch calls count the kernels and a kernel's
+    device ms over its launches seen is its mean."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out, calls = {}, 0
+    for e in prof.events():
+        if e.name.startswith("cudaLaunchKernel"):
+            calls += 1
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = e.name.split("(anonymous namespace)::")[-1]
+        key = key.split("<")[0].split("(")[0]
+        ms, k = out.get(key, (0.0, 0))
+        out[key] = (ms + e.time_range.elapsed_us() / 1e3, k + 1)
+    out = {k: [v[0], v[1]] for k, v in out.items()}
+    out["launch_calls"] = calls
+    return out
+
+
+def _carry_fns(hk, hkq, blocks, f, n, sl, mb, lengths, q, quantized):
+    """(make, run, finalize) of one carry over `blocks` (the shards'
+    (bins, payload, leaf ids, lattice)), with `hk` and `hkq` the port's
+    carry modules (this checkout's or another's): make() a fresh carry,
+    run(carry) folds every shard into it, finalize(carry) its
+    histogram."""
+    if quantized:
+        def run(c):
+            for bb, _, ll, pp in blocks:
+                hkq.histogram_carry_q_update(c, bb, pp, ll)
+            return c
+        return (lambda: hkq.histogram_carry_q_init(f, sl, mb), run,
+                lambda c: hkq.histogram_carry_q_finalize(c, q["sg"],
+                                                         q["sh"]))
+
+    def run(c):
+        for bb, pl, ll, _ in blocks:
+            hk.histogram_carry_update(c, bb, pl, ll)
+        return c
+    return (lambda: hk.histogram_carry_init(n, f, sl, mb, lengths), run,
+            hk.histogram_carry_finalize)
+
+
+def _carry_plain(blocks, f, sl, mb, q, quantized):
+    """The carry's plain version over `blocks` (`ops/histogram.py
+    hist_stream_*`; the int32 carry's `carry_q_plain_update` in int64):
+    a function that folds every shard and returns the histogram."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_kernel_q as hkq
+    from lightgbm_tpu_torch.ops import histogram as ph
+    s, dev = sl.shape[0], sl.device
+
+    def plain():
+        if quantized:
+            acc = torch.zeros((s, f, mb, 3), dtype=torch.int64, device=dev)
+            for bb, _, ll, pp in blocks:
+                hkq.carry_q_plain_update(acc, bb, pp, ll, sl, mb)
+            return hkq.dequantize(acc, q["sg"], q["sh"])
+        acc = ph.hist_stream_init(f, s, mb, device=dev)
+        for bb, pl, ll, _ in blocks:
+            ph.hist_stream_update(acc, bb, pl, ll, sl, mb)
+        return ph.hist_stream_finalize(acc, s, mb)
+    return plain
+
+
+def _carry_library(blocks, f, mb, quantized):
+    """One `index_add_` a shard of every row's bins and payload (or
+    lattice) into [F * MB, 3] cells: the library's call for the same
+    adds (a slot of every row)."""
+    import torch
+    flat = [(bb.to(torch.int64) + torch.arange(
+        f, device=bb.device)[:, None] * mb).reshape(-1)
+        for bb, _, _, _ in blocks]
+    vals = [(pp.t().to(torch.int64) if quantized else pl).repeat(f, 1)
+            for _, pl, _, pp in blocks]
+    acc = torch.zeros((f * mb, 3), device=flat[0].device,
+                      dtype=vals[0].dtype)
+
+    def library():
+        for fl, vv in zip(flat, vals):
+            acc.index_add_(0, fl, vv)
+    return library
+
+
+def _carry_times(make, run, library, shards, nbytes, profile=False):
+    """A shard's fold timed on the card: device ms (behind a spin kernel,
+    the carries made outside the timed passes), the host's pace, the
+    library call's device ms, the bound of `nbytes` a shard; with
+    `profile`, the kernels of one pass by the profiler and their
+    launches a shard."""
+    iters = _fresh_iters(shards)
+    out = {"ms": _fresh_ms(run, make, iters) / shards,
+           "host_ms": _fresh_ms(run, make, iters, queued=False) / shards,
+           "library_ms": _cuda_ms(library, iters=5, queued=True) / shards,
+           "bytes_per_shard": nbytes}
+    out["bound_ms"], out["bound_by"] = _bound(nbytes, 0, 1)
+    if profile:
+        c = make()
+        kernels = _profile_kernels(lambda: run(c))
+        out["kernels"] = kernels
+        out["kernels_per_shard"] = kernels["launch_calls"] / shards
+    return out
+
+
 def _carry_case(data, seed, dev, timing, quantized):
     """One carry entry at S = 1, 3 and 8 slots of a depth-3 partition of
     the first STREAM_CARRY_ROWS rows of the bench's bins, in the shards
@@ -5480,9 +5708,11 @@ def _carry_case(data, seed, dev, timing, quantized):
     and `histogram_multi` (K1) over all rows, and within K1's tolerance
     (1e-4 * sum|x| + 1e-6 a cell) of its plain carry on the card; the
     int32 carry bitwise K4 over all rows and its plain carry; two folds
-    bitwise.  A shard's fold (a whole pass of the 7, divided by 7),
-    timed beside its bound, the plain carry and one `index_add_` a shard
-    (the library's call); each case's report."""
+    bitwise.  A shard's fold (a pass of the 7 over fresh carries,
+    divided by 7) timed as device time and at the host's pace beside its
+    bound, the plain carry (host pace) and one `index_add_` a shard
+    (device time); at S = 8 the profiler's kernels a shard.  Then the
+    shapes the paths run (`_carry_sizes`).  Each case's report."""
     import torch
     from lightgbm_tpu_torch.ops import hist_kernel as hk
     from lightgbm_tpu_torch.ops import hist_kernel_q as hkq
@@ -5503,30 +5733,13 @@ def _carry_case(data, seed, dev, timing, quantized):
                                dtype=torch.int32, device=dev)
         blocks = [(bins[:, a:b].contiguous(), pay[a:b], lid[a:b],
                    pw3[:, a:b].contiguous()) for a, b in shards]
+        make, run, finalize = _carry_fns(hk, hkq, blocks, f, n, sl, mb,
+                                         lengths, q, quantized)
 
-        def fold(pre=None):
-            if quantized:
-                c = hkq.histogram_carry_q_init(f, sl, mb)
-                for bb, _, ll, pp in blocks:
-                    hkq.histogram_carry_q_update(c, bb, pp, ll)
-                return hkq.histogram_carry_q_finalize(c, q["sg"], q["sh"])
-            c = pre.pop() if pre else hk.histogram_carry_init(
-                n, f, sl, mb, lengths)
-            for bb, pl, ll, _ in blocks:
-                hk.histogram_carry_update(c, bb, pl, ll)
-            return hk.histogram_carry_finalize(c)
+        plain = _carry_plain(blocks, f, sl, mb, q, quantized)
 
-        def plain():
-            if quantized:
-                acc = torch.zeros((s, f, mb, 3), dtype=torch.int64,
-                                  device=dev)
-                for bb, _, ll, pp in blocks:
-                    hkq.carry_q_plain_update(acc, bb, pp, ll, sl, mb)
-                return hkq.dequantize(acc, q["sg"], q["sh"])
-            acc = ph.hist_stream_init(f, s, mb, device=dev)
-            for bb, pl, ll, _ in blocks:
-                ph.hist_stream_update(acc, bb, pl, ll, sl, mb)
-            return ph.hist_stream_finalize(acc, s, mb)
+        def fold():
+            return finalize(run(make()))
 
         got = fold()
         _check(_bits_equal(got.cpu(), fold().cpu()),
@@ -5564,29 +5777,116 @@ def _carry_case(data, seed, dev, timing, quantized):
             nbytes = sum(_carry_bytes(f, b - a, r, s, mb,
                                       3 if quantized else 12)
                          for (a, b), r in zip(shards, rows_in)) / len(shards)
-            pre = None if quantized else [
-                hk.histogram_carry_init(n, f, sl, mb, lengths)
-                for _ in range(14)]
-            ms = _cuda_ms(lambda: fold(pre), iters=10) / len(shards)
-            flat = [(bb.to(torch.int64) + torch.arange(
-                f, device=dev)[:, None] * mb).reshape(-1)
-                for bb, _, _, _ in blocks]
-            vals = [(pp.t().to(torch.int64) if quantized else pl).repeat(
-                f, 1) for _, pl, _, pp in blocks]
-            acc = torch.zeros((f * mb, 3), device=dev,
-                              dtype=vals[0].dtype)
-
-            def library():
-                for fl, vv in zip(flat, vals):
-                    acc.index_add_(0, fl, vv)
-
-            bound, by = _bound(nbytes, 0, 1)
-            case.update(
-                ms=ms, plain_ms=_cuda_ms(plain, iters=3) / len(shards),
-                library_ms=_cuda_ms(library, iters=5) / len(shards),
-                bound_ms=bound, bound_by=by, bytes_per_shard=nbytes)
+            case.update(_carry_times(
+                make, run, _carry_library(blocks, f, mb, quantized),
+                len(shards), nbytes, profile=s == STREAM_SLOTS[-1]),
+                plain_ms=_cuda_ms(plain, iters=3) / len(shards))
         cases[f"s{s}"] = case
+    if not quantized and dev.type == "cuda":
+        cases["edges"] = {"cases": _carry_edges(seed, dev),
+                          "bitwise_model_and_over_all_rows": True}
+    if timing:
+        cases.update(_carry_sizes(data, seed, dev, quantized))
     return cases
+
+
+#: the f32 carry's edge cases: (rows, features, max_bin, slots, shard
+#: cuts) -- single-row shards and a slot absent from many shards, u16
+#: bins with out-of-range codes, repeated slots, more than 14 slots
+CARRY_EDGES = ((24_000, 3, 63, (0, 2, 0, 5), "single"),
+               (20_000, 2, 700, (1, 0, 3), "u16"),
+               (30_000, 2, 255, tuple(range(17)), "wide"))
+
+
+def _carry_edges(seed, dev):
+    """The f32 carry on small random inputs (CARRY_EDGES) bitwise its
+    order-exact model (`histogram_carry_ordered`, on the CPU) and K1 over
+    all rows; the number of cases."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_kernel as hk
+    rng = np.random.default_rng(seed)
+    for n, f, mb, slots, kind in CARRY_EDGES:
+        dtype = np.uint16 if mb > 255 else np.uint8
+        bins = rng.integers(0, mb + (kind == "u16"), (f, n)).astype(dtype)
+        lid = rng.integers(0, max(slots) + 2, n).astype(np.int32)
+        lid[n // 3:2 * n // 3] = slots[-1]       # shards without the others
+        pay = rng.standard_normal((n, 3)).astype(np.float32)
+        cuts = sorted({int(c) for c in rng.integers(1, n, 40)}
+                      | {1, 2, 3, n // 2, n // 2 + 1})
+        B, P, L = (torch.from_numpy(x) for x in (bins, pay, lid))
+        sl = torch.tensor(slots, dtype=torch.int32)
+        want = hk.histogram_carry_ordered(B, P, L, sl, mb, cuts)
+        lengths = torch.tensor([int((lid == v).sum()) for v in slots],
+                               dtype=torch.int32, device=dev)
+        c = hk.histogram_carry_init(n, f, sl.to(dev), mb, lengths)
+        edges = [0] + cuts + [n]
+        for a, b in zip(edges[:-1], edges[1:]):
+            hk.histogram_carry_update(c, B[:, a:b].contiguous().to(dev),
+                                      P[a:b].to(dev), L[a:b].to(dev))
+        got = hk.histogram_carry_finalize(c).cpu()
+        k1 = torch.cat([hk.histogram_multi(
+            B.to(dev), P.to(dev), L.to(dev), sl[c0:c0 + 14].to(dev),
+            mb).cpu() for c0 in range(0, len(slots), 14)])
+        _check(_bits_equal(got, want) and _bits_equal(got, k1),
+               f"train_stream: the f32 carry's {kind} case != its ordered "
+               "model or K1 over all rows")
+    return len(CARRY_EDGES)
+
+
+def _carry_sizes(data, seed, dev, quantized):
+    """The carry at the shapes its paths run, on the bench's 2M rows
+    (CARRY_SHAPES): a pass over the 2M rows in shards of
+    STREAM_SHARD_ROWS (the streamed grower's; a shard's mean), and one
+    fold of the first CARRY_FOLD_ROWS rows (rank 0's part of the data
+    learner's ring), each slot's L over all 2M rows; timed as
+    `_carry_times`, the profiler's kernels a shard.  Gates the 2M pass
+    bitwise K1 (K4) over all rows, and the ring's two folds too."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_kernel as hk
+    from lightgbm_tpu_torch.ops import hist_kernel_q as hkq
+    n = len(data.y)
+    bnp = np.ascontiguousarray(data.dataset.bin_data.T)
+    f, mb = bnp.shape[0], 255
+    lid3 = _partition(bnp, 3)
+    q = _quant_inputs(bnp, data.y, lid3, [0], seed, dev)
+    bins, pay, pw3 = q["bins"], q["pay"], q["pw3"]
+    out = {}
+    for name, s, step in CARRY_SHAPES:
+        lid_np = lid3 if s > 1 else np.zeros(n, np.int32)
+        lid = q["lid"] if s > 1 else torch.zeros(n, dtype=torch.int32,
+                                                 device=dev)
+        sl = torch.arange(s, dtype=torch.int32, device=dev)
+        lengths = torch.tensor([int((lid_np == k).sum()) for k in range(s)],
+                               dtype=torch.int32, device=dev)
+        edges = list(range(0, n, step)) + [n]
+        blocks = [(bins[:, a:b].contiguous(), pay[a:b], lid[a:b],
+                   pw3[:, a:b].contiguous())
+                  for a, b in zip(edges[:-1], edges[1:])]
+        make, run, finalize = _carry_fns(hk, hkq, blocks, f, n, sl, mb,
+                                         lengths, q, quantized)
+        got = finalize(run(make()))
+        want = hkq.histogram_multi_quantized(bins, pw3, lid, sl, mb,
+                                             q["sg"], q["sh"]) \
+            if quantized else hk.histogram_multi(bins, pay, lid, sl, mb)
+        _check(_bits_equal(got.cpu(), want.cpu()), f"train_stream: the "
+               f"{'int32' if quantized else 'f32'} carry over {name}'s "
+               f"shards != {'K4' if quantized else 'K1'} over all rows")
+        timed = blocks[:1] if step == CARRY_FOLD_ROWS else blocks
+        make, run, _ = _carry_fns(hk, hkq, timed, f, n, sl, mb, lengths, q,
+                                  quantized)
+        sizes = [bb.shape[1] for bb, _, _, _ in timed]
+        rows_in = [int((lid_np[a:a + r] < s).sum()) for a, r in
+                   zip(edges, sizes)]
+        nbytes = sum(_carry_bytes(f, r, i, s, mb, 3 if quantized else 12)
+                     for r, i in zip(sizes, rows_in)) / len(timed)
+        plain = _carry_plain(timed, f, sl, mb, q, quantized)
+        out[name] = dict(slots=s, rows=n, shard_rows=step,
+                         timed_shards=len(timed),
+                         plain_ms=_cuda_ms(plain, iters=2) / len(timed),
+                         **_carry_times(make, run, _carry_library(
+                             timed, f, mb, quantized), len(timed), nbytes,
+                             profile=True))
+    return out
 
 
 def _cand_gate(fused_module, quantized):
@@ -5807,7 +6107,8 @@ def phase_train_stream(data: TrainData, modules, device=None,
             "source": f"lightgbm_tpu_torch/csrc/{src}",
             "replaces": f"lightgbm_tpu/ops/pallas_hist.py:{line}",
             "launches": launches[name],
-            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "max_abs_err": max(c.get("max_abs_err", 0.0)
+                               for c in cases.values()),
             **{k: top.get(k) for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
             "cases": cases})
@@ -5833,6 +6134,10 @@ DIST_RUNS = (("data_wave", "data", "wave", "bitwise"),
              ("feature", "feature", "strict", "bitwise"),
              ("voting", "voting", "strict", "auc"))
 DIST_AUC_TOL = 1e-3
+#: most bytes a hop of the f32 carry may move at S <= 8 slots of 28
+#: features and 255 bins: its prefix and open piece (2 x 685,440 B), the
+#: ranks, the open batch's rows and the parity
+DIST_HOP_BYTES = 1_500_000
 #: seconds the ranks may take together
 DIST_TIMEOUT_S = 900
 
@@ -5947,7 +6252,8 @@ def phase_train_dist(data: TrainData, device=None):
     Gates: every run's two ranks agree; data and feature model texts the
     serial card model's byte for byte (less the parameter lines); voting's
     held-out AUC within 1e-3 of the serial strict model's; the carry
-    kernels launched on each rank.  Reports round ms beside the serial
+    kernels launched on each rank; a hop of the f32 carry at most
+    DIST_HOP_BYTES.  Reports round ms beside the serial
     rounds, hops a tree and bytes a hop, the D2H / gloo / H2D seconds,
     each rank's peak allocation (torch's and the memory ledger's).
     Returns the ranks' launches summed, by kernel."""
@@ -6048,11 +6354,17 @@ def phase_train_dist(data: TrainData, device=None):
                 if learner == "data" and cuda:
                     _check(carry > 0, f"train_dist: {name}: rank "
                            f"{rep['rank']} launched no carry kernel")
+                per_hop = hops["bytes"] / hops["calls"] if hops["calls"] \
+                    else 0
+                _check(not (learner == "data" and cuda
+                            and skey != "quant_wave")
+                       or per_hop <= DIST_HOP_BYTES,
+                       f"train_dist: {name}: {per_hop} B a hop of the f32 "
+                       f"carry, over {DIST_HOP_BYTES}")
                 per_rank.append({
                     "round_ms": rr["round_ms"], "launches": rr["launches"],
                     "hops_per_tree": hops["calls"] / rr["trees"],
-                    "bytes_per_hop": hops["bytes"] / hops["calls"]
-                    if hops["calls"] else 0,
+                    "bytes_per_hop": per_hop,
                     "stages": _stage_totals(st), "collectives": st,
                     "wall_s": rr["wall_s"],
                     "peak_allocated": rr["peak_allocated"],
@@ -7414,9 +7726,9 @@ def main(argv=None) -> int:
                     help="run one rank of the train_dist phase (the phase "
                     "starts these itself)")
     ap.add_argument("--baseline", default=None,
-                    help="another checkout whose K1, K2, K4, K5 and "
-                    "serving kernels the compare phases time beside this "
-                    "one's")
+                    help="another checkout whose K1, K2, K4, K5, carry "
+                    "and serving kernels the compare phases time beside "
+                    "this one's")
     args = ap.parse_args(argv)
     if args.dist_worker:
         sys.path.insert(0, ROOT)

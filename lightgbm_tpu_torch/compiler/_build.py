@@ -75,15 +75,13 @@ _SIGNATURES = {
                     _P, _P, _P]),
                   ("lgbt_histogram_carry",
                    [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                    _P, _P, _P, _P, _P, _P, _P, _P]),
-                  ("lgbt_histogram_carry_finalize",
-                   [_P, _I, _I, _I, _I, _P, _P, _P, _P])],
+                    _P, _P, _P, _P, _P, _P, _P, _P])],
     "histogram_q": [("lgbt_histogram_q",
                      [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P]),
                     ("lgbt_histogram_carry_q",
-                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                      _P, _P, _P]),
+                     [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P, _P]),
                     ("lgbt_histogram_carry_q_finalize",
                      [_P, ctypes.c_longlong, _P, _P, _P])],
     "fused_split": [("lgbt_fused_hist_split",

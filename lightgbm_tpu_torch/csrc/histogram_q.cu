@@ -86,32 +86,196 @@ extern "C" int lgbt_histogram_q(const void* bins, int bin_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- The carry: K4's first stage over one shard of rows at a time ----
+// ---- The carry: one shard's rows added to int32 cells, one launch ----
 //
 // The shard-streamed grower folds shard after shard into int32 cells
-// carried on the device: each shard runs K4's first stage over its own
-// rows (row lists, lattice words, int32 partials, with the shard's own
-// launch plan) and adds its pieces' sums to the carried cells; the carry
-// is dequantized once, after the last shard.  Integer sums do not depend
-// on the order or the cut into shards and pieces, so the finalized carry
-// is lgbt_histogram_q's over all N rows bit for bit (int32 stays exact
-// while the carried sums do, the wrapper's MAX_ROWS_Q over all N).
+// carried on the device, and dequantizes them once, after the last shard.
+// Integer adds are exact in any order, so neither the cut into shards and
+// tiles nor the order of the atomics below can change a bit: the finalized
+// carry is lgbt_histogram_q's over all N rows bit for bit, and two runs
+// give the same bits (int32 stays exact while the carried sums do, the
+// wrapper's MAX_ROWS_Q over all N).  K4's row list exists only to give
+// its f32 twin an order; the integer carry needs none, so a shard is one
+// launch with no row list and no workspace:
+//   carry_q_kernel, grid (tile of rows x group of slots x group of
+//   features), a cluster of C blocks of one (slot group, feature group)
+//   over consecutive tiles.  A block reads its tile's leaf ids straight
+//   (every row's, four rows a thread in flight), and for each row in one
+//   of its slots (each slot matched on its own, as K4's plain version)
+//   the three lattice bytes and the bins of its features, adding gq, hq
+//   and w (when not zero) into the slot's int32 cells [Sb, Fg, MB, 3] in
+//   shared memory with shared-memory integer atomics, as K4 does.  Then
+//   the cluster sums its blocks' cells over distributed shared memory,
+//   each block a C-th of the cells, and adds the nonzero sums to the
+//   carried cells [S, F, MB, 3] with global integer atomics (red.add).
+//   C = 1 (`launch_plan_carry_q`: a single tile) adds a block's cells
+//   alone.
+// The bins of rows outside the slots are not read (one leaf id decides);
+// a 32-byte sector holds 32 rows' u8 bins, so the skipped ones save
+// little.
+//
+// What bounds it: the bytes.  Every leaf id of the shard, the bins and
+// three lattice bytes of its rows in the slots, the carried cells read
+// and written once (2 * S * F * MB * 12 B).  What it pays beyond them:
+// the leaf ids and lattice bytes read again by each feature group (from
+// L2), and the tiles' cells summed: C blocks' over distributed shared
+// memory, then one global atomic a nonzero cell per cluster.
+
+#include <cooperative_groups.h>
 
 namespace {
 
-// carry[i] += cell i's sum over the shard's pieces of its slot.
-__global__ void __launch_bounds__(kReduceThreads)
-carry_q_add_kernel(const int* __restrict__ work, int chunks,
-                   long long total, long long per_slot,
-                   const int* __restrict__ slots,
-                   const int* __restrict__ slot_start,
-                   int* __restrict__ carry) {
-  const long long i = static_cast<long long>(blockIdx.x) * kReduceThreads +
-                      threadIdx.x;
-  if (i >= total) return;
-  const int s = static_cast<int>(i / per_slot);
-  const int pieces = slot_rows(slots, slot_start, s, chunks).pieces;
-  carry[i] += sum_q_chunks(work, pieces, total, i);
+constexpr int kQTileUnroll = 4;       // rows of a thread in flight
+
+// The cells of a (slot group, feature group) over one tile of rows, then
+// their cluster sum added to carry.
+template <typename BinT>
+__global__ void __launch_bounds__(kThreads)
+carry_q_kernel(const BinT* __restrict__ bins, const int8_t* __restrict__ pw3,
+               const int* __restrict__ leaf_id,
+               const int* __restrict__ slots, int n, int F, int S, int MB,
+               int Sb, int Fg, int tiles, int tile_rows, int cluster,
+               int* __restrict__ carry) {
+  extern __shared__ int cells_q[];     // [Sb][Fg][MB][3], then slots [Sb]
+  int* slot_s = cells_q + static_cast<size_t>(Sb) * Fg * MB * 3;
+  const int nfg = (F + Fg - 1) / Fg;
+  const int t = blockIdx.x % tiles;
+  const int combo = blockIdx.x / tiles;
+  const int s0 = (combo / nfg) * Sb, sn = min(Sb, S - s0);
+  const int f0 = (combo % nfg) * Fg, fn = min(Fg, F - f0);
+  const int per_slot = fn * MB * 3;
+  const int ncells = sn * per_slot;
+  for (int i = threadIdx.x; i < ncells; i += kThreads) cells_q[i] = 0;
+  if (threadIdx.x < sn) slot_s[threadIdx.x] = __ldg(slots + s0 + threadIdx.x);
+  __syncthreads();
+
+  const long long lo = static_cast<long long>(t) * tile_rows;
+  const long long hi = min(static_cast<long long>(n), lo + tile_rows);
+  for (long long r0 = lo + threadIdx.x; r0 < hi;
+       r0 += kQTileUnroll * kThreads) {
+    int lid[kQTileUnroll];
+#pragma unroll
+    for (int u = 0; u < kQTileUnroll; ++u) {
+      const long long r = r0 + u * kThreads;
+      lid[u] = r < hi ? __ldg(leaf_id + r) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kQTileUnroll; ++u) {
+      const long long r = r0 + u * kThreads;
+      unsigned long long m = 0;        // the slots of the row
+      if (r < hi)
+        for (int k = 0; k < sn; ++k)
+          if (slot_s[k] == lid[u]) m |= 1ULL << k;
+      if (!m) continue;
+      const int g = __ldg(pw3 + r);
+      const int hq = __ldg(pw3 + n + r);
+      const int w = __ldg(pw3 + 2LL * n + r);
+      for (int f = 0; f < fn; ++f) {
+        const unsigned b = __ldg(bins + static_cast<size_t>(f0 + f) * n + r);
+        if (b >= static_cast<unsigned>(MB)) continue;
+        for (unsigned long long mm = m; mm; mm &= mm - 1) {
+          int* c = cells_q + (__ffsll(static_cast<long long>(mm)) - 1) *
+                                 per_slot + (f * MB + b) * 3;
+          if (g) atomicAdd(c, g);
+          if (hq) atomicAdd(c + 1, hq);
+          if (w) atomicAdd(c + 2, w);
+        }
+      }
+    }
+  }
+
+  // the cluster's sum of each cell, a C-th of the cells a block
+  namespace cg = cooperative_groups;
+  int q = 0;
+  if (cluster > 1) {
+    cg::this_cluster().sync();
+    q = static_cast<int>(cg::this_cluster().block_rank());
+  } else {
+    __syncthreads();
+  }
+  const int share = (ncells + cluster - 1) / cluster;
+  const int a = q * share, z = min(ncells, a + share);
+  const int mb3 = MB * 3;
+  for (int i = a + threadIdx.x; i < z; i += kThreads) {
+    int sum = 0;
+    if (cluster > 1) {
+      for (int o = 0; o < cluster; ++o)
+        sum += *cg::this_cluster().map_shared_rank(cells_q + i, o);
+    } else {
+      sum = cells_q[i];
+    }
+    if (sum) {
+      const int k = i / per_slot, rem = i - k * per_slot;
+      const int fl = rem / mb3;
+      atomicAdd(carry + (static_cast<size_t>(s0 + k) * F + f0 + fl) * mb3 +
+                    (rem - fl * mb3), sum);
+    }
+  }
+  if (cluster > 1) cg::this_cluster().sync();   // keep the cells for the
+}                                               // cluster's other blocks
+
+// Shared memory of one carry_q_kernel block, all of it dynamic: the
+// int32 cells [Sb, Fg, MB, 3] and the block's slots.
+// `ops/hist_kernel_q.py carry_q_smem_bytes` repeats it.
+inline long long carry_q_smem_bytes(int Sb, int Fg, int MB) {
+  return static_cast<long long>(Sb) * Fg * MB * 12 + 4LL * Sb;
+}
+
+// The launch plan the entry validates (`ops/hist_kernel_q.py
+// launch_plan_carry_q` makes it): 1 <= S <= 42 slots in groups of Sb, F
+// features in groups of Fg, tiles of tile_rows covering n, a multiple of
+// the cluster (1, 2, 4 or 8), and the block's cells within 227 KB.
+inline bool carry_q_args_ok(int n, int F, int S, int MB, int bin_bytes,
+                            int Sb, int Fg, int tiles, int tile_rows,
+                            int cluster) {
+  if (n <= 0 || F <= 0 || S <= 0 || S > kQMaxSlots || MB <= 0) return false;
+  if (bin_bytes != 1 && bin_bytes != 2) return false;
+  if (Sb < 1 || Sb > S || Fg < 1 || Fg > F) return false;
+  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
+    return false;
+  if (tiles < 1 || tile_rows < 1 || tiles % cluster != 0) return false;
+  if (static_cast<long long>(tiles) * tile_rows < n) return false;
+  const long long combos = static_cast<long long>((S + Sb - 1) / Sb) *
+                           ((F + Fg - 1) / Fg);
+  if (combos * tiles > 0x7FFFFFFFLL) return false;
+  return carry_q_smem_bytes(Sb, Fg, MB) <= kSmemMax;
+}
+
+template <typename BinT>
+cudaError_t launch_carry_q_t(const void* bins, const int8_t* pw3,
+                             const int* leaf_id, const int* slots, int n,
+                             int F, int S, int MB, int Sb, int Fg, int tiles,
+                             int tile_rows, int cluster, int* carry,
+                             cudaStream_t stream) {
+  auto kernel = carry_q_kernel<BinT>;
+  static bool opted_in = false;        // the 227 KB opt-in, once, less
+  if (!opted_in) {                     // any static shared memory
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemMax - static_cast<int>(fa.sharedSizeBytes));
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  const long long combos = static_cast<long long>((S + Sb - 1) / Sb) *
+                           ((F + Fg - 1) / Fg);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(combos * tiles));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(carry_q_smem_bytes(Sb, Fg, MB));
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const BinT*>(bins),
+                            pw3, leaf_id, slots, n, F, S, MB, Sb, Fg, tiles,
+                            tile_rows, cluster, carry);
 }
 
 __global__ void __launch_bounds__(kReduceThreads)
@@ -126,29 +290,29 @@ carry_q_dequant_kernel(const int* __restrict__ carry, long long total,
 
 }  // namespace
 
-// One shard's fold: bins [F, n], pw3 [3, n] int8 and leaf_id [n] i32 are
-// the shard's rows; slots [S] i32; Fg and chunks the shard's launch plan
-// (`launch_plan_q(n, F, S, MB)`); rowbuf, ticket and work as
-// lgbt_histogram_q's over n rows; carry [S, F, MB, 3] int32, added to.
+// One shard's fold: bins [F, n] (bin_bytes 1 or 2), pw3 [3, n] int8 and
+// leaf_id [n] i32 are the shard's rows; slots [S] i32 (S <= 42); Sb, Fg,
+// tiles, tile_rows and cluster the shard's launch plan
+// (`launch_plan_carry_q(n, F, S, MB)`); carry [S, F, MB, 3] int32, added
+// to.  One launch.  Returns its cudaError_t.
 extern "C" int lgbt_histogram_carry_q(const void* bins, int bin_bytes,
                                       const int8_t* pw3, const int* leaf_id,
                                       const int* slots, int n, int F, int S,
-                                      int MB, int Fg, int chunks,
-                                      int* rowbuf, int* ticket, int* work,
-                                      int* carry, cudaStream_t stream) {
-  if (!q_args_ok(n, F, S, MB, bin_bytes, Fg, chunks))
+                                      int MB, int Sb, int Fg, int tiles,
+                                      int tile_rows, int cluster, int* carry,
+                                      cudaStream_t stream) {
+  if (!carry_q_args_ok(n, F, S, MB, bin_bytes, Sb, Fg, tiles, tile_rows,
+                       cluster))
     return cudaErrorInvalidValue;
-  cudaError_t e = launch_q_first_stage(bins, bin_bytes, pw3, leaf_id, slots,
-                                       n, F, S, MB, Fg, chunks, rowbuf,
-                                       ticket, work, stream);
+  cudaError_t e =
+      bin_bytes == 1
+          ? launch_carry_q_t<uint8_t>(bins, pw3, leaf_id, slots, n, F, S, MB,
+                                      Sb, Fg, tiles, tile_rows, cluster,
+                                      carry, stream)
+          : launch_carry_q_t<uint16_t>(bins, pw3, leaf_id, slots, n, F, S,
+                                       MB, Sb, Fg, tiles, tile_rows, cluster,
+                                       carry, stream);
   if (e != cudaSuccess) return e;
-  const long long per_slot = static_cast<long long>(F) * MB * 3;
-  const long long total = S * per_slot;
-  const long long blocks = (total + kReduceThreads - 1) / kReduceThreads;
-  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  carry_q_add_kernel<<<static_cast<unsigned>(blocks), kReduceThreads, 0,
-                       stream>>>(work, chunks, total, per_slot, slots,
-                                 slot_start_of(rowbuf, n, S), carry);
   return static_cast<int>(cudaGetLastError());
 }
 

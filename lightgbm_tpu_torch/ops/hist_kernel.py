@@ -360,34 +360,111 @@ def histogram_multi(bins_fm: torch.Tensor, payload: torch.Tensor,
     return out
 
 
-# ---- the carry: K1's first stage over one shard at a time -------------
+# ---- the carry: K1's order over one shard at a time -------------------
 #
 # The shard-streamed grower folds the rows of one shard after the other
-# into a histogram carried on the device (`streaming/engine.py`).  Its
-# contract: once the last shard has been folded, the finalized carry is
-# `histogram_multi` over all N rows bit for bit, the order of adds of
-# `hist_common.cuh` under `launch_plan(N, F, S, MB)`.  That order hangs on
-# each slot's whole list: its L rows are cut into pieces of `piece_bounds`
-# and each piece into batches of 32 counted from the piece's first row.
-# So the carry is given every slot's L before the first shard, and holds
-# what crosses a shard boundary: the pieces' partials [chunks, S, F, MB,
-# 3], each slot's running rank (its rows folded so far), and the rows of
-# each slot's open batch (at most 31: their bins [S, F, 32] and payload
-# [S, 32, 3], in two buffers that alternate between shards).
+# into a histogram carried on the device (`streaming/engine.py`), and the
+# data learner's ring sends it from rank to rank (`parallel/learner.py`).
+# Its contract: once the last shard has been folded, the finalized carry
+# is `histogram_multi` over all N rows bit for bit, the order of adds of
+# `hist_common.cuh` under `launch_plan(N, F, S, MB)`.  That order hangs
+# on each slot's whole list: its L rows are cut into pieces of
+# `piece_bounds`, each piece into batches of 32 counted from the piece's
+# first row, and the pieces' partials are summed in index order from the
+# first.  So the carry is given every slot's L before the first shard.
+# Shards come in row order, so at a shard boundary the pieces before a
+# slot's open one are complete and those after it untouched, and the
+# carry holds only what crosses a boundary (`csrc/histogram.cu`): the
+# completed pieces' left fold (`prefix`, the histogram once every row is
+# folded), the open piece's partial (`open`), each slot's rank (its rows
+# folded so far), and the rows of its open batch (at most 31: bins and
+# payload), the last two in halves that alternate between shards under a
+# device `parity` the kernel flips.
 
-#: carry-kernel launches made by `histogram_carry_update` and
-#: `histogram_carry_finalize` (one a group of up to 14 slots)
+#: carry-kernel launches made by `histogram_carry_update` (one a group
+#: of up to 14 slots, each two kernels: the row list and the fold)
 HIST_CARRY_LAUNCHES = 0
 
 #: rows of a batch, and of the open batch a slot carries at most
 _BATCH = 32
+#: rows a block of the carry's list kernel
+_CARRY_LIST_ROWS = 2048
+
+#: the carried state of one group of slots on a CUDA device, in the
+#: order a hop of the ring moves it
+CARRY_STATE = ("prefix", "open", "rank", "pend_bin", "pend_pay", "parity")
+
+
+def carry_height(n: int, chunks: int, lengths, slots) -> int:
+    """Rows of the fold kernel's grid for a shard of `n` rows of the
+    slots `slots` with `lengths` rows each over all N (host lists): at
+    least the rows the list kernel lays out, one a piece each slot's
+    ranks reach (`csrc/histogram.cu carry_list_kernel`).  A slot of L
+    rows has P = min(chunks, max(1, L // 256)) pieces of at least L // P
+    rows, so its `len` rows of the shard reach at most len // (L // P) +
+    2 of them and never more than P; the shard's rows count once a slot
+    value, as often as the value repeats among the slots."""
+    total, piece = 0, None
+    for big_l in lengths:
+        if big_l > 0:
+            p = min(chunks, max(1, big_l // _MIN_PIECE))
+            total += p
+            piece = big_l // p if piece is None else min(piece,
+                                                         big_l // p)
+    if piece is None:
+        return 1
+    mult = max(list(slots).count(v) for v in slots)
+    height = min(total, mult * (n // piece) + 2 * len(slots))
+    if height > 65535:
+        raise LightGBMError(f"the carry's fold needs {height} grid rows "
+                            "for one shard; a launch takes 65535")
+    return height
+
+
+def carry_scratch_ints(n: int, s: int, f: int, max_bin: int,
+                       height: int) -> int:
+    """int32 scratch of one shard's fold: each slot's row list [s, n],
+    row count [s] and first grid row [s + 1], then (from an even offset)
+    the partials of the grid's blocks [height, f, max_bin, 3] f32."""
+    return ((s * n + 2 * s + 2) & ~1) + height * f * max_bin * 3
+
+
+def carry_sync_ints(n: int, s: int, f: int) -> int:
+    """int32 words a stream's carry launches share, 0 between launches:
+    the list kernel's look-back [s * ceil(n / 2048)] u64, its ticket and
+    finished blocks, and a fold ticket a (slot, feature)."""
+    return 2 * s * -(-n // _CARRY_LIST_ROWS) + 2 + s * f
+
+
+def carry_smem_bytes(max_bin: int) -> int:
+    """Shared memory of one fold block (`histogram.cu carry_smem_bytes`):
+    a feature's cells [max_bin, 3] f32, each warp's lane buffer of 96
+    words and two round buffers of the 7 computing warps' batch sums."""
+    return 12 * max_bin + _WARPS * 96 * 4 + 2 * (_WARPS - 1) * 128 * 4
+
+
+#: the carry launches' shared words, one zeroed int32 tensor per (device,
+#: stream), grown on demand: the kernels leave them 0, so launches on
+#: one stream share them, one after the other
+_CARRY_SYNC = {}
+
+
+def carry_sync(device, stream: int, ints: int) -> int:
+    """Pointer to at least `ints` zeroed words for the carry launches on
+    `stream` of `device`; call with that stream current."""
+    key = (device.index, stream)
+    t = _CARRY_SYNC.get(key)
+    if t is None or t.numel() < ints:
+        t = _CARRY_SYNC[key] = torch.zeros(max(ints, 1024),
+                                           dtype=torch.int32, device=device)
+    return t.data_ptr()
 
 
 class HistCarry:
     """One carried histogram of `slots` over N rows.  CPU: the plain f32
     carry of `ops/histogram.py` (`acc`).  CUDA: per group of up to 14
     slots (`MULTI_CHUNK`, as `fused_hist_split` launches them) the
-    kernel's state, `groups`."""
+    kernel's state (`CARRY_STATE`), `groups`."""
 
     __slots__ = ("slots", "max_bin", "n_features", "acc", "first", "groups")
 
@@ -400,13 +477,17 @@ class HistCarry:
         self.first = first
         self.groups = groups
 
-    def tensors(self):
-        """The device tensors the carry holds (the memory ledger's
-        `train.hist_carry`)."""
+    def hop_tensors(self):
+        """The tensors a hop of the ring moves: the whole carried state,
+        each group's parity included, updated in place by a fold."""
         if self.acc is not None:
             return [self.acc]
-        return [t for g in self.groups for t in
-                (g["work"], g["rank"], g["pend_bin"], g["pend_pay"])]
+        return [g[k] for g in self.groups for k in CARRY_STATE]
+
+    def tensors(self):
+        """The device tensors the carry holds (the memory ledger's
+        `train.hist_carry`): its state, as a hop moves it."""
+        return self.hop_tensors()
 
 
 def histogram_carry_init(n_rows: int, f: int, slots: torch.Tensor,
@@ -415,7 +496,8 @@ def histogram_carry_init(n_rows: int, f: int, slots: torch.Tensor,
                          ) -> HistCarry:
     """A zero carry of the leaves `slots` [S] i32 over `n_rows` rows of
     `f` features.  On a CUDA device `lengths` [S] i32 holds each slot's
-    rows among all N (the carry needs them before the first shard); the
+    rows among all N (the carry needs them before the first shard; they
+    and the slots are read to the host once, for `carry_height`); the
     pieces are `launch_plan(n_rows, f, s, max_bin)`'s, for each group of
     up to 14 slots as K1 and K2 take them."""
     dev = slots.device
@@ -434,20 +516,23 @@ def histogram_carry_init(n_rows: int, f: int, slots: torch.Tensor,
             lengths.dtype != torch.int32 or lengths.device != dev:
         raise LightGBMError(f"lengths must be [{s}] int32 on {dev}")
     groups = []
+    lens, values = torch.stack([lengths, slots]).tolist()
     for c0 in range(0, s, MULTI_CHUNK):
         sg = slots[c0:c0 + MULTI_CHUNK].contiguous()
         k = sg.shape[0]
-        plan = launch_plan(max(n_rows, 1), f, k, max_bin)
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
         groups.append(dict(
             slots=sg, lengths=lengths[c0:c0 + MULTI_CHUNK].contiguous(),
-            plan=plan, parity=0,
-            work=torch.zeros((plan.chunks, k, f, max_bin, 3),
-                             dtype=torch.float32, device=dev),
-            rank=torch.zeros(k, dtype=torch.int32, device=dev),
-            pend_bin=torch.zeros((2, k, f, _BATCH), dtype=torch.int32,
-                                 device=dev),
-            pend_pay=torch.zeros((2, k, _BATCH, 3), dtype=torch.float32,
-                                 device=dev)))
+            plan=launch_plan(max(n_rows, 1), f, k, max_bin),
+            lens=lens[c0:c0 + MULTI_CHUNK],
+            values=values[c0:c0 + MULTI_CHUNK],
+            prefix=torch.zeros((k, f, max_bin, 3), **f32),
+            open=torch.zeros((k, f, max_bin, 3), **f32),
+            rank=torch.zeros((2, k), **i32),
+            pend_bin=torch.zeros((2, k, f, _BATCH), **i32),
+            pend_pay=torch.zeros((2, k, _BATCH, 3), **f32),
+            parity=torch.zeros(1, **i32)))
     return HistCarry(slots, max_bin, f, groups=groups)
 
 
@@ -456,8 +541,8 @@ def histogram_carry_update(carry: HistCarry, bins_fm: torch.Tensor,
                            leaf_id: torch.Tensor) -> HistCarry:
     """Fold one shard's rows, the next in row order (bins [F, n] u8/u16,
     payload [n, 3] f32, leaf ids [n] i32), into the carry.  CUDA tensors
-    launch `csrc/histogram.cu lgbt_histogram_carry` a group; CPU tensors
-    run `ops/histogram.py hist_stream_update`."""
+    launch `csrc/histogram.cu lgbt_histogram_carry` a group (two
+    kernels); CPU tensors run `ops/histogram.py hist_stream_update`."""
     global HIST_CARRY_LAUNCHES
     mb = carry.max_bin
     if carry.acc is not None:
@@ -483,56 +568,39 @@ def histogram_carry_update(carry: HistCarry, bins_fm: torch.Tensor,
     for g in carry.groups:
         sg = g["slots"]
         _check(bins_fm, payload, leaf_id, sg, mb)
-        k, plan, p = sg.shape[0], g["plan"], g["parity"]
-        rowbuf = torch.empty(row_scratch_ints(n, k), dtype=torch.int32,
-                             device=dev)
+        k, chunks = sg.shape[0], g["plan"].chunks
+        height = carry_height(n, chunks, g["lens"], g["values"])
+        scratch = torch.empty(carry_scratch_ints(n, k, f, mb, height),
+                              dtype=torch.int32, device=dev)
         rc = _build.on_stream(dev, lambda stream: lib.lgbt_histogram_carry(
             bins_fm.data_ptr(), bins_fm.element_size(), payload.data_ptr(),
-            leaf_id.data_ptr(), sg.data_ptr(), n, f, k, mb,
-            plan.feature_group, plan.chunks, rowbuf.data_ptr(),
-            ticket(dev, stream), g["rank"].data_ptr(),
-            g["lengths"].data_ptr(), g["pend_bin"][p].data_ptr(),
-            g["pend_pay"][p].data_ptr(), g["pend_bin"][1 - p].data_ptr(),
-            g["pend_pay"][1 - p].data_ptr(), g["work"].data_ptr(),
+            leaf_id.data_ptr(), sg.data_ptr(), n, f, k, mb, chunks, height,
+            scratch.data_ptr(),
+            carry_sync(dev, stream, carry_sync_ints(n, k, f)),
+            g["lengths"].data_ptr(),
+            *(g[key].data_ptr() for key in CARRY_STATE[2:]),
+            g["prefix"].data_ptr(), g["open"].data_ptr(),
             ctypes.c_void_p(stream)))
         if rc != 0:
             raise LightGBMError(f"histogram carry kernel launch failed: "
                                 f"CUDA error {rc}")
-        g["parity"] = 1 - p
         HIST_CARRY_LAUNCHES += 1
     return carry
 
 
 def histogram_carry_finalize(carry: HistCarry) -> torch.Tensor:
-    """[S, F, MB, 3] f32 histograms of the carry's slots from the rows
-    folded so far: each cell's pieces summed in index order
-    (`lgbt_histogram_carry_finalize`, K1's `sum_chunks`) on a CUDA
-    device; `hist_stream_finalize` on the CPU, a repeated slot taking its
-    first occurrence's rows as in K1."""
-    global HIST_CARRY_LAUNCHES
-    mb, f = carry.max_bin, carry.n_features
+    """[S, F, MB, 3] f32 histograms of the carry's slots, once every row
+    has been folded.  On a CUDA device the groups' prefixes, the
+    completed pieces summed in index order (K1's `sum_chunks`), with no
+    launch (one group: the carry's own tensor); `hist_stream_finalize`
+    on the CPU, a repeated slot taking its first occurrence's rows as in
+    K1."""
     if carry.acc is not None:
         from .histogram import hist_stream_finalize
-        out = hist_stream_finalize(carry.acc, carry.slots.shape[0], mb)
+        out = hist_stream_finalize(carry.acc, carry.slots.shape[0],
+                                   carry.max_bin)
         return out[carry.first]
-    from ..compiler import _build
-    lib = _build.load("histogram")
-    outs = []
-    for g in carry.groups:
-        k = g["slots"].shape[0]
-        dev = g["work"].device
-        out = torch.empty((k, f, mb, 3), dtype=torch.float32, device=dev)
-        rc = _build.on_stream(dev, lambda stream:
-                              lib.lgbt_histogram_carry_finalize(
-                                  g["work"].data_ptr(), g["plan"].chunks, k,
-                                  f, mb, g["slots"].data_ptr(),
-                                  g["lengths"].data_ptr(), out.data_ptr(),
-                                  ctypes.c_void_p(stream)))
-        if rc != 0:
-            raise LightGBMError(f"histogram carry finalize failed: CUDA "
-                                f"error {rc}")
-        HIST_CARRY_LAUNCHES += 1
-        outs.append(out)
+    outs = [g["prefix"] for g in carry.groups]
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
@@ -554,19 +622,82 @@ def _batch_sums_ordered(work_cell, bins, pay, max_bin):
     np.add.at(work_cell, keys % max_bin, gsum)
 
 
+def carry_ordered_init(f: int, s: int, max_bin: int) -> dict:
+    """The carry kernel's state for `s` slots on the CPU, in numpy: the
+    prefix and the open piece [s, f, max_bin, 3] f32, the ranks [s], the
+    open batch's bins [s, f, 32] and payload [s, 32, 3] (its lanes; how
+    many hold rows follows from the rank)."""
+    return {"prefix": np.zeros((s, f, max_bin, 3), np.float32),
+            "open": np.zeros((s, f, max_bin, 3), np.float32),
+            "rank": np.zeros(s, np.int64),
+            "pend_bin": np.zeros((s, f, _BATCH), np.int64),
+            "pend_pay": np.zeros((s, _BATCH, 3), np.float32)}
+
+
+def carry_ordered_step(state: dict, bins: np.ndarray, pay: np.ndarray,
+                       lid: np.ndarray, slots, lengths, chunks: int,
+                       max_bin: int) -> None:
+    """Fold one shard (bins [F, n], payload [n, 3] f32, leaf ids [n]) of
+    the slots `slots` (a list) with `lengths` rows each over all N into
+    `state` in place, as `csrc/histogram.cu carry_fold_kernel` does: for
+    each slot, every piece its ranks [R0, R1) reach, in index order,
+    starts from the open piece's partial (begun before) or from +0.0,
+    takes the pending rows and the shard's, adds its full batches
+    (`_batch_sums_ordered`) and carries a batch it leaves open; a
+    complete piece goes into the prefix (the first piece copied), the
+    open one into `open`."""
+    n = lid.size
+    first = np.full(n, -1, np.int64)        # the first equal slot, or -1
+    for k in range(len(slots) - 1, -1, -1):
+        first[lid == slots[k]] = k
+    for i, slot in enumerate(slots):
+        rows = np.flatnonzero(first == slots.index(slot))
+        r0 = int(state["rank"][i])
+        r1, big_l = r0 + rows.size, int(lengths[i])
+        state["rank"][i] = r1
+        if r0 >= big_l or rows.size == 0:
+            continue                        # the open batch stays as it is
+        bounds = piece_bounds(big_l, chunks)
+        ca = int(np.searchsorted(bounds, r0, "right")) - 1
+        cb = int(np.searchsorted(bounds, min(r1, big_l) - 1, "right")) - 1
+        for c in range(ca, cb + 1):
+            b0, b1 = int(bounds[c]), int(bounds[c + 1])
+            cont = c == ca and r0 > b0      # begun in an earlier shard
+            va = r0 - (r0 - b0) % _BATCH if cont else b0
+            vb = min(b1, r1)
+            kp = r0 - va if cont else 0     # the pending rows
+            take = rows[max(va, r0) - r0:vb - r0]
+            vbins = np.concatenate([state["pend_bin"][i, :, :kp],
+                                    bins[:, take]], axis=1)
+            vpay = np.concatenate([state["pend_pay"][i, :kp], pay[take]])
+            m = vb - va
+            complete = vb == b1
+            full = m - m % _BATCH if not complete else m
+            part = state["open"][i].copy() if cont else \
+                np.zeros_like(state["open"][i])
+            for fi in range(bins.shape[0]):
+                _batch_sums_ordered(part[fi], vbins[fi, :full], vpay[:full],
+                                    max_bin)
+            if full < m:                    # the open batch: carried
+                state["pend_bin"][i, :, :m - full] = vbins[:, full:]
+                state["pend_pay"][i, :m - full] = vpay[full:]
+            if complete:
+                state["prefix"][i] = part if c == 0 else \
+                    state["prefix"][i] + part
+            else:
+                state["open"][i] = part
+
+
 def histogram_carry_ordered(bins_fm: torch.Tensor, payload: torch.Tensor,
                             leaf_id: torch.Tensor, slots: torch.Tensor,
                             max_bin: int, cuts) -> torch.Tensor:
     """The carry kernel's sums on the CPU: the rows of `bins_fm` [F, N],
     `payload` and `leaf_id` cut into shards at `cuts` (ascending row
     indices) and folded one shard after the other by the kernel's state
-    machine (`csrc/histogram.cu carry_partial_kernel`): each piece's
-    blocks see only the shard's rows, the open batch's rows carried over,
-    the batches' sums added as `_batch_sums_ordered`; then the pieces
-    summed in index order.  Slots go in groups of 14 with
-    `launch_plan(N, F, s, MB)`'s chunks.  Equal to
-    `histogram_multi_ordered` over all N rows bit for bit: for tests and
-    chip_smoke.py."""
+    machine (`carry_ordered_step`); the finalized carry is the prefix.
+    Slots go in groups of 14 with `launch_plan(N, F, s, MB)`'s chunks.
+    Equal to `histogram_multi_ordered` over all N rows bit for bit: for
+    tests and chip_smoke.py."""
     _check(bins_fm, payload, leaf_id, slots[:MULTI_CHUNK], max_bin)
     f, n = bins_fm.shape
     bins = bins_fm.cpu().numpy().astype(np.int64)
@@ -577,58 +708,11 @@ def histogram_carry_ordered(bins_fm: torch.Tensor, payload: torch.Tensor,
     sl_all = slots.tolist()
     for c0 in range(0, len(sl_all), MULTI_CHUNK):
         sl = sl_all[c0:c0 + MULTI_CHUNK]
-        s = len(sl)
-        chunks = launch_plan(max(n, 1), f, s, max_bin).chunks
-        length = [int((lid == v).sum()) for v in sl]
-        work = np.zeros((chunks, s, f, max_bin, 3), np.float32)
-        rank = [0] * s
-        pend = [(np.zeros((f, 0), np.int64), np.zeros((0, 3), np.float32))
-                for _ in range(s)]
+        chunks = launch_plan(max(n, 1), f, len(sl), max_bin).chunks
+        lengths = [int((lid == v).sum()) for v in sl]
+        state = carry_ordered_init(f, len(sl), max_bin)
         for a, b in zip(edges[:-1], edges[1:]):
-            sb, sp, sid = bins[:, a:b], pay[a:b], lid[a:b]
-            first = np.full(b - a, -1, np.int64)
-            for k in range(s - 1, -1, -1):
-                first[sid == sl[k]] = k
-            new_pend = []
-            for i in range(s):
-                rows = np.flatnonzero(first == sl.index(sl[i]))
-                r0, r1, L = rank[i], rank[i] + rows.size, length[i]
-                bounds = piece_bounds(L, chunks)
-                out_pend = (np.zeros((f, 0), np.int64),
-                            np.zeros((0, 3), np.float32))
-                for c in range(bounds.size - 1):
-                    b0, b1 = int(bounds[c]), int(bounds[c + 1])
-                    if b0 <= r0 < b1:
-                        va = r0 - (r0 - b0) % _BATCH
-                    elif b0 > r0:
-                        va = b0
-                    else:
-                        continue             # the piece ended before
-                    vb = min(b1, r1)
-                    if vb <= va:
-                        continue
-                    kp = r0 - va if va < r0 else 0
-                    take = rows[max(va, r0) - r0:vb - r0]
-                    vbins = np.concatenate([pend[i][0][:, :kp], sb[:, take]],
-                                           axis=1)
-                    vpay = np.concatenate([pend[i][1][:kp], sp[take]])
-                    m = vb - va
-                    open_last = vb == r1 and vb < b1 and (vb - b0) % _BATCH
-                    full = m - m % _BATCH if open_last else m
-                    if open_last:
-                        out_pend = (vbins[:, full:], vpay[full:])
-                    for fi in range(f):
-                        _batch_sums_ordered(work[c, i, fi], vbins[fi, :full],
-                                            vpay[:full], max_bin)
-                new_pend.append(out_pend)
-                rank[i] = r1
-            pend = new_pend
-        out = np.zeros((s, f, max_bin, 3), np.float32)
-        for i in range(s):
-            pieces = piece_bounds(length[i], chunks).size - 1
-            acc = work[0, i].copy()
-            for c in range(1, pieces):
-                acc += work[c, i]
-            out[i] = acc
-        outs.append(out)
+            carry_ordered_step(state, bins[:, a:b], pay[a:b], lid[a:b], sl,
+                               lengths, chunks, max_bin)
+        outs.append(state["prefix"])
     return torch.from_numpy(np.concatenate(outs))

@@ -27,13 +27,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..utils.log import LightGBMError
-from .hist_kernel import (_SMEM_MAX, LaunchPlan, piece_bounds, plan_launch,
-                          row_lists_plain, row_scratch_ints, ticket)
+from .hist_kernel import (_MAX_BLOCKS_PER_SM, _SMEM_MAX, _SMS, LaunchPlan,
+                          piece_bounds, plan_launch, row_lists_plain,
+                          row_scratch_ints, ticket)
 
 #: K4 launches made by `histogram_multi_quantized` (one per chunk of slots)
 HIST_Q_LAUNCHES = 0
@@ -275,16 +277,89 @@ def histogram_multi_quantized(bins_fm: torch.Tensor, pw3: torch.Tensor,
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-# ---- the carry: K4's first stage over one shard at a time -------------
+# ---- the carry: one shard's rows added to int32 cells ----------------
 #
 # The shard-streamed grower folds shard after shard into int32 cells
 # carried on the device and dequantizes them once, after the last shard.
 # Integer sums do not depend on order, so the finalized carry is
-# `histogram_multi_quantized` over all N rows bit for bit.
+# `histogram_multi_quantized` over all N rows bit for bit, and a shard is
+# one launch with no row list (`csrc/histogram_q.cu carry_q_kernel`).
 
 #: carry-kernel launches made by `histogram_carry_q_update` (one a group
 #: of up to 42 slots) and `histogram_carry_q_finalize`
 HIST_CARRY_Q_LAUNCHES = 0
+
+#: the one-pass carry's plan: the shared memory a block aims at (four
+#: blocks an SM), the fewest rows a tile holds (so that summing a tile's
+#: cells stays small beside adding its rows), the largest cluster
+_CARRY_Q_SMEM = 56 * 1024
+_CARRY_Q_MIN_TILE = 4096
+_CARRY_Q_CLUSTER = 8
+
+
+def carry_q_smem_bytes(slot_group: int, feature_group: int,
+                       max_bin: int) -> int:
+    """Shared memory of one one-pass carry block (`histogram_q.cu
+    carry_q_smem_bytes`): the int32 cells [slot_group, feature_group,
+    max_bin, 3] and the block's slots."""
+    return slot_group * feature_group * max_bin * 12 + 4 * slot_group
+
+
+class CarryQPlan(NamedTuple):
+    """One launch of `carry_q_kernel`: a block adds the rows of one tile
+    (`tile_rows` rows; `tiles` of them cover the shard, a multiple of
+    `cluster`) for a group of `slot_group` slots and `feature_group`
+    features into int32 cells of `smem` bytes; a cluster of `cluster`
+    blocks (consecutive tiles) sums its cells before the global adds."""
+    slot_group: int
+    feature_group: int
+    tiles: int
+    tile_rows: int
+    cluster: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan_carry_q(n: int, f: int, s: int, max_bin: int) -> CarryQPlan:
+    """The one-pass carry's launch over a shard of `n` >= 1 rows, `f`
+    features and `s` <= 42 slots of `max_bin` bins.  Slot group: as many
+    slots as fit `_CARRY_Q_SMEM` (one if a slot's cells alone need more,
+    up to 227 KB), cut evenly.  Feature group: the largest whose blocks,
+    with as many tiles as the rows allow (`_CARRY_Q_MIN_TILE` rows each),
+    fill the SMs four blocks deep, else one feature.  Tiles: enough for
+    that, at most one a `_CARRY_Q_MIN_TILE` rows; the cluster the largest
+    power of two up to 8 that the tiles hold, the tiles rounded up to its
+    multiple."""
+    if not 1 <= s <= MULTI_CHUNK_Q:
+        raise LightGBMError(f"{s} slots: a launch takes 1 to "
+                            f"{MULTI_CHUNK_Q}")
+    limit = q_max_bin_limit()
+    if max_bin > limit:
+        raise LightGBMError(
+            f"max_bin {max_bin} needs {q_smem_bytes(1, max_bin)} B of "
+            f"shared memory a block; the quantized histogram carry takes "
+            f"max_bin up to {limit} ({_SMEM_MAX} B)")
+    cell = carry_q_smem_bytes(1, 1, max_bin)   # one (slot, feature)
+    budget = max(_CARRY_Q_SMEM, cell)
+    sb = min(s, budget // cell)
+    sgroups = -(-s // sb)
+    sb = -(-s // sgroups)
+    tiles_max = -(-n // _CARRY_Q_MIN_TILE)
+    target = _SMS * _MAX_BLOCKS_PER_SM
+    for fg in range(min(f, budget // (sb * cell)), 0, -1):
+        combos = sgroups * -(-f // fg)
+        tiles = min(tiles_max, -(-target // combos))
+        if combos * tiles >= target:
+            break
+    fg = -(-f // -(-f // fg))                 # groups cut evenly
+    cluster = 1
+    while cluster * 2 <= min(_CARRY_Q_CLUSTER, tiles):
+        cluster *= 2
+    tile_rows = -(-n // tiles)
+    tiles = -(-n // tile_rows)
+    tiles = -(-tiles // cluster) * cluster
+    return CarryQPlan(sb, fg, tiles, tile_rows, cluster,
+                      carry_q_smem_bytes(sb, fg, max_bin))
 
 
 class QHistCarry:
@@ -322,9 +397,9 @@ def histogram_carry_q_update(carry: QHistCarry, bins_fm: torch.Tensor,
                              leaf_id: torch.Tensor) -> QHistCarry:
     """Fold one shard's rows (bins [F, n] u8/u16, lattice pw3 [3, n]
     int8, leaf ids [n] i32) into the carry.  CUDA tensors launch
-    `csrc/histogram_q.cu lgbt_histogram_carry_q` a group of up to 42
-    slots; CPU tensors add each slot's rows with an int64 `index_add_`
-    (`histogram_multi_quantized_plain`'s sums)."""
+    `csrc/histogram_q.cu lgbt_histogram_carry_q` (one kernel) a group of
+    up to 42 slots; CPU tensors add each slot's rows with an int64
+    `index_add_` (`histogram_multi_quantized_plain`'s sums)."""
     global HIST_CARRY_Q_LAUNCHES
     mb = carry.max_bin
     sl = carry.slots
@@ -349,15 +424,13 @@ def histogram_carry_q_update(carry: QHistCarry, bins_fm: torch.Tensor,
     for c0 in range(0, sl.shape[0], MULTI_CHUNK_Q):
         sg = sl[c0:c0 + MULTI_CHUNK_Q]
         k = sg.shape[0]
-        plan = launch_plan_q(n, f, k, mb)
-        scratch, rowbuf, work = q_first_stage_scratch(n, k, f, mb,
-                                                      plan.chunks, dev)
+        plan = launch_plan_carry_q(n, f, k, mb)
         dst = carry.acc[c0:c0 + k]
         rc = _build.on_stream(dev, lambda stream: lib.lgbt_histogram_carry_q(
             bins_fm.data_ptr(), bins_fm.element_size(), pw3.data_ptr(),
-            leaf_id.data_ptr(), sg.data_ptr(), n, f, k, mb,
-            plan.feature_group, plan.chunks, rowbuf, ticket(dev, stream),
-            work, dst.data_ptr(), ctypes.c_void_p(stream)))
+            leaf_id.data_ptr(), sg.data_ptr(), n, f, k, mb, plan.slot_group,
+            plan.feature_group, plan.tiles, plan.tile_rows, plan.cluster,
+            dst.data_ptr(), ctypes.c_void_p(stream)))
         if rc != 0:
             raise LightGBMError(f"quantized histogram carry kernel launch "
                                 f"failed: CUDA error {rc}")

@@ -24,9 +24,10 @@ shard store in ascending shard order (`stream_shard_plan`) through the
   * `partition`: the wave's picks applied to each shard's rows of the
     resident leaf_id (the reference's `part_prog`, `:288-313`);
   * `hist`: the smaller children's histograms folded shard by shard
-    into a carry (`ops/hist_kernel.py histogram_carry_*` on K1's first
-    stage, `ops/hist_kernel_q.py histogram_carry_q_*` on K4's; the plain
-    carries of `ops/histogram.py` for hist_impl "plain" and "packed").
+    into a carry (`ops/hist_kernel.py histogram_carry_*` in K1's order,
+    two launches a shard; `ops/hist_kernel_q.py histogram_carry_q_*`,
+    one launch a shard into int32 cells; the plain carries of
+    `ops/histogram.py` for hist_impl "plain" and "packed").
     The f32 carry keeps K1's order of adds, which depends on each slot's
     whole row count L: the carry is given L, counted on the resident
     leaf_id after the partition pass.  With the fused spec the children's
