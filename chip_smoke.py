@@ -88,13 +88,19 @@ Phases, each printing one JSON line:
           rung and each rung's p50.  The stacked-plane traversal
           (`csrc/stacked.cu`) bitwise its plain version at 1, 256 and
           4096 rows on the main model, the golden models with
-          adversarial rows and a categorical model with bitsets of 3, 7
-          and 313 words, timed warm and L2-flushed beside its bound; the
-          bounded sum (`csrc/bounded.cu`) bitwise its plain version (and
-          the CPU's) on the K6 slots of the bounded rung at 8 and 16
-          bits, raw and converted, its error against the f64 sum beside
-          the bound, its planes' bytes under a third of the compiled
-          planes', timed.  The (q) model (feature 27 renamed 4096) on
+          adversarial rows, a categorical model with bitsets of 3, 7
+          and 313 words, and doctored planes (feature ids past F,
+          negative and past a record's field, node ids past NI, cycles)
+          at 1, 3, 256 and 4096 rows, timed warm and L2-flushed beside
+          its bound, and a sweep of its launch plans; the bounded sum
+          (`csrc/bounded.cu`) bitwise its plain version (and the CPU's)
+          on the K6 slots of the bounded rung at 8 and 16 bits and 1, 3,
+          256 and 4096 rows, raw and converted, its error against the
+          f64 sum beside the bound, its planes' bytes under a third of
+          the compiled planes', timed; on synthetic forests whose
+          classes lack some tiles, with 45 tiles, with its groups in
+          several chunks and with 100 classes; a sweep of its launch
+          plans.  The (q) model (feature 27 renamed 4096) on
           the device-sum rung and `device_predict`'s stacked route, both
           bitwise.  ModelRegistry + MicroBatcher + make_server on
           127.0.0.1: 8 client threads of 200 requests of 1-256 rows,
@@ -390,9 +396,11 @@ Phases, each printing one JSON line:
   compare_serving (with --phases and --baseline DIR only) the main
           phase's model at 1, 256 and 4096 rows: the standalone K6 and
           sum of both checkouts bitwise, this checkout's fused request
-          program bitwise DIR's `compiled_predict`, each timed in turns;
-          then a converted request through each checkout's
-          ServingRuntime, bitwise, its p50 in turns.
+          program bitwise DIR's `compiled_predict`, the stacked
+          traversal and the bounded sum bitwise DIR's, each timed in
+          turns (those two also L2-flushed); then a converted request
+          through each checkout's ServingRuntime on the compiled,
+          device_sum and bounded rungs, bitwise, its p50 in turns.
   kernels one line per kernel: launches on its path's phase (the fused
           serving kernel and the link: main, where the standalone
           traverse and accumulate show 0 and their golden-phase and
@@ -3625,15 +3633,21 @@ def _import_port(root: str, name: str, *modules):
     return tuple(importlib.import_module(f"{name}.{m}") for m in modules)
 
 
-def _turns(this, base, timing=True):
+def _turns(this, base, timing=True, flush=None):
     """`this` and `base` timed in turns (this, base, base, this) at the
     host's pace (`ms`) and as device time, their launches queued behind
-    a spin kernel (`device_ms`); the means of each."""
+    a spin kernel (`device_ms`); with `flush`, also as device time with
+    the L2 flushed before each run (`cold_device_ms`); the means of
+    each."""
     out = {}
     if not timing:
         return out
-    for key, queued in (("ms", False), ("device_ms", True)):
-        t = [_cuda_ms(f, queued=queued) for f in (this, base, base, this)]
+    runs = [("ms", False, None), ("device_ms", True, None)]
+    if flush is not None:
+        runs.append(("cold_device_ms", True, flush))
+    for key, queued, fl in runs:
+        t = [_cuda_ms(f, queued=queued, flush=fl)
+             for f in (this, base, base, this)]
         out[key] = (t[0] + t[3]) / 2
         out["baseline_" + key] = (t[1] + t[2]) / 2
     return out
@@ -3645,15 +3659,18 @@ def phase_compare_serving(seed: int, baseline: str, device=None,
     checkout at `baseline`, on the main phase's model and requests at
     TIMED_ROWS rows: the standalone traverse (every depth bucket)
     bitwise the baseline's, the standalone sum bitwise on the same
-    slots, and this checkout's request program (the fused entry)
-    bitwise the baseline's `compiled_predict`; each timed in turns.  Then
-    a whole converted request through each checkout's `ServingRuntime`
-    (its own `Booster`), bitwise, its host-clock p50 in turns
-    (`_request_turns`)."""
+    slots, this checkout's request program (the fused entry) bitwise
+    the baseline's `compiled_predict`, the stacked traversal (kernel A)
+    and the bounded sum (kernel B) bitwise the baseline's on the same
+    inputs; each timed in turns (A and B also L2-flushed).  Then a
+    whole converted request through each checkout's `ServingRuntime`
+    (its own `Booster`) on the compiled, device_sum and bounded rungs,
+    bitwise, its host-clock p50 in turns (`_request_turns`)."""
     import torch
     from lightgbm_tpu_torch import Booster, ServingRuntime
     from lightgbm_tpu_torch.compiler import kernel
     from lightgbm_tpu_torch.ops import predict
+    t_phase = time.perf_counter()
     base_kernel, base_predict = _import_port(
         baseline, "baseline_port", "compiler.kernel", "ops.predict")
     rt = ServingRuntime(Booster(model_str=synthetic_forest_text(seed)),
@@ -3694,17 +3711,63 @@ def phase_compare_serving(seed: int, baseline: str, device=None,
                 lambda: _serve(rt, Xd),
                 lambda: base_kernel.compiled_predict(
                     Xd, st.planes, st.gidx, vals, meta=st.meta), timing)}
+    # kernels A and B (the stacked traversal, the bounded sum) of both
+    # checkouts on the same inputs: bitwise, timed in turns
+    ex_dev = rt._booster.export_predict_arrays(device=rt.device)
+    stacked = predict.with_records(ex_dev["stacked"])
+    b_rt = ServingRuntime(rt._booster, device=device, precision="bounded")
+    bd = b_rt._state.dev
+    flush = _flusher(rt.device) if timing else None
+    for b in TIMED_ROWS:
+        Xd = rt._stage32(X[:b], b)
+        new_a = predict.predict_leaf_ensemble(stacked, Xd)
+        old_a = base_predict.predict_leaf_ensemble(stacked, Xd)
+        _check(torch.equal(new_a, old_a),
+               f"compare: {b} rows: kernel A of this checkout and the "
+               "baseline differ")
+        Xb = b_rt._stage32(X[:b], b_rt._chunk_rows(b))
+        slots = kernel.traverse_all(Xb, bd.planes, b_rt._state.meta)
+        args = (slots, bd.qval, bd.tile, bd.scales, 1)
+        new_b = predict.accumulate_slots_bounded(
+            *args, gather_idx=bd.gidx, groups=bd.groups)
+        old_b = base_predict.accumulate_slots_bounded(
+            *args, gather_idx=bd.gidx, groups=bd.groups)
+        _check(_bits_equal(new_b.cpu().numpy(), old_b.cpu().numpy()),
+               f"compare: {b} rows: kernel B of this checkout and the "
+               "baseline differ")
+        report[str(b)]["stacked_slots"] = _turns(
+            lambda: predict.predict_leaf_ensemble(stacked, Xd),
+            lambda: base_predict.predict_leaf_ensemble(stacked, Xd), timing,
+            flush)
+        report[str(b)]["accumulate_bounded"] = _turns(
+            lambda: predict.accumulate_slots_bounded(
+                *args, gather_idx=bd.gidx, groups=bd.groups),
+            lambda: base_predict.accumulate_slots_bounded(
+                *args, gather_idx=bd.gidx, groups=bd.groups), timing, flush)
+    del flush
     base_booster, base_runtime = _import_port(
         baseline, "baseline_port", "booster", "serving.runtime")
     text = synthetic_forest_text(seed)
-    base_rt = base_runtime.ServingRuntime(
-        base_booster.Booster(model_str=text), device=device)
-    for b in TIMED_ROWS:
-        _check(_bits_equal(rt.predict(X[:b]), base_rt.predict(X[:b])),
-               f"compare: {b} rows: the runtimes' answers differ")
-        report[str(b)]["runtime_p50_ms"] = _request_turns(
-            lambda: rt.predict(X[:b]), lambda: base_rt.predict(X[:b]),
-            timing)
+    # each checkout's whole request, on the compiled rung and on the two
+    # rungs kernels A and B serve
+    for label, opts in (("runtime_p50_ms", {}),
+                        ("device_sum_p50_ms", {"compiled": "off"}),
+                        ("bounded_p50_ms", {"precision": "bounded"})):
+        this_rt = rt if not opts else ServingRuntime(
+            Booster(model_str=text), device=device, **opts)
+        base_rt = base_runtime.ServingRuntime(
+            base_booster.Booster(model_str=text), device=device, **opts)
+        _check(this_rt.rung == base_rt.rung,
+               f"compare: {label}: rungs {this_rt.rung} and {base_rt.rung}")
+        for b in TIMED_ROWS:
+            _check(_bits_equal(this_rt.predict(X[:b]),
+                               base_rt.predict(X[:b])),
+                   f"compare: {b} rows: the {this_rt.rung} runtimes' "
+                   "answers differ")
+            report[str(b)][label] = _request_turns(
+                lambda: this_rt.predict(X[:b]),
+                lambda: base_rt.predict(X[:b]), timing)
+    report["phase_s"] = time.perf_counter() - t_phase
     _emit(report)
     return report
 
@@ -6886,13 +6949,96 @@ def guard_tree_text(text, num_features, guard_feature):
     return _widen_text(text, guard_feature + 1, extra_tree=tree)
 
 
-def _stacked_bytes(stacked, b, nf):
-    """Bytes the stacked traversal must move: its planes, X, the slots."""
-    planes = sum(int(v.numel() * v.element_size())
-                 for k, v in stacked.items()
-                 if k in ("feat", "thr", "dtype", "left", "right",
-                          "cat_words", "cat_nwords"))
-    return planes + b * nf * 4 + int(stacked["feat"].shape[0]) * b * 4
+def _stacked_bytes(ex, stacked, slots, nf):
+    """Bytes the stacked traversal must move for the rows of `slots`
+    [T, B] (its output on them): the 32-byte sectors of the records its
+    walks visit (every root, and each internal node on the path to a
+    leaf some row reached), the bitset words whole, X once and the slots
+    out."""
+    t_trees, ni = stacked["feat"].shape
+    s = slots.cpu().numpy()
+    seen = np.zeros((t_trees, ni), bool)
+    seen[:, 0] = True
+    for i, t in enumerate(ex["trees"]):
+        k = t.num_leaves - 1
+        if k <= 0:
+            continue
+        up = np.full(k, -1, np.int64)          # a node's parent
+        leaf_up = np.full(k + 1, -1, np.int64)  # a leaf's parent
+        for nd in range(k):
+            for c in (int(t.left_child[nd]), int(t.right_child[nd])):
+                if c < 0:
+                    leaf_up[~c] = nd
+                else:
+                    up[c] = nd
+        for leaf in np.unique(s[i]):
+            nd = leaf_up[leaf]
+            while nd >= 0 and not seen[i, nd]:
+                seen[i, nd] = True
+                nd = up[nd]
+    rec = stacked["rec"]
+    per_sector = 32 // (4 * int(rec.shape[-1]))
+    sectors = len(np.unique(np.flatnonzero(seen) // per_sector))
+    words = stacked.get("cat_words")
+    words = 0 if words is None else int(words.numel() * 4)
+    return sectors * 32 + words + s.shape[1] * nf * 4 + s.size * 4
+
+
+def doctored_planes(stacked, seed):
+    """A copy of the stacked planes `stacked` with feature ids past F,
+    negative and past what a record holds, node ids past NI, and cycles
+    (a root looping on itself, children pointing back to the root); the
+    plain version's rules route them (ops/predict.py `_leaf_slots`)."""
+    import torch
+    rng = np.random.RandomState(seed)
+    out = {k: v for k, v in stacked.items() if k != "rec"}
+    feat, left, right = (stacked[k].clone() for k in ("feat", "left",
+                                                      "right"))
+    t_trees, ni = feat.shape
+    for v in (6, 40, 4096, -1, -7, (1 << 28) - 1, (1 << 28) + 5,
+              2 ** 31 - 1, -2 ** 31):
+        feat[rng.randint(t_trees), rng.randint(ni)] = v
+    for v in (ni, ni + 3, 2 ** 31 - 1):
+        left[rng.randint(t_trees), rng.randint(ni)] = v
+        right[rng.randint(t_trees), rng.randint(ni)] = v
+    for t in rng.choice(t_trees, min(3, t_trees), replace=False):
+        left[t, 0] = 0
+        right[t, rng.randint(ni)] = 0
+    out.update(feat=feat, left=left, right=right)
+    return {k: v.contiguous() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
+
+
+#: the stacked traversal's launch plans serve_plane checks and times at
+#: 1 and 4096 rows: (rows, trees) requests (None: the plan's)
+STACKED_SWEEP = ((None, None), (8, None), (16, 32), (64, 8), (256, 2),
+                 (None, 1), (None, 64))
+#: the bounded sum's launch plans serve_plane checks and times at 1 and
+#: 4096 rows: (rows, lanes, group_chunk) requests
+BOUNDED_SWEEP = ((None, None, None), (None, None, 2), (1, None, None),
+                 (4, None, None), (8, None, None), (32, None, None),
+                 (None, 1, None), (None, 4, None), (16, 8, None))
+
+
+def bounded_case(seed, t_trees, n_class, n_tiles, bits, n_rows, nl=255,
+                 empty=3):
+    """Slots [T, n_rows], codes [T, NL], tiles and scales of a synthetic
+    bounded forest whose first classes lack trees in `empty` tiles each
+    (numpy, from `seed`)."""
+    rng = np.random.RandomState(seed)
+    qmax = (1 << (bits - 1)) - 1
+    slots = rng.randint(0, nl, (t_trees, n_rows)).astype(np.int32)
+    qval = rng.randint(-qmax, qmax + 1, (t_trees, nl)).astype(
+        np.int8 if bits == 8 else np.int16)
+    tile = rng.randint(0, n_tiles, t_trees).astype(np.int32)
+    cls = np.arange(t_trees) % n_class
+    for k in range(min(n_class, 2)):
+        for s in rng.choice(n_tiles, empty, replace=False):
+            move = (cls == k) & (tile == s)
+            tile[move] = (s + 1) % n_tiles
+    scales = (rng.rand(n_tiles) * 10.0 ** rng.randint(-5, 1, n_tiles)
+              ).astype(np.float32)
+    return slots, qval, tile, scales
 
 
 def _bounded_bytes(dev, b, K):
@@ -7029,6 +7175,15 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
                                  "device_bytes": rts[name].device_bytes()}
         answers[name] = {n: (rts[name].predict(reqs[n], raw_score=True),
                              rts[name].predict(reqs[n])) for n in rows}
+    for name, rt in rts.items():
+        # only the rungs that launch the stacked traversal hold its
+        # records: the compiled and bounded rungs' device bytes are theirs
+        has = "rec" in (rt._state.dev.stacked or {})
+        _check(has == (rt.rung in ("device_sum", "slot_path")
+                       and dev.type == "cuda"),
+               f"serve_plane: the {name} rung holds "
+               f"{'' if has else 'no '}stacked records")
+        report["rungs"][name]["records"] = has
     g_rt = ServingRuntime(g_bst, device=dev, name="guard")
     walked = REGISTRY.counter("serve.host_walk", cause="forced").value
     narrow = {n: g_rt.predict(reqs[n], raw_score=True) for n in rows}
@@ -7119,7 +7274,7 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
     # a categorical model with bitsets of several and of 313 words
     flush = _flusher(dev)
     ex = bst.export_predict_arrays(device=dev)
-    stacked = ex["stacked"]
+    stacked = predict.with_records(ex["stacked"])
     a_rows, a_err = {}, 0
     for b in rows:
         Xd = rts["compiled"]._stage32(reqs[b], b)
@@ -7128,7 +7283,7 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
         a_err = max(a_err, int((k_sl - p_sl).abs().max()))
         _check(torch.equal(k_sl, p_sl),
                f"serve_plane: stacked traversal != plain at {b} rows")
-        row = {"bytes": _stacked_bytes(stacked, b, nf)}
+        row = {"bytes": _stacked_bytes(ex, stacked, k_sl, nf)}
         row["bound_ms"], row["bound_by"] = _bound(
             row["bytes"], int(_leaf_visits(ex, k_sl)), INT32_OPS_PER_S)
         if timing:
@@ -7148,6 +7303,7 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
     for name, gtext in goldens:
         g = Booster(model_str=gtext)
         gex = g.export_predict_arrays(device=dev)
+        gex = dict(gex, stacked=predict.with_records(gex["stacked"]))
         gnf = max(g.num_feature(), gex["stacked"]["min_features"])
         X = adversarial_rows(g.trees, gnf, seed)
         if "words" in name:
@@ -7175,11 +7331,54 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
             differ = (served.view(np.uint64) != walk.view(np.uint64))
             a_golden[name]["rows_differ_from_f64_walk"] = int(
                 differ.reshape(len(X), -1).any(axis=1).sum())
+    # doctored planes (feature ids past F, negative and past a record's
+    # field, node ids past NI, cycles) on the main and two golden models,
+    # their records rebuilt (`with_records`): bitwise the plain version
+    a_doctored = {}
+    for name, src in (("main", stacked),
+                      ("categorical", Booster(model_str=cat_text)
+                       .export_predict_arrays(device=dev)["stacked"]),
+                      ("multiclass", Booster(model_str=dict(goldens)[
+                          "multiclass"]).export_predict_arrays(
+                              device=dev)["stacked"])):
+        for dseed in range(3):
+            dst = predict.with_records(doctored_planes(src, seed + dseed))
+            for b in (1, 3, 256, 4096):
+                Xb = np.resize(reqs[big], (b, nf))
+                Xb[::5, :] = np.nan
+                Xd = rts["compiled"]._stage32(Xb, b)
+                _check(torch.equal(predict.predict_leaf_ensemble(dst, Xd),
+                                   predict.predict_leaf_ensemble_plain(
+                                       dst, Xd)),
+                       f"serve_plane: stacked traversal != plain on the "
+                       f"doctored {name} planes (seed {seed + dseed}, {b} "
+                       "rows)")
+        a_doctored[name] = {"seeds": 3, "rows": [1, 3, 256, 4096]}
+    # the launch plans: each bitwise the plain version, timed warm
+    from lightgbm_tpu_torch.compiler.records import (
+        bounded_plan, stacked_plan)
+    a_sweep = []
+    for b in (1, big):
+        Xd = rts["compiled"]._stage32(reqs[b], b)
+        want = predict.predict_leaf_ensemble_plain(stacked, Xd)
+        for r_req, t_req in STACKED_SWEEP:
+            plan = stacked_plan(b, nf, int(stacked["feat"].shape[0]),
+                                rows=r_req, trees=t_req)
+            _check(torch.equal(predict.predict_leaf_ensemble(
+                stacked, Xd, plan=plan), want),
+                f"serve_plane: stacked traversal != plain at {b} rows "
+                f"with {plan}")
+            entry = {"rows": b, "plan": plan._asdict()}
+            if timing:
+                entry["ms"] = _cuda_ms(lambda: predict.predict_leaf_ensemble(
+                    stacked, Xd, plan=plan), queued=True)
+            a_sweep.append(entry)
     a_plain_ms = None
     if timing:
         Xd = rts["compiled"]._stage32(reqs[big], big)
         a_plain_ms = _cuda_ms(lambda: predict.predict_leaf_ensemble_plain(
             stacked, Xd), iters=3, warmup=1)
+        a_rows[big]["plain_ms"] = a_plain_ms
 
     # ---- 3. kernel B, the bounded sum, against its plain version at 8
     # and 16 bits, raw and converted, on the bounded rung's own layout
@@ -7199,8 +7398,9 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
                f"serve_plane: {name} planes {bounded_bytes} B, compiled "
                f"planes {compiled_bytes} B: not under a third")
         worst = 0.0
-        for b in rows:
-            Xd = rt._stage32(reqs[b], rt._chunk_rows(b))
+        for b in sorted(set(rows) | {1, 3}):
+            Xb = reqs[b] if b in reqs else reqs[big][:b]
+            Xd = rt._stage32(Xb, rt._chunk_rows(b))
             slots = traverse_all(Xd, d.planes, st.meta)
             args = (slots, d.qval, d.tile, d.scales, 1)
             k_out, _ = _counted(lambda: predict.accumulate_slots_bounded(
@@ -7227,7 +7427,7 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
             _check(err <= rt.bounded_bound,
                    f"serve_plane: {name} error {err} above the bound "
                    f"{rt.bounded_bound}")
-            if name == "bounded":
+            if name == "bounded" and b in rows:
                 row = {"bytes": _bounded_bytes(d, b, 1)}
                 row["bound_ms"], row["bound_by"] = _bound(
                     row["bytes"], int(d.qval.shape[0]) * b,
@@ -7289,8 +7489,8 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
                        f"serve_plane: multiclass bounded sum != plain "
                        f"({bits} bits, compiled {comp}, {b} rows)")
                 s_out = predict.predict_raw_ensemble_bounded(
-                    d.stacked, Xd, d.qval, d.tile, d.scales, K,
-                    groups=d.groups)
+                    predict.with_records(d.stacked), Xd, d.qval, d.tile,
+                    d.scales, K, groups=d.groups)
                 s_plain = predict.accumulate_slots_bounded_plain(
                     predict.predict_leaf_ensemble_plain(d.stacked, Xd),
                     d.qval, d.tile, d.scales, K)
@@ -7317,6 +7517,76 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
             b_multiclass[f"{bits}_compiled_{comp}"] = {
                 "bound": rt.bounded_bound, "max_abs_err_vs_exact": worst,
                 "exact_rung": rt.status()["exact_rung"]}
+
+    # ---- 3c. kernel B on synthetic forests: classes that lack trees in
+    # some tiles, 45 tiles, the groups in several chunks, and 100 classes
+    # in blocks of 16 rows (partials past the default 48 KB of shared
+    # memory at 256 and 4096 rows), at 8 and 16 bits and 1, 3, 256 and
+    # 4096 rows: bitwise the plain version on the card and on the CPU;
+    # then the plan sweep on the main model's
+    b_synthetic = {}
+    for label, (t_n, k_n, s_n, chunk, r_req) in {
+            "lacking_tiles": (600, 3, 9, None, None),
+            "tiles_45": (600, 2, 45, None, None),
+            "chunks": (600, 3, 9, 4, None),
+            "classes_100": (3000, 100, 30, None, 16)}.items():
+        for bits in (8, 16):
+            slots_np, qval_np, tile_np, scales_np = bounded_case(
+                seed + bits, t_n, k_n, s_n, bits, big)
+            lacking = sum(int(not ((np.arange(t_n) % k_n == k)
+                                   & (tile_np == s_)).any())
+                          for k in range(k_n) for s_ in range(s_n))
+            _check(lacking > 0 or k_n == 1, f"serve_plane: {label} has no "
+                   "tile that lacks a class")
+            qd, td, sd = (torch.from_numpy(a).to(dev)
+                          for a in (qval_np, tile_np, scales_np))
+            groups = predict.bounded_groups(tile_np, k_n, dev, n_tiles=s_n)
+            for b in (1, 3, 256, big):
+                sl = torch.from_numpy(
+                    np.ascontiguousarray(slots_np[:, :b])).to(dev)
+                plan = bounded_plan(b, t_n, int(groups.grp_tile.shape[0]),
+                                    k_n, rows=r_req, group_chunk=chunk)
+                k_out = predict.accumulate_slots_bounded(
+                    sl, qd, td, sd, k_n, groups=groups, plan=plan)
+                p_out = predict.accumulate_slots_bounded_plain(
+                    sl, qd, td, sd, k_n)
+                cpu = predict.accumulate_slots_bounded_plain(
+                    *(a.cpu() for a in (sl, qd, td, sd)), k_n)
+                _check(_bits_equal(k_out.cpu().numpy(), p_out.cpu().numpy())
+                       and _bits_equal(k_out.cpu().numpy(), cpu.numpy()),
+                       f"serve_plane: bounded sum != plain on {label} "
+                       f"({bits} bits, {b} rows, {plan})")
+            _check(r_req is None or plan.optin, f"serve_plane: {label} "
+                   f"did not opt in past 48 KB: {plan}")
+            b_synthetic[f"{label}_{bits}"] = {
+                "trees": t_n, "classes": k_n, "tiles": s_n,
+                "groups": int(groups.grp_tile.shape[0]),
+                "class_tiles_lacking": lacking, "plan_4096": plan._asdict()}
+    b_sweep = []
+    d = rts["bounded"]._state.dev
+    n_groups = int(d.groups.grp_tile.shape[0])
+    for b in (1, big):
+        Xd = rts["bounded"]._stage32(reqs[b], rts["bounded"]._chunk_rows(b))
+        slots = traverse_all(Xd, d.planes, rts["bounded"]._state.meta)
+        args = (slots, d.qval, d.tile, d.scales, 1)
+        want = predict.accumulate_slots_bounded_plain(*args,
+                                                      gather_idx=d.gidx)
+        for r_req, l_req, c_req in BOUNDED_SWEEP:
+            plan = bounded_plan(int(slots.shape[1]), int(d.qval.shape[0]),
+                                n_groups, 1, rows=r_req, lanes=l_req,
+                                group_chunk=c_req)
+            got = predict.accumulate_slots_bounded(
+                *args, gather_idx=d.gidx, groups=d.groups, plan=plan)
+            _check(_bits_equal(got.cpu().numpy(), want.cpu().numpy()),
+                   f"serve_plane: bounded sum != plain at {b} rows with "
+                   f"{plan}")
+            entry = {"rows": b, "plan": plan._asdict()}
+            if timing:
+                entry["ms"] = _cuda_ms(
+                    lambda: predict.accumulate_slots_bounded(
+                        *args, gather_idx=d.gidx, groups=d.groups,
+                        plan=plan), queued=True)
+            b_sweep.append(entry)
 
     # ---- 4. the (q) model: feature 27 renamed 4096, past the plan's
     # 12-bit field: served on the device-sum rung, and device_predict
@@ -7581,8 +7851,12 @@ def phase_serve_plane(seed, device=None, timing=True, num_trees=500,
                                  "accumulate_bounded": {
                                      str(b): b_rows[b] for b in rows}}
     report["stacked_golden"] = a_golden
+    report["stacked_doctored"] = a_doctored
+    report["stacked_plans"] = a_sweep
     report["bounded"] = b_bits
     report["bounded_multiclass"] = b_multiclass
+    report["bounded_synthetic"] = b_synthetic
+    report["bounded_plans"] = b_sweep
     report["phase_s"] = time.perf_counter() - t_phase
     _emit(report)
     big_a, big_b = a_rows[big], b_rows[big]

@@ -2568,6 +2568,10 @@ class Booster:
             planes, meta = None, ()
             gidx = torch.arange(len(ex["trees"]), dtype=torch.int32,
                                 device=device)
+            if torch.device(device).type != "cpu":
+                # the stacked traversal's kernel reads one record a node
+                from .ops.predict import with_records
+                stacked = with_records(stacked)
         else:
             planes, meta = device_planes(plan, device)
             gidx = torch.from_numpy(plan.gather_idx).to(device)

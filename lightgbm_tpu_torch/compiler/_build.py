@@ -99,11 +99,10 @@ _SIGNATURES = {
                   [_P, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong,
                    ctypes.c_longlong, _I, _P, _P])],
     "stacked": [("lgbt_stacked_slots",
-                 [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-                  _P])],
+                 [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P])],
     "bounded": [("lgbt_accumulate_bounded",
                  [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P,
-                  _I, _P, _P])],
+                  _I, _I, _I, _I, _I, _I, _P, _P])],
 }
 
 

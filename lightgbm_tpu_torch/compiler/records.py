@@ -25,10 +25,15 @@ never walks a tile's padding trees, and a walk over the records routes
 every row, on every plane, corrupted ones included, exactly as the walk
 over the planes does.
 
-The launch plans (`forest_plan`, `traverse_plan`, `accumulate_plan`)
-decide each kernel's grid, block, chunk and shared memory; they are the
-one place that does, and the CUDA entry points check the shared-memory
-size they are given against their own layout.  numpy only.
+The stacked traversal (`csrc/stacked.cu`, the device-sum and slot
+rungs') reads records of its own, one 16-byte record a node of the
+stacked [T, NI] planes (`stacked_records`).
+
+The launch plans (`forest_plan`, `traverse_plan`, `accumulate_plan`,
+`stacked_plan`, `bounded_plan`) decide each kernel's grid, block, chunk
+and shared memory; they are the one place that does, and the CUDA entry
+points check the shared-memory size they are given against their own
+layout.  numpy only.
 """
 from __future__ import annotations
 
@@ -344,3 +349,182 @@ def accumulate_plan(b: int, t_trees: int, n_class: int) -> RowPlan:
         trees = max(1, min(ACCUMULATE_THREADS * PAIRS // rows, t_trees))
     threads = min(ACCUMULATE_THREADS, -(-trees * rows // 32) * 32)
     return RowPlan(rows, -(-b // rows), trees, threads, False, size(rows))
+
+
+# ------------------------------------------- the stacked planes' records
+#: the stacked record's feature field (bits 0-27); an id outside
+#: [0, STACKED_FEAT_OUT) is stored as STACKED_FEAT_OUT, which is >= every
+#: row width the kernel takes, so it reads +0.0 as the plain version's
+#: out-of-range id does
+STACKED_FEAT_OUT = (1 << 28) - 1
+#: the stacked traversal's threads a block, most rows a block, most
+#: (tree, row) pairs a thread a block, and the blocks its plan aims at
+#: (about four an SM): the best of `chip_smoke.py` serve_plane's sweep
+#: on an H100 at 1, 256 and 4096 rows (PERF.md)
+STACKED_THREADS = 256
+STACKED_ROWS = 32
+STACKED_PAIRS = 2
+STACKED_BLOCKS = 512
+
+
+def stacked_records(feat: np.ndarray, thr: np.ndarray, dtype: np.ndarray,
+                    left: np.ndarray, right: np.ndarray,
+                    cat_nwords: Optional[np.ndarray] = None) -> np.ndarray:
+    """The [T, NI, 4] int32 records of stacked [T, NI] planes, one
+    16-byte record a node, which `csrc/stacked.cu` reads with one vector
+    load:
+
+      [0]  the threshold's f32 bits; on a categorical node (decision
+           type bit 0, in a model with `cat_nwords`) its bitset's word
+           count instead, which is all that node reads
+      [1]  left child, [2] right child (int32 as in the planes)
+      [3]  bits 0-27 the feature id (STACKED_FEAT_OUT for an id outside
+           [0, STACKED_FEAT_OUT)), bit 28 default_left, bits 29-30 the
+           missing type, bit 31 is_cat
+
+    Every field the walk reads is kept: the children whole, the decision
+    type's three used fields, and the feature id up to what any row's
+    width can reach."""
+    f = np.asarray(feat, np.int64)
+    dt = np.asarray(dtype, np.int64)
+    f = np.where((f >= 0) & (f < STACKED_FEAT_OUT), f, STACKED_FEAT_OUT)
+    is_cat = ((dt & 1) != 0) if cat_nwords is not None \
+        else np.zeros(f.shape, bool)
+    word = (f | (((dt >> 1) & 1) << 28) | (((dt >> 2) & 3) << 29)
+            | (is_cat.astype(np.int64) << 31))
+    thr_bits = np.ascontiguousarray(thr, np.float32).view(np.int32)
+    first = thr_bits if cat_nwords is None else np.where(
+        is_cat, np.asarray(cat_nwords, np.int32), thr_bits)
+    return np.ascontiguousarray(np.stack(
+        [first, np.asarray(left, np.int32), np.asarray(right, np.int32),
+         word.astype(np.uint32).view(np.int32)], axis=-1))
+
+
+class StackedPlan(NamedTuple):
+    """One launch of the stacked traversal (`csrc/stacked.cu`): grid
+    (row_blocks, tree_chunks); a block holds `rows` rows, read from
+    device memory, and walks `trees` trees for them, its `threads`
+    threads each taking (tree, row) pairs one at a time, lanes on
+    neighbouring rows of one tree."""
+    rows: int
+    row_blocks: int
+    trees: int
+    tree_chunks: int
+    threads: int
+
+    @property
+    def blocks(self) -> int:
+        return self.row_blocks * self.tree_chunks
+
+
+@functools.lru_cache(maxsize=1024)
+def stacked_plan(b: int, f: int, t_trees: int, *,
+                 rows: Optional[int] = None,
+                 trees: Optional[int] = None) -> StackedPlan:
+    """The stacked traversal over `b` >= 1 rows of `f` features and
+    `t_trees` trees.  `rows` (a power of two up to MAX_ROWS, default
+    STACKED_ROWS) is cut to the batch.  `trees` a block: by default the
+    most up to STACKED_PAIRS pairs a thread that still give the grid
+    STACKED_BLOCKS blocks (a 1-row request spreads its trees over the
+    SMs, a tree a block)."""
+    if b < 1 or t_trees < 1 or f < 0:
+        raise ValueError(f"no stacked launch for b={b}, f={f}, "
+                         f"trees={t_trees}")
+    if rows is None:
+        rows = STACKED_ROWS
+    elif rows < 1 or rows > MAX_ROWS or rows & (rows - 1):
+        raise ValueError(f"{rows} rows a block: a power of two up to "
+                         f"{MAX_ROWS}")
+    rows = min(rows, _pow2_ceil(b))
+    row_blocks = -(-b // rows)
+    if trees is None:
+        trees = max(1, min(STACKED_THREADS * STACKED_PAIRS // rows,
+                           -(-t_trees * row_blocks // STACKED_BLOCKS)))
+    elif trees < 1:
+        raise ValueError(f"{trees} trees a block")
+    trees = min(trees, t_trees)
+    threads = min(STACKED_THREADS, -(-min(rows, b) * trees // 32) * 32)
+    return StackedPlan(rows, row_blocks, trees, -(-t_trees // trees),
+                       threads)
+
+
+# ------------------------------------------------------- the bounded sum
+#: the bounded sum's threads a block and most rows a block: 4 rows of
+#: 64 lanes were the best of serve_plane's sweep at 4096 rows on an
+#: H100 (16 rows of 16 lanes took 1.4x as long, PERF.md)
+BOUNDED_THREADS = 256
+BOUNDED_ROWS = 4
+
+
+class BoundedPlan(NamedTuple):
+    """One launch of the bounded sum (`csrc/bounded.cu`): grid
+    (row_blocks,); a block holds `rows` rows and `lanes` tree lanes a
+    row (`threads` = rows * lanes, thread i on row i % rows, lane
+    i / rows), the lanes splitting each (class, tile) group's trees; the
+    groups go `group_chunk` at a time, their int32 partials [chunk,
+    rows] in shared memory beside the combine's f32 state [K, rows] and
+    the chunk's group starts; `smem` the dynamic shared memory a block
+    (`bounded_smem`)."""
+    rows: int
+    row_blocks: int
+    lanes: int
+    threads: int
+    group_chunk: int
+    smem: int
+
+    @property
+    def optin(self) -> bool:
+        return self.smem > SMEM_DEFAULT
+
+
+def bounded_smem(rows: int, group_chunk: int, n_class: int) -> int:
+    """Bytes of the bounded sum's shared memory, as `csrc/bounded.cu`
+    lays it out: the partials [group_chunk, rows] int32, the combine
+    state [K, rows] f32, then the chunk's group starts [group_chunk + 1]
+    int32."""
+    return (_align16(group_chunk * rows * 4) + _align16(n_class * rows * 4)
+            + _align16((group_chunk + 1) * 4))
+
+
+@functools.lru_cache(maxsize=1024)
+def bounded_plan(b: int, t_trees: int, n_groups: int, n_class: int, *,
+                 rows: Optional[int] = None, lanes: Optional[int] = None,
+                 group_chunk: Optional[int] = None) -> BoundedPlan:
+    """The bounded sum over `b` >= 1 rows, `t_trees` trees in `n_groups`
+    (class, tile) groups and `n_class` classes.  `rows` (a power of two
+    up to BOUNDED_ROWS): by default the most that still give
+    TARGET_BLOCKS blocks, cut to the batch (one row a block below
+    TARGET_BLOCKS rows).  `lanes` (a power of two): by default the rest
+    of BOUNDED_THREADS, cut to the trees, so a 1-row request spreads
+    its trees over a whole block.  The groups' chunk (`group_chunk`,
+    default all of them) is halved while the partials would pass
+    SMEM_MAX, then the rows are."""
+    if b < 1 or t_trees < 1 or n_groups < 1 or n_class < 1:
+        raise ValueError(f"no bounded launch for b={b}, trees={t_trees}, "
+                         f"groups={n_groups}, K={n_class}")
+    if rows is None:
+        rows = BOUNDED_ROWS
+        while rows > 1 and -(-b // rows) < TARGET_BLOCKS:
+            rows //= 2
+    elif rows < 1 or rows > BOUNDED_THREADS or rows & (rows - 1):
+        raise ValueError(f"{rows} rows a block: a power of two up to "
+                         f"{BOUNDED_THREADS}")
+    rows = min(rows, _pow2_ceil(b))
+    if lanes is None:
+        lanes = max(1, min(BOUNDED_THREADS // rows, _pow2_ceil(t_trees)))
+    elif lanes < 1 or lanes & (lanes - 1) or rows * lanes > BOUNDED_THREADS:
+        raise ValueError(f"{lanes} lanes of {rows} rows: a power of two, "
+                         f"at most {BOUNDED_THREADS} threads")
+    if group_chunk is not None and group_chunk < 1:
+        raise ValueError(f"{group_chunk} groups a chunk")
+    chunk = min(n_groups, group_chunk or n_groups)
+    while bounded_smem(rows, chunk, n_class) > SMEM_MAX:
+        if chunk > 1:
+            chunk = -(-chunk // 2)
+        elif rows > 1:
+            rows //= 2
+        else:
+            raise ValueError(f"no bounded launch fits {SMEM_MAX} B for "
+                             f"K={n_class}")
+    return BoundedPlan(rows, -(-b // rows), lanes, rows * lanes, chunk,
+                       bounded_smem(rows, chunk, n_class))

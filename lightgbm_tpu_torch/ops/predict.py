@@ -6,7 +6,10 @@ The port's counterpart of `lightgbm_tpu/ops/predict.py`, for serving:
   of the stacked [T, NI] planes (`Booster.export_predict_arrays`), the
   JAX package's `:114 _leaf_slots` / `:632 predict_leaf_ensemble` (an
   XLA scan there).  CUDA tensors launch the stacked-plane traversal
-  `csrc/stacked.cu`; CPU tensors run the plain version
+  `csrc/stacked.cu` over the planes' records (`rec`, one 16-byte record
+  a node, `compiler/records.py stacked_records`, added by `with_records`
+  where a rung or `device_predict` runs the kernel); CPU tensors run the
+  plain version
   `predict_leaf_ensemble_plain` (`_leaf_slots`: every tree and every row
   step together, one depth level per iteration, decision semantics of
   tree.h `NumericalDecision` / `CategoricalDecision` in f32).  The
@@ -33,7 +36,9 @@ The port's counterpart of `lightgbm_tpu/ops/predict.py`, for serving:
   summed exactly in int32 per (tile, class), then combined with the f32
   tile scales in ascending tile order, in the arithmetic XLA's CPU build
   gives that combine (`_combine_tiles`).  CUDA tensors launch
-  `csrc/bounded.cu`, CPU tensors run `accumulate_slots_bounded_plain`.
+  `csrc/bounded.cu` (the trees of each (class, tile) group spread over a
+  block's lanes, `compiler/records.py bounded_plan`), CPU tensors run
+  `accumulate_slots_bounded_plain`.
 * `predict_raw_ensemble_exact` / `predict_raw_ensemble_bounded` — the
   device-sum and the bounded program over the stacked planes: the
   stacked-plane traversal, then the exact f64 or the bounded sum.  The
@@ -138,6 +143,54 @@ def predict_leaf_ensemble_plain(stacked: Dict, X: torch.Tensor
                        cat_nwords=stacked.get("cat_nwords"))
 
 
+#: the planes a stacked record is built from
+_RECORD_PLANES = ("feat", "thr", "dtype", "left", "right", "cat_nwords")
+
+
+def _planes_key(stacked: Dict) -> tuple:
+    """What the records of `stacked` must have been built from: each
+    plane's storage and its count of in-place edits."""
+    return tuple((t.data_ptr(), t._version) for t in (
+        stacked.get(k) for k in _RECORD_PLANES) if t is not None)
+
+
+def with_records(stacked: Dict) -> Dict:
+    """`stacked` with its records `rec` [T, NI, 4] int32 (`compiler/
+    records.py stacked_records`) built from its planes, on their device:
+    what the stacked traversal's kernel reads.  The records are marked
+    with the planes they were built from; the kernel refuses them once a
+    plane was replaced or edited in place, so a caller that edits the
+    planes rebuilds them here."""
+    from ..compiler.records import stacked_records
+    host = {k: stacked[k].cpu().numpy()
+            for k in ("feat", "thr", "dtype", "left", "right")}
+    nw = stacked.get("cat_nwords")
+    rec = torch.from_numpy(stacked_records(
+        **host, cat_nwords=None if nw is None else nw.cpu().numpy())).to(
+            stacked["feat"].device)
+    rec._lgbt_planes = _planes_key(stacked)
+    return dict(stacked, rec=rec)
+
+
+def records_current(stacked: Dict) -> bool:
+    """Were the records `stacked["rec"]` built from these planes, none
+    of them replaced or edited in place since?"""
+    rec = stacked.get("rec")
+    return rec is not None \
+        and getattr(rec, "_lgbt_planes", None) == _planes_key(stacked)
+
+
+def stacked_to(stacked: Dict, device) -> Dict:
+    """A copy of `stacked` with its tensors on `device` (new copies, also
+    where one already lies there); records that were current stay marked
+    current for the copied planes."""
+    out = {k: v.to(device, copy=True) if isinstance(v, torch.Tensor)
+           else v for k, v in stacked.items()}
+    if records_current(stacked):
+        out["rec"]._lgbt_planes = _planes_key(out)
+    return out
+
+
 def _check_stacked(stacked: Dict, X: torch.Tensor) -> None:
     if X.dim() != 2 or X.dtype != torch.float32:
         raise LightGBMError("X must be [N, F] float32")
@@ -156,46 +209,62 @@ def _check_stacked(stacked: Dict, X: torch.Tensor) -> None:
                            or stacked["cat_nwords"].shape != feat.shape):
         raise LightGBMError("cat_words must be [T, NI, MW] int32 beside "
                             "cat_nwords [T, NI]")
+    rec = stacked.get("rec")
+    if rec is not None and (tuple(rec.shape) != tuple(feat.shape) + (4,)
+                            or rec.dtype != torch.int32):
+        raise LightGBMError("stacked rec must be [T, NI, 4] int32")
     tensors = [X] + [stacked[k] for k in ("feat", "thr", "dtype", "left",
                                           "right")]
     if cw is not None:
         tensors += [cw, stacked["cat_nwords"]]
+    if rec is not None:
+        tensors.append(rec)
     if any(t.device != X.device for t in tensors):
         raise LightGBMError("traversal inputs lie on different devices")
 
 
-def predict_leaf_ensemble(stacked: Dict, X: torch.Tensor) -> torch.Tensor:
+def predict_leaf_ensemble(stacked: Dict, X: torch.Tensor, *,
+                          plan=None) -> torch.Tensor:
     """[T, N] int32 leaf slots of every stacked tree for rows X [N, F]
-    f32.  CUDA tensors launch `csrc/stacked.cu` (one thread a (tree,
-    row)); CPU tensors run `predict_leaf_ensemble_plain`."""
+    f32.  CUDA tensors launch `csrc/stacked.cu` over the planes' records
+    `stacked["rec"]` (with `plan`, default `compiler.records.
+    stacked_plan`: a block of rows walks a chunk of trees); CPU tensors
+    run `predict_leaf_ensemble_plain`."""
     global STACKED_LAUNCHES
     if X.device.type == "cpu":
         return predict_leaf_ensemble_plain(stacked, X)
     if X.device.type != "cuda":
         raise LightGBMError(f"no traversal kernel for {X.device}")
     _check_stacked(stacked, X)
+    rec = stacked.get("rec")
+    if rec is None:
+        raise LightGBMError("stacked planes carry no records: add them "
+                            "with `with_records`")
+    if not records_current(stacked):
+        raise LightGBMError("stacked records were not built from these "
+                            "planes (a plane replaced or edited since): "
+                            "rebuild them with `with_records`")
+    from ..compiler.records import STACKED_FEAT_OUT, stacked_plan
     cw = stacked.get("cat_words")
-    planes = [X, stacked["feat"], stacked["thr"], stacked["dtype"],
-              stacked["left"], stacked["right"]]
-    if cw is not None:
-        planes += [cw, stacked["cat_nwords"]]
-    if not all(t.is_contiguous() for t in planes):
+    if not all(t.is_contiguous() for t in (X, rec) + (
+            () if cw is None else (cw,))):
         raise LightGBMError("traversal inputs must be contiguous")
-    from ..compiler import _build
-    lib = _build.load("stacked")
     t_trees, ni = stacked["feat"].shape
     n, f = X.shape
+    if f > STACKED_FEAT_OUT:
+        raise LightGBMError(f"X has {f} features; the stacked records "
+                            f"hold ids below {STACKED_FEAT_OUT}")
     out = torch.empty((t_trees, n), dtype=torch.int32, device=X.device)
     if n == 0 or t_trees == 0:
         return out
+    from ..compiler import _build
+    lib = _build.load("stacked")
+    plan = plan or stacked_plan(n, f, t_trees)
     rc = _build.on_stream(X.device, lambda stream: lib.lgbt_stacked_slots(
-        X.data_ptr(), n, f, stacked["feat"].data_ptr(),
-        stacked["thr"].data_ptr(), stacked["dtype"].data_ptr(),
-        stacked["left"].data_ptr(), stacked["right"].data_ptr(),
-        None if cw is None else cw.data_ptr(),
-        None if cw is None else stacked["cat_nwords"].data_ptr(), t_trees,
-        ni, 0 if cw is None else cw.shape[2], out.data_ptr(),
-        ctypes.c_void_p(stream)))
+        X.data_ptr(), n, f, rec.data_ptr(),
+        None if cw is None else cw.data_ptr(), t_trees, ni,
+        0 if cw is None else cw.shape[2], plan.rows, plan.trees,
+        plan.threads, out.data_ptr(), ctypes.c_void_p(stream)))
     if rc != 0:
         raise LightGBMError(f"stacked traversal launch failed: CUDA error "
                             f"{rc}")
@@ -380,11 +449,15 @@ class BoundedGroups(NamedTuple):
     cls_start: torch.Tensor
 
 
-def bounded_groups(tile_of_tree: np.ndarray, n_class: int,
-                   device) -> BoundedGroups:
+def bounded_groups(tile_of_tree: np.ndarray, n_class: int, device,
+                   n_tiles: Optional[int] = None) -> BoundedGroups:
     """The `BoundedGroups` of `tile_of_tree` [T] (tree t's class t % K,
-    the stacked planes' `cls`), built on the host at refresh."""
+    the stacked planes' `cls`), built on the host at refresh.  With
+    `n_tiles` (S) the tiles are clamped to [0, S) first, as the plain
+    version clamps them, so the kernel sums what it sums."""
     tile = np.asarray(tile_of_tree, np.int64)
+    if n_tiles is not None:
+        tile = np.clip(tile, 0, max(int(n_tiles), 1) - 1)
     t_trees = len(tile)
     cls = np.arange(t_trees) % max(n_class, 1)
     order = np.lexsort((np.arange(t_trees), tile, cls))
@@ -492,13 +565,14 @@ def accumulate_slots_bounded(slots: torch.Tensor, qval: torch.Tensor,
                              tile_of_tree: torch.Tensor,
                              scales: torch.Tensor, n_class: int = 1,
                              gather_idx: Optional[torch.Tensor] = None,
-                             groups: Optional[BoundedGroups] = None
-                             ) -> torch.Tensor:
+                             groups: Optional[BoundedGroups] = None, *,
+                             plan=None) -> torch.Tensor:
     """The bounded sum of pre-routed leaf slots: [B] or [B, K] float32
     within the bound `compiler.quantize.pack_bounded` publishes.  CUDA
     tensors launch `csrc/bounded.cu` over `groups` (default: built from
     `tile_of_tree`, a host copy; the serving runtime builds them once at
-    refresh); CPU tensors run `accumulate_slots_bounded_plain`."""
+    refresh, with `n_tiles`) with `plan` (default `compiler.records.
+    bounded_plan`); CPU tensors run `accumulate_slots_bounded_plain`."""
     global ACCUMULATE_BOUNDED_LAUNCHES
     if slots.device.type == "cpu":
         return accumulate_slots_bounded_plain(slots, qval, tile_of_tree,
@@ -511,19 +585,27 @@ def accumulate_slots_bounded(slots: torch.Tensor, qval: torch.Tensor,
     _check_bounded(slots, qval, tile_of_tree, scales, n_class, gather_idx)
     if groups is None:
         groups = bounded_groups(tile_of_tree.cpu().numpy(), n_class,
-                                slots.device)
+                                slots.device, n_tiles=scales.shape[0])
     tensors = (slots, qval, tile_of_tree, scales, gather_idx) + tuple(groups)
     if any(t.device != slots.device for t in groups):
         raise LightGBMError("bounded-sum inputs lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise LightGBMError("bounded-sum inputs must be contiguous")
     from ..compiler import _build
-    lib = _build.load("bounded")
+    from ..compiler.records import bounded_plan
     r, b = slots.shape
     out = torch.empty((b, n_class) if n_class > 1 else (b,),
                       dtype=torch.float32, device=slots.device)
     if b == 0:
         return out
+    lib = _build.load("bounded")
+    n_groups = groups.grp_tile.shape[0]
+    if groups.cls_start.shape[0] != n_class + 1 \
+            or groups.grp_start.shape[0] != n_groups + 1 \
+            or groups.grp_trees.shape[0] != t_trees:
+        raise LightGBMError("bounded groups do not match the trees and "
+                            "classes")
+    plan = plan or bounded_plan(b, t_trees, n_groups, n_class)
     bits = 8 if qval.dtype == torch.int8 else 16
     rc = _build.on_stream(slots.device, lambda stream:
                           lib.lgbt_accumulate_bounded(
@@ -531,7 +613,8 @@ def accumulate_slots_bounded(slots: torch.Tensor, qval: torch.Tensor,
         bits, t_trees, nl, groups.grp_tile.data_ptr(),
         groups.grp_start.data_ptr(), groups.grp_trees.data_ptr(),
         groups.cls_start.data_ptr(), n_class, scales.data_ptr(),
-        scales.shape[0], out.data_ptr(), ctypes.c_void_p(stream)))
+        scales.shape[0], n_groups, plan.rows, plan.lanes, plan.group_chunk,
+        plan.smem, out.data_ptr(), ctypes.c_void_p(stream)))
     if rc != 0:
         raise LightGBMError(f"bounded-sum launch failed: CUDA error {rc}")
     ACCUMULATE_BOUNDED_LAUNCHES += 1

@@ -78,7 +78,8 @@ from ..compiler.records import build_records
 from ..ops.predict import (BoundedGroups, bounded_groups,
                            predict_leaf_ensemble,
                            predict_leaf_ensemble_plain,
-                           predict_raw_ensemble_exact)
+                           predict_raw_ensemble_exact, stacked_to,
+                           with_records)
 from ..resilience import FAULTS, HALF_OPEN, OPEN, CircuitBreaker, Supervisor
 from ..utils.locks import make_lock
 from ..utils.log import LightGBMError
@@ -192,7 +193,7 @@ class _Tensors(NamedTuple):
             catw=mv(self.records.catw))
         return _Tensors(
             None if self.stacked is None else
-            {k: mv(v) for k, v in self.stacked.items()},
+            stacked_to(self.stacked, device),
             mv(self.value_f64),
             None if self.planes is None else
             tuple(tuple(mv(a) for a in b) for b in self.planes),
@@ -394,9 +395,15 @@ class ServingRuntime:
                 qval=torch.from_numpy(packed["qval"]).to(dev),
                 tile=torch.from_numpy(packed["tile_of_tree"]).to(dev),
                 scales=torch.from_numpy(packed["scales"]).to(dev),
-                groups=bounded_groups(packed["tile_of_tree"], K, dev))
+                groups=bounded_groups(packed["tile_of_tree"], K, dev,
+                                      n_tiles=len(packed["scales"])))
             st.bound = float(packed["bound"])
             st.rung = "bounded"
+        if trav is not None and st.rung in ("device_sum", "slot_path") \
+                and dev.type != "cpu":
+            # the stacked traversal's kernel reads one record a node; the
+            # other rungs never launch it, so they hold none
+            fields["stacked"] = with_records(trav)
         st.dev = _Tensors(**fields)
         return st
 
