@@ -58,25 +58,38 @@ Phases, each printing one JSON line:
           (FUSED_SWEEP, each bitwise first); the plain versions at 4096;
           one 4096-row request split into its stages.
   predict_api `Booster.predict`'s options on the main phase's model:
-          `device_predict` (the JAX package's f32 batch program: the
-          standalone traverse `csrc/traverse.cu` a depth bucket and the
-          f32 boosting-order sum, the f32 instance of
-          `csrc/accumulate.cu`, a chunk of 65,536 rows, then the link a
-          converted chunk) at 1, 256, 4096, 10,000 and 100,000 rows (two
-          chunks), raw and converted, bitwise the same program with every
-          plain version on the card and, up to 10,000 rows, the port's
-          CPU result; the rows whose leaves differ from the f64 host
-          walk's (0 on this model's f32-exact rows and thresholds) and
-          the f32 sums' largest difference from the walk; the five golden
-          models and a random-forest text (the binary golden text with
-          `average_output`) the same way on adversarial rows; launches
-          a request (the fused serving kernel 0, the traverse once a
-          bucket a chunk, the f32 sum once a chunk, the link once a
-          converted chunk) and for the phase; the f32 sum at 4096 rows
-          timed warm and L2-flushed beside its bound, its plain version
-          and the f64 standalone sum; the host seconds of `pred_leaf`,
-          prediction early stop and `pred_contrib` (TreeSHAP) on 20 rows
-          of the binary golden model.
+          `device_predict` (the JAX package's f32 batch program: within
+          the plan one launch of the fused serving kernel's f32 instance,
+          `csrc/serve.cu lgbt_serve_f32`, a chunk of 65,536 rows, the walk
+          over the plan's records and the f32 boosting-order sum, then
+          the link a converted chunk) at 1, 256, 4096, 10,000 and 100,000
+          rows (two chunks), raw and converted, bitwise the same program
+          with every plain version on the card and, up to 10,000 rows,
+          the port's CPU result; the rows whose leaves differ from the
+          f64 host walk's (0 on this model's f32-exact rows and
+          thresholds) and the f32 sums' largest difference from the
+          walk; the five golden models and a random-forest text (the
+          binary golden text with `average_output`) the same way on
+          adversarial rows; launches a request (the f32 fused kernel once
+          a chunk; the f64 fused kernel, the standalone traverse and the
+          standalone sums 0; the link once a converted chunk) and for the
+          phase.  Then on every model at 1, 256, 4096 and 65,536 rows,
+          raw and converted, the fused route bitwise its plain versions
+          and the unfused program (each bucket's standalone traverse,
+          then the f32 sum of their slots); the stacked route (the main
+          model with a feature renamed past the plan's 12-bit field: one
+          stacked traversal and one f32 sum a chunk) bitwise the fused
+          route; the fused f32 launch at those sizes warm and L2-flushed
+          in turns with the unfused program, beside its bound (the
+          32-byte sectors of the records and leaf values the walks
+          read), and a sweep of its launch plans (FUSED_F32_SWEEP) at
+          4096 and 65,536 rows, each bitwise the default plan, timed at
+          65,536; the standalone f32 sum
+          (the stacked route's) at 4096 rows timed warm and L2-flushed
+          beside its bound, its plain version and the f64 standalone
+          sum; the host seconds of `pred_leaf`, prediction early stop
+          and `pred_contrib` (TreeSHAP) on 20 rows of the binary golden
+          model.
   serve_plane the serving plane on the main phase's model.  Between the
           counter reads: a ServingRuntime pinned to each rung by its
           options (compiled, device_sum, slot_path, bounded at 8 and 16
@@ -400,11 +413,17 @@ Phases, each printing one JSON line:
           traversal and the bounded sum bitwise DIR's, each timed in
           turns (those two also L2-flushed); then a converted request
           through each checkout's ServingRuntime on the compiled,
-          device_sum and bounded rungs, bitwise, its p50 in turns.
+          device_sum and bounded rungs, bitwise, its p50 in turns; then
+          each checkout's `device_predict` (its own Booster), bitwise,
+          a raw request's p50 in turns at 1, 256 and 4096 rows and its
+          device program (this checkout's `serve_forest_f32` over its
+          records, DIR's `predict_raw_f32` over its planes) in turns,
+          warm and L2-flushed, there and at 65,536 rows.
   kernels one line per kernel: launches on its path's phase (the fused
           serving kernel and the link: main, where the standalone
           traverse and accumulate show 0 and their golden-phase and
-          predict_api launches beside; the f32 sum: predict_api; the
+          predict_api launches beside; the fused kernel's f32 instance:
+          predict_api; the f32 sum: predict_api's stacked route; the
           stacked traversal and the bounded sum: serve_plane;
           histogram: train; fused_hist_split and
           split_scan: train_wave; fused_hist_split_q: train_quant's main
@@ -418,6 +437,8 @@ Phases, each printing one JSON line:
           train_dist launches, the fused serving kernel its
           serve_sharded launches),
           parity, times, bound.
+  walls   each phase's seconds (from the previous phase's last line to
+          its own, its kernels' builds included) and the script's.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line `{"ok": true, "device": {...}}`.  Any failure exits
@@ -631,8 +652,28 @@ def _check(cond, msg):
         raise Failure(msg)
 
 
+#: (phase, seconds since the script started) at each phase line
+_EMITTED = []
+_T0 = time.perf_counter()
+
+
 def _emit(obj):
+    if "phase" in obj:
+        _EMITTED.append((obj["phase"], time.perf_counter() - _T0))
     print(json.dumps(obj, sort_keys=False), flush=True)
+
+
+def _phase_walls():
+    """Seconds from the previous phase's last line to each phase's last
+    line (the phase with its kernels' builds), and the script's so far."""
+    last = {}
+    for name, t in _EMITTED:
+        last[name] = t
+    walls, prev = {}, 0.0
+    for name, t in sorted(last.items(), key=lambda kv: kv[1]):
+        walls[name] = t - prev
+        prev = t
+    return {"s": walls, "total_s": time.perf_counter() - _T0}
 
 
 def _cuda_ms(fn, iters=20, warmup=3, queued=False, flush=None):
@@ -1013,6 +1054,9 @@ def _request_breakdown(rt, X, iters=20):
 
 #: the request sizes at which the main phase times each serving kernel
 TIMED_ROWS = (1, 256, 4096)
+#: a full `device_predict` chunk, where compare_serving also times the
+#: two checkouts' device programs
+PREDICT_F32_ROWS = 65_536
 
 
 def phase_main(seed, kernel_module, predict_module):
@@ -1177,7 +1221,13 @@ def phase_main(seed, kernel_module, predict_module):
         gathered = slots_k[st.gidx.long()].cpu().numpy()
         visits = int(np.take_along_axis(depth, gathered, axis=1).sum())
         row["node_visits"] = visits
-        row["serve_bytes"] = Xd.numel() * 4 + rec_bytes + value_bytes + b * 8
+        # the sectors the fused walks read
+        row["serve_bytes"], serve_visits = _serve_bytes(
+            Xd, st.records, ex["value_f64"])
+        want_visits = _record_visits(ex, slots_k[st.gidx.long()])
+        _check(serve_visits == want_visits,
+               f"main: {b} rows: the records' walk visits {serve_visits} "
+               f"nodes, the slots' depths {want_visits}")
         row["serve_bound_ms"], row["serve_bound_by"] = _bound(
             row["serve_bytes"], visits, INT32_OPS_PER_S)
         row["traverse_bytes"] = (Xd.numel() * 4 + plane_bytes
@@ -3767,6 +3817,49 @@ def phase_compare_serving(seed: int, baseline: str, device=None,
             report[str(b)][label] = _request_turns(
                 lambda: this_rt.predict(X[:b]),
                 lambda: base_rt.predict(X[:b]), timing)
+    # each checkout's device_predict: a whole raw request, then the
+    # device program alone over each checkout's own state
+    from lightgbm_tpu_torch.booster import stage_rows
+    this_b, base_b = Booster(model_str=text), base_booster.Booster(
+        model_str=text)
+    dev = rt.device
+    t_st = this_b._device_predict_state(0, None, dev)
+    b_st = base_b._device_predict_state(0, None, dev)
+    Xp = request_rows(np.random.RandomState(seed + 2), PREDICT_F32_ROWS)
+    flush = _flusher(dev) if timing else None
+    dp = {}
+    for b in TIMED_ROWS + (PREDICT_F32_ROWS,):
+        Xd = stage_rows(Xp[:b], dev)
+
+        def this_prog(Xd=Xd):
+            return kernel.serve_forest_f32(Xd, t_st.records, t_st.values)
+
+        def base_prog(Xd=Xd):
+            return base_kernel.predict_raw_f32(
+                Xd, b_st.planes, b_st.gidx, b_st.values, meta=b_st.meta)
+
+        _check(_bits_equal(this_prog().cpu().numpy(),
+                           base_prog().cpu().numpy()),
+               f"compare: {b} rows: the device_predict programs differ")
+        dp[str(b)] = {"program": _turns(this_prog, base_prog, timing,
+                                        flush)}
+        if b in TIMED_ROWS:
+            def this_req(b=b):
+                return this_b.predict(Xp[:b], raw_score=True,
+                                      device_predict=True,
+                                      device_type=dev.type)
+
+            def base_req(b=b):
+                return base_b.predict(Xp[:b], raw_score=True,
+                                      device_predict=True,
+                                      device_type=dev.type)
+
+            _check(_bits_equal(this_req(), base_req()),
+                   f"compare: {b} rows: the device_predict answers differ")
+            dp[str(b)]["request_p50_ms"] = _request_turns(this_req,
+                                                          base_req, timing)
+    del flush
+    report["device_predict"] = dp
     report["phase_s"] = time.perf_counter() - t_phase
     _emit(report)
     return report
@@ -6536,6 +6629,21 @@ def phase_serve_sharded(seed, device=None, timing=True):
 # ------------------------------------------------------- predict_api
 #: `device_predict`'s request sizes (100,000 rows: two chunks of 65,536)
 PREDICT_ROWS = (1, 256, 4096, 10_000, 100_000)
+#: the fused route is held bitwise its plain versions and the unfused
+#: program at these sizes on every model, and timed at them on the main
+#: model (65,536 rows: a full chunk)
+FUSED_F32_ROWS = (1, 256, 4096, 65_536)
+#: the f32 instance's launch plans are held bitwise the default plan at
+#: these sizes and timed at a full chunk only (at 4096 rows the default
+#: was within 1.3% of the best on an H100): single blocks and pairs of
+#: blocks, rows in shared memory, 1 or 2 cursors, and 256-row blocks
+#: with staged records (the rest of FUSED_SWEEP, clusters of 4 and 8 and
+#: staging at fewer rows, ran 1.3x to 13x slower at 65,536 rows: PERF.md)
+FUSED_F32_SWEEP_ROWS = (4096, 65_536)
+FUSED_F32_TIMED_SWEEP_ROWS = 65_536
+FUSED_F32_SWEEP = tuple((c, r, i, 512, False) for c in (1, 2)
+                        for r in (1, 4, 16, 64, 256) for i in (1, 2)) + tuple(
+    (1, 256, i, 512, True) for i in (1, 2))
 #: up to here the port's CPU result is computed too (the CPU's plain
 #: traversal of 500 trees is slow beyond), and the f64 host walk
 PREDICT_CPU_ROWS = 10_000
@@ -6548,20 +6656,24 @@ PREDICT_REPEATS = 7
 
 class _plain_kernels:
     """Within it, `device_predict` runs its plain versions on the card:
-    the standalone traverse, the f32 sum and the link's wrappers are
-    swapped for their plain versions (which count no launch), so the
-    program's staging, chunks and padding stay the booster's own."""
+    the fused kernel's f32 instance, the standalone traverse, the f32 sum
+    and the link's wrappers are swapped for their plain versions (which
+    count no launch), so the program's staging, chunks and padding stay
+    the booster's own."""
 
     def __enter__(self):
         from lightgbm_tpu_torch.compiler import kernel
         from lightgbm_tpu_torch.ops import predict, xla_math
-        self.saved = [(kernel, "traverse_bucket", kernel.traverse_bucket),
-                      (kernel, "accumulate_slots_f32",
-                       kernel.accumulate_slots_f32),
+        self.saved = [(kernel, "serve_forest_f32", kernel.serve_forest_f32),
+                      (kernel, "traverse_bucket", kernel.traverse_bucket),
+                      (predict, "accumulate_slots_f32",
+                       predict.accumulate_slots_f32),
                       (xla_math, "_link", xla_math._link)]
+        kernel.serve_forest_f32 = (
+            lambda *a, plan=None: kernel.serve_forest_f32_plain(*a))
         kernel.traverse_bucket = (
             lambda *a, plan=None: kernel.traverse_bucket_plain(*a))
-        kernel.accumulate_slots_f32 = predict.accumulate_slots_f32_plain
+        predict.accumulate_slots_f32 = predict.accumulate_slots_f32_plain
         xla_math._link = lambda x, sigmoid: (
             xla_math.xla_sigmoid_plain(x) if sigmoid
             else xla_math.xla_exp_f32_plain(x))
@@ -6577,9 +6689,11 @@ def _predict_counters():
     from lightgbm_tpu_torch.compiler import kernel
     from lightgbm_tpu_torch.ops import predict, xla_math
     return {"serve": kernel.SERVE_LAUNCHES,
+            "serve_f32": kernel.SERVE_F32_LAUNCHES,
             "traverse": kernel.TRAVERSE_LAUNCHES,
             "accumulate_f32": predict.ACCUMULATE_F32_LAUNCHES,
             "accumulate": predict.ACCUMULATE_LAUNCHES,
+            "stacked": predict.STACKED_LAUNCHES,
             "xla_link": xla_math.LINK_LAUNCHES}
 
 
@@ -6587,10 +6701,93 @@ def _zero_predict_counters():
     from lightgbm_tpu_torch.compiler import kernel
     from lightgbm_tpu_torch.ops import predict, xla_math
     kernel.SERVE_LAUNCHES = 0
+    kernel.SERVE_F32_LAUNCHES = 0
     kernel.TRAVERSE_LAUNCHES = 0
     predict.ACCUMULATE_F32_LAUNCHES = 0
     predict.ACCUMULATE_LAUNCHES = 0
+    predict.STACKED_LAUNCHES = 0
     xla_math.LINK_LAUNCHES = 0
+
+
+def unfused_program(bst, device):
+    """`bst`'s `device_predict` program within the plan as it ran before
+    the fused route (the JAX package's program): a function of staged
+    rows X [B, F] f32 on `device` that runs each depth bucket's
+    standalone traverse (X padded to a multiple of ROW_BLOCK rows), then
+    the standalone f32 sum of their slots, tree t's at its plan row:
+    [B] or [B, K] float32.  The plan is `Booster._device_predict_state`'s
+    (averaging off); the function carries its `planes`, `meta` and
+    `gidx`."""
+    import torch
+    from lightgbm_tpu_torch.compiler import build_plan, kernel
+    from lightgbm_tpu_torch.ops import predict
+    from lightgbm_tpu_torch.serving.runtime import DEFAULT_TILE_KB
+    st = bst._device_predict_state(0, None, device)
+    plan = build_plan(dict(bst.export_predict_arrays(0, -1, device=device),
+                           average_factor=1), tile_vmem_kb=DEFAULT_TILE_KB)
+    planes, meta = kernel.device_planes(plan, device)
+    gidx = torch.from_numpy(plan.gather_idx).to(device)
+
+    def run(X):
+        b = X.shape[0]
+        if b > kernel.ROW_BLOCK and b % kernel.ROW_BLOCK:
+            X = torch.cat([X, X.new_zeros(-b % kernel.ROW_BLOCK,
+                                          X.shape[1])])
+        return predict.accumulate_slots_f32(
+            kernel.traverse_all(X, planes, meta), gidx, st.values,
+            n_class=st.num_class, cls=st.cls)[:b]
+
+    run.planes, run.meta, run.gidx = planes, meta, gidx
+    return run
+
+
+class _unfused_route:
+    """Within it, `device_predict` runs the unfused program
+    (`unfused_program`) where it would launch the fused kernel's f32
+    instance, on the booster's own staging and chunks."""
+
+    def __init__(self, prog):
+        self.prog = prog
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.compiler import kernel
+        self.saved = kernel.serve_forest_f32
+        kernel.serve_forest_f32 = (
+            lambda X, rec, values, n_class=1, plan=None: self.prog(X))
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_tpu_torch.compiler import kernel
+        kernel.serve_forest_f32 = self.saved
+        return False
+
+
+def _fused_gates(name, bst, prog, X, rows, device_type="cuda"):
+    """`bst.predict(X[:n], device_predict=True)` at each of `rows`, raw
+    and converted, through the fused route: bitwise the same program with
+    its plain versions on the card (`_plain_kernels`) and bitwise the
+    unfused program `prog` (`_unfused_route`), in this call."""
+    import torch
+    _check(bst._device_predict_state(0, None, torch.device(device_type))
+           .records is not None, f"predict_api: {name} has no records")
+    for n in rows:
+        for raw in (True, False):
+            kw = {"raw_score": raw, "device_predict": True,
+                  "device_type": device_type}
+            got = bst.predict(X[:n], **kw)
+            with _plain_kernels():
+                plain = bst.predict(X[:n], **kw)
+            with _unfused_route(prog):
+                unfused = bst.predict(X[:n], **kw)
+            what = "raw" if raw else "converted"
+            _check(_bits_equal(got, plain),
+                   f"predict_api: {name}, {n} rows, {what}: the fused "
+                   f"route != its plain versions on the card")
+            _check(_bits_equal(got, unfused),
+                   f"predict_api: {name}, {n} rows, {what}: the fused "
+                   f"route != the unfused program on the card")
+    return {"rows": list(rows), "bitwise_plain_card": True,
+            "bitwise_unfused_card": True}
 
 
 def _rf_text(text):
@@ -6602,13 +6799,15 @@ def _rf_text(text):
 
 
 def _device_predicts(name, bst, cpu_bst, X, device_type, cpu_rows,
-                     host=None):
+                     host=None, prog=None):
     """`bst.predict(X, device_predict=True)` raw and converted, counted,
     then held against the same program with every plain version on the
     card (`_plain_kernels`) and, up to `cpu_rows` rows, against
     `cpu_bst`'s on the CPU, bitwise.  With `host` (the f64 walk's raw
-    scores and leaves of X[:len(host[0])]), the rows whose leaves differ
-    from the walk's and the f32 sums' largest difference from it.
+    scores and leaves of X[:len(host[0])]) and `prog` (the booster's
+    `unfused_program`, whose planes route the leaves), the rows whose
+    leaves differ from the walk's and the f32 sums' largest difference
+    from it.
     Returns (raw, launches, report)."""
     import torch
     n = X.shape[0]
@@ -6642,9 +6841,9 @@ def _device_predicts(name, bst, cpu_bst, X, device_type, cpu_rows,
     if host is not None:
         h_raw, h_leaf = host
         m = min(n, len(h_raw))
-        st = bst._device_predict_state(0, None, torch.device(device_type))
-        K = st.num_class
-        leaves = [_device_leaves(st, X[lo:min(lo + 4096, m)])
+        dev = torch.device(device_type)
+        K = bst._device_predict_state(0, None, dev).num_class
+        leaves = [_device_leaves(prog, X[lo:min(lo + 4096, m)], dev)
                   for lo in range(0, m, 4096)]
         leaves = np.concatenate(leaves) if leaves else h_leaf[:0]
         rep["rows_routed_otherwise"] = int(
@@ -6654,17 +6853,17 @@ def _device_predicts(name, bst, cpu_bst, X, device_type, cpu_rows,
     return raw, {"raw": raw_l, "converted": conv_l}, rep
 
 
-def _device_leaves(st, Xc):
+def _device_leaves(prog, Xc, dev):
     """The leaves of the rows Xc (at most one chunk), [rows, T] in
-    boosting order, staged as `Booster._predict_device` stages them, by
-    the standalone K6's plain version (bitwise the kernel's slots in the
+    boosting order, by the standalone K6's plain version over the planes
+    of `prog` (an `unfused_program`; bitwise the kernel's slots in the
     golden and main phases), so that no launch is counted."""
     from lightgbm_tpu_torch.booster import stage_rows
     from lightgbm_tpu_torch.compiler import kernel
     with _plain_kernels():
-        slots = kernel.traverse_all(stage_rows(Xc, st.values.device),
-                                    st.planes, st.meta)
-    return slots[st.gidx.long()][:, :len(Xc)].t().cpu().numpy()
+        slots = kernel.traverse_all(stage_rows(Xc, dev), prog.planes,
+                                    prog.meta)
+    return slots[prog.gidx.long()][:, :len(Xc)].t().cpu().numpy()
 
 
 def _host_walk(bst, X):
@@ -6674,23 +6873,36 @@ def _host_walk(bst, X):
 
 def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
                       cpu_rows=PREDICT_CPU_ROWS, timing=True,
-                      num_trees=500):
+                      num_trees=500, fused_rows=FUSED_F32_ROWS,
+                      sweep_rows=FUSED_F32_SWEEP_ROWS):
     """`Booster.predict`'s options on the main phase's model (500 trees x
-    255 leaves x 28 features, from `seed`): `device_predict` (the
-    standalone traverse a depth bucket and the f32 sum a chunk of 65,536
+    255 leaves x 28 features, from `seed`): `device_predict` (within the
+    plan one launch of the fused kernel's f32 instance a chunk of 65,536
     rows, the link a converted chunk) at each of `rows`, raw and
     converted, bitwise its plain versions on the card and, up to
     `cpu_rows`, the port's CPU result; the rows routed otherwise than the
     f64 host walk and the f32 sums' largest difference from it; the five
     golden models and a random-forest text the same way; the launches
-    of the phase (the fused serving kernel 0); the f32 sum timed at 4096
-    rows beside its bound, its plain version and the f64 standalone sum;
-    the host seconds of `pred_leaf`, prediction early stop and
-    `pred_contrib` on 20 rows of the binary golden model.  Returns the
-    f32 sum's kernels-line entry and the phase's launches."""
+    of the phase (the f64 fused kernel, the standalone traverse and the
+    standalone sums 0).  Then, out of the counted path, at each of
+    `fused_rows` on every model, raw and converted, the fused route
+    bitwise its plain versions and the unfused program (each bucket's
+    traverse, then the f32 sum); the stacked route (a model past the
+    plan's feature field) counted and bitwise the fused route; the fused
+    launch timed warm and L2-flushed in turns with the unfused program
+    beside its bound, a sweep of its launch plans at `sweep_rows`; the
+    standalone f32 sum (the stacked route's) at 4096 rows beside its
+    bound, its plain version and the f64 standalone sum; the host
+    seconds of `pred_leaf`, prediction early stop and `pred_contrib` on
+    20 rows of the binary golden model.  Returns the kernels-line
+    entries of the fused f32 launch and the f32 sum, and the phase's
+    launches."""
     import torch
     from lightgbm_tpu_torch import Booster
-    from lightgbm_tpu_torch.booster import DEVICE_PREDICT_CHUNK
+    from lightgbm_tpu_torch.booster import DEVICE_PREDICT_CHUNK, stage_rows
+    from lightgbm_tpu_torch.compiler import kernel
+    from lightgbm_tpu_torch.compiler.records import (MAX_ROW_BLOCKS,
+                                                     forest_plan)
     from lightgbm_tpu_torch.ops.predict import (
         accumulate_slots_exact, accumulate_slots_f32,
         accumulate_slots_f32_plain)
@@ -6698,23 +6910,28 @@ def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
     dev = torch.device(device_type)
     text = synthetic_forest_text(seed, num_trees=num_trees)
     bst, cpu_bst = Booster(model_str=text), Booster(model_str=text)
-    X_all = request_rows(np.random.RandomState(seed + 2), max(rows))
+    X_all = request_rows(np.random.RandomState(seed + 2),
+                         max(max(rows), max(fused_rows)))
     _zero_predict_counters()
     t0 = time.perf_counter()
     st = bst._device_predict_state(0, None, dev)
     setup_s = time.perf_counter() - t0
-    buckets = len(st.planes)
+    _check(st.records is not None, "predict_api: the plan has no records")
+    prog = unfused_program(bst, dev)
+    buckets = len(prog.planes)
     host = _host_walk(bst, X_all[:min(cpu_rows, max(rows))])
     report = {"phase": "predict_api", "trees": num_trees,
-              "buckets": buckets, "setup_s": setup_s, "sizes": {}}
+              "buckets": buckets, "setup_s": setup_s,
+              "record_bytes": st.records.nbytes(), "sizes": {}}
     for n in rows:
         t0 = time.perf_counter()
         _, launches, rep = _device_predicts(
             f"main {n}", bst, cpu_bst, X_all[:n], device_type, cpu_rows,
-            host=host if n <= cpu_rows else None)
+            host=host if n <= cpu_rows else None, prog=prog)
         chunks = -(-n // DEVICE_PREDICT_CHUNK)
-        want = {"serve": 0, "traverse": buckets * chunks,
-                "accumulate_f32": chunks, "accumulate": 0, "xla_link": 0}
+        want = {"serve": 0, "serve_f32": chunks, "traverse": 0,
+                "accumulate_f32": 0, "accumulate": 0, "stacked": 0,
+                "xla_link": 0}
         _check(launches["raw"] == want
                and launches["converted"] == dict(want, xla_link=chunks),
                f"predict_api: {n} rows: launches {launches}, want {want} "
@@ -6734,6 +6951,7 @@ def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
         for name in GOLDEN]
     models.append(("rf_binary", _rf_text(models[0][1])))
     report["golden"] = {}
+    golden = {}
     for name, mtext in models:
         g, g_cpu = Booster(model_str=mtext), Booster(model_str=mtext)
         _check(g._average_output == (name == "rf_binary"),
@@ -6742,17 +6960,30 @@ def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
         rng = np.random.RandomState(seed + 3)
         X = np.vstack([adversarial_rows(g.trees, nf, seed),
                        rng.randn(256, nf)])
-        _, _, rep = _device_predicts(name, g, g_cpu, X, device_type,
-                                     cpu_rows, host=_host_walk(g, X))
+        g_prog = unfused_program(g, dev)
+        _, launches, rep = _device_predicts(name, g, g_cpu, X, device_type,
+                                            cpu_rows, host=_host_walk(g, X),
+                                            prog=g_prog)
+        _check(launches["raw"]["serve_f32"] == 1
+               and launches["raw"]["traverse"] == 0
+               and launches["raw"]["accumulate_f32"] == 0,
+               f"predict_api: {name}: launches {launches}")
         if name == "rf_binary":
             rep["average_factor"] = int(g._device_predict_state(
                 0, None, dev).average_factor)
             _check(rep["average_factor"] == g.num_trees(),
                    "predict_api: the forest is not averaged")
         report["golden"][name] = rep
+        golden[name] = (g, nf, g_prog)
     phase_launches = _predict_counters()
     _check(phase_launches["serve"] == 0 and phase_launches["accumulate"] == 0,
            f"predict_api: the fused kernel or the f64 sum ran: "
+           f"{phase_launches}")
+    _check(phase_launches["serve_f32"] > 0
+           and phase_launches["traverse"] == 0
+           and phase_launches["accumulate_f32"] == 0
+           and phase_launches["stacked"] == 0,
+           f"predict_api: the plan route left the fused kernel: "
            f"{phase_launches}")
 
     # ---- a raw request's wall time by size, synchronised (after the
@@ -6767,14 +6998,167 @@ def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
             times.append(time.perf_counter() - t0)
         report["sizes"][str(n)]["p50_ms"] = float(np.median(times)) * 1e3
 
-    # ---- the f32 sum at 4096 rows: parity, times, bound
-    Xd = torch.from_numpy(X_all[:4096].astype(np.float32)).to(dev)
-    from lightgbm_tpu_torch.compiler.kernel import traverse_all
-    slots = traverse_all(Xd, st.planes, st.meta)
+    # ---- the fused route bitwise its plain versions and the unfused
+    # program at `fused_rows`, on every model (after the counters' read)
+    t0 = time.perf_counter()
+    report["fused_gates"] = {"main": _fused_gates(
+        "main", bst, prog, X_all, fused_rows, device_type)}
+    for name, (g, nf, g_prog) in golden.items():
+        rng = np.random.RandomState(seed + 5)
+        adv = adversarial_rows(g.trees, nf, seed)
+        X = np.vstack([adv, rng.randn(max(max(fused_rows) - len(adv), 0),
+                                      nf)])
+        report["fused_gates"][name] = _fused_gates(name, g, g_prog, X,
+                                                   fused_rows, device_type)
+    report["fused_gates_s"] = time.perf_counter() - t0
+
+    # ---- the stacked route: the main model with feature 27 renamed
+    # 4096, past the plan's 12-bit field, one stacked traversal and one
+    # f32 sum a chunk, bitwise the fused route on the same rows
+    nf = X_all.shape[1]
+    q_bst = Booster(model_str=_widen_text(text, 4097,
+                                          feature_map={nf - 1: 4096}))
+    q_rows = min(4096, len(X_all))
+    Xq = np.zeros((q_rows, 4097))
+    Xq[:, :nf - 1] = X_all[:q_rows, :nf - 1]
+    Xq[:, 4096] = X_all[:q_rows, nf - 1]
+    _check(q_bst._device_predict_state(0, None, dev).records is None,
+           "predict_api: the (q) model has records")
+    c0 = _predict_counters()
+    q_raw = q_bst.predict(Xq, raw_score=True, device_predict=True,
+                          device_type=device_type)
+    c1 = _predict_counters()
+    stacked_launches = {k: c1[k] - c0[k] for k in c0}
+    _check(stacked_launches == {"serve": 0, "serve_f32": 0, "traverse": 0,
+                                "accumulate_f32": 1, "accumulate": 0,
+                                "stacked": 1, "xla_link": 0},
+           f"predict_api: the stacked route's launches {stacked_launches}")
+    _check(_bits_equal(q_raw, bst.predict(
+        X_all[:q_rows], raw_score=True, device_predict=True,
+        device_type=device_type)),
+           "predict_api: the stacked route != the fused route")
+    report["stacked_route"] = {"rows": q_rows, "launches": stacked_launches,
+                               "bitwise_fused_route": True}
+
+    # ---- the fused f32 launch at `fused_rows`: parity, bound, times in
+    # turns with the unfused program (each bucket's traverse, the f32
+    # sum), and a sweep of its launch plans
     ex = bst.export_predict_arrays(0, -1, device=dev)
     n_trees, nl = st.values.shape
-    f32 = accumulate_slots_f32(slots, st.gidx, st.values)
-    f32_p = accumulate_slots_f32_plain(slots, st.gidx, st.values)
+    rec = st.records
+    flush = _flusher(dev) if timing else None
+    fused_by_rows = {}
+    fused_err = 0.0
+    for n in fused_rows:
+        Xd = stage_rows(X_all[:n], dev, pad=False)
+        b, f = Xd.shape
+
+        def fused(Xd=Xd):
+            return kernel.serve_forest_f32(Xd, rec, st.values)
+
+        def unfused(Xd=Xd):
+            return prog(Xd)
+
+        got = fused().cpu().numpy()
+        _check(_bits_equal(got, unfused().cpu().numpy()),
+               f"predict_api: {n} rows: the fused f32 launch != the "
+               f"unfused program")
+        if n <= 4096:
+            plain = kernel.serve_forest_f32_plain(Xd, rec, st.values)
+            fused_err = max(fused_err, _max_abs_err(got,
+                                                    plain.cpu().numpy()))
+            _check(_bits_equal(got, plain.cpu().numpy()),
+                   f"predict_api: {n} rows: the fused f32 launch != its "
+                   f"plain version")
+        # the bound: the sectors the walks read
+        nbytes, visits = _serve_bytes(Xd, rec, st.values)
+        slots = kernel.traverse_all(stage_rows(X_all[:n], dev), prog.planes,
+                                    prog.meta)[prog.gidx.long()][:, :b]
+        _check(visits == _record_visits(ex, slots),
+               f"predict_api: {n} rows: the records' walk visits {visits} "
+               f"nodes, the slots' depths {_record_visits(ex, slots)}")
+        bound_ms, bound_by = _bound(nbytes, visits, INT32_OPS_PER_S)
+        plan = forest_plan(b, f, n_trees, rec.ni_max, rec.mw, 1,
+                           value_bytes=4)
+        row = {"rows": n, "staged_rows": b, "plan": plan._asdict(),
+               "bytes": nbytes, "node_visits": visits,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if timing:
+            turns = _turns(fused, unfused, timing, flush)
+            for key in ("ms", "device_ms", "cold_device_ms"):
+                row["fused_" + key] = turns[key]
+                row["unfused_" + key] = turns["baseline_" + key]
+            if n == 4096:       # the kernels line's size
+                row["plain_ms"] = _cuda_ms(
+                    lambda: kernel.serve_forest_f32_plain(Xd, rec,
+                                                          st.values),
+                    iters=3, warmup=1)
+        fused_by_rows[str(n)] = row
+    del flush
+    report["fused_f32"] = fused_by_rows
+    # the f32 instance's launch plans at `sweep_rows`, each bitwise the
+    # default plan first
+    sweeps = {}
+    for n in sweep_rows:
+        Xd = stage_rows(X_all[:n], dev, pad=False)
+        b, f = Xd.shape
+        default = forest_plan(b, f, n_trees, rec.ni_max, rec.mw, 1,
+                              value_bytes=4)
+        got = kernel.serve_forest_f32(Xd, rec, st.values).cpu().numpy()
+        vplans = {}
+        for c, r, i, nt, stg in FUSED_F32_SWEEP + (
+                (1, default.rows, default.ilp, 512, False),):
+            if r > b or -(-b // r) > MAX_ROW_BLOCKS:
+                continue
+            p = forest_plan(b, f, n_trees, rec.ni_max, rec.mw, 1,
+                            cluster=c, rows=r, ilp=i, threads=nt,
+                            stage=stg, value_bytes=4)
+            key = (f"c{p.cluster}_r{p.rows}_i{p.ilp}_t{p.threads}"
+                   f"{'_staged' if p.stage else ''}")
+            if key not in vplans:
+                vplans[key] = p
+                _check(_bits_equal(kernel.serve_forest_f32(
+                    Xd, rec, st.values, plan=p).cpu().numpy(), got),
+                       f"predict_api: {n} rows: fused f32 plan {key} != "
+                       f"the default plan")
+        sw = {"rows": n, "default": default._asdict()}
+        if timing and n == FUSED_F32_TIMED_SWEEP_ROWS:
+            vt = {k: _cuda_ms(lambda p=p: kernel.serve_forest_f32(
+                Xd, rec, st.values, plan=p), queued=True)
+                for k, p in vplans.items()}
+            sw["variants_ms"] = dict(sorted(vt.items(), key=lambda kv: kv[1]))
+        else:
+            sw["variants"] = sorted(vplans)
+        sweeps[str(n)] = sw
+    report["fused_f32_sweeps"] = sweeps
+    big_rows = 4096 if 4096 in fused_rows else max(fused_rows)
+    big = fused_by_rows[str(big_rows)]
+
+    def by_rows(key):
+        return {k: v.get(key) for k, v in fused_by_rows.items()}
+
+    fused_entry = {
+        "name": "serve_forest_f32", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/serve.cu",
+        "replaces": "lightgbm_tpu/ops/predict.py:188, "
+                    "lightgbm_tpu/compiler/kernel.py:155",
+        "launches": phase_launches["serve_f32"], "max_abs_err": fused_err,
+        "ms": big.get("fused_device_ms", 0.0),
+        "plain_ms": big.get("plain_ms", 0.0),
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "library_ms": None, "library_note": "no torch call walks a forest",
+        "rows": big_rows, "ms_by_rows": by_rows("fused_device_ms"),
+        "cold_ms_by_rows": by_rows("fused_cold_device_ms"),
+        "unfused_ms_by_rows": by_rows("unfused_device_ms"),
+        "unfused_cold_ms_by_rows": by_rows("unfused_cold_device_ms"),
+        "bound_ms_by_rows": by_rows("bound_ms")}
+
+    # ---- the standalone f32 sum (the stacked route's) at 4096 rows:
+    # parity, times, bound
+    Xd = stage_rows(X_all[:4096], dev)
+    slots, gidx = kernel.traverse_all(Xd, prog.planes, prog.meta), prog.gidx
+    f32 = accumulate_slots_f32(slots, gidx, st.values)
+    f32_p = accumulate_slots_f32_plain(slots, gidx, st.values)
     err = _max_abs_err(f32.cpu().numpy(), f32_p.cpu().numpy())
     _check(err == 0.0 and _bits_equal(f32.cpu().numpy(),
                                       f32_p.cpu().numpy()),
@@ -6786,7 +7170,8 @@ def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
     entry = {"name": "accumulate_f32", "route": "cuda",
              "source": "lightgbm_tpu_torch/csrc/accumulate.cu",
              "replaces": "lightgbm_tpu/ops/predict.py:188",
-             "launches": phase_launches["accumulate_f32"],
+             "serves": "device_predict's stacked route",
+             "launches": stacked_launches["accumulate_f32"],
              "max_abs_err": err, "ms": None, "plain_ms": None,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "bound_bytes": nbytes, "library_ms": None,
@@ -6794,13 +7179,13 @@ def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
              "rows": 4096}
     if timing:
         entry["ms"] = _cuda_ms(lambda: accumulate_slots_f32(
-            slots, st.gidx, st.values), queued=True)
+            slots, gidx, st.values), queued=True)
         entry["f64_sum_ms"] = _cuda_ms(lambda: accumulate_slots_exact(
-            slots, st.gidx, ex["value_f64"]), queued=True)
+            slots, gidx, ex["value_f64"]), queued=True)
         entry["plain_ms"] = _cuda_ms(lambda: accumulate_slots_f32_plain(
-            slots, st.gidx, st.values), iters=3, warmup=1)
+            slots, gidx, st.values), iters=3, warmup=1)
         entry["cold_ms"] = _cuda_ms(lambda: accumulate_slots_f32(
-            slots, st.gidx, st.values), queued=True,
+            slots, gidx, st.values), queued=True,
             flush=_flusher(dev))
     else:
         entry["ms"] = entry["plain_ms"] = entry["f64_sum_ms"] = 0.0
@@ -6829,7 +7214,7 @@ def phase_predict_api(seed, device_type="cuda", rows=PREDICT_ROWS,
                    "f32_sum_4096": entry,
                    "phase_s": time.perf_counter() - t_phase})
     _emit(report)
-    return entry, phase_launches
+    return [fused_entry, entry], phase_launches
 
 
 # ------------------------------------------------------------ serve_plane
@@ -6982,6 +7367,65 @@ def _stacked_bytes(ex, stacked, slots, nf):
     words = stacked.get("cat_words")
     words = 0 if words is None else int(words.numel() * 4)
     return sectors * 32 + words + s.shape[1] * nf * 4 + s.size * 4
+
+
+def _serve_bytes(X, rec, leaf_values, n_class=1, chunk=64):
+    """(bytes, node visits) of the fused kernel's launch over the rows X
+    [B, F] f32 (either instance, by `leaf_values`' dtype): X once, the
+    trees' meta whole, the 32-byte sectors of the records, bitset words
+    and leaf values that the walks read, and the output.  The walks are
+    `compiler/kernel.py _serve_plain`'s over the records, run on X's
+    device `chunk` trees at a time; a visit is a record read."""
+    import torch
+    from lightgbm_tpu_torch.compiler.kernel import _features, _route
+    b, f = X.shape
+    t_trees, nl = leaf_values.shape
+    vb = leaf_values.element_size()
+    dev = X.device
+    mw = rec.mw
+    w_all = rec.nodes[:, 0].contiguous()
+    k_all = rec.nodes[:, 1].contiguous()
+    thr_all = rec.nodes[:, 2].contiguous().view(torch.float32)
+    meta = rec.meta.long()
+    xt = X.t()
+    seen = torch.zeros(rec.nodes.shape[0], dtype=torch.bool, device=dev)
+    words = torch.zeros(rec.nodes.shape[0] * max(mw, 1), dtype=torch.bool,
+                        device=dev)
+    leaves = torch.zeros(t_trees * nl, dtype=torch.bool, device=dev)
+    visits = 0
+    for t0 in range(0, t_trees, chunk):
+        m = meta[t0:t0 + chunk]
+        for depth in torch.unique(m[:, 2]).tolist():
+            sel = torch.nonzero(m[:, 2] == depth).flatten()
+            first, ni = m[sel, :1], m[sel, 1:2]
+            cur = torch.zeros((len(sel), b), dtype=torch.int64, device=dev)
+            for _ in range(depth):
+                live = cur >= 0
+                in_range = live & (cur < ni)
+                idx = first + torch.where(in_range, cur, 0)
+                visits += int(live.sum())
+                seen[idx[live]] = True
+                w = w_all[idx]
+
+                def cat_of(widx, idx=idx, read=live & (w < 0)):
+                    words[(idx * mw + widx)[read]] = True
+                    return rec.catw[idx, widx]
+
+                nxt = _route(_features(xt, (w >> 16) & 0xFFF), w,
+                             k_all[idx], thr_all[idx], cat_of, mw)
+                cur = torch.where(live, torch.where(in_range, nxt.long(), 0),
+                                  cur)
+            slots = (~torch.clamp(cur, max=-1)).clamp(0, nl - 1)
+            leaves[((t0 + sel)[:, None] * nl + slots).flatten()] = True
+
+    def sectors(mask, size):
+        at = torch.nonzero(mask).flatten() * size // 32
+        return int(torch.unique(at).numel()) * 32
+
+    nbytes = (b * f * 4 + t_trees * 16 + sectors(seen, 16)
+              + (sectors(words, 4) if mw else 0) + sectors(leaves, vb)
+              + b * n_class * vb)
+    return nbytes, visits
 
 
 def doctored_planes(stacked, seed):
@@ -7902,6 +8346,17 @@ def _leaf_visits(ex, slots):
     return int(np.take_along_axis(depth, s, axis=1).sum())
 
 
+def _record_visits(ex, slots):
+    """Records the fused walks read for the rows of `slots` [T, B]: each
+    leaf's depth, and the root of a single-leaf tree (a record that
+    sends every row to leaf 0)."""
+    trees = ex["trees"]
+    nl = ex["leaf_values"].shape[1]
+    depth = np.maximum(_leaf_depths(trees, nl), 1)
+    s = slots.cpu().numpy().clip(0, nl - 1)
+    return int(np.take_along_axis(depth, s, axis=1).sum())
+
+
 def _without_params(text):
     """A model text less its `[key: value]` parameter lines."""
     return "\n".join(ln for ln in text.splitlines() if not ln.startswith("["))
@@ -7982,6 +8437,7 @@ def _run_phases(names, seed, baseline=None) -> int:
         phase_env()
         for name in names:
             KERNEL_PHASES[name](data, seed, baseline)
+        _emit(dict(phase="walls", **_phase_walls()))
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -8033,12 +8489,12 @@ def main(argv=None) -> int:
         for k in kernels:                # the standalone entries' golden
             if k["name"] in ("traverse", "accumulate_exact"):   # launches
                 k["golden_launches"] = golden[k["name"].split("_")[0]]
-        f32_sum, predict_launches = phase_predict_api(args.seed)
-        for k in kernels:       # device_predict's path: K6 and the f32 sum
+        predict_entries, predict_launches = phase_predict_api(args.seed)
+        for k in kernels:      # 0 since device_predict's fused route
             if k["name"] in ("traverse", "accumulate_exact"):
                 k["predict_api_launches"] = predict_launches[
                     k["name"].split("_")[0]]
-        kernels.append(f32_sum)
+        kernels += predict_entries
         kernels += phase_serve_plane(args.seed)
         link = phase_objective(args.seed)
         link["launches"] = link_launches
@@ -8114,6 +8570,7 @@ def main(argv=None) -> int:
                         else "bitwise" if k["max_abs_err"] == 0
                         else "differs")}
             for k in kernels]})
+        _emit(dict(phase="walls", **_phase_walls()))
         _emit({"kernels": kernels})
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -55,8 +55,8 @@ the stacked traversal planes plus the f64 leaf-value table
 (`export_predict_arrays`) that `ServingRuntime` compiles.  `predict`
 also gives leaf indices, TreeSHAP contributions (`contrib.py`) and
 prediction early stop on the host, and with `device_predict` runs the
-JAX package's f32 batch program on the card (the standalone traverse
-and the f32 sum kernel).  The chunk entries (`update_chunk_eval`)
+JAX package's f32 batch program on the card (within the plan, the fused
+serving kernel's f32 instance).  The chunk entries (`update_chunk_eval`)
 run 16 iterations with the scores after each.
 """
 from __future__ import annotations
@@ -96,7 +96,7 @@ from .mesh.topology import (get_mesh, get_mesh_2level, parse_mesh_shape,
                             world_size)
 from .parallel.learner import (make_distributed_grower, place_training_data,
                                resolve_tree_learner)
-from .utils.config import Config
+from .utils.config import _PARAMS, Config, canonical_param_name
 from .utils.log import LightGBMError
 
 #: blocking device-to-host copies of a set's scores for evaluation
@@ -163,27 +163,26 @@ DEVICE_PREDICT_STACKED = 0
 
 class _DevicePredict(NamedTuple):
     """`device_predict`'s tree slice on one device: the compiled plan's
-    planes, or for a model the plan refuses the stacked planes alone
-    (`planes` None)."""
-    planes: Optional[Tuple]  # per depth bucket (words, kids, pal, catw)
-    meta: Tuple             # per depth bucket (depth, mw)
-    gidx: torch.Tensor      # [T] int32: tree t's row in the slots
+    records (the plan route), or for a model the plan refuses the
+    stacked planes (the stacked route, `records` None)."""
+    records: Optional[Any]  # the plan's `DeviceRecords` (the plan route)
+    stacked: Optional[Dict]  # the stacked planes (the stacked route)
     cls: Optional[torch.Tensor]   # [T] int32 class of tree t (K > 1)
     values: torch.Tensor    # [T, NL] float32 leaf values
     min_features: int
     num_class: int
     average_factor: int     # random-forest divisor (1: a plain sum)
-    stacked: Optional[Dict]  # the stacked planes (the stacked route)
 
 
-def stage_rows(X: np.ndarray, device) -> torch.Tensor:
+def stage_rows(X: np.ndarray, device, pad: bool = True) -> torch.Tensor:
     """Rows X [m, F] as f32 on `device` (f64 values beyond the f32 range
-    saturate to +-inf, the routing wanted), zero rows padded on to a
-    multiple of ROW_BLOCK when m is above it (the standalone traverse's
-    batches are bucket-padded); the caller slices the padding away."""
+    saturate to +-inf, the routing wanted); with `pad`, zero rows padded
+    on to a multiple of ROW_BLOCK when m is above it (the standalone
+    traverse's and the stacked route's batches are bucket-padded; the
+    fused route takes any m), and the caller slices the padding away."""
     from .compiler.kernel import ROW_BLOCK
     m = X.shape[0]
-    rows = m if m <= ROW_BLOCK else -(-m // ROW_BLOCK) * ROW_BLOCK
+    rows = m if m <= ROW_BLOCK or not pad else -(-m // ROW_BLOCK) * ROW_BLOCK
     buf = np.zeros((rows, X.shape[1]), np.float32)
     with np.errstate(over="ignore"):
         buf[:m] = X
@@ -206,13 +205,44 @@ def train_device(device_type) -> torch.device:
     return torch.device("cuda")
 
 
+#: the ROADMAP item that brings the settings of `PLANES_SETTINGS`
+PLANES = "ROADMAP Queue 1 item 5g: the planes on top"
+#: settings the config accepts that no module of the port acts on yet
+#: (the flight recorder, the telemetry sinks and spool, the debug
+#: witnesses): `refusals` names each one set to other than its default
+PLANES_SETTINGS = ("flight_recorder", "flight_recorder_depth",
+                   "telemetry_sink", "telemetry_prometheus",
+                   "telemetry_spool", "telemetry_spool_dir",
+                   "debug_contracts", "debug_locks")
+#: the reference's TCP transport settings, which warn and are ignored
+NETWORK_SETTINGS = ("machines", "local_listen_port", "time_out")
+
+
 def refusals(cfg: Config) -> List[str]:
     """Why this slice cannot train `cfg`: each entry names a setting and
     the ROADMAP item that brings it.  Empty when the slice covers it."""
     out = []
     if str(cfg.boosting).lower() not in ("gbdt", "goss", "dart", "rf"):
         out.append(f"unknown boosting type {cfg.boosting!r}")
+    for name in PLANES_SETTINGS:
+        value = getattr(cfg, name)
+        if value != _PARAMS[name][0]:
+            out.append(f"{name}={value!r} ({PLANES})")
     return out
+
+
+def warn_network_settings(params: Dict[str, Any], cfg: Config) -> None:
+    """The reference's warning (`booster.py:289-298`) for each socket-era
+    network setting in `params` at other than its default: the port's
+    ranks join a `torch.distributed` process group instead."""
+    seen = {canonical_param_name(k) for k in params}
+    for name in NETWORK_SETTINGS:
+        if name in seen and getattr(cfg, name) != _PARAMS[name][0]:
+            log.warning(
+                f"Parameter {name} configures the reference's TCP "
+                "transport and is ignored here — multi-process setup is "
+                "lightgbm_tpu_torch.mesh.init() (a torch.distributed "
+                "process group) + num_machines/tree_learner")
 
 
 def _refuse(cfg: Config) -> None:
@@ -693,6 +723,7 @@ class Booster:
             self.params["objective"] = "none"
         cfg = self.config = Config(self.params)
         _refuse(cfg)
+        warn_network_settings(self.params, cfg)
         self.device = train_device(cfg.device_type)
         # armed before the device data, so its uploads are attributed
         # from the first byte (the reference's `booster.py:324`)
@@ -2539,13 +2570,14 @@ class Booster:
                               device: torch.device) -> "_DevicePredict":
         """The compiled plan of the tree slice on `device`, cached with
         the slice's export (`export_predict_arrays`, which every change
-        to the model drops).  Random-forest texts plan with averaging
-        off: the division comes after the f32 sum, on the host.  A model
-        the plan refuses (`PlanNotCompilable`: a split feature past the
-        12-bit field, a palette or bitset past 16 bits) takes the stacked
-        route instead, chosen here from the model before anything is
-        launched: the stacked-plane traversal, then the same f32 sum with
-        the slots in boosting order."""
+        to the model drops), and the plan's records, which the fused
+        kernel's f32 instance walks.  Random-forest texts plan with
+        averaging off: the division comes after the f32 sum, on the
+        host.  A model the plan refuses (`PlanNotCompilable`: a split
+        feature past the 12-bit field, a palette or bitset past 16 bits)
+        takes the stacked route instead, chosen here from the model
+        before anything is launched: the stacked-plane traversal, then
+        the same f32 sum with the slots in boosting order."""
         if num_iteration is None:
             num_iteration = self.best_iteration \
                 if self.best_iteration > 0 else -1
@@ -2555,30 +2587,29 @@ class Booster:
         if cached is not None and cached[0] is ex:
             return cached[1]
         from .compiler import PlanNotCompilable, build_plan
-        from .compiler.kernel import device_planes
+        from .compiler.kernel import DeviceRecords
+        from .compiler.records import build_records
         from .serving.runtime import DEFAULT_TILE_KB
         K = ex["num_class"]
-        stacked = ex["stacked"]
+        sp = ex["stacked"]
         try:
             plan = build_plan(dict(ex, average_factor=1),
                               tile_vmem_kb=DEFAULT_TILE_KB)
         except PlanNotCompilable:
             plan = None
-        if plan is None:
-            planes, meta = None, ()
-            gidx = torch.arange(len(ex["trees"]), dtype=torch.int32,
-                                device=device)
-            if torch.device(device).type != "cpu":
-                # the stacked traversal's kernel reads one record a node
-                from .ops.predict import with_records
-                stacked = with_records(stacked)
+        records = stacked = None
+        if plan is not None:
+            records = DeviceRecords.of(build_records(
+                plan, sp["cls"].cpu().numpy() if K > 1 else None), device)
+        elif torch.device(device).type != "cpu":
+            # the stacked traversal's kernel reads one record a node
+            from .ops.predict import with_records
+            stacked = with_records(sp)
         else:
-            planes, meta = device_planes(plan, device)
-            gidx = torch.from_numpy(plan.gather_idx).to(device)
-        state = _DevicePredict(
-            planes, meta, gidx, stacked["cls"] if K > 1 else None,
-            stacked["value"], int(stacked["min_features"]), K,
-            ex["average_factor"], None if plan is not None else stacked)
+            stacked = sp
+        state = _DevicePredict(records, stacked, sp["cls"] if K > 1 else None,
+                               sp["value"], int(sp["min_features"]), K,
+                               ex["average_factor"])
         self._device_predict_cache = (ex, state)
         return state
 
@@ -2589,20 +2620,24 @@ class Booster:
         the program `ops/predict.py:188 predict_raw_ensemble`): rows and
         thresholds in f32, leaf values the f32 `value` plane, summed in
         f32 in boosting order from +0.0.  Rows go in chunks of
-        DEVICE_PREDICT_CHUNK (65,536; slots are [T, rows] int32, so 2M
-        rows of 500 trees would take 4 GB); rows are independent, so the
-        chunk does not change a bit.  A chunk is staged by `stage_rows`,
-        and on the card runs one standalone traverse (`csrc/traverse.cu`) a
-        depth bucket, or on the stacked route one stacked-plane traversal
-        (`csrc/stacked.cu`), and one f32 sum (`csrc/accumulate.cu`), then
-        with `convert` the objective's link (`csrc/links.cu`).  On the CPU
-        the same program runs the plain versions.  Raw scores are the
-        f64 cast of the f32 sums (divided in f64 by the iterations of a
-        random forest, as the reference does); converted ones the link of
-        their f32 cast."""
+        DEVICE_PREDICT_CHUNK (65,536; the stacked route's slots are
+        [T, rows] int32, so 2M rows of 500 trees would take 4 GB); rows
+        are independent, so the chunk does not change a bit.  A chunk is
+        staged by `stage_rows` (padded on the stacked route only), and on
+        the card runs, within the plan, one launch of the fused kernel's
+        f32 instance (`csrc/serve.cu lgbt_serve_f32`: the walk over the
+        plan's records and the f32 sum, no slots written), or on the
+        stacked route one stacked-plane traversal (`csrc/stacked.cu`) and
+        one f32 sum of its slots (`csrc/accumulate.cu`); then with
+        `convert` the objective's link (`csrc/links.cu`).  On the CPU the
+        same program runs the plain versions.  Raw scores are the f64
+        cast of the f32 sums (divided in f64 by the iterations of a
+        random forest, as the reference does); converted ones the link
+        of their f32 cast."""
         global DEVICE_PREDICT_STACKED
-        from .compiler.kernel import predict_raw_f32
-        from .ops.predict import accumulate_slots_f32, predict_leaf_ensemble
+        from .compiler import kernel
+        from .ops.predict import (_identity_gather, accumulate_slots_f32,
+                                  predict_leaf_ensemble)
         st = self._device_predict_state(start_iteration, num_iteration,
                                         device)
         K = st.num_class
@@ -2614,16 +2649,16 @@ class Booster:
         outs = []
         for lo in range(0, n, DEVICE_PREDICT_CHUNK):
             Xc = X[lo:lo + DEVICE_PREDICT_CHUNK]
-            Xd = stage_rows(Xc, device)
-            if st.planes is None:
+            if st.records is None:
                 DEVICE_PREDICT_STACKED += 1
                 sums = accumulate_slots_f32(
-                    predict_leaf_ensemble(st.stacked, Xd), st.gidx,
-                    st.values, n_class=K, cls=st.cls)[:Xc.shape[0]]
+                    predict_leaf_ensemble(st.stacked, stage_rows(Xc, device)),
+                    _identity_gather(st.values.shape[0], device), st.values,
+                    n_class=K, cls=st.cls)[:Xc.shape[0]]
             else:
-                sums = predict_raw_f32(
-                    Xd, st.planes, st.gidx, st.values, st.cls, meta=st.meta,
-                    n_class=K)[:Xc.shape[0]]
+                sums = kernel.serve_forest_f32(
+                    stage_rows(Xc, device, pad=False), st.records, st.values,
+                    K)
             if st.average_factor != 1:
                 raw = sums.cpu().numpy().astype(np.float64) \
                     / st.average_factor

@@ -12,8 +12,9 @@ Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC -Xptxas=-v`, and never `--use_fast_math`, `-ftz=true`
 or `-prec-*=false`: the traverse kernel's contract includes NaN tests,
 subnormal inputs and an `abs(fv) <= 1e-35` compare in IEEE f32.  The
-accumulations (`accumulate`: the f64 and the f32 sum), the fused serving kernel (`serve`), the fused split scan
-(`fused_split`, K2, K3 and K5) and the objectives' links (`links`) add
+accumulations (`accumulate`: the f64 and the f32 sum), the fused
+serving kernel (`serve`: its f64 and f32 instances), the fused split
+scan (`fused_split`, K2, K3 and K5) and the objectives' links (`links`) add
 `-fmad=false` so that no add is ever contracted; the histogram
 kernels only add (K1) or add integers and scale with `__fmul_rn` (K4),
 so contraction cannot touch them; the threefry draws (`threefry`)
@@ -67,9 +68,9 @@ _SIGNATURES = {
     "accumulate": [(sym, [_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I,
                           _I, _P, _P])
                    for sym in ("lgbt_accumulate", "lgbt_accumulate_f32")],
-    "serve": [("lgbt_serve",
-               [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                _I, _I, _I, _I, _I, _P, _P])],
+    "serve": [(sym, [_P, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _I, _P, _P])
+              for sym in ("lgbt_serve", "lgbt_serve_f32")],
     "histogram": [("lgbt_histogram",
                    [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P, _P]),

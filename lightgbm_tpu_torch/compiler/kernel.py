@@ -9,6 +9,13 @@ The port's counterpart of `lightgbm_tpu/compiler/kernel.py`.
   even, from +0.0): the [B] or [B, K] raw scores.  It replaces the TPU
   kernel `_traverse_kernel` and the XLA accumulation together; its
   plain version `serve_forest_plain` reads the same records.
+* `serve_forest_f32` — the fused entry's f32 instance
+  (`lgbt_serve_f32`), `Booster.predict(device_predict=True)`'s device
+  program within the plan (one launch a chunk): the same walk over the
+  same records, then each tree's f32 leaf value added in boosting order
+  from +0.0 with one f32 add (the JAX package's `ops/predict.py:188
+  predict_raw_ensemble`, `:212` multiclass): [B] or [B, K] float32; its
+  plain version `serve_forest_f32_plain`.
 * `traverse_bucket` — the standalone K6 (`csrc/traverse.cu`): one depth
   bucket's [tiles * TT, B] leaf slots over the JAX layout's planes,
   for callers that need slots; its plain version
@@ -21,10 +28,6 @@ The port's counterpart of `lightgbm_tpu/compiler/kernel.py`.
   plan: every bucket's traverse, then `ops.predict.
   accumulate_slots_bounded` reads each tree's slots at its plan row
   (the JAX package's `:200 compiled_predict_bounded`).
-* `predict_raw_f32` — `Booster.predict(device_predict=True)`'s device
-  program: every bucket's traverse, then the f32 boosting-order sum
-  (`ops.predict.accumulate_slots_f32`), the JAX package's
-  `predict_raw_ensemble` on the same f32 rows and thresholds.
 
 Each wrapper launches its hand-written CUDA kernel for CUDA tensors and
 runs its plain version for CPU tensors.  There is no fallback from one
@@ -38,8 +41,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..ops.predict import (_ZERO_THRESHOLD, BoundedGroups,
-                           accumulate_slots_bounded, accumulate_slots_exact,
-                           accumulate_slots_f32)
+                           accumulate_slots_bounded, accumulate_slots_exact)
 from ..utils.log import LightGBMError
 from .records import (ForestPlan, ForestRecords, RowPlan, forest_plan,
                       traverse_plan)
@@ -52,6 +54,8 @@ ROW_BLOCK = 256
 TRAVERSE_LAUNCHES = 0
 #: fused serving-kernel launches made by `serve_forest`
 SERVE_LAUNCHES = 0
+#: launches of the fused kernel's f32 instance made by `serve_forest_f32`
+SERVE_F32_LAUNCHES = 0
 
 
 def _check_bucket(X, words, kids, pal, catw, depth, mw):
@@ -214,7 +218,7 @@ class DeviceRecords(NamedTuple):
                    if t is not None)
 
 
-def _check_serve(X, rec, leaf_values, n_class):
+def _check_serve(X, rec, leaf_values, n_class, dtype):
     if X.dim() != 2 or X.dtype != torch.float32:
         raise LightGBMError("X must be [B, F] float32")
     if rec.nodes.dim() != 2 or rec.nodes.shape[1] != 4 \
@@ -223,10 +227,10 @@ def _check_serve(X, rec, leaf_values, n_class):
     if rec.meta.dim() != 2 or rec.meta.shape[1] != 4 \
             or rec.meta.dtype != torch.int32:
         raise LightGBMError("record meta must be [T, 4] int32")
-    if leaf_values.dim() != 2 or leaf_values.dtype != torch.float64 \
+    if leaf_values.dim() != 2 or leaf_values.dtype != dtype \
             or leaf_values.shape[0] != rec.meta.shape[0]:
         raise LightGBMError(f"leaf_values must be [{rec.meta.shape[0]}, NL] "
-                            f"float64")
+                            f"{dtype}")
     if rec.mw:
         if rec.catw is None or rec.catw.dtype != torch.int32 \
                 or tuple(rec.catw.shape) != (rec.nodes.shape[0], rec.mw):
@@ -241,17 +245,10 @@ def _check_serve(X, rec, leaf_values, n_class):
         raise LightGBMError("serve inputs lie on different devices")
 
 
-def serve_forest_plain(X: torch.Tensor, rec: DeviceRecords,
-                       leaf_values: torch.Tensor, n_class: int = 1,
-                       chunk: Optional[int] = None) -> torch.Tensor:
-    """Plain version of the fused kernel, over the same records: in
-    chunks of `chunk` trees (default all), a depth loop over the chunk's
-    [trees, B] cursors (each tree for its own NI and step bound, with
-    the traverse's out-of-range rules), then the chunk's leaf values
-    added tree by tree, in boosting order, into each row's class column,
-    f64 from +0.0 (leaf slots clamp to the table).  [B] or [B, K]
-    float64."""
-    _check_serve(X, rec, leaf_values, n_class)
+def _serve_plain(X, rec, leaf_values, n_class, chunk, dtype):
+    """The fused kernel's plain version in `dtype` (`serve_forest_plain`,
+    `serve_forest_f32_plain`)."""
+    _check_serve(X, rec, leaf_values, n_class, dtype)
     b = X.shape[0]
     t_trees, nl = leaf_values.shape
     dev = X.device
@@ -263,20 +260,25 @@ def serve_forest_plain(X: torch.Tensor, rec: DeviceRecords,
     klass = rec.meta[:, 3].tolist()
     xt = X.t()
     shape = (b, n_class) if n_class > 1 else (b,)
-    acc = torch.zeros(shape, dtype=torch.float64, device=dev)
+    acc = torch.zeros(shape, dtype=dtype, device=dev)
     for t0 in range(0, t_trees, chunk):
         m = meta[t0:t0 + chunk]
-        first, ni, depth = m[:, :1], m[:, 1:2], m[:, 2:3]
         nd = torch.zeros((m.shape[0], b), dtype=torch.int64, device=dev)
-        for s in range(int(depth.max()) if len(m) else 0):
-            in_range = (nd >= 0) & (nd < ni)
-            idx = first + torch.where(in_range, nd, 0)
-            w = w_all[idx]
-            nxt = _route(_features(xt, (w >> 16) & 0xFFF), w, k_all[idx],
-                         thr_all[idx],
-                         lambda widx: rec.catw[idx, widx], rec.mw)
-            nxt = torch.where(in_range, nxt.long(), 0)
-            nd = torch.where((nd >= 0) & (s < depth), nxt, nd)
+        # the trees of one step bound walk together, that many steps
+        for depth in torch.unique(m[:, 2]).tolist():
+            sel = torch.nonzero(m[:, 2] == depth).flatten()
+            first, ni = m[sel, :1], m[sel, 1:2]
+            cur = nd[sel]
+            for _ in range(depth):
+                in_range = (cur >= 0) & (cur < ni)
+                idx = first + torch.where(in_range, cur, 0)
+                w = w_all[idx]
+                nxt = _route(_features(xt, (w >> 16) & 0xFFF), w,
+                             k_all[idx], thr_all[idx],
+                             lambda widx: rec.catw[idx, widx], rec.mw)
+                nxt = torch.where(in_range, nxt.long(), 0)
+                cur = torch.where(cur >= 0, nxt, cur)
+            nd[sel] = cur
         slots = (~torch.clamp(nd, max=-1)).clamp(0, nl - 1)
         vals = torch.gather(leaf_values[t0:t0 + chunk], 1, slots)
         for i in range(m.shape[0]):
@@ -286,6 +288,62 @@ def serve_forest_plain(X: torch.Tensor, rec: DeviceRecords,
             else:
                 acc = acc + vals[i]
     return acc
+
+
+def serve_forest_plain(X: torch.Tensor, rec: DeviceRecords,
+                       leaf_values: torch.Tensor, n_class: int = 1,
+                       chunk: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the fused kernel, over the same records: in
+    chunks of `chunk` trees (default all), a depth loop over the chunk's
+    [trees, B] cursors (each tree for its own NI and step bound, with
+    the traverse's out-of-range rules), then the chunk's leaf values
+    added tree by tree, in boosting order, into each row's class column,
+    f64 from +0.0 (leaf slots clamp to the table).  [B] or [B, K]
+    float64."""
+    return _serve_plain(X, rec, leaf_values, n_class, chunk, torch.float64)
+
+
+def serve_forest_f32_plain(X: torch.Tensor, rec: DeviceRecords,
+                           leaf_values: torch.Tensor, n_class: int = 1,
+                           chunk: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the fused kernel's f32 instance: the walk of
+    `serve_forest_plain` over the same records, then the f32 leaf values
+    [T, NL] added tree by tree, in boosting order, from +0.0, one f32
+    add a tree into each row's class column (the JAX package's scan
+    carry).  [B] or [B, K] float32."""
+    return _serve_plain(X, rec, leaf_values, n_class, chunk, torch.float32)
+
+
+def _launch_serve(symbol, X, rec, leaf_values, n_class, plan, dtype):
+    """Launch `csrc/serve.cu`'s entry `symbol` (the instance in `dtype`)
+    at `plan` (default `records.forest_plan` at the instance's value
+    size): [B] or [B, K] of `dtype`."""
+    if X.device.type != "cuda":
+        raise LightGBMError(f"no serve kernel for {X.device}")
+    _check_serve(X, rec, leaf_values, n_class, dtype)
+    for t in (X, rec.nodes, rec.meta, rec.catw, leaf_values):
+        if t is not None and not t.is_contiguous():
+            raise LightGBMError("serve inputs must be contiguous")
+    b, f = X.shape
+    t_trees, nl = leaf_values.shape
+    shape = (b, n_class) if n_class > 1 else (b,)
+    out = torch.empty(shape, dtype=dtype, device=X.device)
+    if b == 0:
+        return out
+    from . import _build
+    entry = getattr(_build.load("serve"), symbol)
+    plan = plan or forest_plan(b, f, t_trees, rec.ni_max, rec.mw, n_class,
+                               value_bytes=leaf_values.element_size())
+    rc = _build.on_stream(X.device, lambda stream: entry(
+        X.data_ptr(), b, f, rec.nodes.data_ptr(), rec.meta.data_ptr(),
+        rec.catw.data_ptr() if rec.mw else None, rec.mw,
+        leaf_values.data_ptr(), nl, t_trees, n_class, plan.rows,
+        plan.cluster, plan.trees, plan.threads, plan.ilp, int(plan.stage),
+        int(plan.rows_smem), rec.ni_max, plan.smem, out.data_ptr(),
+        ctypes.c_void_p(stream)))
+    if rc != 0:
+        raise LightGBMError(f"serve kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def serve_forest(X: torch.Tensor, rec: DeviceRecords,
@@ -299,31 +357,29 @@ def serve_forest(X: torch.Tensor, rec: DeviceRecords,
     global SERVE_LAUNCHES
     if X.device.type == "cpu":
         return serve_forest_plain(X, rec, leaf_values, n_class)
-    if X.device.type != "cuda":
-        raise LightGBMError(f"no serve kernel for {X.device}")
-    _check_serve(X, rec, leaf_values, n_class)
-    for t in (X, rec.nodes, rec.meta, rec.catw, leaf_values):
-        if t is not None and not t.is_contiguous():
-            raise LightGBMError("serve inputs must be contiguous")
-    b, f = X.shape
-    t_trees, nl = leaf_values.shape
-    shape = (b, n_class) if n_class > 1 else (b,)
-    out = torch.empty(shape, dtype=torch.float64, device=X.device)
-    if b == 0:
-        return out
-    from . import _build
-    lib = _build.load("serve")
-    plan = plan or forest_plan(b, f, t_trees, rec.ni_max, rec.mw, n_class)
-    rc = _build.on_stream(X.device, lambda stream: lib.lgbt_serve(
-        X.data_ptr(), b, f, rec.nodes.data_ptr(), rec.meta.data_ptr(),
-        rec.catw.data_ptr() if rec.mw else None, rec.mw,
-        leaf_values.data_ptr(), nl, t_trees, n_class, plan.rows,
-        plan.cluster, plan.trees, plan.threads, plan.ilp, int(plan.stage),
-        int(plan.rows_smem), rec.ni_max, plan.smem, out.data_ptr(),
-        ctypes.c_void_p(stream)))
-    if rc != 0:
-        raise LightGBMError(f"serve kernel launch failed: CUDA error {rc}")
-    SERVE_LAUNCHES += 1
+    out = _launch_serve("lgbt_serve", X, rec, leaf_values, n_class, plan,
+                        torch.float64)
+    if out.shape[0]:
+        SERVE_LAUNCHES += 1
+    return out
+
+
+def serve_forest_f32(X: torch.Tensor, rec: DeviceRecords,
+                     leaf_values: torch.Tensor, n_class: int = 1, *,
+                     plan: Optional[ForestPlan] = None) -> torch.Tensor:
+    """`device_predict`'s raw f32 sums of the rows X [B, F] f32 under the
+    forest of `rec`: [B] or [B, K] float32, each tree's f32 leaf value
+    `leaf_values` [T, NL] added in boosting order from +0.0.  CUDA
+    tensors launch `csrc/serve.cu lgbt_serve_f32` once (with `plan`,
+    default `records.forest_plan(..., value_bytes=4)`); CPU tensors run
+    `serve_forest_f32_plain`."""
+    global SERVE_F32_LAUNCHES
+    if X.device.type == "cpu":
+        return serve_forest_f32_plain(X, rec, leaf_values, n_class)
+    out = _launch_serve("lgbt_serve_f32", X, rec, leaf_values, n_class,
+                        plan, torch.float32)
+    if out.shape[0]:
+        SERVE_F32_LAUNCHES += 1
     return out
 
 
@@ -402,17 +458,3 @@ def compiled_predict_bounded(X: torch.Tensor, planes: Sequence[Planes],
                                    gather_idx=gather_idx, groups=groups)
     return out if convert is None else convert(out)
 
-
-def predict_raw_f32(X: torch.Tensor, planes: Sequence[Planes],
-                    gather_idx: torch.Tensor, leaf_values: torch.Tensor,
-                    cls: Optional[torch.Tensor] = None, *,
-                    meta: Sequence[Tuple[int, int]], n_class: int = 1
-                    ) -> torch.Tensor:
-    """`device_predict`'s device program: every bucket's traverse (the
-    standalone K6, one launch a bucket on the card), then
-    `accumulate_slots_f32` (one launch) adds each tree's f32 leaf value
-    `leaf_values[t, slot]` ([T, NL] float32), read at its plan row
-    `gather_idx[t]`, in boosting order from +0.0 into its class `cls[t]`:
-    [B] or [B, K] float32."""
-    return accumulate_slots_f32(traverse_all(X, planes, meta), gather_idx,
-                                leaf_values, n_class=n_class, cls=cls)

@@ -57,8 +57,21 @@ THREADS = 512
 DEFAULT_ROWS = 16
 #: (tree, row) pairs a thread walks a chunk
 PAIRS = 4
+#: most row blocks a fused launch's grid holds (its y dimension)
+MAX_ROW_BLOCKS = 65535
 #: (tree, row) cursors a thread walks in lockstep when it has more than
-#: one pair a chunk (2 was 4% faster than 1 at 4096 rows, 4 slower)
+#: one pair a chunk (2 was 4% faster than 1 at 4096 rows, 4 slower).  The
+#: f32 instance (`value_bytes=4`, `device_predict`'s chunks of up to
+#: 65,536 rows) walks ILP only while its grid has at most TARGET_BLOCKS
+#: blocks, one cursor past that: 16 rows a block of one cursor took
+#: 0.2902 ms at 16,384 rows and 1.0804 at 65,536, of two 0.3335 and
+#: 1.2886, while at 1024 and 4096 rows (256 blocks) two stay the faster
+#: (`chip_smoke.py` predict_api's sweep on an H100, PERF.md).  The rule
+#: is keyed on the value size, not on the grid alone, so that every f64
+#: plan stays as it was: a serving runtime's batches pass TARGET_BLOCKS
+#: blocks under a `serve_max_batch_rows` that is not a power of two
+#: (3,000 rows are staged as 3,072: 384 blocks of 8) or above 4096, and
+#: the f64 instance was not measured there
 ILP = 2
 #: most blocks of a thread-block cluster that Hopper schedules portably;
 #: the fused plan's default (single blocks were faster at every request
@@ -188,17 +201,20 @@ class ForestPlan(NamedTuple):
 
 
 def serve_smem_layout(rows: int, cluster: int, trees: int, n_class: int,
-                      f: int, ni_max: int, stage: bool,
-                      rows_smem: bool) -> dict:
+                      f: int, ni_max: int, stage: bool, rows_smem: bool,
+                      value_bytes: int = 8) -> dict:
     """Byte offsets of the fused kernel's shared memory, as
-    `csrc/serve.cu serve_layout` computes them: two value buffers
-    [trees, rows] f64, the accumulators [ceil(rows / cluster) * K] f64,
-    two record buffers [trees * ni_max] of 16 bytes (staged only), the
-    rows [rows, F | 1] f32 (rows_smem only); `total` is the size."""
+    `csrc/forest_common.cuh layout` computes them: two value buffers
+    [trees, rows], the accumulators [ceil(rows / cluster) * K], both at
+    `value_bytes` a value (8: the f64 instance, 4: the f32 one), two
+    record buffers [trees * ni_max] of 16 bytes (staged only), the rows
+    [rows, F | 1] f32 (rows_smem only); `total` is the size."""
+    if value_bytes not in (4, 8):
+        raise ValueError(f"{value_bytes} bytes a value: 4 or 8")
     rs = -(-rows // cluster)
     vals = 0
-    acc = vals + _align16(2 * trees * rows * 8)
-    recs = acc + _align16(rs * n_class * 8)
+    acc = vals + _align16(2 * trees * rows * value_bytes)
+    recs = acc + _align16(rs * n_class * value_bytes)
     xs = recs + (2 * trees * ni_max * 16 if stage else 0)
     total = xs + (_align16(rows * (f | 1) * 4) if rows_smem else 0)
     return {"vals": vals, "acc": acc, "recs": recs, "xs": xs,
@@ -210,7 +226,8 @@ def forest_plan(b: int, f: int, t_trees: int, ni_max: int, mw: int,
                 n_class: int, *, cluster: Optional[int] = None,
                 rows: Optional[int] = None, ilp: Optional[int] = None,
                 threads: Optional[int] = None, stage: Optional[bool] = None,
-                rows_smem: Optional[bool] = None) -> ForestPlan:
+                rows_smem: Optional[bool] = None,
+                value_bytes: int = 8) -> ForestPlan:
     """The fused kernel's launch over `b` >= 1 rows of `f` features and a
     forest of `t_trees` trees of at most `ni_max` nodes (`mw` bitset
     words a node, `n_class` classes).
@@ -218,15 +235,19 @@ def forest_plan(b: int, f: int, t_trees: int, ni_max: int, mw: int,
     `cluster` (1, 2, 4 or 8, default CLUSTER, cut to the trees): blocks
     a row block.  `rows` (a power of two up to MAX_ROWS, cut to b): rows
     a row block; by default the most, up to DEFAULT_ROWS * cluster, that
-    still give TARGET_BLOCKS blocks.
+    still give TARGET_BLOCKS blocks; a request that would make more than
+    MAX_ROW_BLOCKS row blocks is refused.
     `threads` (default THREADS) a block, fewer when the chunk has fewer
     pairs; trees a block a chunk: PAIRS pairs a thread.  `ilp`: cursors
     a thread walks together (default ILP, or 1 when a chunk has no more
-    pairs than threads).  `stage` (default: off) and
+    pairs than threads, and for the f32 instance also when the grid has
+    more than TARGET_BLOCKS blocks).  `stage` (default: off) and
     `rows_smem` (default: on) are requests: when the shared memory would
     pass SMEM_MAX the plan halves the chunk while the records are staged,
     then drops the staging, then the rows, then halves the chunk and the
-    rows a block."""
+    rows a block.  `value_bytes`: the instance's value size (8 for
+    `lgbt_serve`, 4 for `lgbt_serve_f32`), which sizes its value
+    buffers and accumulators."""
     if b < 1 or t_trees < 1 or ni_max < 1 or n_class < 1 or f < 0:
         raise ValueError(f"no fused launch for b={b}, f={f}, "
                          f"trees={t_trees}, ni_max={ni_max}, K={n_class}")
@@ -242,6 +263,9 @@ def forest_plan(b: int, f: int, t_trees: int, ni_max: int, mw: int,
         raise ValueError(f"{rows} rows a block: a power of two up to "
                          f"{MAX_ROWS}")
     rows = min(rows, _pow2_ceil(b))
+    if -(-b // rows) > MAX_ROW_BLOCKS:
+        raise ValueError(f"{b} rows in blocks of {rows}: more than "
+                         f"{MAX_ROW_BLOCKS} row blocks")
     if ilp is not None and ilp not in (1, 2, 4):
         raise ValueError(f"{ilp} cursors a thread: 1, 2 or 4")
     nt = THREADS if threads is None else int(threads)
@@ -254,7 +278,7 @@ def forest_plan(b: int, f: int, t_trees: int, ni_max: int, mw: int,
 
     def size(rw_, tr, st, rw):
         return serve_smem_layout(rw_, cl, tr, n_class, f, ni_max, st,
-                                 rw)["total"]
+                                 rw, value_bytes)["total"]
 
     while size(rows, trees, want_stage, want_rows) > SMEM_MAX:
         if want_stage and trees > 1:
@@ -271,7 +295,8 @@ def forest_plan(b: int, f: int, t_trees: int, ni_max: int, mw: int,
             raise ValueError(f"no fused launch fits {SMEM_MAX} B for "
                              f"K={n_class}")
     if ilp is None:
-        ilp = ILP if trees * rows > nt else 1
+        ilp = ILP if trees * rows > nt and (
+            value_bytes == 8 or -(-b // rows) * cl <= TARGET_BLOCKS) else 1
     nt = min(nt, -(-trees * rows // 32) * 32)
     return ForestPlan(rows, -(-b // rows), cl, trees, nt, ilp, want_stage,
                       want_rows, size(rows, trees, want_stage, want_rows))

@@ -21,8 +21,9 @@
 // (row, class), in boosting order, with __dadd_rn from +0.0: the order of
 // `ops/predict.py accumulate_slots_exact`, hence its bits at any chunk
 // size.  No atomics, no tree reduction, no partial sums merged later.
-// Its f32 instance (`accumulate.cu`, `device_predict`'s sum) adds f32
-// values with __fadd_rn in the same order.
+// Its f32 instances (`serve.cu`'s `lgbt_serve_f32` and `accumulate.cu`'s
+// f32 sum, `device_predict`'s) add f32 values with __fadd_rn in the same
+// order.
 
 #pragma once
 
@@ -132,19 +133,21 @@ __device__ __forceinline__ void load_rows(float* xs, const float* X, int B,
 }
 
 // Shared-memory layout of the value buffers, the accumulators, the
-// record buffers and the rows (`compiler/records.py serve_smem_layout`).
+// record buffers and the rows (`compiler/records.py serve_smem_layout`),
+// at `vsize` bytes a value (8: f64, 4: f32).
 struct Layout {
   int vals, acc, recs, xs, total;
 };
 
 __host__ __device__ inline Layout layout(int R, int cluster, int trees,
                                          int K, int F, int ni_max,
-                                         bool stage, bool rows_smem) {
+                                         bool stage, bool rows_smem,
+                                         int vsize = 8) {
   const int rs = (R + cluster - 1) / cluster;
   Layout l;
   l.vals = 0;
-  l.acc = l.vals + align16(2 * trees * R * 8);
-  l.recs = l.acc + align16(rs * K * 8);
+  l.acc = l.vals + align16(2 * trees * R * vsize);
+  l.recs = l.acc + align16(rs * K * vsize);
   l.xs = l.recs + (stage ? 2 * trees * ni_max * 16 : 0);
   l.total = l.xs + (rows_smem ? align16(R * (F | 1) * 4) : 0);
   return l;

@@ -1,5 +1,6 @@
 // The fused serving kernel: every tree of every depth bucket, then the
-// exact f64 sum, in one launch.
+// boosting-order sum, in one launch; an f64 instance (serving's exact
+// sum) and an f32 instance (`device_predict`'s sum).
 //
 // Replaces, on the compiled serving path, the TPU kernel
 // `lightgbm_tpu/compiler/kernel.py:_traverse_kernel` (one launch per depth
@@ -25,11 +26,11 @@
 //     then read one record for the whole warp), N cursors a thread in
 //     lockstep so that their loads are in flight together;
 //   - one 16-byte record load a visit instead of three dependent gathers;
-//   - the leaf values of a chunk go to shared memory as [trees, R] f64,
-//     and one thread per (row, class) adds them in boosting order,
-//     carrying its accumulator from chunk to chunk: the slots never go to
-//     device memory.  One barrier a chunk (the value buffers are
-//     double-buffered).
+//   - the leaf values of a chunk go to shared memory as [trees, R] (f64
+//     or f32), and one thread per (row, class) adds them in boosting
+//     order, carrying its accumulator from chunk to chunk: the slots
+//     never go to device memory.  One barrier a chunk (the value buffers
+//     are double-buffered).
 // The launch plan (`compiler/records.py forest_plan`) picks single blocks
 // of up to 16 rows, as many blocks as give two an SM, and two cursors a
 // thread when it has more than one pair: the fastest of a sweep over
@@ -42,9 +43,20 @@
 // and a chunk's records copied into shared memory by cp.async,
 // double-buffered against the walk of the previous chunk.
 //
-// Built with -fmad=false, no fast math: the adds are __dadd_rn, and the
-// routing's compares IEEE f32.  Record, leaf-slot and class indices are
-// clamped as the accumulation's gathers clamp.
+// The f32 instance, `lgbt_serve_f32`, replaces on `device_predict`'s
+// plan route the standalone traverses and the f32 sum of their slots
+// (`accumulate.cu`): the JAX package's batch program
+// `lightgbm_tpu/ops/predict.py:188 predict_raw_ensemble` (`:212`
+// multiclass), an XLA scan whose f32 carry from +0.0 takes one f32 add
+// of each tree's f32 leaf value in boosting order, into the tree's class
+// column.  The same walk, the same values in the same order with
+// __fadd_rn, give its bits; the slots, the bytes that bounded the
+// standalone sum, never reach device memory.  Its value buffers and
+// accumulators are laid out at 4 bytes a value (`forest::layout`).
+//
+// Built with -fmad=false, no fast math: the adds are __dadd_rn or
+// __fadd_rn, and the routing's compares IEEE f32.  Record, leaf-slot and
+// class indices are clamped as the accumulation's gathers clamp.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -104,27 +116,30 @@ struct RecordSrc {
 };
 
 // The value buffers of the cluster's blocks, read through DSMEM.
+template <class V>
 struct ClusterVals {
-  double* v;
-  __device__ const double* of(int b) const {
+  V* v;
+  __device__ const V* of(int b) const {
     return cg::this_cluster().map_shared_rank(v, b);
   }
 };
 
-template <bool kCluster, bool kStage, int N>
+// V: double (serving's exact sum) or float (device_predict's sum).
+template <class V, bool kCluster, bool kStage, int N>
 __global__ void __launch_bounds__(kMaxThreads)
 serve_kernel(const float* __restrict__ X, int B, int F, int rows_smem,
              const int4* __restrict__ nodes, const int4* __restrict__ meta,
              const int* __restrict__ catw, int MW,
-             const double* __restrict__ values, int NL, int T, int K, int R,
-             int trees, int ni_max, double* __restrict__ out) {
+             const V* __restrict__ values, int NL, int T, int K, int R,
+             int trees, int ni_max, V* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int owners = kCluster ? static_cast<int>(gridDim.x) : 1;
   const int rank = kCluster ? static_cast<int>(blockIdx.x) : 0;
-  const forest::Layout l = forest::layout(R, owners, trees, K, F, ni_max,
-                                          kStage, rows_smem != 0);
-  double* vals = reinterpret_cast<double*>(smem + l.vals);
-  double* acc = reinterpret_cast<double*>(smem + l.acc);
+  const forest::Layout l =
+      forest::layout(R, owners, trees, K, F, ni_max, kStage, rows_smem != 0,
+                     static_cast<int>(sizeof(V)));
+  V* vals = reinterpret_cast<V*>(smem + l.vals);
+  V* acc = reinterpret_cast<V*>(smem + l.acc);
   int4* recs = reinterpret_cast<int4*>(smem + l.recs);
   float* xs = reinterpret_cast<float*>(smem + l.xs);
   const int row0 = blockIdx.y * R;
@@ -136,7 +151,7 @@ serve_kernel(const float* __restrict__ X, int B, int F, int rows_smem,
   const int rec_cap = trees * ni_max;
   const int* cls = &meta[0].w;
 
-  for (int i = threadIdx.x; i < rs * K; i += blockDim.x) acc[i] = 0.0;
+  for (int i = threadIdx.x; i < rs * K; i += blockDim.x) acc[i] = V(0);
   if (rows_smem) forest::load_rows(xs, X, B, F, row0, R);
   if (kStage) {
     stage_records(recs, nodes, meta, rank * trees,
@@ -159,7 +174,7 @@ serve_kernel(const float* __restrict__ X, int B, int F, int rows_smem,
     }
     const int4* rbuf = recs + buf * rec_cap;
     const int rfirst = (kStage && nb > 0) ? __ldg(&meta[tb].x) : 0;
-    double* vbuf = vals + buf * trees * R;
+    V* vbuf = vals + buf * trees * R;
     const int pairs = trees * R;
     for (int p0 = threadIdx.x; p0 < pairs; p0 += N * blockDim.x) {
       RecordSrc<N, kStage> src;
@@ -188,7 +203,7 @@ serve_kernel(const float* __restrict__ X, int B, int F, int rows_smem,
         }
       }
       forest::walk<N>(src, x, F, MW, ni, depth, slot);
-      double v[N];
+      V v[N];
 #pragma unroll
       for (int i = 0; i < N; ++i) {
         const int p = p0 + i * blockDim.x;
@@ -197,7 +212,7 @@ serve_kernel(const float* __restrict__ X, int B, int F, int rows_smem,
         s = s < 0 ? 0 : (s >= NL ? NL - 1 : s);
         v[i] = (p < pairs && c < nb && row0 + p - c * R < B)
                    ? __ldg(values + static_cast<size_t>(tb + c) * NL + s)
-                   : 0.0;
+                   : V(0);
       }
 #pragma unroll
       for (int i = 0; i < N; ++i)
@@ -205,7 +220,7 @@ serve_kernel(const float* __restrict__ X, int B, int F, int rows_smem,
     }
     if (kCluster) {
       cg::this_cluster().sync();
-      const ClusterVals cv{vbuf};
+      const ClusterVals<V> cv{vbuf};
       if (K > 1)
         forest::ordered_sum<true>(acc, cv, cls, 4, owners, trees, q * chunk,
                                   T, R, K, r0, rs);
@@ -214,7 +229,7 @@ serve_kernel(const float* __restrict__ X, int B, int F, int rows_smem,
                                    q * chunk, T, R, 1, r0, rs);
     } else {
       __syncthreads();
-      const forest::LocalVals lv{vbuf};
+      const forest::LocalValsOf<V> lv{vbuf};
       if (K > 1)
         forest::ordered_sum<true>(acc, lv, cls, 4, 1, trees, q * chunk, T,
                                   R, K, 0, R);
@@ -231,12 +246,12 @@ serve_kernel(const float* __restrict__ X, int B, int F, int rows_smem,
   }
 }
 
-template <bool kCluster, bool kStage, int N>
+template <class V, bool kCluster, bool kStage, int N>
 int launch(const float* X, int B, int F, const int* nodes, const int* meta,
-           const int* catw, int MW, const double* values, int NL, int T,
-           int K, int R, int cluster, int trees, int threads, int rows_smem,
-           int ni_max, int smem, double* out, cudaStream_t stream) {
-  auto kernel = serve_kernel<kCluster, kStage, N>;
+           const int* catw, int MW, const V* values, int NL, int T, int K,
+           int R, int cluster, int trees, int threads, int rows_smem,
+           int ni_max, int smem, V* out, cudaStream_t stream) {
+  auto kernel = serve_kernel<V, kCluster, kStage, N>;
   if (smem > forest::kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -264,20 +279,53 @@ int launch(const float* X, int B, int F, const int* nodes, const int* meta,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kCluster, bool kStage>
+template <class V, bool kCluster, bool kStage>
 int launch_ilp(int ilp, const float* X, int B, int F, const int* nodes,
-               const int* meta, const int* catw, int MW,
-               const double* values, int NL, int T, int K, int R,
-               int cluster, int trees, int threads, int rows_smem,
-               int ni_max, int smem, double* out, cudaStream_t stream) {
-#define LGBT_ILP(N)                                                          \
-  return launch<kCluster, kStage, N>(X, B, F, nodes, meta, catw, MW, values, \
-                                     NL, T, K, R, cluster, trees, threads,   \
-                                     rows_smem, ni_max, smem, out, stream)
+               const int* meta, const int* catw, int MW, const V* values,
+               int NL, int T, int K, int R, int cluster, int trees,
+               int threads, int rows_smem, int ni_max, int smem, V* out,
+               cudaStream_t stream) {
+#define LGBT_ILP(N)                                                         \
+  return launch<V, kCluster, kStage, N>(X, B, F, nodes, meta, catw, MW,     \
+                                        values, NL, T, K, R, cluster, trees, \
+                                        threads, rows_smem, ni_max, smem,   \
+                                        out, stream)
   if (ilp == 4) LGBT_ILP(4);
   if (ilp == 2) LGBT_ILP(2);
   LGBT_ILP(1);
 #undef LGBT_ILP
+}
+
+// Checks a launch of the V instance and dispatches its branch: cluster
+// or single blocks, staged or L1 records, `ilp` cursors a thread.  A plan
+// no branch takes is refused with cudaErrorInvalidValue.
+template <class V>
+int serve(const float* X, int B, int F, const int* nodes, const int* meta,
+          const int* catw, int MW, const V* values, int NL, int T, int K,
+          int R, int cluster, int trees, int threads, int ilp, int stage,
+          int rows_smem, int ni_max, int smem, V* out, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (T <= 0 || NL <= 0 || K <= 0 || R <= 0 || trees <= 0 || ni_max <= 0 ||
+      F < 0 || (MW > 0 && catw == nullptr) || threads <= 0 ||
+      threads > kMaxThreads || threads % 32 != 0 ||
+      (ilp != 1 && ilp != 2 && ilp != 4) ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      (B + R - 1) / R > 65535)
+    return cudaErrorInvalidValue;
+  const forest::Layout l =
+      forest::layout(R, cluster, trees, K, F, ni_max, stage != 0,
+                     rows_smem != 0, static_cast<int>(sizeof(V)));
+  if (smem != l.total || smem > forest::kMaxSmem)
+    return cudaErrorInvalidValue;
+#define LGBT_SERVE(C, S)                                                    \
+  return launch_ilp<V, C, S>(ilp, X, B, F, nodes, meta, catw, MW, values,  \
+                             NL, T, K, R, cluster, trees, threads,          \
+                             rows_smem, ni_max, smem, out, stream)
+  if (cluster > 1 && stage) LGBT_SERVE(true, true);
+  if (cluster > 1) LGBT_SERVE(true, false);
+  if (stage) LGBT_SERVE(false, true);
+  LGBT_SERVE(false, false);
+#undef LGBT_SERVE
 }
 
 }  // namespace
@@ -288,33 +336,29 @@ int launch_ilp(int ilp, const float* X, int B, int F, const int* nodes,
 // forest_plan`): R rows a row block, `cluster` blocks a row block (1, 2,
 // 4 or 8), `trees` trees a block a chunk, `threads` a block, `ilp`
 // cursors a thread walks together (1, 2 or 4), `stage` and `rows_smem`
-// as 0/1, `smem` the bytes of its layout.  Returns the cudaError_t of the
-// launch (0 on success).
+// as 0/1, `smem` the bytes of its layout at 8 bytes a value.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int lgbt_serve(const float* X, int B, int F, const int* nodes,
                           const int* meta, const int* catw, int MW,
                           const double* values, int NL, int T, int K, int R,
                           int cluster, int trees, int threads, int ilp,
                           int stage, int rows_smem, int ni_max, int smem,
                           double* out, cudaStream_t stream) {
-  if (B <= 0) return 0;
-  if (T <= 0 || NL <= 0 || K <= 0 || R <= 0 || trees <= 0 || ni_max <= 0 ||
-      F < 0 || (MW > 0 && catw == nullptr) || threads <= 0 ||
-      threads > kMaxThreads || threads % 32 != 0 ||
-      (ilp != 1 && ilp != 2 && ilp != 4) ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
-      (B + R - 1) / R > 65535)
-    return cudaErrorInvalidValue;
-  const forest::Layout l = forest::layout(R, cluster, trees, K, F, ni_max,
-                                          stage != 0, rows_smem != 0);
-  if (smem != l.total || smem > forest::kMaxSmem)
-    return cudaErrorInvalidValue;
-#define LGBT_SERVE(C, S)                                                    \
-  return launch_ilp<C, S>(ilp, X, B, F, nodes, meta, catw, MW, values, NL, \
-                          T, K, R, cluster, trees, threads, rows_smem,      \
-                          ni_max, smem, out, stream)
-  if (cluster > 1 && stage) LGBT_SERVE(true, true);
-  if (cluster > 1) LGBT_SERVE(true, false);
-  if (stage) LGBT_SERVE(false, true);
-  LGBT_SERVE(false, false);
-#undef LGBT_SERVE
+  return serve<double>(X, B, F, nodes, meta, catw, MW, values, NL, T, K, R,
+                       cluster, trees, threads, ilp, stage, rows_smem,
+                       ni_max, smem, out, stream);
+}
+
+// The f32 instance: `lgbt_serve`'s arguments with values [T, NL] f32, out
+// [B, K] f32 and `smem` the layout at 4 bytes a value
+// (`forest_plan(..., value_bytes=4)`).
+extern "C" int lgbt_serve_f32(const float* X, int B, int F, const int* nodes,
+                              const int* meta, const int* catw, int MW,
+                              const float* values, int NL, int T, int K,
+                              int R, int cluster, int trees, int threads,
+                              int ilp, int stage, int rows_smem, int ni_max,
+                              int smem, float* out, cudaStream_t stream) {
+  return serve<float>(X, B, F, nodes, meta, catw, MW, values, NL, T, K, R,
+                      cluster, trees, threads, ilp, stage, rows_smem, ni_max,
+                      smem, out, stream);
 }

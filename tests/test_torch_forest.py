@@ -235,7 +235,7 @@ def test_runtime_serves_through_the_records():
 
 
 # ------------------------------------------------------------ launch plans
-def _check_forest_plan(plan, b, f, t, ni_max, mw, k):
+def _check_forest_plan(plan, b, f, t, ni_max, mw, k, value_bytes=8):
     assert 1 <= plan.cluster <= R.MAX_CLUSTER
     assert plan.cluster & (plan.cluster - 1) == 0
     assert plan.cluster <= t
@@ -245,7 +245,8 @@ def _check_forest_plan(plan, b, f, t, ni_max, mw, k):
     assert 32 <= plan.threads <= R.THREADS and plan.threads % 32 == 0
     assert plan.trees >= 1
     lay = R.serve_smem_layout(plan.rows, plan.cluster, plan.trees, k, f,
-                              ni_max, plan.stage, plan.rows_smem)
+                              ni_max, plan.stage, plan.rows_smem,
+                              value_bytes)
     assert plan.smem == lay["total"] <= R.SMEM_MAX
     assert all(v % 16 == 0 for v in lay.values())
     # every (tree, row) pair once: the blocks' tree shares partition the

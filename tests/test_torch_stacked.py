@@ -195,4 +195,4 @@ def test_device_predict_past_the_plan_limits_matches_reference():
         assert np.array_equal(got.view(view), want.view(view))
     assert lt_booster.DEVICE_PREDICT_STACKED == before + 2
     st = ours._device_predict_state(0, None, torch.device("cpu"))
-    assert st.planes is None and st.stacked is not None
+    assert st.records is None and st.stacked is not None

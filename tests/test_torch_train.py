@@ -24,6 +24,7 @@ Then the slice's scope: every refused setting raises `LightGBMError`,
 and training without `device_type="cpu"` raises on a machine with no
 GPU.
 """
+import logging
 import sys
 from pathlib import Path
 
@@ -249,6 +250,15 @@ REFUSED = [
     ({"objective": "binary", "metric": "ndcg"}, None),
     ({"objective": "bogus"}, "Unknown objective"),
     ({"device_type": "tpu"}, "'cuda'"),
+    ({"flight_recorder": True}, r"flight_recorder=True \(.*item 5g"),
+    ({"flight_recorder_depth": 16}, r"flight_recorder_depth=16 \(.*item 5g"),
+    ({"telemetry_sink": "events.jsonl"}, r"telemetry_sink=.*item 5g"),
+    ({"telemetry_prometheus": "metrics.prom"},
+     r"telemetry_prometheus=.*item 5g"),
+    ({"telemetry_spool": True}, r"telemetry_spool=True \(.*item 5g"),
+    ({"telemetry_spool_dir": "spool"}, r"telemetry_spool_dir=.*item 5g"),
+    ({"debug_contracts": True}, r"debug_contracts=True \(.*item 5g"),
+    ({"debug_locks": True}, r"debug_locks=True \(.*item 5g"),
 ]
 
 
@@ -277,6 +287,33 @@ def test_refused_settings_raise(extra, match):
         return
     with pytest.raises(lt.LightGBMError, match=match):
         lt.train(params, lt.Dataset(X, label=y), num_boost_round=1)
+
+
+def test_network_settings_warn_and_train(caplog):
+    """The socket-era `machines`, `local_listen_port` and `time_out` warn
+    as the reference's do (`lightgbm_tpu/booster.py:289-298`), naming
+    the port's own multi-process setup, and change nothing: the trees
+    are those trained without them, and the text the reference's."""
+    X = np.random.RandomState(0).randn(200, 6)
+    y = (X[:, 0] > 0).astype(float)
+    base = {"objective": "binary", "verbosity": 0, "device_type": "cpu"}
+    net = {"machines": "10.0.0.1:12400,10.0.0.2:12400",
+           "local_listen_port": 12401, "time_out": 60}
+    plain = lt.train(dict(base), lt.Dataset(X, label=y), 2)
+    caplog.clear()
+    caplog.set_level(logging.WARNING)
+    bst = lt.train(dict(base, **net), lt.Dataset(X, label=y), 2)
+    warned = [r.getMessage() for r in caplog.records
+              if "TCP transport" in r.getMessage()]
+    assert len(warned) == 3
+    for name, msg in zip(net, warned):
+        assert msg.startswith(f"Parameter {name} ")
+        assert "torch.distributed" in msg and "tree_learner" in msg
+    def trees(text):        # less the `[key: value]` parameter lines
+        return [ln for ln in text.splitlines() if not ln.startswith("[")]
+    assert trees(bst.model_to_string()) == trees(plain.model_to_string())
+    ref = lgb.train(dict(base, **net), lgb.Dataset(X, label=y), 2)
+    assert bst.model_to_string() == ref.model_to_string()
 
 
 def _logloss(preds, ds):
